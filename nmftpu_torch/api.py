@@ -1,0 +1,123 @@
+"""High-level convenience API (port of ``nmftpu/api.py``): accepts strings
+for all enums, routes dense inputs to the driver and returns an
+NmfResult. Sparse containers raise until the sparse engines are ported
+(ROADMAP.md slice 3)."""
+
+from __future__ import annotations
+
+import warnings
+from typing import Any
+
+import numpy as np
+import torch
+
+from nmftpu_torch import driver
+from nmftpu_torch.config import (
+    Algorithm,
+    Initialization,
+    NmfConfig,
+    Objective,
+    ThresholdType,
+)
+
+_INIT_ALIASES = {
+    "copy": Initialization.COPY_EXISTING,
+    "random": Initialization.ALL_RANDOM_VALUES,
+    "mean_columns": Initialization.MEAN_COLUMNS,
+    "kmeans": Initialization.K_MEANS_AND_RANDOM_VALUES,
+}
+
+_OBJ_ALIASES = {
+    "kl": Objective.KL,
+    "is": Objective.ITAKURA_SAITO,
+    "beta": Objective.BETA,       # pair with the beta= knob
+}
+
+
+def _coerce(enum_cls, value, aliases=None):
+    if isinstance(value, enum_cls):
+        return value
+    if aliases and value in aliases:
+        return aliases[value]
+    return enum_cls(value)
+
+
+def nmf(
+    data: Any,
+    rank: int,
+    algorithm: str | Algorithm = Algorithm.MU,
+    objective: str | Objective = Objective.FROBENIUS,
+    init: str | Initialization = Initialization.ALL_RANDOM_VALUES,
+    seed: int = 0,
+    num_iterations: int = 200,
+    num_runs: int = 1,
+    threshold: float = 0.0,
+    threshold_type: str | ThresholdType = ThresholdType.FROBENIUS,
+    W0=None,
+    H0=None,
+    callback=None,
+    interrupt=None,
+    mesh=None,
+    device=None,
+    **knobs,
+) -> "driver.NmfResult":
+    """Factorize dense `data` ≈ W H with rank `rank`.
+
+    `data` is a numpy array or a torch tensor. Extra keyword knobs
+    (check_interval, eps, dtype, v_storage, use_pallas, update_order, ...)
+    forward into NmfConfig. device: where to run; by default a tensor's
+    own device, else "cuda". mesh and sparse inputs raise until their
+    slices are ported.
+    """
+    init_method = _coerce(Initialization, init, _INIT_ALIASES)
+    if (W0 is not None or H0 is not None) and \
+            init_method is not Initialization.COPY_EXISTING:
+        warnings.warn(
+            "W0/H0 are ignored unless init='copy' (CopyExisting); the "
+            "run starts from the configured init instead of the given "
+            "warm start",
+            RuntimeWarning, stacklevel=2,
+        )
+    config = NmfConfig(
+        rank=rank,
+        algorithm=_coerce(Algorithm, algorithm),
+        objective=_coerce(Objective, objective, _OBJ_ALIASES),
+        init_method=init_method,
+        seed=seed,
+        num_iterations=num_iterations,
+        num_runs=num_runs,
+        threshold_value=threshold,
+        threshold_type=_coerce(ThresholdType, threshold_type),
+        **knobs,
+    )
+    return dispatch(
+        data, config, W0=W0, H0=H0, mesh=mesh,
+        callback=callback, interrupt=interrupt, device=device,
+    )
+
+
+def dispatch(
+    data,
+    config: NmfConfig,
+    *,
+    W0=None,
+    H0=None,
+    mesh=None,
+    callback=None,
+    interrupt=None,
+    device=None,
+) -> "driver.NmfResult":
+    """Route (data, config) to an engine: dense → driver.compute. Sparse
+    containers (scipy.sparse, nmftpu.sparse, torch sparse) raise."""
+    is_torch_sparse = (isinstance(data, torch.Tensor)
+                       and data.layout != torch.strided)
+    if is_torch_sparse or (not isinstance(data, (torch.Tensor, np.ndarray))
+                           and hasattr(data, "nnz")):
+        raise NotImplementedError(
+            "sparse inputs are not ported to nmftpu_torch yet (ROADMAP.md "
+            "slice 3); densify V or run it with nmftpu"
+        )
+    return driver.compute(
+        data, config, W0=W0, H0=H0, mesh=mesh,
+        callback=callback, interrupt=interrupt, device=device,
+    )

@@ -1,0 +1,71 @@
+"""Initialization strategies (port of ``nmftpu/init/strategies.py``):
+CopyExisting, AllRandomValues and MeanColumns. The k-means and NNDSVD
+strategies raise until their slice of the port (ROADMAP.md, slice 4).
+
+Random magnitudes follow the sklearn 'random' convention — uniform scaled
+by sqrt(mean(V) / rank) — as in ``nmftpu``. The draws come from a
+``torch.Generator`` on V's device (see :func:`run_generator` for the
+seeding rule), so they are not ``jax.random``'s bits: tests that compare
+the two packages pass W0/H0 explicitly.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from nmftpu_torch.config import Initialization
+
+
+def run_generator(seed: int, run_idx: int, device) -> torch.Generator:
+    """The generator of restart `run_idx` of a computation seeded with
+    `seed`: a torch.Generator on `device` seeded with
+    (seed * 1_000_003 + run_idx) mod 2**64, so each (seed, run) pair has
+    its own stream and a run is reproducible on its own."""
+    g = torch.Generator(device=device)
+    g.manual_seed((int(seed) * 1_000_003 + int(run_idx)) % 2**64)
+    return g
+
+
+def _random_uniform(gen, shape, scale, dtype, device):
+    # Strictly positive (avoids exact zeros, which MU can never leave).
+    u = torch.rand(shape, generator=gen, dtype=dtype, device=device)
+    return (u + 1e-4) * scale
+
+
+def initialize_factors(V, rank: int, method: Initialization, gen,
+                       W0=None, H0=None):
+    """Produce initial (W, H) on V's device in V's dtype; `gen` is the
+    run's torch.Generator (on V's device)."""
+    n, m = V.shape
+    dtype, device = V.dtype, V.device
+
+    if method is Initialization.COPY_EXISTING:
+        if W0 is None or H0 is None:
+            raise ValueError("COPY_EXISTING requires both W0 and H0")
+        # Always copy: the user's warm-start buffers must survive
+        # multi-run restarts untouched.
+        return (
+            torch.as_tensor(W0, dtype=dtype, device=device).clone(),
+            torch.as_tensor(H0, dtype=dtype, device=device).clone(),
+        )
+
+    scale = torch.sqrt(torch.clamp(torch.mean(V), min=1e-12) / rank).to(dtype)
+
+    if method is Initialization.ALL_RANDOM_VALUES:
+        W = _random_uniform(gen, (n, rank), scale, dtype, device)
+        H = _random_uniform(gen, (rank, m), scale, dtype, device)
+        return W, H
+
+    if method is Initialization.MEAN_COLUMNS:
+        # Each W column = mean of `q` random columns of V (the paper's
+        # MeanColumns strategy; q = max(5, m // rank) bounded by m).
+        q = int(min(max(5, m // max(rank, 1)), m))
+        cols = torch.randint(0, m, (rank, q), generator=gen, device=device)
+        W = V[:, cols.reshape(-1)].reshape(n, rank, q).mean(dim=2)
+        H = _random_uniform(gen, (rank, m), scale, dtype, device)
+        return W, H
+
+    raise NotImplementedError(
+        f"init {method.value!r} is not ported to nmftpu_torch yet "
+        "(ROADMAP.md slice 4); use 'copy', 'random' or 'mean_columns'"
+    )
