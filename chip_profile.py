@@ -1,5 +1,5 @@
-"""Where one MU iteration of the PyTorch/CUDA port (nmftpu_torch) spends
-its time on one NVIDIA GPU.
+"""Where one MU iteration and one serving batch of the PyTorch/CUDA port
+(nmftpu_torch) spend their time on one NVIDIA GPU.
 
     python3 chip_profile.py [--out DIR]
 
@@ -17,8 +17,14 @@ For each it prints one line with
   share over the span from its first to its last kernel. The profiler
   widens the host's launch gaps, so the idle share is an upper bound.
 
-and per shape one line with the ms of one error check. Every line ends
-with the card's nvidia-smi name and power limit. The profiler traces and
+and per shape one line with the ms of one error check. Then the serving
+cell (BASELINE config 5 at full width, chip_smoke.py's phase-8 data, int8
+table, k = 100): for batches of 512 and 2048 users and each serving path
+(reservoir, certified, all-exact composed, exact scan), one line with
+the call's host-clock ms and, from torch.profiler over one call, device
+ms by kernel class (the reservoir and count kernels, GEMMs, top-k and
+sorts, everything else) and the idle share. Every line ends with the
+card's nvidia-smi name and power limit. The profiler traces and
 summary.json go to --out (default: profile_out/ beside this script).
 Exits 1 without a CUDA device.
 """
@@ -28,7 +34,10 @@ from __future__ import annotations
 import argparse
 import json
 import sys
+import time
 from pathlib import Path
+
+import numpy as np
 
 import torch
 
@@ -39,7 +48,10 @@ from chip_smoke import (
     cuda_ms,
     fail,
     nvidia_smi_line,
+    SERVE_K,
+    SERVE_USERS,
     say,
+    serving_data,
     synthetic_lowrank,
     synthetic_ratings,
 )
@@ -51,9 +63,15 @@ CHECK_INTERVAL = 10
 def kernel_class(name: str) -> str:
     if "update_kernel" in name:
         return "port_kernels"
+    if "reservoir_kernel" in name:
+        return "reservoir_scan"
+    if "count_kernel" in name:
+        return "count_above"
     low = name.lower()
     if any(k in low for k in ("gemm", "cutlass", "xmma", "cublas")):
         return "gemm"
+    if any(k in low for k in ("topk", "sort", "radix", "select")):
+        return "topk_sort"
     return "other"
 
 
@@ -168,6 +186,45 @@ def main() -> None:
                 idle_share=f"{row['idle_share']:.4f}", card=card)
         del V, Vq, scale, W, H, halves, iteration, svsq
         torch.cuda.empty_cache()
+
+    # -- serving: config 5 at full width, int8 table -------------------------
+    W8, H8, train = serving_data(
+        torch.Generator(device=dev).manual_seed(SEED + 8), dev)
+    rec = nt.Recommender(W8, H8, train=train, method="reservoir",
+                         table_dtype="int8")
+    del H8
+    exact = nt.Recommender.from_table(rec.W, rec.H, h_scale=rec._h_scale,
+                                      train=train, method="exact")
+    rng = np.random.default_rng(SEED)
+    summary["serving_int8"] = {}
+    for b in (512, 2048):
+        users = np.sort(rng.choice(SERVE_USERS, b, replace=False))
+        paths = {
+            "reservoir": lambda: rec.recommend(users, k=SERVE_K),
+            "certified": lambda: rec.recommend_certified(users, k=SERVE_K),
+            "all_exact_composed": lambda: rec.recommend_certified(
+                users, k=SERVE_K, fallback="exact"),
+            "exact_scan": lambda: exact.recommend(users, k=SERVE_K),
+        }
+        for path, fn in paths.items():
+            fn()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with torch.profiler.profile(activities=[
+                    torch.profiler.ProfilerActivity.CPU,
+                    torch.profiler.ProfilerActivity.CUDA]) as prof:
+                fn()
+                torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+            trace = out / f"serving_int8_b{b}_{path}.json"
+            prof.export_chrome_trace(str(trace))
+            row = {"profiled_call_ms": wall, **device_summary(trace, 1)}
+            summary["serving_int8"][f"b{b}_{path}"] = row
+            say("profile", cell="serving_int8", batch=b, path=path,
+                profiled_call_ms=f"{wall:.3f}",
+                device_ms={k: round(v, 3) for k, v in
+                           row["device_ms_per_iter"].items()},
+                idle_share=f"{row['idle_share']:.4f}", card=card)
 
     if "jax" in sys.modules:
         fail("jax was imported")

@@ -4,9 +4,13 @@
 
 Builds the CUDA kernels from nmftpu_torch/csrc with nvcc (sm_90a), checks
 each against its plain torch twin, drives nmftpu_torch.nmf end to end at
-the 4096 x 4096 / rank-256 headline shape and at the ML-20M shape, and
-times one MU iteration on three paths. Every phase prints one line; any
-failure exits non-zero. Without a CUDA device it exits 1 and runs nothing.
+the 4096 x 4096 / rank-256 headline shape and at the ML-20M shape, times
+one MU iteration on three paths, then serves top-k recommendations with
+nmftpu_torch.Recommender at BASELINE config 5's full width (10,485,760
+items, rank 256, batches of 512 and 2048 users, k = 100) through the
+reservoir-scan and count-above kernels, and times the serving paths.
+Every phase prints its results; any failure exits non-zero. Without a
+CUDA device it exits 1 and runs nothing.
 
 The line before the last is a JSON object {"kernels": [...]}; the last
 line is {"ok": true, "device": {...}}.
@@ -18,8 +22,10 @@ import json
 import subprocess
 import sys
 import time
+import warnings
 from pathlib import Path
 
+import numpy as np
 import torch
 
 HERE = Path(__file__).resolve().parent
@@ -36,14 +42,36 @@ KERNEL_SHAPES = [(4096, 4096, 256), (943, 1682, 32), (1000, 1500, 37)]
 # room for K = 4096 and r = 256.
 E2E_RTOL = 1e-3
 
+# phases 7-9: the serving kernels. Scores are float32 sums of 256 exact
+# products in two orders, ~sqrt(256) * 2^-24 = 1e-6 relative apart;
+# 1e-5 leaves 10x. Ids and counts may differ only at such near-ties.
+SCAN_RTOL = 1e-5
+# BASELINE config 5 at full width; users as ML-20M's
+SERVE_USERS, SERVE_ITEMS, SERVE_RANK = 138_493, 10_485_760, 256
+SERVE_SEEN = 100            # seen items per user, uniform over the catalog
+SERVE_K = 100
+RECALL_FLOOR = 0.999        # expected miss C(k,3)/R^2 = 0.0096 items/row
+
 # where each kernel's TPU original is (file:line of the wrapper that
-# reaches pl.pallas_call)
+# reaches pl.pallas_call), and its source here
 REPLACES = {
     "w_update_fused": "nmftpu/kernels/dense_mu.py:277",
     "h_update_fused": "nmftpu/kernels/dense_mu.py:188",
     "w_update_fused_q": "nmftpu/kernels/quantized.py:148",
     "h_update_fused_q": "nmftpu/kernels/quantized.py:70",
+    "reservoir_scan": "nmftpu/kernels/mips_reservoir.py:135",
+    "count_above": "nmftpu/kernels/count_above.py:95",
 }
+SOURCES = {
+    "w_update_fused": "nmftpu_torch/csrc/dense_mu.cu",
+    "h_update_fused": "nmftpu_torch/csrc/dense_mu.cu",
+    "w_update_fused_q": "nmftpu_torch/csrc/dense_mu.cu",
+    "h_update_fused_q": "nmftpu_torch/csrc/dense_mu.cu",
+    "reservoir_scan": "nmftpu_torch/csrc/mips_reservoir.cu",
+    "count_above": "nmftpu_torch/csrc/count_above.cu",
+}
+DENSE = ("w_update_fused", "h_update_fused", "w_update_fused_q",
+         "h_update_fused_q")
 
 
 def say(phase: str, **fields) -> None:
@@ -136,6 +164,178 @@ def synthetic_ratings(n, m, nnz, gen, dev, rows_per_chunk=2048):
     return V
 
 
+def serving_data(gen, dev, chunk=1 << 20):
+    """Config-5-shaped factors made on the device: W (n, r) uniform; H
+    (r, m) uniform times per-dimension magnitudes from 1 down to 0.01
+    (the spread the int8 table's per-dimension scales exist for); and
+    the training CSR, SERVE_SEEN items per user drawn uniformly."""
+    from nmftpu_torch.sparse import SparseCSR
+
+    n, m, r = SERVE_USERS, SERVE_ITEMS, SERVE_RANK
+    W = torch.rand(n, r, generator=gen, device=dev)
+    mag = torch.logspace(0, -2, r, device=dev)[:, None]
+    H = torch.empty(r, m, device=dev)
+    for lo in range(0, m, chunk):
+        H[:, lo:lo + chunk] = torch.rand(r, min(chunk, m - lo),
+                                         generator=gen, device=dev) * mag
+    # distinct items per user: draw a few spare, drop repeats (they sort
+    # last as m), keep the first SERVE_SEEN
+    items = torch.randint(0, m, (n, SERVE_SEEN + 8), generator=gen,
+                          device=dev)
+    items = torch.sort(items, dim=1).values
+    items[:, 1:].masked_fill_(items[:, 1:] == items[:, :-1], m)
+    items = torch.sort(items, dim=1).values[:, :SERVE_SEEN]
+    if int(items.max()) >= m:
+        raise RuntimeError("too many repeated draws for one user")
+    items = items.int().cpu().numpy()
+    indptr = np.arange(0, n * SERVE_SEEN + 1, SERVE_SEEN, dtype=np.int64)
+    train = SparseCSR(indptr, items.reshape(-1),
+                      np.ones(n * SERVE_SEEN, np.float32), (n, m))
+    return W, H, train
+
+
+def check_reservoir(MR, label, Wq, H, m, slots):
+    """The reservoir kernel against its twin, slot by slot: scores within
+    SCAN_RTOL; where the ids differ, the two competing items' float64
+    scores (at the kernel's operand values) within SCAN_RTOL. Returns
+    (max |score difference|, candidate scores of the twin)."""
+    s, i = MR.reservoir_scan(Wq, H, m, slots)
+    s0, i0 = MR.reservoir_scan_plain(Wq, H, m, slots)
+    torch.cuda.synchronize()
+    fin = torch.isfinite(s0)
+    if not bool((fin == torch.isfinite(s)).all()):
+        fail(f"reservoir_scan {label}: -inf slots differ from the twin")
+    diff = (s - s0).abs()[fin]
+    max_abs = float(diff.max()) if diff.numel() else 0.0
+    rel = float((diff / s0.abs()[fin].clamp_min(1e-30)).max()) \
+        if diff.numel() else 0.0
+    q, c = ((i != i0) & fin).nonzero(as_tuple=True)
+    qd = Wq.to(torch.bfloat16).double()[q]
+    got = (qd * H[:, i[q, c].long()].double().T).sum(1)
+    want = (qd * H[:, i0[q, c].long()].double().T).sum(1)
+    far = int(((got - want).abs() > SCAN_RTOL * want.abs()).sum())
+    say("7 reservoir_scan", case=label, max_abs=f"{max_abs:.3e}",
+        max_rel=f"{rel:.3e}", rtol=SCAN_RTOL,
+        slots_with_other_id_at_near_tie=len(q) - far,
+        slots_with_other_id_beyond_tol=far)
+    if not rel <= SCAN_RTOL or far:
+        fail(f"reservoir_scan {label}: kernel disagrees with its twin")
+    return max_abs, s0
+
+
+def check_count(CA, label, Wq, H, theta, h_scale):
+    """The count kernel against its twin at theta; the counts may differ
+    by at most the number of items whose twin score lies within
+    SCAN_RTOL of theta (counted with the twin at theta(1 -+ SCAN_RTOL),
+    theta > 0 here). Returns max |count difference|."""
+    got = CA.count_above_fused(Wq, H, theta, h_scale=h_scale)
+    want = CA.count_above_fused_plain(Wq, H, theta, h_scale=h_scale)
+    near = (CA.count_above_fused_plain(Wq, H, theta * (1 - SCAN_RTOL),
+                                       h_scale=h_scale)
+            - CA.count_above_fused_plain(Wq, H, theta * (1 + SCAN_RTOL),
+                                         h_scale=h_scale))
+    torch.cuda.synchronize()
+    d = (got - want).abs()
+    say("7 count_above", case=label, max_count_diff=int(d.max()),
+        near_tie_bound_of_that_row=int(near[int(d.argmax())]),
+        rows_over_bound=int((d > near).sum()),
+        mean_count=f"{float(want.float().mean()):.2f}")
+    if bool((d > near).any()):
+        fail(f"count_above {label}: kernel disagrees with its twin")
+    return float(d.max())
+
+
+def rows_not_exact(s, i, s_ex, i_ex, k):
+    """Rows of (s, i) that are not the exact top-k (s_ex, i_ex hold the
+    exact top k+1): the id set and the sorted scores must match, except
+    that a row whose kth and (k+1)th exact scores tie within SCAN_RTOL
+    may hold either item."""
+    bad = 0
+    for row in range(len(s)):
+        ok = np.allclose(np.sort(s[row]), np.sort(s_ex[row, :k]),
+                         rtol=SCAN_RTOL, atol=0)
+        same = set(i[row].tolist()) == set(i_ex[row, :k].tolist())
+        tie = abs(s_ex[row, k - 1] - s_ex[row, k]) \
+            <= SCAN_RTOL * abs(s_ex[row, k - 1])
+        bad += not (ok and (same or tie))
+    return bad
+
+
+def event_ms(fn, iters: int) -> float:
+    """Mean ms per call by CUDA events, after one warm-up call. Each
+    serving call ends in a device-to-host copy of its result."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def serve_table(MR, CA, td, rec, train, batches, card) -> None:
+    """Phase 8 for one table: serve its batches (512 and 2048 users for
+    int8, 512 for bf16), check recall, seen violations and the exact
+    fallback against the exact scan, and time the serving paths."""
+    exact = type(rec).from_table(
+        rec.W, rec.H, h_scale=rec._h_scale, train=train,
+        method="exact")
+    for b in ((512, 2048) if td == "int8" else (512,)):
+        users = batches[b]
+        seen = [set(train.indices[train.indptr[u]:train.indptr[u + 1]]
+                    .tolist()) for u in users]
+        torch.cuda.reset_peak_memory_stats()
+        before = (MR.LAUNCHES["reservoir_scan"],
+                  CA.LAUNCHES["count_above"])
+        s_ex, i_ex = exact.recommend(users, k=SERVE_K + 1)
+        s, i = rec.recommend(users, k=SERVE_K)
+        recall = np.mean([
+            len(set(i[row].tolist()) & set(i_ex[row, :SERVE_K]
+                                           .tolist())) / SERVE_K
+            for row in range(b)])
+        violations = sum(len(set(i[row].tolist()) & seen[row])
+                         for row in range(b))
+        s_c, i_c, cert = rec.recommend_certified(users, k=SERVE_K,
+                                                 fallback="exact")
+        not_exact = rows_not_exact(s_c, i_c, s_ex, i_ex, SERVE_K)
+        cert_violations = sum(len(set(i_c[row].tolist()) & seen[row])
+                              for row in range(b))
+        launched = (MR.LAUNCHES["reservoir_scan"] - before[0],
+                    CA.LAUNCHES["count_above"] - before[1])
+        finite = bool(np.isfinite(s).all() and np.isfinite(s_c).all())
+        say("8 serve", table=td, batch=b, k=SERVE_K,
+            recall_at_100=f"{recall:.6f}", seen_violations=violations,
+            certified_fraction=f"{cert.mean():.6f}",
+            rows_not_exact=not_exact,
+            certified_seen_violations=cert_violations,
+            finite=finite, launches=launched,
+            peak_GiB=f"{torch.cuda.max_memory_allocated() / 2**30:.1f}")
+        if not (recall >= RECALL_FLOOR and violations == 0
+                and not_exact == 0 and cert_violations == 0 and finite):
+            fail(f"serving {td} b={b}: recall {recall:.6f} (floor "
+                 f"{RECALL_FLOOR}), {violations} + {cert_violations} "
+                 f"seen violations, {not_exact} rows not exact")
+        if min(launched) < 1:
+            fail(f"serving {td} b={b}: kernels not launched {launched}")
+        paths = {
+            "reservoir": lambda: rec.recommend(users, k=SERVE_K),
+            "reservoir_no_exclusion": lambda: rec.recommend(
+                users, k=SERVE_K, exclude_seen=False),
+            "certified": lambda: rec.recommend_certified(
+                users, k=SERVE_K),
+            "all_exact_composed": lambda: rec.recommend_certified(
+                users, k=SERVE_K, fallback="exact"),
+            "exact_scan": lambda: exact.recommend(users, k=SERVE_K),
+        }
+        for path, fn in paths.items():
+            ms = event_ms(fn, iters=3)
+            say("8 timing", table=td, batch=b, path=path,
+                ms=f"{ms:.3f}", q_per_s=f"{b / ms * 1e3:.1f}", card=card)
+
+
 def main() -> None:
     if not (HERE / "nmftpu_torch").is_dir():
         fail(f"no nmftpu_torch package beside {__file__}")
@@ -145,9 +345,12 @@ def main() -> None:
 
     import nmftpu_torch as nt
     from nmftpu_torch.kernels import _build
+    from nmftpu_torch.kernels import count_above as CA
     from nmftpu_torch.kernels import dense_mu as K
+    from nmftpu_torch.kernels import mips_reservoir as MR
     from nmftpu_torch.kernels import quantized as Q
     from nmftpu_torch.linalg import dense as D
+    from nmftpu_torch.serving import quantize_table
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -343,18 +546,105 @@ def main() -> None:
         "h_update_fused_q": lambda: Q.h_update_fused_q_plain(
             Vq, scale, W, H, Gh),
     }, iters=20)
-    for name in REPLACES:
+    for name in DENSE:
         say("6 kernel timing", kernel=name, ms=f"{k_ms[name]:.4f}",
             plain_ms=f"{p_ms[name]:.4f}", card=card)
+
+    # -- 7. serving kernels against their twins -----------------------------
+    for b, r, m, slots, dtypes in ((37, 37, 10_007, 1024,
+                                    ("bfloat16", "int8")),
+                                   (512, 256, 1 << 20, 4096,
+                                    ("bfloat16", "int8"))):
+        gen = torch.Generator(device=dev).manual_seed(SEED + 7 + b)
+        Wq = torch.rand(b, r, generator=gen, device=dev)
+        Hf = torch.rand(r, m, generator=gen, device=dev)
+        for td in dtypes:
+            H, hs = ((Hf.to(torch.bfloat16), None) if td == "bfloat16"
+                     else quantize_table(Hf))
+            Wk = Wq if hs is None else Wq * hs
+            label = f"b={b} r={r} m={m} R={slots} {td}"
+            a, cand = check_reservoir(MR, label, Wk, H, m, slots)
+            max_abs["reservoir_scan"] = max(max_abs["reservoir_scan"], a)
+            theta = cand.topk(SERVE_K, dim=1).values[:, -1].contiguous()
+            max_abs["count_above"] = max(max_abs["count_above"], check_count(
+                CA, label, Wq, H, theta, hs))
+        del Wq, Hf, H, hs, Wk, cand, theta
+
+    gen8 = torch.Generator(device=dev).manual_seed(SEED + 8)
+    t0 = time.perf_counter()
+    W8, H8, train = serving_data(gen8, dev)
+    torch.cuda.synchronize()
+    say("8 data", users=SERVE_USERS, items=SERVE_ITEMS, rank=SERVE_RANK,
+        seen_per_user=SERVE_SEEN, seconds=f"{time.perf_counter() - t0:.2f}")
+    rng = np.random.default_rng(SEED)
+    batches = {b: np.sort(rng.choice(SERVE_USERS, b, replace=False))
+               for b in (512, 2048)}
+    # the two tables phase 8 serves (int8 2.7 GB, bf16 5.4 GB); the
+    # kernels are held against their twins on them, at every batch and
+    # slot count phase 8 runs (R = 16384 is the escalation's)
+    recs = {td: nt.Recommender(W8, H8, train=train, method="reservoir",
+                               table_dtype=td)
+            for td in ("int8", "bfloat16")}
+    for td, b, slots in (("int8", 512, 4096), ("int8", 512, 16384),
+                         ("int8", 2048, 4096),
+                         ("bfloat16", 512, 4096), ("bfloat16", 512, 16384)):
+        rec = recs[td]
+        Wq = rec.W[torch.as_tensor(batches[b], device=dev)]
+        Wk = Wq if rec._h_scale is None else Wq * rec._h_scale
+        label = f"full table b={b} R={slots} {td}"
+        a, cand = check_reservoir(MR, label, Wk, rec.H, SERVE_ITEMS, slots)
+        max_abs["reservoir_scan"] = max(max_abs["reservoir_scan"], a)
+        theta = cand.topk(SERVE_K, dim=1).values[:, -1].contiguous()
+        max_abs["count_above"] = max(max_abs["count_above"], check_count(
+            CA, label, Wq, rec.H, theta, rec._h_scale))
+        del Wq, Wk, cand, theta
+    del rec
+
+    # -- 8. serving end to end at config 5 (the second main path) -----------
+    for counts in (MR.LAUNCHES, CA.LAUNCHES):
+        counts.update(dict.fromkeys(counts, 0))
+    # the escalation's only fallback is a RuntimeWarning on out of device
+    # memory; as an error here, no kernel leaves the measured path unseen
+    with warnings.catch_warnings():
+        warnings.simplefilter("error", RuntimeWarning)
+        for td, rec in recs.items():
+            serve_table(MR, CA, td, rec, train, batches, card)
+    serve_launches = {**MR.LAUNCHES, **CA.LAUNCHES}
+    if min(serve_launches.values()) < 1:
+        fail(f"a serving kernel never launched: {serve_launches}")
+
+    # -- 9. serving kernel timing at the phase-8 shape (int8, b = 512) ------
+    Hq, hs = recs["int8"].H, recs["int8"]._h_scale
+    del recs, rec, H8
+    torch.cuda.empty_cache()
+    Wq = W8[torch.as_tensor(batches[512], device=dev)]
+    Wk = (Wq * hs).contiguous()
+    cand = MR.reservoir_scan(Wk, Hq, SERVE_ITEMS, 4096)[0]
+    theta = cand.topk(SERVE_K, dim=1).values[:, -1].contiguous()
+    t_ms = abba_ms({
+        "reservoir_scan": lambda: MR.reservoir_scan(Wk, Hq, SERVE_ITEMS,
+                                                    4096),
+        "reservoir_scan_plain": lambda: MR.reservoir_scan_plain(
+            Wk, Hq, SERVE_ITEMS, 4096),
+        "count_above": lambda: CA.count_above_fused(Wq, Hq, theta,
+                                                    h_scale=hs),
+        "count_above_plain": lambda: CA.count_above_fused_plain(
+            Wq, Hq, theta, h_scale=hs),
+    }, iters=3)
+    flops = 2 * 512 * SERVE_RANK * SERVE_ITEMS
+    for name in ("reservoir_scan", "count_above"):
+        k_ms[name], p_ms[name] = t_ms[name], t_ms[name + "_plain"]
+        say("9 kernel timing", kernel=name, shape="b=512 r=256 m=10485760 "
+            "int8", ms=f"{k_ms[name]:.3f}", plain_ms=f"{p_ms[name]:.3f}",
+            TFLOP_s=f"{flops / k_ms[name] / 1e9:.2f}", card=card)
 
     if "jax" in sys.modules:
         fail("jax was imported")
 
+    launches = {**main_path_launches, **serve_launches}
     print(json.dumps({"kernels": [
-        {"name": name, "route": "cuda",
-         "source": "nmftpu_torch/csrc/dense_mu.cu",
-         "replaces": REPLACES[name],
-         "launches": main_path_launches[name],
+        {"name": name, "route": "cuda", "source": SOURCES[name],
+         "replaces": REPLACES[name], "launches": launches[name],
          "max_abs_err": max_abs[name],
          "ms": k_ms[name], "plain_ms": p_ms[name]}
         for name in REPLACES

@@ -9,7 +9,12 @@ imports). It mirrors ``nmftpu``'s module names and public surface:
   kernels for sm_90a (``kernels/dense_mu.py``, ``kernels/quantized.py``,
   sources in ``csrc/``), built with nvcc at first use;
 * init strategies copy / random / mean_columns, the convergence loop
-  with threshold, stats and best-of-N restarts.
+  with threshold, stats and best-of-N restarts;
+* ``Recommender``: top-k serving from the factors (exact, approx and
+  reservoir scans, certified top-k with an exact fallback, save/load),
+  with the reservoir scan and the certificate's count pass as CUDA
+  kernels (``kernels/mips_reservoir.py``, ``kernels/count_above.py``);
+  ``recall_at_k`` on held-out interactions.
 
 Configurations not ported yet raise NotImplementedError naming their
 slice in ROADMAP.md.
@@ -26,6 +31,8 @@ from nmftpu_torch.config import (
 )
 from nmftpu_torch.driver import compute
 from nmftpu_torch.loop import NmfResult, RunStats
+from nmftpu_torch.retrieval import recall_at_k
+from nmftpu_torch.serving import Recommender
 
 __version__ = "0.1.0"
 
@@ -36,9 +43,11 @@ __all__ = [
     "NmfConfig",
     "NmfResult",
     "Objective",
+    "Recommender",
     "RunStats",
     "ThresholdType",
     "compute",
     "nmf",
+    "recall_at_k",
     "__version__",
 ]

@@ -1,6 +1,6 @@
-"""Carry configurations, factors and quantized V between ``nmftpu`` and
-``nmftpu_torch``. Nothing here imports jax: the ``nmftpu`` side arrives as
-objects or numpy arrays."""
+"""Carry configurations, factors, quantized V and serving tables between
+``nmftpu`` and ``nmftpu_torch``. Nothing here imports jax: the ``nmftpu``
+side arrives as objects or numpy arrays."""
 
 from __future__ import annotations
 
@@ -63,3 +63,36 @@ def result_to_numpy(res) -> dict:
              np.asarray(res.stats.deltas, np.float64)], axis=1,
         ).reshape(-1, 3),
     }
+
+
+def recommender_from_nmftpu(rec, *, device):
+    """The port's Recommender over the same tables as an ``nmftpu``
+    Recommender `rec` (single device): its W, its item table taken as it
+    is (bf16 values and int8 bits unchanged, with the int8 scale) minus any
+    reservoir padding, its training CSR and its serving settings."""
+    from nmftpu_torch.serving import Recommender
+    from nmftpu_torch.sparse import SparseCSR
+
+    if getattr(rec, "mesh", None) is not None:
+        raise NotImplementedError(
+            "a sharded Recommender belongs to the multi-GPU path, not "
+            "ported yet (ROADMAP queue 1, slice 6)"
+        )
+    table = np.asarray(rec.H)[:, :rec._m_items]
+    if table.dtype == np.int8:
+        table = torch.tensor(table, device=device)
+    else:
+        # ml_dtypes' bfloat16 has no torch counterpart in numpy: go
+        # through float32, which holds every bf16 value exactly
+        table = torch.tensor(table.astype(np.float32), device=device).to(
+            {"float32": torch.float32, "bfloat16": torch.bfloat16}[
+                rec.table_dtype])
+    csr = rec._train_csr
+    train = None if csr is None else SparseCSR(
+        csr.indptr, csr.indices, csr.data, csr.shape)
+    return Recommender.from_table(
+        np.asarray(rec.W, np.float32), table,
+        h_scale=None if rec._h_scale is None else np.asarray(rec._h_scale),
+        train=train, block=rec.block, method=rec.method,
+        reservoir_slots=rec.reservoir_slots, device=device,
+    )

@@ -1,12 +1,15 @@
 """Build and load the port's CUDA kernels (the counterpart of
 ``nmftpu/native_loader.py``).
 
-At first use, ``nvcc`` compiles every ``nmftpu_torch/csrc/*.cu`` into one
-shared library with a plain C interface, under ``nmftpu_torch/_build/``,
-keyed by a hash of the sources and flags, so an edited source rebuilds
-and an unchanged one is reused. The library is loaded with ``ctypes``;
-pointers and the stream pass as ``c_void_p``. Each C entry returns
-``cudaGetLastError()``, which :func:`check` turns into an exception.
+At first use, ``nvcc`` compiles every ``nmftpu_torch/csrc/*.cu`` to an
+object file, one process per source, all started together, and links
+them into one shared library with a plain C interface under
+``nmftpu_torch/_build/``, keyed by a hash of the sources and flags, so an
+edited source rebuilds and an unchanged one is reused. The library is
+loaded with ``ctypes``; each C entry's argument types are declared in
+``ENTRIES`` (pointers and the stream as ``c_void_p``). Each C entry
+returns ``cudaGetLastError()``, which :func:`check` turns into an
+exception.
 
 Nothing here runs at import time: the CPU-only test machines import every
 module of the package and have no ``nvcc``.
@@ -29,20 +32,28 @@ BUILD_DIR = _PKG / "_build"
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",
 )
 
-# Every C entry: (V, scale, W, H, G, out, n, m, r, eps, stream) -> int
-_ENTRY_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [
-    ctypes.c_float, ctypes.c_void_p,
-]
-ENTRIES = (
-    "nmftpu_w_update_f32",
-    "nmftpu_h_update_f32",
-    "nmftpu_w_update_i8",
-    "nmftpu_h_update_i8",
-)
+_P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+# (V, scale, W, H, G, out, n, m, r, eps, stream)
+_MU = [_P] * 6 + [_I] * 3 + [ctypes.c_float, _P]
+# (Wq, H, out_s, out_i, b, r, m, ldh, slots, stream)
+_RESERVOIR = [_P] * 4 + [_I] * 3 + [_LL, _I, _P]
+# (Wq, H, theta, counts, b, r, m, ldh, stream)
+_COUNT = [_P] * 4 + [_I] * 3 + [_LL, _P]
+ENTRIES = {
+    "nmftpu_w_update_f32": _MU,
+    "nmftpu_h_update_f32": _MU,
+    "nmftpu_w_update_i8": _MU,
+    "nmftpu_h_update_i8": _MU,
+    "nmftpu_reservoir_scan_f32": _RESERVOIR,
+    "nmftpu_reservoir_scan_bf16": _RESERVOIR,
+    "nmftpu_reservoir_scan_i8": _RESERVOIR,
+    "nmftpu_count_above_bf16": _COUNT,
+    "nmftpu_count_above_i8": _COUNT,
+}
 
 
 def _sources() -> list[Path]:
@@ -90,15 +101,29 @@ def build() -> Path:
     # load a half-written library
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
-    cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, *map(str, _sources())]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
     log = out.with_suffix(".so.log")
-    log.write_text(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
-    if proc.returncode != 0:
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as objdir:
+        objs = [str(Path(objdir) / f"{src.stem}.o") for src in _sources()]
+        compiles = [[nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(src)]
+                    for obj, src in zip(objs, _sources())]
+        # one nvcc per source, all running at once
+        procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+                 for cmd in compiles]
+        steps = [(cmd, p.communicate()[0], p.returncode)
+                 for cmd, p in zip(compiles, procs)]
+        if all(rc == 0 for _, _, rc in steps):
+            link = [nvcc, "-shared", *NVCC_FLAGS[:2], "-o", tmp, *objs]
+            proc = subprocess.run(link, capture_output=True, text=True)
+            steps.append((link, proc.stdout + proc.stderr, proc.returncode))
+    log.write_text("".join(" ".join(cmd) + "\n" + text
+                           for cmd, text, _ in steps))
+    failed = [(cmd, text, rc) for cmd, text, rc in steps if rc != 0]
+    if failed:
         os.unlink(tmp)
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{proc.stderr[-4000:]}"
-        )
+        cmd, text, rc = failed[0]
+        raise RuntimeError(f"nvcc failed ({rc}): {' '.join(cmd)}\n"
+                           f"{text[-4000:]}")
     os.replace(tmp, out)
     return out
 
@@ -107,9 +132,9 @@ def build() -> Path:
 def load() -> ctypes.CDLL:
     """Build if needed, load once per process, declare the entries."""
     lib = ctypes.CDLL(str(build()))
-    for name in ENTRIES:
+    for name, argtypes in ENTRIES.items():
         fn = getattr(lib, name)
-        fn.argtypes = _ENTRY_ARGTYPES
+        fn.argtypes = argtypes
         fn.restype = ctypes.c_int
     lib.nmftpu_error_string.argtypes = [ctypes.c_int]
     lib.nmftpu_error_string.restype = ctypes.c_char_p
@@ -121,3 +146,15 @@ def check(rc: int, what: str) -> None:
     if rc != 0:
         msg = load().nmftpu_error_string(rc).decode()
         raise RuntimeError(f"{what}: CUDA launch failed ({rc}: {msg})")
+
+
+def launch(entry: str, what: str, device, *args) -> None:
+    """Call C entry `entry` with `args` and the current stream of
+    `device`, and raise if the launch failed."""
+    import torch
+
+    lib = load()
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        rc = getattr(lib, entry)(*args, stream)
+    check(rc, what)

@@ -80,16 +80,12 @@ def launch(entry, what, counts, V, scale, W, H, G, out, eps):
     """Launch one C entry of the library on the current stream of V's
     device, raise on a launch error, and count the launch."""
     n, m = V.shape
-    r = H.shape[0]
-    lib = _build.load()
-    with torch.cuda.device(V.device):
-        stream = torch.cuda.current_stream(V.device).cuda_stream
-        rc = getattr(lib, entry)(
-            V.data_ptr(), None if scale is None else scale.data_ptr(),
-            W.data_ptr(), H.data_ptr(), G.data_ptr(), out.data_ptr(),
-            n, m, r, float(eps), stream,
-        )
-    _build.check(rc, what)
+    _build.launch(
+        entry, what, V.device,
+        V.data_ptr(), None if scale is None else scale.data_ptr(),
+        W.data_ptr(), H.data_ptr(), G.data_ptr(), out.data_ptr(),
+        n, m, H.shape[0], float(eps),
+    )
     counts[what] += 1
     return out
 
