@@ -23,8 +23,16 @@ table, k = 100): for batches of 512 and 2048 users and each serving path
 (reservoir, certified, all-exact composed, exact scan), one line with
 the call's host-clock ms and, from torch.profiler over one call, device
 ms by kernel class (the reservoir and count kernels, GEMMs, top-k and
-sorts, everything else) and the idle share. Every line ends with the
-card's nvidia-smi name and power limit. The profiler traces and
+sorts, everything else) and the idle share. Then the sparse cell
+(BASELINE config 2's full width: the same synthetic ratings as a sparse
+CSR, rank 64): for the ELL engine with and without the segment-SpMM
+kernel and the densified bf16 engine, under the Frobenius and KL
+objectives, one line with ms per iteration by CUDA events and, from
+torch.profiler over a 20-iteration ``SparsePlan.run`` with a check every
+10, device ms per iteration by class (the ELL kernel, gathers,
+index_add_ scatters, GEMMs, everything else) and the idle share, and
+one line with the ms of each engine's Frobenius and KL error checks.
+Every line ends with the card's nvidia-smi name and power limit. The profiler traces and
 summary.json go to --out (default: profile_out/ beside this script).
 Exits 1 without a CUDA device.
 """
@@ -52,6 +60,7 @@ from chip_smoke import (
     SERVE_USERS,
     say,
     serving_data,
+    ratings_csr,
     synthetic_lowrank,
     synthetic_ratings,
 )
@@ -63,11 +72,17 @@ CHECK_INTERVAL = 10
 def kernel_class(name: str) -> str:
     if "update_kernel" in name:
         return "port_kernels"
+    if "ell_rowsums_kernel" in name:
+        return "ell_rowsums"
     if "reservoir_kernel" in name:
         return "reservoir_scan"
     if "count_kernel" in name:
         return "count_above"
     low = name.lower()
+    if "indexselect" in low or "gather" in low:
+        return "gather"
+    if "indexfunc" in low:
+        return "index_add"
     if any(k in low for k in ("gemm", "cutlass", "xmma", "cublas")):
         return "gemm"
     if any(k in low for k in ("topk", "sort", "radix", "select")):
@@ -225,6 +240,88 @@ def main() -> None:
                 device_ms={k: round(v, 3) for k, v in
                            row["device_ms_per_iter"].items()},
                 idle_share=f"{row['idle_share']:.4f}", card=card)
+
+    del rec, exact, W8, train
+    torch.cuda.empty_cache()
+
+    # -- sparse: config 2 at full width (ELL with and without the kernel,
+    #    densified bf16), Frobenius and KL --------------------------------
+    from nmftpu_torch import densified as DF
+    from nmftpu_torch import sparse_ell as SE
+    from nmftpu_torch.config import Initialization, NmfConfig, Objective
+    from nmftpu_torch.kernels import sparse_ell_kernel as SEK
+
+    n, m, r = 138_493, 26_744, 64
+    gen = torch.Generator(device=dev).manual_seed(SEED + 5)
+    R = synthetic_ratings(n, m, 20_000_263, gen, dev)
+    ratings = ratings_csr(R)
+    del R
+    torch.cuda.empty_cache()
+    scale = (float(ratings.data.sum(dtype=np.float64)) / (n * m) / r) ** 0.5
+    W = (torch.rand(n, r, generator=gen, device=dev) + 1e-4) * scale
+    H = (torch.rand(r, m, generator=gen, device=dev) + 1e-4) * scale
+
+    def config(objective, **knobs):
+        return NmfConfig(rank=r, objective=objective,
+                         init_method=Initialization.COPY_EXISTING,
+                         num_iterations=PROFILE_ITERS,
+                         check_interval=CHECK_INTERVAL, **knobs)
+
+    fro, kl = Objective.FROBENIUS, Objective.KL
+    ell = nt.prepare_sparse(ratings, config(fro), strategy="ell", device=dev)
+    dense = nt.prepare_sparse(ratings, config(fro), strategy="densified",
+                              device=dev)
+    pair, Vd = ell.operand, dense.operand
+    Wp = torch.nn.functional.pad(W, (0, 0, 0, Vd.shape[0] - n))
+    paths = {
+        "ell_kernel_frobenius": (
+            ell, config(fro, use_pallas=True),
+            lambda: SEK.mu_update_frobenius_ell_pallas(pair, W, H, eps)),
+        "ell_plain_frobenius": (
+            ell, config(fro),
+            lambda: SE.mu_update_frobenius_ell(pair, W, H, eps)),
+        "ell_kl": (ell, config(kl),
+                   lambda: SE.mu_update_kl_ell(pair, W, H, eps)),
+        "densified_frobenius": (
+            dense, config(fro),
+            lambda: D.mu_update_frobenius_bf16v(Vd, Wp, H, eps)),
+        "densified_kl": (dense, config(kl),
+                         lambda: DF.mu_update_kl_densified(Vd, Wp, H, eps)),
+    }
+    it_ms = abba_ms({k: v[2] for k, v in paths.items()}, 3)
+    svsq_e, svsq_d = SE.sum_v_sq_ell(pair.rows), DF.sum_v_sq_densified(Vd)
+    checks = abba_ms({
+        "ell_frobenius_kernel": lambda: SE.frobenius_error_ell(
+            pair, W, H, svsq_e, wt_v=SEK.wt_v_ell_pallas),
+        "ell_frobenius_plain": lambda: SE.frobenius_error_ell(
+            pair, W, H, svsq_e),
+        "ell_kl": lambda: SE.kl_error_ell(pair, W, H),
+        "densified_frobenius": lambda: DF.frobenius_error_densified(
+            Vd, Wp, H, svsq_d),
+        "densified_kl": lambda: DF.kl_error_densified(Vd, Wp, H),
+    }, 3)
+    say("check", cell="sparse_ml20m_r64",
+        error_check_ms={k: round(v, 4) for k, v in checks.items()},
+        card=card)
+    summary["sparse_ml20m_r64"] = {"error_check_ms": checks}
+    for path, (plan, cfg, _) in paths.items():
+        plan.run(cfg, W0=W, H0=H)
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            plan.run(cfg, W0=W, H0=H)
+            torch.cuda.synchronize()
+        trace = out / f"sparse_ml20m_r64_{path}.json"
+        prof.export_chrome_trace(str(trace))
+        row = {"ms_per_iter": it_ms[path],
+               **device_summary(trace, PROFILE_ITERS)}
+        summary["sparse_ml20m_r64"][path] = row
+        say("profile", cell="sparse_ml20m_r64", path=path,
+            ms_per_iter=f"{it_ms[path]:.4f}",
+            device_ms_per_iter={k: round(v, 4) for k, v in
+                                row["device_ms_per_iter"].items()},
+            idle_share=f"{row['idle_share']:.4f}", card=card)
 
     if "jax" in sys.modules:
         fail("jax was imported")

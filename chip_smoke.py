@@ -9,8 +9,12 @@ one MU iteration on three paths, then serves top-k recommendations with
 nmftpu_torch.Recommender at BASELINE config 5's full width (10,485,760
 items, rank 256, batches of 512 and 2048 users, k = 100) through the
 reservoir-scan and count-above kernels, and times the serving paths.
-Every phase prints its results; any failure exits non-zero. Without a
-CUDA device it exits 1 and runs nothing.
+Phases 10-12 factorize sparse V at BASELINE config 2's full width
+(ML-20M's 138,493 x 26,744 shape and 20,000,263 ratings, rank 64)
+through the ELL engine with the segment-SpMM kernel, the plain ELL
+engine and the densified bf16 engine, under the Frobenius and KL
+objectives, and time them. Every phase prints its results; any failure
+exits non-zero. Without a CUDA device it exits 1 and runs nothing.
 
 The line before the last is a JSON object {"kernels": [...]}; the last
 line is {"ok": true, "device": {...}}.
@@ -52,6 +56,27 @@ SERVE_SEEN = 100            # seen items per user, uniform over the catalog
 SERVE_K = 100
 RECALL_FLOOR = 0.999        # expected miss C(k,3)/R^2 = 0.0096 items/row
 
+# phases 10-12: the ELL segment SpMM. Each output is a float32 sum of at
+# most 512 nonnegative products in two orders, ~sqrt(512) * 2^-24 =
+# 1.3e-6 relative apart; 1e-5 leaves 7x.
+ELL_RTOL = 1e-5
+# BASELINE config 2: ML-20M's shape and rating count, rank 64
+SPARSE_RANK = 64
+SPARSE_ITERS, SPARSE_CHECK = 10, 2
+# final W/H of the kernel run vs the plain ELL run after 10 iterations
+# (max|a - b| / max|b|): per-step reordering error ~1e-6, and index_add_
+# adds segments atomically, in another order on every run
+SPARSE_E2E_RTOL = 1e-3
+# final D_KL of the ELL run vs the densified run. Half-star ratings are
+# exact in bf16, so the two see the same V; they differ in that the
+# densified contractions round W and H to bf16 (2^-9 relative per
+# operand, at random over the r = 64 terms) and sum in another order
+KL_ENGINES_RTOL = 1e-3
+
+# the card's peaks (NVIDIA's H100 SXM data sheet, dense): float32 on the
+# CUDA cores, bf16 on the tensor cores, HBM bandwidth
+F32_PEAK, BF16_PEAK, HBM_BYTES_PER_S = 67e12, 989e12, 3.35e12
+
 # where each kernel's TPU original is (file:line of the wrapper that
 # reaches pl.pallas_call), and its source here
 REPLACES = {
@@ -61,6 +86,7 @@ REPLACES = {
     "h_update_fused_q": "nmftpu/kernels/quantized.py:70",
     "reservoir_scan": "nmftpu/kernels/mips_reservoir.py:135",
     "count_above": "nmftpu/kernels/count_above.py:95",
+    "ell_rowsums": "nmftpu/kernels/sparse_ell_kernel.py:98",
 }
 SOURCES = {
     "w_update_fused": "nmftpu_torch/csrc/dense_mu.cu",
@@ -69,6 +95,7 @@ SOURCES = {
     "h_update_fused_q": "nmftpu_torch/csrc/dense_mu.cu",
     "reservoir_scan": "nmftpu_torch/csrc/mips_reservoir.cu",
     "count_above": "nmftpu_torch/csrc/count_above.cu",
+    "ell_rowsums": "nmftpu_torch/csrc/ell_rowsums.cu",
 }
 DENSE = ("w_update_fused", "h_update_fused", "w_update_fused_q",
          "h_update_fused_q")
@@ -336,6 +363,274 @@ def serve_table(MR, CA, td, rec, train, batches, card) -> None:
                 ms=f"{ms:.3f}", q_per_s=f"{b / ms * 1e3:.1f}", card=card)
 
 
+def bound(flops: float, nbytes: float, peak: float) -> tuple[float, str]:
+    """The least time the card could take for a kernel's work, in ms: the
+    larger of its operations over `peak` and its bytes (each input read
+    once, each output written once) over the HBM rate, and which of the
+    two that is."""
+    t_ops, t_bytes = flops / peak, nbytes / HBM_BYTES_PER_S
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes")
+
+
+def ratings_csr(R, rows_per_chunk=8192):
+    """The nonzeros of a dense (n, m) device matrix as a host SparseCSR,
+    row block by row block (nonzero() walks each block's rows in order,
+    columns ascending)."""
+    from nmftpu_torch.sparse import SparseCSR
+
+    n, m = R.shape
+    rows, cols, vals = [], [], []
+    for i in range(0, n, rows_per_chunk):
+        blk = R[i:i + rows_per_chunk]
+        idx = blk.nonzero()
+        rows.append((idx[:, 0] + i).cpu().numpy())
+        cols.append(idx[:, 1].int().cpu().numpy())
+        vals.append(blk[idx[:, 0], idx[:, 1]].cpu().numpy())
+    indptr = np.zeros(n + 1, np.int64)
+    np.cumsum(np.bincount(np.concatenate(rows), minlength=n),
+              out=indptr[1:])
+    return SparseCSR(indptr, np.concatenate(cols), np.concatenate(vals),
+                     (n, m))
+
+
+def ragged_csr(n, m, seed):
+    """A small ratings CSR at 2% density with an empty row and a row of
+    1,200 nonzeros (three segments of the widest bucket)."""
+    from nmftpu_torch.sparse import from_dense
+
+    rng = np.random.default_rng(seed)
+    a = np.where(rng.random((n, m)) < 0.02,
+                 rng.integers(1, 11, (n, m)) * 0.5, 0.0).astype(np.float32)
+    a[0, rng.choice(m, 1200, replace=False)] = 2.5
+    a[1] = 0.0
+    return from_dense(a).to_csr()
+
+
+def check_ell(SEK, label, buckets, table) -> float:
+    """Kernel #10 against its twin on every bucket of one ELL direction:
+    max relative error within ELL_RTOL. Returns max |difference|."""
+    worst_abs = worst_rel = 0.0
+    for b in buckets:
+        got = SEK.bucket_rowsums(b.vals, b.cols, table)
+        want = SEK.bucket_rowsums_plain(b.vals, b.cols, table)
+        torch.cuda.synchronize()
+        a, rel = rel_err(got, want)
+        worst_abs, worst_rel = max(worst_abs, a), max(worst_rel, rel)
+        del got, want
+    say("10 ell_rowsums", case=label, dtype=str(table.dtype),
+        widths=[b.width for b in buckets],
+        segments=sum(b.vals.shape[0] for b in buckets),
+        max_abs=f"{worst_abs:.3e}", max_rel=f"{worst_rel:.3e}",
+        rtol=ELL_RTOL)
+    if not worst_rel <= ELL_RTOL:
+        fail(f"ell_rowsums {label}: kernel disagrees with its twin")
+    return worst_abs
+
+
+def sparse_phases(nt, ratings, card, dev) -> dict:
+    """Phases 10-12 on the host CSR `ratings` (config 2's shape): kernel
+    #10 against its twin, the sparse engines end to end through
+    prepare_sparse / nmf, and their timing. Returns the ELL kernel's
+    fields of the kernels line."""
+    from nmftpu_torch import densified as DF
+    from nmftpu_torch import sparse_ell as SE
+    from nmftpu_torch.config import Initialization, NmfConfig, Objective
+    from nmftpu_torch.kernels import sparse_ell_kernel as SEK
+    from nmftpu_torch.linalg import dense as D
+
+    n, m = ratings.shape
+    nnz, r = ratings.nnz, SPARSE_RANK
+    gen = torch.Generator(device=dev).manual_seed(SEED + 10)
+
+    # -- 10. kernel #10 against its twin -----------------------------------
+    max_abs = 0.0
+    small = ragged_csr(1000, 1500, SEED + 10)
+    for dtype in (torch.float32, torch.float64):
+        pair = SE.build_ell_pair(small, dtype=dtype, device=dev)
+        Ht = torch.rand(1500, 37, generator=gen, device=dev, dtype=dtype)
+        Wt = torch.rand(1000, 37, generator=gen, device=dev, dtype=dtype)
+        for label, ell, table in (("V Ht", pair.rows, Ht),
+                                  ("Vt W", pair.cols, Wt)):
+            max_abs = max(max_abs, check_ell(
+                SEK, f"ragged 1000x1500 r=37 {label}", ell.buckets, table))
+    cfg = NmfConfig(rank=r, init_method=Initialization.COPY_EXISTING,
+                    num_iterations=SPARSE_ITERS, check_interval=SPARSE_CHECK)
+    t0 = time.perf_counter()
+    plan = nt.prepare_sparse(ratings, cfg, strategy="ell", device=dev)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    pair = plan.operand
+    lanes = sum(b.vals.numel() for b in pair.rows.buckets)
+    say("10 ell layout", shape=f"{n}x{m}", nnz=nnz,
+        build_s=f"{build_s:.2f}",
+        row_buckets=[(b.width, b.vals.shape[0]) for b in pair.rows.buckets],
+        col_buckets=[(b.width, b.vals.shape[0]) for b in pair.cols.buckets],
+        row_lanes_per_nnz=f"{lanes / nnz:.3f}")
+    Ht = torch.rand(m, r, generator=gen, device=dev)
+    Wt = torch.rand(n, r, generator=gen, device=dev)
+    max_abs = max(max_abs, check_ell(
+        SEK, f"ML-20M shape r={r} V Ht (table {m}x{r})", pair.rows.buckets,
+        Ht))
+    max_abs = max(max_abs, check_ell(
+        SEK, f"ML-20M shape r={r} Vt W (table {n}x{r})", pair.cols.buckets,
+        Wt))
+    del Ht, Wt
+
+    # -- 11. config 2 end to end (the third main path) ----------------------
+    # W0/H0 drawn as the random init draws them: (u + 1e-4) sqrt(mean V / r)
+    scale = (float(ratings.data.sum(dtype=np.float64)) / (n * m) / r) ** 0.5
+    W0 = (torch.rand(n, r, generator=gen, device=dev) + 1e-4) * scale
+    H0 = (torch.rand(r, m, generator=gen, device=dev) + 1e-4) * scale
+    kl0 = float(SE.kl_error_ell(pair, W0, H0))
+    common = dict(init="copy", W0=W0, H0=H0, num_iterations=SPARSE_ITERS,
+                  check_interval=SPARSE_CHECK, device=dev)
+
+    def run(label, fn, frobenius=True):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        errs = res.stats.errors
+        finite = bool(torch.isfinite(res.W).all()
+                      and torch.isfinite(res.H).all())
+        say("11 e2e", run=label, errors=[f"{e:.6g}" for e in errs],
+            kl_error=res.kl_error, iterations=res.num_iterations,
+            finite=finite, seconds=f"{secs:.3f}",
+            loop_seconds=f"{res.elapsed_ms / 1e3:.3f}",
+            peak_GiB=f"{torch.cuda.max_memory_allocated() / 2**30:.2f}")
+        # under KL the checked Frobenius error need not fall; D_KL is
+        # checked below
+        if not (finite and (errs[-1] < errs[0] or not frobenius)):
+            fail(f"{label}: non-finite factors or the error did not fall: "
+                 f"{errs.tolist()}")
+        return res
+
+    SEK.LAUNCHES["ell_rowsums"] = 0          # the main path starts here
+    res_k = run("nmf ell use_pallas=True frobenius", lambda: nt.nmf(
+        ratings, r, strategy="ell", use_pallas=True, **common))
+    res_p = run("plan.run ell frobenius", lambda: plan.run(W0=W0, H0=H0))
+    cfg_kl = NmfConfig(rank=r, objective=Objective.KL,
+                       init_method=Initialization.COPY_EXISTING,
+                       num_iterations=SPARSE_ITERS,
+                       check_interval=SPARSE_CHECK)
+    t0 = time.perf_counter()
+    plan_kl = nt.prepare_sparse(ratings, cfg_kl, strategy="auto",
+                                device=dev)
+    torch.cuda.synchronize()
+    say("11 auto", objective="kl", resolved=plan_kl.strategy,
+        densify_s=f"{time.perf_counter() - t0:.2f}")
+    if plan_kl.strategy != "densified":
+        fail(f"strategy='auto' resolved to {plan_kl.strategy!r} at the "
+             "ML-20M shape, not 'densified'")
+    res_dk = run("plan.run auto (densified bf16) kl",
+                 lambda: plan_kl.run(W0=W0, H0=H0), frobenius=False)
+    res_ek = run("plan.run ell kl", lambda: plan.run(cfg_kl, W0=W0, H0=H0),
+                 frobenius=False)
+    launches = SEK.LAUNCHES["ell_rowsums"]   # the main path ends here
+    dw = float((res_k.W - res_p.W).abs().max() / res_p.W.abs().max())
+    dh = float((res_k.H - res_p.H).abs().max() / res_p.H.abs().max())
+    dkl = abs(res_ek.kl_error - res_dk.kl_error) / res_dk.kl_error
+    # the two KL engines' factors, for the record (no limit: densified
+    # rounds W and H to bf16 in each contraction)
+    dw_kl = float((res_ek.W - res_dk.W).abs().max() / res_dk.W.abs().max())
+    say("11 checks", ell_rowsums_launches=launches, kernel_vs_plain_W=
+        f"{dw:.3e}", kernel_vs_plain_H=f"{dh:.3e}", rtol=SPARSE_E2E_RTOL,
+        kl_start=f"{kl0:.6g}", kl_ell=f"{res_ek.kl_error:.6g}",
+        kl_densified=f"{res_dk.kl_error:.6g}", kl_rel=f"{dkl:.3e}",
+        kl_rtol=KL_ENGINES_RTOL, kl_engines_W_rel=f"{dw_kl:.3e}")
+    if launches < 1:
+        fail("the ELL kernel was not launched on the main path")
+    if not (dw <= SPARSE_E2E_RTOL and dh <= SPARSE_E2E_RTOL):
+        fail(f"ELL kernel run differs from the plain ELL run (W {dw:.3e}, "
+             f"H {dh:.3e} > {SPARSE_E2E_RTOL})")
+    if not (res_ek.kl_error < kl0 and res_dk.kl_error < kl0
+            and dkl <= KL_ENGINES_RTOL):
+        fail(f"KL did not fall or the engines disagree: start {kl0}, ell "
+             f"{res_ek.kl_error}, densified {res_dk.kl_error}")
+    del res_k, res_p, res_dk, res_ek
+
+    # the densified Frobenius step's transient memory with the row-panel
+    # bf16 contraction, and with the contraction as it was before (one
+    # float32 copy of each whole operand)
+    Vd = plan_kl.operand
+    Wp = torch.nn.functional.pad(W0, (0, 0, 0, Vd.shape[0] - n))
+    panels = D._bf16_dot
+
+    def whole(a, b, block_rows=None):
+        return a.to(torch.bfloat16).float() @ b.to(torch.bfloat16).float()
+
+    for label, dot in (("row panels", panels), ("whole operands", whole)):
+        D._bf16_dot = dot
+        try:
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            D.mu_update_frobenius_bf16v(Vd, Wp, H0)
+            torch.cuda.synchronize()
+        finally:
+            D._bf16_dot = panels
+        peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+        say("11 densified frobenius step", bf16_contraction=label,
+            transient_GiB=f"{peak:.2f}", card=card)
+
+    # -- 12. timing at config 2's shape --------------------------------------
+    it_ms = abba_ms({
+        "ell_plain_frobenius": lambda: SE.mu_update_frobenius_ell(
+            pair, W0, H0),
+        "ell_kernel_frobenius": lambda: SEK.mu_update_frobenius_ell_pallas(
+            pair, W0, H0),
+        "densified_frobenius": lambda: D.mu_update_frobenius_bf16v(
+            Vd, Wp, H0),
+        "ell_kl": lambda: SE.mu_update_kl_ell(pair, W0, H0),
+        "densified_kl": lambda: DF.mu_update_kl_densified(Vd, Wp, H0),
+    }, iters=3)
+    for path, ms in it_ms.items():
+        say("12 timing", path=path, ms_per_iter=f"{ms:.3f}", card=card)
+    Ht0 = H0.T.contiguous()
+    # cuSPARSE through torch.sparse.mm: the library yardstick, timed here
+    # and called nowhere in the port (torch warns that its sparse CSR
+    # support is in beta)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", UserWarning)
+        Vcsr = torch.sparse_csr_tensor(
+            torch.from_numpy(ratings.indptr).to(dev),
+            torch.from_numpy(ratings.indices.astype(np.int64)).to(dev),
+            torch.from_numpy(ratings.data).to(dev), size=(n, m),
+            check_invariants=True)
+    _, lib_rel = rel_err(torch.sparse.mm(Vcsr, Ht0),
+                         SEK.v_ht_ell_pallas(pair.rows, H0))
+    sp_ms = abba_ms({
+        "kernel_path": lambda: SEK.v_ht_ell_pallas(pair.rows, H0),
+        "kernel_only": lambda: [SEK.bucket_rowsums(b.vals, b.cols, Ht0)
+                                for b in pair.rows.buckets],
+        "plain_path": lambda: SE.v_ht_ell(pair.rows, H0),
+        "torch_sparse_mm": lambda: torch.sparse.mm(Vcsr, Ht0),
+        "kernel_path_WtV": lambda: SEK.wt_v_ell_pallas(pair, W0),
+        "kernel_only_WtV": lambda: [SEK.bucket_rowsums(b.vals, b.cols, W0)
+                                    for b in pair.cols.buckets],
+        "plain_path_WtV": lambda: SE.wt_v_ell(pair, W0),
+    }, iters=5)
+    # one V Ht SpMM needs each nonzero's value and column once, the table
+    # and the output: counted over the nonzeros, not the padded lanes
+    flops = 2 * nnz * r
+    nbytes = nnz * (4 + 4) + (m + n) * r * 4
+    bound_ms, bound_by = bound(flops, nbytes, F32_PEAK)
+    for path, ms in sp_ms.items():
+        say("12 spmm timing", path=path, ms=f"{ms:.4f}",
+            GB_s_of_needed_bytes=f"{nbytes / ms / 1e6:.1f}", card=card)
+    say("12 spmm bound", bound_ms=f"{bound_ms:.4f}", bound_by=bound_by,
+        library_vs_kernel_path_max_rel=f"{lib_rel:.3e}", card=card)
+    if not lib_rel <= 1e-4:
+        fail(f"torch.sparse.mm and the kernel path disagree ({lib_rel:.3e})")
+    return {"launches": launches, "max_abs_err": max_abs,
+            "ms": sp_ms["kernel_path"], "plain_ms": sp_ms["plain_path"],
+            "library_ms": sp_ms["torch_sparse_mm"], "bound_ms": bound_ms,
+            "bound_by": bound_by}
+
+
 def main() -> None:
     if not (HERE / "nmftpu_torch").is_dir():
         fail(f"no nmftpu_torch package beside {__file__}")
@@ -500,6 +795,8 @@ def main() -> None:
     # nonnegative and most of V is zero, so each sum has at most a
     # column's or a row's nonzeros: KERNEL_RTOL holds as in phase 3.
     Vq5, scale5 = Q.quantize_v(R)
+    # the same ratings as a host CSR: config 2's sparse V for phases 10-12
+    ratings = ratings_csr(R)
     del R
     W5, H5 = res.W, res.H
     Gw, Gh = H5 @ H5.T, W5.T @ W5
@@ -546,9 +843,18 @@ def main() -> None:
         "h_update_fused_q": lambda: Q.h_update_fused_q_plain(
             Vq, scale, W, H, Gh),
     }, iters=20)
+    bounds = {}
     for name in DENSE:
+        # V read once (float32 or int8), W, H, G read, one factor written;
+        # the numerator GEMM and the Gram apply on the float32 CUDA cores
+        v_bytes = 1 if name.endswith("_q") else 4
+        out = n * r if name.startswith("w") else r * m
+        bounds[name] = bound(2 * n * m * r + 2 * out * r,
+                             v_bytes * n * m + 4 * (n * r + r * m + r * r
+                                                    + out), F32_PEAK)
         say("6 kernel timing", kernel=name, ms=f"{k_ms[name]:.4f}",
-            plain_ms=f"{p_ms[name]:.4f}", card=card)
+            plain_ms=f"{p_ms[name]:.4f}", bound_ms=f"{bounds[name][0]:.4f}",
+            bound_by=bounds[name][1], card=card)
 
     # -- 7. serving kernels against their twins -----------------------------
     for b, r, m, slots, dtypes in ((37, 37, 10_007, 1024,
@@ -632,21 +938,45 @@ def main() -> None:
             Wq, Hq, theta, h_scale=hs),
     }, iters=3)
     flops = 2 * 512 * SERVE_RANK * SERVE_ITEMS
+    # the int8 table read once, the queries, and the (score, id) slots or
+    # the counts written once; the operands are bf16 queries and table
+    # values exact in bf16, so the bf16 tensor-core peak bounds the work
+    table_bytes = Hq.numel() * Hq.element_size()
+    bounds["reservoir_scan"] = bound(
+        flops, table_bytes + Wk.numel() * 4 + 512 * 2 * 4096 * 8, BF16_PEAK)
+    bounds["count_above"] = bound(
+        flops, table_bytes + Wq.numel() * 4 + hs.numel() * 4 + 512 * 8,
+        BF16_PEAK)
     for name in ("reservoir_scan", "count_above"):
         k_ms[name], p_ms[name] = t_ms[name], t_ms[name + "_plain"]
         say("9 kernel timing", kernel=name, shape="b=512 r=256 m=10485760 "
             "int8", ms=f"{k_ms[name]:.3f}", plain_ms=f"{p_ms[name]:.3f}",
-            TFLOP_s=f"{flops / k_ms[name] / 1e9:.2f}", card=card)
+            TFLOP_s=f"{flops / k_ms[name] / 1e9:.2f}",
+            bound_ms=f"{bounds[name][0]:.4f}", bound_by=bounds[name][1],
+            card=card)
+    del Hq, hs, Wq, Wk, cand, theta, W8, train
+    torch.cuda.empty_cache()
+
+    # -- 10-12. sparse V at config 2's full width (ELL, densified) ----------
+    ell = sparse_phases(nt, ratings, card, dev)
+    del ratings
+    max_abs["ell_rowsums"] = ell["max_abs_err"]
+    k_ms["ell_rowsums"], p_ms["ell_rowsums"] = ell["ms"], ell["plain_ms"]
+    bounds["ell_rowsums"] = (ell["bound_ms"], ell["bound_by"])
+    library_ms = {"ell_rowsums": ell["library_ms"]}
 
     if "jax" in sys.modules:
         fail("jax was imported")
 
-    launches = {**main_path_launches, **serve_launches}
+    launches = {**main_path_launches, **serve_launches,
+                "ell_rowsums": ell["launches"]}
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": SOURCES[name],
          "replaces": REPLACES[name], "launches": launches[name],
          "max_abs_err": max_abs[name],
-         "ms": k_ms[name], "plain_ms": p_ms[name]}
+         "ms": k_ms[name], "plain_ms": p_ms[name],
+         "bound_ms": bounds[name][0], "bound_by": bounds[name][1],
+         "library_ms": library_ms.get(name)}
         for name in REPLACES
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -10,6 +10,11 @@ imports). It mirrors ``nmftpu``'s module names and public surface:
   sources in ``csrc/``), built with nvcc at first use;
 * init strategies copy / random / mean_columns, the convergence loop
   with threshold, stats and best-of-N restarts;
+* sparse V (``nmftpu_torch.sparse`` containers) through ``nmf`` /
+  ``compute_sparse`` / ``prepare_sparse``: MU under the Frobenius and KL
+  objectives on the ``scatter``, ``ell`` and ``densified`` (bf16 V)
+  engines; on ``ell``, ``use_pallas=True`` runs the SpMMs on the CUDA
+  ELL segment kernel (``kernels/sparse_ell_kernel.py``);
 * ``Recommender``: top-k serving from the factors (exact, approx and
   reservoir scans, certified top-k with an exact fallback, save/load),
   with the reservoir scan and the certificate's count pass as CUDA
@@ -33,6 +38,7 @@ from nmftpu_torch.driver import compute
 from nmftpu_torch.loop import NmfResult, RunStats
 from nmftpu_torch.retrieval import recall_at_k
 from nmftpu_torch.serving import Recommender
+from nmftpu_torch.sparse_ops import compute_sparse, prepare_sparse
 
 __version__ = "0.1.0"
 
@@ -47,7 +53,9 @@ __all__ = [
     "RunStats",
     "ThresholdType",
     "compute",
+    "compute_sparse",
     "nmf",
+    "prepare_sparse",
     "recall_at_k",
     "__version__",
 ]

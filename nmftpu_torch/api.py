@@ -1,7 +1,6 @@
 """High-level convenience API (port of ``nmftpu/api.py``): accepts strings
-for all enums, routes dense inputs to the driver and returns an
-NmfResult. Sparse containers raise until the sparse engines are ported
-(ROADMAP.md slice 3)."""
+for all enums, routes dense inputs to the driver and the port's sparse
+containers to the sparse engines, and returns an NmfResult."""
 
 from __future__ import annotations
 
@@ -11,7 +10,8 @@ from typing import Any
 import numpy as np
 import torch
 
-from nmftpu_torch import driver
+from nmftpu_torch import driver, sparse_ops
+from nmftpu_torch.sparse import SparseMatrix
 from nmftpu_torch.config import (
     Algorithm,
     Initialization,
@@ -58,16 +58,20 @@ def nmf(
     callback=None,
     interrupt=None,
     mesh=None,
+    strategy: str = "auto",
     device=None,
     **knobs,
 ) -> "driver.NmfResult":
-    """Factorize dense `data` ≈ W H with rank `rank`.
+    """Factorize `data` ≈ W H with rank `rank`.
 
-    `data` is a numpy array or a torch tensor. Extra keyword knobs
-    (check_interval, eps, dtype, v_storage, use_pallas, update_order, ...)
-    forward into NmfConfig. device: where to run; by default a tensor's
-    own device, else "cuda". mesh and sparse inputs raise until their
-    slices are ported.
+    `data` is a numpy array, a torch tensor, or one of the port's sparse
+    containers (`nmftpu_torch.sparse.SparseCSR`/`SparseCSC`/`SparseCOO`,
+    or a `sparse_ops.DeviceCOO`), which routes through the sparse
+    engines. Extra keyword knobs (check_interval, eps, dtype, v_storage,
+    use_pallas, update_order, ...) forward into NmfConfig. strategy: the
+    sparse engine (auto | densified | ell | scatter; ignored for dense
+    data). device: where to run; by default a tensor's own device, else
+    "cuda". mesh raises until its slice is ported.
     """
     init_method = _coerce(Initialization, init, _INIT_ALIASES)
     if (W0 is not None or H0 is not None) and \
@@ -91,7 +95,7 @@ def nmf(
         **knobs,
     )
     return dispatch(
-        data, config, W0=W0, H0=H0, mesh=mesh,
+        data, config, W0=W0, H0=H0, mesh=mesh, strategy=strategy,
         callback=callback, interrupt=interrupt, device=device,
     )
 
@@ -103,19 +107,33 @@ def dispatch(
     W0=None,
     H0=None,
     mesh=None,
+    strategy: str = "auto",
     callback=None,
     interrupt=None,
     device=None,
 ) -> "driver.NmfResult":
-    """Route (data, config) to an engine: dense → driver.compute. Sparse
-    containers (scipy.sparse, nmftpu.sparse, torch sparse) raise."""
+    """Route (data, config) to an engine: the port's sparse containers →
+    sparse_ops.compute_sparse, dense → driver.compute. Other sparse types
+    (scipy.sparse, torch sparse tensors) raise TypeError."""
+    if isinstance(data, (SparseMatrix, sparse_ops.DeviceCOO)):
+        if mesh is not None:
+            raise NotImplementedError(
+                "mesh= (multi-device runs) is not ported to nmftpu_torch "
+                "yet (ROADMAP.md slice 6)"
+            )
+        return sparse_ops.compute_sparse(
+            data, config, W0=W0, H0=H0, strategy=strategy,
+            callback=callback, interrupt=interrupt, device=device,
+        )
     is_torch_sparse = (isinstance(data, torch.Tensor)
                        and data.layout != torch.strided)
     if is_torch_sparse or (not isinstance(data, (torch.Tensor, np.ndarray))
                            and hasattr(data, "nnz")):
-        raise NotImplementedError(
-            "sparse inputs are not ported to nmftpu_torch yet (ROADMAP.md "
-            "slice 3); densify V or run it with nmftpu"
+        raise TypeError(
+            "sparse V must be one of nmftpu_torch.sparse's containers: "
+            "convert a scipy.sparse matrix with "
+            "nmftpu_torch.sparse.from_scipy (a torch sparse tensor with "
+            "from_scipy of its scipy form, or pass it dense)"
         )
     return driver.compute(
         data, config, W0=W0, H0=H0, mesh=mesh,

@@ -44,15 +44,43 @@ def quantized_from_numpy(Vq, scale, *, device):
     )
 
 
+def sparse_from_nmftpu(mat):
+    """The port's container (``nmftpu_torch.sparse``) with the fields of
+    an ``nmftpu.sparse`` SparseCOO, SparseCSR or SparseCSC, given as
+    numpy arrays (the arrays are shared, not copied)."""
+    from nmftpu_torch import sparse as S
+
+    fields = {
+        "SparseCOO": ("row", "col", "data"),
+        "SparseCSR": ("indptr", "indices", "data"),
+        "SparseCSC": ("indptr", "indices", "data"),
+    }
+    kind = type(mat).__name__
+    if kind not in fields:
+        raise TypeError(f"expected an nmftpu SparseCOO/CSR/CSC, got {kind}")
+    return getattr(S, kind)(
+        *(np.asarray(getattr(mat, f)) for f in fields[kind]),
+        shape=mat.shape,
+    )
+
+
+def _numpy(x) -> np.ndarray:
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu().numpy()
+    return np.asarray(x)
+
+
 def result_to_numpy(res) -> dict:
-    """An NmfResult as a dict of numpy arrays and Python numbers, with the
-    stats rows as one (checks, 3) array of (iteration, error, delta)."""
+    """An NmfResult, the port's or ``nmftpu``'s, as a dict of numpy arrays
+    and Python numbers, with the stats rows as one (checks, 3) array of
+    (iteration, error, delta)."""
     return {
-        "W": res.W.detach().cpu().numpy(),
-        "H": res.H.detach().cpu().numpy(),
+        "W": _numpy(res.W),
+        "H": _numpy(res.H),
         "error": res.error,
         "frobenius_error": res.frobenius_error,
         "rmsd": res.rmsd,
+        "kl_error": res.kl_error,
         "num_iterations": res.num_iterations,
         "converged": res.converged,
         "best_run": res.best_run,

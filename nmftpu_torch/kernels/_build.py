@@ -43,7 +43,11 @@ _MU = [_P] * 6 + [_I] * 3 + [ctypes.c_float, _P]
 _RESERVOIR = [_P] * 4 + [_I] * 3 + [_LL, _I, _P]
 # (Wq, H, theta, counts, b, r, m, ldh, stream)
 _COUNT = [_P] * 4 + [_I] * 3 + [_LL, _P]
+# (vals, cols, table, out, nseg, w, r, stream)
+_ELL = [_P] * 4 + [_LL, _I, _I, _P]
 ENTRIES = {
+    "nmftpu_ell_rowsums_f32": _ELL,
+    "nmftpu_ell_rowsums_f64": _ELL,
     "nmftpu_w_update_f32": _MU,
     "nmftpu_h_update_f32": _MU,
     "nmftpu_w_update_i8": _MU,

@@ -60,12 +60,30 @@ def mu_update_frobenius(V, W, H, eps=1e-9, order="WH"):
     )
 
 
-def _bf16_dot(a, b):
+def _bf16_dot(a, b, block_rows=4096):
     """a @ b with both operands rounded to bfloat16 and the products
     summed in float32 — the contract of ``dot_general(bf16, bf16,
     preferred_element_type=f32)``: a product of two bf16 values is exact
-    in float32, so upcasting the rounded operands gives the same sums."""
-    return a.to(torch.bfloat16).float() @ b.to(torch.bfloat16).float()
+    in float32, so upcasting the rounded operands gives the same sums.
+
+    The larger operand is upcast one panel of `block_rows` rows at a
+    time (rows of `a` if it is the larger, else rows of `b`, the
+    contraction dimension), so a V-sized operand never gets a float32
+    copy; the panels change only the float32 summation order."""
+    a, b = a.to(torch.bfloat16), b.to(torch.bfloat16)
+    if a.numel() >= b.numel():
+        bf = b.float()
+        out = torch.empty((a.shape[0], b.shape[1]), dtype=torch.float32,
+                          device=a.device)
+        for s in range(0, a.shape[0], block_rows):
+            out[s:s + block_rows] = a[s:s + block_rows].float() @ bf
+        return out
+    af = a.float()
+    out = torch.zeros((a.shape[0], b.shape[1]), dtype=torch.float32,
+                      device=a.device)
+    for s in range(0, b.shape[0], block_rows):
+        out += af[:, s:s + block_rows] @ b[s:s + block_rows].float()
+    return out
 
 
 def mu_update_frobenius_bf16v(Vb, W, H, eps=1e-9, order="WH"):

@@ -21,7 +21,7 @@ from typing import Any, Callable
 import numpy as np
 import torch
 
-from nmftpu_torch.config import NmfConfig, ThresholdType
+from nmftpu_torch.config import NmfConfig, Objective, ThresholdType
 
 
 @dataclasses.dataclass(frozen=True)
@@ -32,6 +32,7 @@ class LoopOps:
     update(V, aux, W, H)             -> (W, H)
     effective_h(aux, H)              -> H used for error metrics
     frobenius(V, aux, W, He, svsq)   -> ||V - W He||_F  (0-dim tensor)
+    kl(V, aux, W, He)                -> D_KL(V || W He)   (may be None)
     sum_v_sq(V)                      -> ||V||_F^2 (precomputed per problem)
     numel(V)                         -> total entry count n*m (for RMSD)
     """
@@ -40,6 +41,7 @@ class LoopOps:
     update: Callable
     effective_h: Callable
     frobenius: Callable
+    kl: Callable | None
     sum_v_sq: Callable
     numel: Callable
 
@@ -62,8 +64,8 @@ class NmfResult:
     error: float
     frobenius_error: float
     rmsd: float
-    # nmftpu reports D_KL / D_beta here for those objectives; the port
-    # runs Frobenius only, so it is None.
+    # D_KL(V || WH) for objective=KL (the quantity best-of-N minimizes);
+    # None under Frobenius.
     kl_error: float | None
     num_iterations: int
     converged: bool
@@ -125,6 +127,10 @@ def build_runner(config: NmfConfig, ops: LoopOps, callback,
         else -float("inf")
     )
     max_checks = num_iterations // check_interval + 2
+    # a non-Frobenius objective hands best-of-N its divergence through
+    # the `kl` slot; convergence deltas stay on the Gram-trick Frobenius
+    # metric either way
+    kl_objective = config.objective is not Objective.FROBENIUS
     use_rmsd = config.threshold_type is ThresholdType.RMSD
 
     def error_metric(V, aux, W, H, sum_v_sq, numel):
@@ -141,7 +147,7 @@ def build_runner(config: NmfConfig, ops: LoopOps, callback,
         numel = ops.numel(V)
         err = error_metric(V, aux, W, H, sum_v_sq, numel)
         stats = torch.zeros((max_checks, 3), dtype=torch.float32,
-                            device=V.device)
+                            device=W.device)
         it, nc = 0, 0
         delta = float("inf")
         stop = False
@@ -167,7 +173,12 @@ def build_runner(config: NmfConfig, ops: LoopOps, callback,
 
         He = ops.effective_h(aux, H)
         fro = ops.frobenius(V, aux, W, He, sum_v_sq).to(torch.float32)
-        return W, H, err, fro, it, converged, stats, nc
+        if kl_objective:
+            kl = ops.kl(V, aux, W, He).to(torch.float32)
+            compare = kl
+        else:
+            kl, compare = None, err
+        return W, H, err, fro, kl, compare, it, converged, stats, nc
 
     return run
 
@@ -181,8 +192,8 @@ def execute(
 ) -> NmfResult:
     """Multi-run restart loop (SURVEY.md §3.5): restarts run one after
     another, `init_fn(run_idx)` gives each its factors, and the run with
-    the lowest last-checked error (the Frobenius objective) wins, the
-    first on a tie."""
+    the lowest objective wins, the first on a tie: the last-checked
+    error under Frobenius, the final divergence otherwise."""
     if config.vectorize_runs:
         raise NotImplementedError(
             "vectorize_runs=True is not ported to nmftpu_torch yet "
@@ -193,20 +204,20 @@ def execute(
     t0 = time.perf_counter()
     for run_idx in range(config.num_runs):
         out = runner(V, *init_fn(run_idx), run_idx)
-        err = float(out[2])
+        err = float(out[5])
         run_errors.append(err)
         if config.verbosity >= 1:
             print(
-                f"[nmftpu_torch] run {run_idx}: {out[4]} iterations, "
+                f"[nmftpu_torch] run {run_idx}: {out[6]} iterations, "
                 f"final error {err:.6g}"
-                f"{' (converged)' if out[5] else ''}"
+                f"{' (converged)' if out[7] else ''}"
             )
         if best is None or err < run_errors[best_idx]:
             best, best_idx = out, run_idx
         del out  # a losing run's factors go before the next init
     elapsed_ms = (time.perf_counter() - t0) * 1e3
 
-    W, H, err, fro, it, converged, stats, nc = best
+    W, H, err, fro, kl, _, it, converged, stats, nc = best
     stats_np = stats[:nc].cpu().numpy()
     fro_f = float(fro)
     return NmfResult(
@@ -215,7 +226,7 @@ def execute(
         error=float(err),
         frobenius_error=fro_f,
         rmsd=fro_f / np.sqrt(numel),
-        kl_error=None,
+        kl_error=None if kl is None else float(kl),
         num_iterations=it,
         converged=converged,
         best_run=best_idx,

@@ -1,0 +1,322 @@
+"""Gather-based ELL sparse engine (port of the MU Frobenius/KL subset of
+``nmftpu/sparse_ell.py``).
+
+* Each row of V is split into SEGMENTS of at most `seg_max` nonzeros, and
+  segments are grouped into power-of-two-width BUCKETS, zero-padded to
+  the bucket width (pad lanes are col 0, value 0).
+* A segment's contribution Σ_k v_k · H[:, col_k] is a row gather plus a
+  reduction; only the (num_segments, r) segment sums are scatter-added
+  into rows (`index_add_` on `out_row`), about n + nnz/seg_max rows
+  instead of nnz.
+* The row-major container computes V Hᵀ; its twin built on Vᵀ computes
+  (Wᵀ V)ᵀ. The SDDMM gathers both factor slices per nonzero.
+
+The builder is the vectorised numpy path of ``nmftpu`` (the native
+``ell_build`` fast path is not ported), so the buckets equal
+``nmftpu``'s array for array. The containers hold tensors on one device.
+`_bucket_rowsums` here is plain torch; ``kernels/sparse_ell_kernel.py``
+holds the hand-written CUDA kernel for the same per-segment sums.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from nmftpu_torch import sparse as host_sparse
+from nmftpu_torch.driver import _resolve_device
+from nmftpu_torch.linalg.dense import _apply_order
+
+DEFAULT_BUCKETS = (8, 16, 32, 64, 128, 256, 512)
+
+_NUMPY_DTYPES = {torch.float32: np.float32, torch.float64: np.float64}
+
+
+@dataclasses.dataclass(frozen=True)
+class EllBucket:
+    """Segments of uniform padded width. vals/cols: (nseg, width);
+    out_row[s] = destination row of segment s (int32, non-decreasing)."""
+
+    vals: torch.Tensor
+    cols: torch.Tensor
+    out_row: torch.Tensor
+    width: int
+
+
+@dataclasses.dataclass(frozen=True)
+class EllRows:
+    """Row-segmented ELL of a sparse matrix (for V Hᵀ style products)."""
+
+    buckets: tuple
+    shape: tuple[int, int]
+    nnz: int
+
+
+@dataclasses.dataclass(frozen=True)
+class EllPair:
+    """Row-major ELL of V plus row-major ELL of Vᵀ: everything the MU
+    family needs, gather-only."""
+
+    rows: EllRows      # for V Hᵀ
+    cols: EllRows      # ELL of Vᵀ, for (Wᵀ V)ᵀ = Vᵀ W
+
+    @property
+    def shape(self):
+        return self.rows.shape
+
+
+def _pad_segments(nseg: int, chunk_segments: int) -> int:
+    """Segment count after padding: a bucket of more than
+    `chunk_segments` segments rounds up to a multiple of it."""
+    nseg_p = ((nseg + chunk_segments - 1) // chunk_segments) * (
+        chunk_segments if nseg > chunk_segments else 1
+    )
+    return max(nseg_p, nseg)
+
+
+def build_ell_rows(
+    mat: host_sparse.SparseMatrix,
+    dtype=torch.float32,
+    seg_max: int = 512,
+    buckets: tuple[int, ...] = DEFAULT_BUCKETS,
+    chunk_segments: int = 2048,
+    device=None,
+) -> EllRows:
+    """Host-side builder: CSR -> bucketed padded segments (O(nnz) numpy,
+    no per-row Python loop), then one copy of each bucket to `device`
+    (default "cuda"; raises without one). Columns within a segment are
+    ascending; pad lanes are (col 0, val 0); the pad segments' out_row
+    repeats the bucket's last row, so out_row stays non-decreasing."""
+    device = _resolve_device(None, device)
+    np_dtype = _NUMPY_DTYPES[dtype]
+    csr = mat.to_csr()
+    n, m = csr.shape
+    if buckets[-1] < seg_max:
+        raise ValueError(f"the widest bucket ({buckets[-1]}) is narrower "
+                         f"than seg_max ({seg_max})")
+    if csr.nnz and not (0 <= int(csr.indices.min())
+                        and int(csr.indices.max()) < m):
+        raise ValueError(f"column indices must lie in [0, {m})")
+
+    indptr = np.asarray(csr.indptr, dtype=np.int64)
+    lens = np.diff(indptr)
+
+    # one (row, offset, seg_len) triple per segment, all vectorised
+    # (empty rows contribute no segments)
+    nseg_row = (lens + seg_max - 1) // seg_max
+    seg_row = np.repeat(np.arange(n, dtype=np.int64), nseg_row)
+    starts = np.repeat(np.cumsum(nseg_row) - nseg_row, nseg_row)
+    k_in_row = np.arange(seg_row.size, dtype=np.int64) - starts
+    off = indptr[seg_row] + k_in_row * seg_max
+    seg_len = np.minimum(indptr[seg_row + 1] - off, seg_max)
+
+    widths = np.asarray(buckets, dtype=np.int64)
+    which = np.searchsorted(widths, seg_len)       # smallest bucket >= len
+
+    nnz_total = int(indptr[-1])
+    out = []
+    for bi, width in enumerate(buckets):
+        sel = np.flatnonzero(which == bi)
+        if sel.size == 0:
+            continue
+        nseg = sel.size
+        nseg_p = _pad_segments(nseg, chunk_segments)
+        pos = off[sel][:, None] + np.arange(width)[None, :]
+        valid = np.arange(width)[None, :] < seg_len[sel][:, None]
+        pos = np.where(valid, pos, 0).clip(0, max(nnz_total - 1, 0))
+        vals = np.zeros((nseg_p, width), dtype=np_dtype)
+        cols = np.zeros((nseg_p, width), dtype=np.int32)
+        rows = np.zeros((nseg_p,), dtype=np.int32)
+        if nnz_total:
+            vals[:nseg] = np.where(valid, csr.data[pos], 0)
+            cols[:nseg] = np.where(valid, csr.indices[pos], 0)
+        rows[:nseg] = seg_row[sel]
+        rows[nseg:] = rows[nseg - 1]
+        out.append(EllBucket(
+            vals=torch.from_numpy(vals).to(device),
+            cols=torch.from_numpy(cols).to(device),
+            out_row=torch.from_numpy(rows).to(device),
+            width=int(width),
+        ))
+    return EllRows(buckets=tuple(out), shape=(n, m), nnz=csr.nnz)
+
+
+def build_ell_pair(mat: host_sparse.SparseMatrix, dtype=torch.float32,
+                   **kw) -> EllPair:
+    return EllPair(
+        rows=build_ell_rows(mat, dtype=dtype, **kw),
+        cols=build_ell_rows(mat.T, dtype=dtype, **kw),
+    )
+
+
+def _acc_dtype(dtype):
+    """Accumulate below-float32 tables in float32, and never truncate a
+    float64 run."""
+    return torch.promote_types(dtype, torch.float32)
+
+
+def _segment_blocks(nseg: int, chunk: int):
+    """(start, stop) of consecutive blocks of at most `chunk` segments:
+    the gathered (block, width, r) intermediate stays bounded."""
+    return ((s, min(s + chunk, nseg)) for s in range(0, nseg, chunk))
+
+
+def _rowsums(vals, cols, Ht, chunk: int):
+    """Σ_k vals[s, k] · Ht[cols[s, k], :] -> (nseg, r), over blocks of
+    `chunk` segments."""
+    nseg, width = vals.shape
+    r = Ht.shape[1]
+    acc = _acc_dtype(Ht.dtype)
+    out = torch.empty((nseg, r), dtype=acc, device=Ht.device)
+    for s, e in _segment_blocks(nseg, chunk):
+        g = Ht.index_select(0, cols[s:e].reshape(-1)).to(acc)
+        gv = vals[s:e].reshape(-1, 1).to(acc) * g
+        out[s:e] = gv.reshape(e - s, width, r).sum(dim=1)
+    return out
+
+
+def _bucket_rowsums(bucket: EllBucket, Ht, chunk: int):
+    """Per-segment Σ_k v_k · Ht[col_k, :] -> (nseg, r), scatter-free.
+    Ht: the (m, r) row-major table."""
+    return _rowsums(bucket.vals, bucket.cols, Ht, chunk)
+
+
+def v_ht_ell(ell: EllRows, H, chunk: int = 2048) -> torch.Tensor:
+    """V Hᵀ -> (n, r). Gathers dominate; the only scatter is the
+    per-segment row accumulation (`index_add_`; atomic, so unordered, on
+    CUDA)."""
+    Ht = H.T.contiguous()
+    out = torch.zeros((ell.shape[0], H.shape[0]), dtype=_acc_dtype(H.dtype),
+                      device=H.device)
+    for bucket in ell.buckets:
+        out.index_add_(0, bucket.out_row, _bucket_rowsums(bucket, Ht, chunk))
+    return out.to(H.dtype)
+
+
+def wt_v_ell(pair: EllPair, W, chunk: int = 2048) -> torch.Tensor:
+    """Wᵀ V -> (r, m) via the transposed container: (Vᵀ W)ᵀ."""
+    return v_ht_ell(pair.cols, W.T, chunk=chunk).T
+
+
+def mu_update_frobenius_ell(pair: EllPair, W, H, eps=1e-9, order="WH"):
+    """Sparse MU (Frobenius) on the gather-only layout."""
+
+    def upd_w(W, H):
+        return W * (v_ht_ell(pair.rows, H) / (W @ (H @ H.T) + eps))
+
+    def upd_h(W, H):
+        return H * (wt_v_ell(pair, W) / ((W.T @ W) @ H + eps))
+
+    return _apply_order(upd_w, upd_h, W, H, order)
+
+
+def _bucket_sampled_rowsums(bucket: EllBucket, Ht, w_rows, coeff_fns,
+                            chunk: int):
+    """Fused SDDMM + per-value transform + SpMM for one bucket: gather
+    g = Ht[cols] ONCE, sample s_k = <w_row, g_k>, then for each coeff fn
+    emit seg = Σ_k fn(v, s)_k · g_k -> (nseg, r). Returns one (nseg, r)
+    tensor per coeff fn."""
+    nseg, width = bucket.vals.shape
+    r = Ht.shape[1]
+    acc = _acc_dtype(Ht.dtype)
+    outs = [torch.empty((nseg, r), dtype=acc, device=Ht.device)
+            for _ in coeff_fns]
+    for s, e in _segment_blocks(nseg, chunk):
+        g = Ht.index_select(0, bucket.cols[s:e].reshape(-1)).to(acc)
+        g3 = g.reshape(e - s, width, r)
+        samp = torch.einsum("sr,skr->sk", w_rows[s:e].to(acc), g3)
+        v = bucket.vals[s:e].to(acc)
+        for out, fn in zip(outs, coeff_fns):
+            out[s:e] = torch.einsum("sk,skr->sr", fn(v, samp), g3)
+    return tuple(outs)
+
+
+def sampled_rowsums_ell(ell: EllRows, W, H, coeff_fns, chunk: int = 2048):
+    """Fused gather-once 'transform(SDDMM) then SpMM' over a container:
+    for each coeff fn, Σ_k fn(v, (WH)_nz)_k · H[:, col_k] accumulated
+    into rows -> (n, r). W provides the row vectors sampled against the
+    gathered table rows."""
+    Ht = H.T.contiguous()
+    n, r = ell.shape[0], H.shape[0]
+    outs = [torch.zeros((n, r), dtype=_acc_dtype(H.dtype), device=H.device)
+            for _ in coeff_fns]
+    for bucket in ell.buckets:
+        w_rows = W.index_select(0, bucket.out_row)
+        segs = _bucket_sampled_rowsums(bucket, Ht, w_rows, coeff_fns, chunk)
+        for o, s in zip(outs, segs):
+            o.index_add_(0, bucket.out_row, s)
+    return tuple(o.to(H.dtype) for o in outs)
+
+
+def sddmm_ell(ell: EllRows, W, H, chunk: int = 2048) -> EllRows:
+    """(W H) sampled at the nonzero positions, as an EllRows of the same
+    structure whose vals are the sampled products (pad lanes hold
+    W[row]·H[:, 0]; callers only use them multiplied by the stored
+    values, which are 0 there)."""
+    Ht = H.T.contiguous()
+    new_buckets = []
+    for bucket in ell.buckets:
+        nseg, width = bucket.vals.shape
+        w_rows = W.index_select(0, bucket.out_row)
+        s = torch.empty((nseg, width), dtype=torch.promote_types(
+            W.dtype, H.dtype), device=H.device)
+        for a, b in _segment_blocks(nseg, chunk):
+            g = Ht.index_select(0, bucket.cols[a:b].reshape(-1))
+            s[a:b] = torch.einsum("sr,skr->sk", w_rows[a:b],
+                                  g.reshape(b - a, width, -1))
+        new_buckets.append(EllBucket(vals=s, cols=bucket.cols,
+                                     out_row=bucket.out_row, width=width))
+    return EllRows(buckets=tuple(new_buckets), shape=ell.shape, nnz=ell.nnz)
+
+
+def mu_update_kl_ell(pair: EllPair, W, H, eps=1e-9, order="WH"):
+    """Sparse MU (KL): one fused gather-once ratio + SpMM per half-step
+    (the table rows serve the (WH) sample AND the numerator)."""
+    ratio = (lambda v, s: v / (s + eps),)
+
+    def upd_w(W, H):
+        numer, = sampled_rowsums_ell(pair.rows, W, H, ratio)
+        denom = torch.clamp(torch.sum(H, dim=1), min=eps)[None, :]
+        return W * (numer / denom)
+
+    def upd_h(W, H):
+        # the container holds Vᵀ; sample (Hᵀ Wᵀ) = (WH)ᵀ at its nonzeros
+        numer, = sampled_rowsums_ell(pair.cols, H.T, W.T, ratio)
+        denom = torch.clamp(torch.sum(W, dim=0), min=eps)[:, None]
+        return H * (numer.T / denom)
+
+    return _apply_order(upd_w, upd_h, W, H, order)
+
+
+def sum_v_sq_ell(ell: EllRows) -> torch.Tensor:
+    """||V||_F² from the stored (zero-padded) values."""
+    return sum(torch.sum(b.vals * b.vals) for b in ell.buckets)
+
+
+def frobenius_error_ell(pair: EllPair, W, H, sum_v_sq=None,
+                        wt_v=wt_v_ell) -> torch.Tensor:
+    """Gram-trick ||V - WH||_F using the gather-only Wᵀ V, computed by
+    `wt_v(pair, W)` (the kernel path passes its own)."""
+    if sum_v_sq is None:
+        sum_v_sq = sum_v_sq_ell(pair.rows)
+    cross = torch.sum(wt_v(pair, W) * H)
+    quad = torch.sum((W.T @ W) * (H @ H.T))
+    return torch.sqrt(torch.clamp(sum_v_sq - 2.0 * cross + quad, min=0.0))
+
+
+def kl_error_ell(pair: EllPair, W, H, eps=1e-12) -> torch.Tensor:
+    """D_KL(V || WH) with the nonzero log terms sampled by the SDDMM."""
+    s = sddmm_ell(pair.rows, W, H)
+    total = torch.zeros((), dtype=_acc_dtype(W.dtype), device=W.device)
+    for orig, samp in zip(pair.rows.buckets, s.buckets):
+        v = orig.vals
+        term = torch.where(
+            v > 0,
+            v * torch.log(torch.clamp(v, min=eps)
+                          / torch.clamp(samp.vals, min=eps)),
+            0.0,
+        )
+        total = total + torch.sum(term) - torch.sum(v)
+    return total + torch.sum(W, dim=0) @ torch.sum(H, dim=1)

@@ -17,6 +17,7 @@ from nmftpu_torch.kernels import count_above as CA  # noqa: E402
 from nmftpu_torch.kernels import dense_mu as K  # noqa: E402
 from nmftpu_torch.kernels import mips_reservoir as MR  # noqa: E402
 from nmftpu_torch.kernels import quantized as Q  # noqa: E402
+from nmftpu_torch.kernels import sparse_ell_kernel as SEK  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
@@ -203,3 +204,128 @@ def test_recommender_on_the_card_matches_the_cpu(dev, table_dtype):
     np.testing.assert_allclose(s, s0, rtol=SCAN_RTOL)
     for row in range(len(users)):
         assert set(i[row].tolist()) == set(i0[row].tolist()), row
+
+
+# ---------------------------------------------------------------------------
+# ELL segment SpMM
+# ---------------------------------------------------------------------------
+
+# float32 sums of at most 512 nonnegative products in two orders differ by
+# ~sqrt(512) * 2^-24 = 1.3e-6 relative; float64 by ~5e-15
+ELL_RTOL = {torch.float32: 1e-5, torch.float64: 1e-12}
+
+
+def _ell_bucket(dev, nseg, w, m, r, dtype, seed):
+    """A bucket as the builder lays it out: each segment holds 1..w
+    nonzeros then pad lanes (col 0, val 0), and the last segments are
+    all-zero padding."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    vals = torch.rand(nseg, w, generator=g, device=dev, dtype=dtype) + 0.1
+    cols = torch.randint(0, m, (nseg, w), generator=g, device=dev,
+                         dtype=torch.int32)
+    lens = torch.randint(1, w + 1, (nseg, 1), generator=g, device=dev)
+    lens[-3:] = 0
+    pad = torch.arange(w, device=dev)[None, :] >= lens
+    vals[pad] = 0
+    cols[pad] = 0
+    Ht = torch.rand(m, r, generator=g, device=dev, dtype=dtype)
+    return vals, cols, Ht
+
+
+@pytest.mark.parametrize("w", [8, 16, 32, 64, 128, 256, 512])
+@pytest.mark.parametrize("r", [37, 64, 128])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_bucket_rowsums_matches_twin(dev, w, r, dtype):
+    vals, cols, Ht = _ell_bucket(dev, 3000, w, 7000, r, dtype, seed=w + r)
+    before = SEK.LAUNCHES["ell_rowsums"]
+    got = SEK.bucket_rowsums(vals, cols, Ht)
+    want = SEK.bucket_rowsums_plain(vals, cols, Ht)
+    torch.cuda.synchronize()
+    assert SEK.LAUNCHES["ell_rowsums"] == before + 1
+    assert got.dtype == dtype and got.shape == (3000, r)
+    torch.testing.assert_close(got, want, rtol=ELL_RTOL[dtype], atol=0)
+    assert bool((got[-3:] == 0).all())
+
+
+@pytest.mark.parametrize("r", [1, 3, 200, 300, 520])
+def test_bucket_rowsums_odd_and_wide_ranks(dev, r):
+    """Scalar lanes (r not a multiple of 2), several column groups and
+    several passes over a row (r > 4 * 32 * VEC)."""
+    vals, cols, Ht = _ell_bucket(dev, 700, 16, 900, r, torch.float32, r)
+    got = SEK.bucket_rowsums(vals, cols, Ht)
+    want = SEK.bucket_rowsums_plain(vals, cols, Ht)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=0)
+
+
+def test_ell_pallas_path_matches_the_plain_path(dev):
+    """One MU-Frobenius step on an ELL pair with both SpMMs on the kernel
+    against the plain torch ELL step, on the card."""
+    from nmftpu_torch import sparse as S
+    from nmftpu_torch import sparse_ell as SE
+
+    rng = np.random.default_rng(4)
+    a = np.where(rng.random((300, 420)) < 0.05,
+                 rng.uniform(0.5, 5.0, (300, 420)), 0).astype(np.float32)
+    a[7, :200] = 1.5                        # a row longer than seg_max
+    pair = SE.build_ell_pair(S.from_dense(a), device=dev, seg_max=64,
+                             buckets=(8, 16, 32, 64))
+    g = torch.Generator(device=dev).manual_seed(5)
+    W = torch.rand(300, 24, generator=g, device=dev) + 0.05
+    H = torch.rand(24, 420, generator=g, device=dev) + 0.05
+    before = SEK.LAUNCHES["ell_rowsums"]
+    got = SEK.mu_update_frobenius_ell_pallas(pair, W, H)
+    want = SE.mu_update_frobenius_ell(pair, W, H)
+    torch.cuda.synchronize()
+    assert SEK.LAUNCHES["ell_rowsums"] - before == \
+        len(pair.rows.buckets) + len(pair.cols.buckets)
+    for x, y in zip(got, want):
+        torch.testing.assert_close(x, y, rtol=1e-4, atol=0)
+
+
+def test_ell_wrapper_rejects_what_the_kernel_does_not_take(dev):
+    vals, cols, Ht = _ell_bucket(dev, 10, 8, 20, 16, torch.float32, 0)
+    with pytest.raises(ValueError, match="contiguous"):
+        SEK.bucket_rowsums(vals, cols, Ht.T.contiguous().T)
+    with pytest.raises(TypeError, match="float32"):
+        SEK.bucket_rowsums(vals.double(), cols, Ht)
+    with pytest.raises(TypeError, match="float32"):
+        SEK.bucket_rowsums(vals.half(), cols, Ht.half())
+    with pytest.raises(TypeError, match="int32"):
+        SEK.bucket_rowsums(vals, cols.long(), Ht)
+    with pytest.raises(ValueError, match="different devices"):
+        SEK.bucket_rowsums(vals, cols, Ht.cpu())
+    with pytest.raises(ValueError, match="expected vals and cols"):
+        SEK.bucket_rowsums(vals, cols[:, :4].contiguous(), Ht)
+
+
+def test_sparse_nmf_on_the_card_matches_the_cpu(dev):
+    """nmf on sparse V through each engine on the card and on the CPU,
+    from the same W0/H0: the same errors and factors."""
+    from nmftpu_torch import sparse as S
+
+    rng = np.random.default_rng(6)
+    a = np.where(rng.random((257, 311)) < 0.06,
+                 rng.integers(1, 11, (257, 311)) * 0.5, 0).astype(np.float32)
+    sp = S.from_dense(a)
+    W0 = rng.uniform(0.1, 1.0, (257, 8)).astype(np.float32)
+    H0 = rng.uniform(0.1, 1.0, (8, 311)).astype(np.float32)
+    for strategy, knobs in (("ell", {"use_pallas": True}), ("ell", {}),
+                            ("densified", {}), ("scatter", {})):
+        for objective in ("frobenius", "kl"):
+            if knobs and objective == "kl":
+                continue
+            kw = dict(init="copy", W0=W0, H0=H0, num_iterations=10,
+                      check_interval=5, strategy=strategy,
+                      objective=objective, **knobs)
+            got = nt.nmf(sp, 8, device="cuda", **kw)
+            want = nt.nmf(sp, 8, device="cpu", **kw)
+            assert got.W.device.type == "cuda"
+            # bf16 rounding of the factors in the densified contractions
+            # can flip on an ulp of float32 reordering (2^-9 relative)
+            rtol = 2e-2 if strategy == "densified" else 1e-4
+            torch.testing.assert_close(got.W.cpu(), want.W, rtol=rtol,
+                                       atol=1e-5)
+            torch.testing.assert_close(got.H.cpu(), want.H, rtol=rtol,
+                                       atol=1e-5)
+            np.testing.assert_allclose(got.error, want.error, rtol=1e-4)
