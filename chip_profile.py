@@ -6,7 +6,10 @@
 Two shapes -- 4096 x 4096 at rank 256 (bench.py's headline) and the
 ML-20M shape 138,493 x 26,744 at rank 64, with chip_smoke.py's synthetic
 data -- and three update paths: plain float32 torch.matmul ("plain_f32"),
-the float32 kernels ("kernel_f32") and the int8 kernels ("kernel_int8").
+the float32 kernels ("kernel_f32") and the int8 kernels ("kernel_int8");
+at 4096 x 4096 also HALS through the sweep kernel ("hals_kernel") and
+Jacobi MU with the dual int8 numerator kernel ("int8_jacobi_fused"),
+which have no half-step split.
 For each it prints one line with
 
 - ms per MU iteration, per W half-step and per H half-step (each with
@@ -70,7 +73,9 @@ CHECK_INTERVAL = 10
 
 
 def kernel_class(name: str) -> str:
-    if "update_kernel" in name:
+    if any(k in name for k in ("update_kernel", "hals_sweep_kernel",
+                               "dual_kernel", "gemm_int8_kernel",
+                               "muldiv_kernel")):
         return "port_kernels"
     if "ell_rowsums_kernel" in name:
         return "ell_rowsums"
@@ -167,6 +172,17 @@ def main() -> None:
         }
         knobs = {"plain_f32": {}, "kernel_f32": {"use_pallas": True},
                  "kernel_int8": {"v_storage": "int8", "use_pallas": True}}
+        if n == m:
+            # slice 4a: HALS through the sweep kernel, and Jacobi MU with
+            # the dual int8 numerator kernel (no half-step split)
+            iteration["hals_kernel"] = lambda: D.hals_update(V, W, H)
+            iteration["int8_jacobi_fused"] = lambda: (
+                D.mu_update_frobenius_int8x8(Vq, scale, W, H, eps,
+                                             order="jacobi", use_fused=True))
+            knobs["hals_kernel"] = {"algorithm": "hals"}
+            knobs["int8_jacobi_fused"] = {"v_storage": "int8",
+                                          "use_pallas": True,
+                                          "mu_style": "jacobi"}
         iters = 20 if n == m else 5
         it_ms = abba_ms(iteration, iters)
         w_ms = abba_ms({k: f[0] for k, f in halves.items()}, iters)
@@ -189,13 +205,13 @@ def main() -> None:
                 torch.cuda.synchronize()
             trace = out / f"{cell}_{path}.json"
             prof.export_chrome_trace(str(trace))
-            row = {"ms_per_iter": it_ms[path], "w_half_ms": w_ms[path],
-                   "h_half_ms": h_ms[path],
+            row = {"ms_per_iter": it_ms[path], "w_half_ms": w_ms.get(path),
+                   "h_half_ms": h_ms.get(path),
                    **device_summary(trace, PROFILE_ITERS)}
             summary[cell][path] = row
             say("profile", cell=cell, path=path,
                 ms_per_iter=f"{it_ms[path]:.4f}",
-                w_half_ms=f"{w_ms[path]:.4f}", h_half_ms=f"{h_ms[path]:.4f}",
+                w_half_ms=row["w_half_ms"], h_half_ms=row["h_half_ms"],
                 device_ms_per_iter={k: round(v, 4) for k, v in
                                     row["device_ms_per_iter"].items()},
                 idle_share=f"{row['idle_share']:.4f}", card=card)

@@ -13,8 +13,15 @@ Phases 10-12 factorize sparse V at BASELINE config 2's full width
 (ML-20M's 138,493 x 26,744 shape and 20,000,263 ratings, rank 64)
 through the ELL engine with the segment-SpMM kernel, the plain ELL
 engine and the densified bf16 engine, under the Frobenius and KL
-objectives, and time them. Every phase prints its results; any failure
-exits non-zero. Without a CUDA device it exits 1 and runs nothing.
+objectives, and time them. Phases 13-15 hold the fused multiply-divide,
+the int8 x int8 numerator kernels and the HALS sweep against their twins
+(up to the ML-20M shape), factorize 4096 x 4096 / rank 256, 2048 x 2048 /
+rank 512 and the ML-20M shape (dense float32 V, rank 64) with HALS
+through the sweep kernel, and run Jacobi MU (Frobenius and KL; float32,
+bfloat16 and int8 V, int8 with the dual-numerator kernel) and int8 x int8
+Gauss-Seidel MU against their Gauss-Seidel and kernel counterparts. Every
+phase prints its results; any failure exits non-zero. Without a CUDA
+device it exits 1 and runs nothing.
 
 The line before the last is a JSON object {"kernels": [...]}; the last
 line is {"ok": true, "device": {...}}.
@@ -73,9 +80,26 @@ SPARSE_E2E_RTOL = 1e-3
 # operand, at random over the r = 64 terms) and sum in another order
 KL_ENGINES_RTOL = 1e-3
 
+# phases 13-15: dense HALS and the int8 x int8 numerators. The HALS
+# kernel sums in float32 in another order than its twin, and the clamp
+# and the division by the hessian amplify it: nmftpu's bound for its own
+# sweep kernel, times max|W|
+HALS_ATOL = 3e-5
+# HALS through the kernel vs the plain blocked sweep. One iteration's W/H,
+# max|a - b| / max|b|: float32 reordering, ~1e-6. After that a float32
+# ulp can flip a clamp, and coordinate descent moves the factors to
+# another point of nearly equal error (two plain sweeps in another order
+# or precision do the same), so the factors are held after one iteration
+# and the error after 50; the factors after 50 are printed, with no limit.
+HALS_STEP_RTOL = 1e-4
+HALS_E2E_RTOL = 2e-3
+# ML-20M's shape, rank and rating count (phases 5 and 13-15)
+ML20M = (138_493, 26_744, 64, 20_000_263)
+
 # the card's peaks (NVIDIA's H100 SXM data sheet, dense): float32 on the
-# CUDA cores, bf16 on the tensor cores, HBM bandwidth
-F32_PEAK, BF16_PEAK, HBM_BYTES_PER_S = 67e12, 989e12, 3.35e12
+# CUDA cores, bf16 and int8 on the tensor cores, HBM bandwidth
+F32_PEAK, BF16_PEAK, INT8_PEAK = 67e12, 989e12, 1979e12
+HBM_BYTES_PER_S = 3.35e12
 
 # where each kernel's TPU original is (file:line of the wrapper that
 # reaches pl.pallas_call), and its source here
@@ -87,6 +111,13 @@ REPLACES = {
     "reservoir_scan": "nmftpu/kernels/mips_reservoir.py:135",
     "count_above": "nmftpu/kernels/count_above.py:95",
     "ell_rowsums": "nmftpu/kernels/sparse_ell_kernel.py:98",
+    "fused_multiply_divide": "nmftpu/kernels/dense_mu.py:341",
+    "dual_numerators_int8": "nmftpu/kernels/dual_numer.py:128",
+    "hals_sweep": "nmftpu/kernels/hals_sweep.py:121",
+    # the one-sided int8 entries replace XLA contractions, not a TPU
+    # kernel: the _rhs_vht_int8 / _rhs_wtv_int8 dots
+    "vht_int8": "nmftpu/linalg/dense.py:334",
+    "wtv_int8": "nmftpu/linalg/dense.py:344",
 }
 SOURCES = {
     "w_update_fused": "nmftpu_torch/csrc/dense_mu.cu",
@@ -96,6 +127,11 @@ SOURCES = {
     "reservoir_scan": "nmftpu_torch/csrc/mips_reservoir.cu",
     "count_above": "nmftpu_torch/csrc/count_above.cu",
     "ell_rowsums": "nmftpu_torch/csrc/ell_rowsums.cu",
+    "fused_multiply_divide": "nmftpu_torch/csrc/muldiv.cu",
+    "dual_numerators_int8": "nmftpu_torch/csrc/dual_numer.cu",
+    "hals_sweep": "nmftpu_torch/csrc/hals_sweep.cu",
+    "vht_int8": "nmftpu_torch/csrc/dual_numer.cu",
+    "wtv_int8": "nmftpu_torch/csrc/dual_numer.cu",
 }
 DENSE = ("w_update_fused", "h_update_fused", "w_update_fused_q",
          "h_update_fused_q")
@@ -631,6 +667,338 @@ def sparse_phases(nt, ratings, card, dev) -> dict:
             "bound_by": bound_by}
 
 
+def check_hals(HS, label, n, r, gen, dev, zero_col=None) -> float:
+    """Kernel #7 against its twin (the blocked sweep) on a random
+    problem: |difference| <= HALS_ATOL * max|twin|; a zero-hessian
+    column stays as it was. Returns max |difference|."""
+    X = torch.randn(n, r, generator=gen, device=dev)
+    A = torch.randn(r, r, generator=gen, device=dev)
+    G = A @ A.T + torch.eye(r, device=dev)
+    if zero_col is not None:
+        G[zero_col, :] = 0.0
+        G[:, zero_col] = 0.0
+    W = torch.rand(n, r, generator=gen, device=dev)
+    got = HS.hals_sweep(X, G, W)
+    want = HS.hals_sweep_plain(X, G, W)
+    torch.cuda.synchronize()
+    diff = float((got - want).abs().max())
+    scale = float(want.abs().max())
+    kept = (zero_col is None
+            or bool(torch.equal(got[:, zero_col], W[:, zero_col])))
+    say("13 hals_sweep", case=label, max_abs=f"{diff:.3e}",
+        rel_to_max=f"{diff / scale:.3e}", bound=HALS_ATOL,
+        zero_hessian_column_kept=kept)
+    if not (diff <= HALS_ATOL * scale and kept):
+        fail(f"hals_sweep {label}: kernel disagrees with its twin")
+    return diff
+
+
+def check_int8(DN, label, Vq, Wq, Hq) -> None:
+    """Kernel #6 (dual entry, both outputs) and the one-sided entries
+    against the exact float64 products: equal, and every sum inside the
+    int32 range, so that "equal" needs no wrap-around."""
+    exact_w, exact_h = DN.vht_exact(Vq, Hq), DN.wtv_exact(Vq, Wq)
+    peak = max(float(exact_w.abs().max()), float(exact_h.abs().max()))
+    want_w, want_h = DN._wrap_int32(exact_w), DN._wrap_int32(exact_h)
+    del exact_w, exact_h
+    nw, nh = DN.dual_int8(Vq, Wq, Hq)
+    vht, wtv = DN.vht_int8(Vq, Hq), DN.wtv_int8(Vq, Wq)
+    torch.cuda.synchronize()
+    same = {"dual_nw": torch.equal(nw, want_w),
+            "dual_nh": torch.equal(nh, want_h),
+            "vht": torch.equal(vht, want_w), "wtv": torch.equal(wtv, want_h)}
+    say("13 int8 numerators", case=label, equal=same,
+        max_abs_sum=f"{peak:.6g}", int32_limit=2**31 - 1)
+    if peak >= 2**31:
+        fail(f"int8 numerators {label}: a sum leaves the int32 range")
+    if not all(same.values()):
+        fail(f"int8 numerators {label}: a kernel differs from the exact "
+             f"product: {same}")
+
+
+def slice4a_phases(nt, card, dev, V, W0, H0, Vq, scale, plain_ms) -> dict:
+    """Phases 13-15: kernels #5-#7 against their twins, dense HALS end to
+    end, Jacobi and int8 x int8 MU end to end. V, W0, H0, Vq, scale are
+    phase 4's 4096^2 / r = 256 problem; plain_ms is phase 6's plain
+    float32 ms per MU iteration. Returns the kernels line's fields of
+    the five kernel entries."""
+    from nmftpu_torch.kernels import dense_mu as K
+    from nmftpu_torch.kernels import dual_numer as DN
+    from nmftpu_torch.kernels import hals_sweep as HS
+    from nmftpu_torch.kernels import quantized as Q
+    from nmftpu_torch.linalg import dense as D
+
+    n, m = V.shape
+    r = W0.shape[1]
+    gen = torch.Generator(device=dev).manual_seed(SEED + 13)
+    n5, m5, r5, nnz = ML20M
+    t0 = time.perf_counter()
+    R = synthetic_ratings(n5, m5, nnz, torch.Generator(device=dev)
+                          .manual_seed(SEED + 5), dev)
+    torch.cuda.synchronize()
+    say("13 data", shape=f"{n5}x{m5}", nnz=int(torch.count_nonzero(R)),
+        make_V_s=f"{time.perf_counter() - t0:.2f}")
+    Vq5, scale5 = Q.quantize_v(R)
+
+    # -- 13. kernels #5, #6, #7 against their plain versions ----------------
+    max_abs = {"hals_sweep": 0.0}
+    for label, (hn, hr), zero in (("4096x256", (4096, 256), None),
+                                  ("2048x512", (2048, 512), None),
+                                  ("138493x64", (n5, r5), None),
+                                  ("ragged 1000x37, hessian 0 at 5",
+                                   (1000, 37), 5)):
+        max_abs["hals_sweep"] = max(max_abs["hals_sweep"], check_hals(
+            HS, label, hn, hr, gen, dev, zero))
+    W5 = torch.rand(n5, r5, generator=gen, device=dev)
+    H5 = torch.rand(r5, m5, generator=gen, device=dev)
+    ragged = Q.quantize_v(5.0 * torch.rand(1000, 1500, generator=gen,
+                                           device=dev))[0]
+    for label, Vqc, Wc, Hc in (
+            ("4096^2 r=256", Vq, W0, H0),
+            ("ML-20M shape r=64", Vq5, W5, H5),
+            ("ragged 1000x1500 r=37", ragged,
+             torch.rand(1000, 37, generator=gen, device=dev),
+             torch.rand(37, 1500, generator=gen, device=dev))):
+        check_int8(DN, label, Vqc, D.quantize_sym(Wc)[1],
+                   D.quantize_sym(Hc)[1])
+    del W5, H5, ragged
+    for label, shape in (("4096x4096", (4096, 4096)),
+                         ("ragged 1000x37", (1000, 37))):
+        x, y, z = (torch.rand(*shape, generator=gen, device=dev)
+                   for _ in range(3))
+        same = torch.equal(K.fused_multiply_divide(x, y, z),
+                           K.fused_multiply_divide_plain(x, y, z))
+        say("13 fused_multiply_divide", case=label, bit_equal=same)
+        if not same:
+            fail(f"fused_multiply_divide {label}: kernel differs from its "
+                 "twin")
+    # timing at the main path's 4096^2 / r = 256 shapes
+    Wq, Hq = D.quantize_sym(W0)[1], D.quantize_sym(H0)[1]
+    XHt, G = V @ H0.T, H0 @ H0.T
+    x, y, z = (torch.rand(n, m, generator=gen, device=dev) for _ in range(3))
+    # the library yardstick for #6: cuBLASLt's int8 GEMM through
+    # torch._int_mm, in the operand layouts it takes (B column-major),
+    # which costs Vq's transpose, made here once
+    VqT, WqT = Vq.t().contiguous(), Wq.t().contiguous()
+    lib_w, lib_ht = torch._int_mm(Vq, Hq.t()), torch._int_mm(VqT, WqT.t())
+    nw, nh = DN.dual_int8(Vq, Wq, Hq)
+    lib_same = bool(torch.equal(lib_w, nw) and torch.equal(lib_ht.t(), nh))
+    del lib_w, lib_ht, nw, nh
+    t_ms = abba_ms({
+        "hals_sweep": lambda: HS.hals_sweep(XHt, G, W0),
+        "hals_sweep_plain": lambda: HS.hals_sweep_plain(XHt, G, W0),
+        "dual_numerators_int8": lambda: DN.dual_int8(Vq, Wq, Hq),
+        "dual_numerators_int8_plain": lambda: DN.dual_int8_plain(Vq, Wq, Hq),
+        "dual_numerators_int8_library": lambda: (
+            torch._int_mm(Vq, Hq.t()), torch._int_mm(VqT, WqT.t())),
+        "vht_int8": lambda: DN.vht_int8(Vq, Hq),
+        "vht_int8_plain": lambda: DN.vht_int8_plain(Vq, Hq),
+        "vht_int8_library": lambda: torch._int_mm(Vq, Hq.t()),
+        "wtv_int8": lambda: DN.wtv_int8(Vq, Wq),
+        "wtv_int8_plain": lambda: DN.wtv_int8_plain(Vq, Wq),
+        "wtv_int8_library": lambda: torch._int_mm(VqT, WqT.t()),
+        "fused_multiply_divide": lambda: K.fused_multiply_divide(x, y, z),
+        "fused_multiply_divide_plain": lambda: K.fused_multiply_divide_plain(
+            x, y, z),
+    }, iters=10)
+    del VqT, WqT
+    # bounds: each input read once, each output written once; #7 on the
+    # float32 CUDA cores, #6 and its one-sided entries on the int8 tensor
+    # cores' rate, #5 by its bytes
+    b = 16
+    bounds = {
+        "hals_sweep": bound(2 * n * r * r + 2 * n * r * b,
+                            4 * (3 * n * r + r * r), F32_PEAK),
+        "dual_numerators_int8": bound(4 * n * m * r,
+                                      n * m + n * r + r * m
+                                      + 4 * (n * r + r * m), INT8_PEAK),
+        "vht_int8": bound(2 * n * m * r, n * m + r * m + 4 * n * r,
+                          INT8_PEAK),
+        "wtv_int8": bound(2 * n * m * r, n * m + n * r + 4 * r * m,
+                          INT8_PEAK),
+        "fused_multiply_divide": bound(2 * n * m, 4 * 4 * n * m, F32_PEAK),
+    }
+    library = {"dual_numerators_int8": t_ms["dual_numerators_int8_library"],
+               "vht_int8": t_ms["vht_int8_library"],
+               "wtv_int8": t_ms["wtv_int8_library"],
+               "hals_sweep": None, "fused_multiply_divide": None}
+    for name, (b_ms, b_by) in bounds.items():
+        say("13 kernel timing", kernel=name, shape=f"{n}x{m} r={r}",
+            ms=f"{t_ms[name]:.4f}", plain_ms=f"{t_ms[name + '_plain']:.4f}",
+            library_ms=(None if library[name] is None
+                        else f"{library[name]:.4f}"),
+            bound_ms=f"{b_ms:.4f}", bound_by=b_by, card=card)
+    say("13 library", torch_int_mm_equals_kernel=lib_same)
+    if not lib_same:
+        fail("torch._int_mm and the int8 kernels disagree")
+
+    # -- 14. dense HALS end to end (the fourth main path) --------------------
+    # -- 15. Jacobi and int8 x int8 MU end to end (the fifth) ----------------
+    for counts in (HS.LAUNCHES, DN.LAUNCHES):
+        counts.update(dict.fromkeys(counts, 0))
+    K.LAUNCHES["fused_multiply_divide"] = 0
+    common = dict(init="copy", W0=W0, H0=H0, num_iterations=50,
+                  check_interval=10, device="cuda")
+
+    def run(phase, label, V_in, rank, check=True, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = nt.nmf(V_in, rank, **kw)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        errs = res.stats.errors
+        finite = bool(torch.isfinite(res.W).all()
+                      and torch.isfinite(res.H).all())
+        say(phase, run=label, iterations=res.num_iterations,
+            first_error=f"{errs[0]:.6g}", last_error=f"{errs[-1]:.6g}",
+            kl_error=res.kl_error, finite=finite, seconds=f"{secs:.3f}")
+        if not finite or (check and not errs[-1] < errs[0]):
+            fail(f"{label}: non-finite factors or the error did not fall: "
+                 f"{errs.tolist()}")
+        return res
+
+    before = HS.LAUNCHES["hals_sweep"]
+    hals = run("14 hals e2e", "4096^2 r=256 hals", V, r, algorithm="hals",
+               **common)
+    hals_launches = HS.LAUNCHES["hals_sweep"] - before
+    mu = run("14 hals e2e", "4096^2 r=256 mu (plain f32)", V, r, **common)
+    # one iteration, then the same 50, through the plain blocked sweep;
+    # the kernel's two launches here compare, and stay out of the count
+    one_k = D.hals_update(V, W0, H0)
+    HS.LAUNCHES["hals_sweep"] -= 2
+    Wp, Hp = D.hals_update(V, W0, H0, impl="blocked")
+    dw = float((one_k[0] - Wp).abs().max() / Wp.abs().max())
+    dh = float((one_k[1] - Hp).abs().max() / Hp.abs().max())
+    for _ in range(49):
+        Wp, Hp = D.hals_update(V, Wp, Hp, impl="blocked")
+    e_plain = float(D.frobenius_error(V, Wp, Hp))
+    de = abs(hals.frobenius_error / e_plain - 1)
+    # the factors after 50 iterations, for the record (no limit: see
+    # HALS_STEP_RTOL)
+    dw50 = float((hals.W - Wp).abs().max() / Wp.abs().max())
+    dh50 = float((hals.H - Hp).abs().max() / Hp.abs().max())
+    say("14 checks", cell="4096^2 r=256", hals_sweep_launches=hals_launches,
+        expected=100, one_iteration_kernel_vs_plain_W=f"{dw:.3e}",
+        one_iteration_kernel_vs_plain_H=f"{dh:.3e}", rtol=HALS_STEP_RTOL,
+        after_50_W=f"{dw50:.3e}", after_50_H=f"{dh50:.3e}",
+        hals_error=f"{hals.frobenius_error:.6g}",
+        plain_sweep_error=f"{e_plain:.6g}", error_rel=f"{de:.3e}",
+        error_rtol=HALS_E2E_RTOL, mu_error=f"{mu.frobenius_error:.6g}")
+    if hals_launches != 100:
+        fail(f"hals_sweep launched {hals_launches} times, not 100")
+    if not (dw <= HALS_STEP_RTOL and dh <= HALS_STEP_RTOL):
+        fail(f"one HALS iteration through the kernel differs from the plain "
+             f"sweep (W {dw:.3e}, H {dh:.3e} > {HALS_STEP_RTOL})")
+    if not de <= HALS_E2E_RTOL:
+        fail(f"50 HALS iterations through the kernel end {de:.3e} from the "
+             f"plain sweep's error (> {HALS_E2E_RTOL})")
+    del one_k
+    if not hals.frobenius_error <= mu.frobenius_error * 1.001:
+        fail("HALS ends above MU at equal iterations")
+    del hals, mu, Wp, Hp
+    V2 = synthetic_lowrank(2048, 2048, 512, gen, dev)
+    for label, V_in, rank, kw in (
+            ("2048^2 r=512", V2, 512, dict(init="random", seed=0)),
+            ("ML-20M shape r=64 (float32 V)", R, r5,
+             dict(init="random", seed=0))):
+        before = HS.LAUNCHES["hals_sweep"]
+        h = run("14 hals e2e", f"{label} hals", V_in, rank,
+                algorithm="hals", num_iterations=10, check_interval=2,
+                **kw)
+        launched = HS.LAUNCHES["hals_sweep"] - before
+        u = run("14 hals e2e", f"{label} mu (plain f32)", V_in, rank,
+                num_iterations=10, check_interval=2, **kw)
+        say("14 checks", cell=label, hals_sweep_launches=launched,
+            expected=20, hals_error=f"{h.frobenius_error:.6g}",
+            mu_error=f"{u.frobenius_error:.6g}")
+        if launched != 20:
+            fail(f"{label}: hals_sweep launched {launched} times, not 20")
+        if not h.frobenius_error <= u.frobenius_error * 1.001:
+            fail(f"{label}: HALS ends above MU at equal iterations")
+        del h, u
+    del V2
+
+    # -- 15. Jacobi and int8 x int8 MU at 4096^2 / r = 256 -------------------
+    pairs = {
+        "float32 frobenius": dict(),
+        "float32 kl": dict(objective="kl"),
+        "bfloat16 frobenius": dict(v_storage="bfloat16"),
+        "int8 frobenius": dict(v_storage="int8"),
+        "int8 frobenius use_pallas": dict(v_storage="int8", use_pallas=True),
+    }
+    finals = {}
+    for label, knobs in pairs.items():
+        for style in ("gauss-seidel", "jacobi"):
+            before = dict(DN.LAUNCHES)
+            res = run("15 mu e2e", f"{label} {style}", V, r,
+                      check=knobs.get("objective") != "kl",
+                      mu_style=style, **common, **knobs)
+            finals[label, style] = (res.kl_error if "kl" in label
+                                    else res.frobenius_error)
+            launched = {k: DN.LAUNCHES[k] - before[k] for k in DN.LAUNCHES}
+            want = dict.fromkeys(DN.LAUNCHES, 0)
+            if label == "int8 frobenius":
+                want.update(vht_int8=50, wtv_int8=50)
+            elif label == "int8 frobenius use_pallas" and style == "jacobi":
+                want["dual_numerators_int8"] = 50
+            say("15 launches", run=f"{label} {style}", launches=launched)
+            if launched != want:
+                fail(f"{label} {style}: int8 kernel launches {launched}, "
+                     f"expected {want}")
+            del res
+        ratio = finals[label, "jacobi"] / finals[label, "gauss-seidel"]
+        say("15 checks", run=label, jacobi_over_gauss_seidel=f"{ratio:.4f}",
+            limit=1.10)
+        if not ratio <= 1.10:
+            fail(f"{label}: jacobi ends {ratio:.4f}x above Gauss-Seidel")
+    gs_rel = abs(finals["int8 frobenius", "gauss-seidel"]
+                 / finals["int8 frobenius use_pallas", "gauss-seidel"] - 1)
+    say("15 checks", int8_x_int8_vs_int8_kernels_3_4=f"{gs_rel:.3e}",
+        rtol=1e-3)
+    if not gs_rel <= 1e-3:
+        fail(f"int8 x int8 and the int8 kernels #3/#4 end {gs_rel:.3e} "
+             "apart")
+    before = DN.LAUNCHES["dual_numerators_int8"]
+    run("15 mu e2e", "ML-20M shape r=64 int8 jacobi use_pallas", R, r5,
+        init="random", seed=0, num_iterations=10, check_interval=2,
+        v_storage="int8", use_pallas=True, mu_style="jacobi")
+    launched = DN.LAUNCHES["dual_numerators_int8"] - before
+    say("15 checks", cell="ML-20M shape", dual_launches=launched, expected=10)
+    if launched != 10:
+        fail(f"ML-20M shape: dual kernel launched {launched} times, not 10")
+    # the main paths end here (fused_multiply_divide has no caller on them)
+    launches = {**HS.LAUNCHES, **DN.LAUNCHES,
+                "fused_multiply_divide": K.LAUNCHES["fused_multiply_divide"]}
+    del R, Vq5, scale5
+
+    # ms per iteration at 4096^2 / r = 256, beside phase 6's plain f32 MU
+    it_ms = abba_ms({
+        "hals (kernel #7)": lambda: D.hals_update(V, W0, H0),
+        "mu jacobi f32": lambda: D.mu_update_frobenius(V, W0, H0,
+                                                       order="jacobi"),
+        "mu jacobi bf16": lambda: D.mu_update_frobenius_bf16v(
+            V.to(torch.bfloat16), W0, H0, order="jacobi"),
+        "mu jacobi int8 (one-sided #6)": lambda: (
+            D.mu_update_frobenius_int8x8(Vq, scale, W0, H0, order="jacobi")),
+        "mu jacobi int8 use_pallas (dual #6)": lambda: (
+            D.mu_update_frobenius_int8x8(Vq, scale, W0, H0, order="jacobi",
+                                         use_fused=True)),
+        "mu gauss-seidel int8 (one-sided #6)": lambda: (
+            D.mu_update_frobenius_int8x8(Vq, scale, W0, H0)),
+        "mu kl jacobi f32": lambda: D.mu_update_kl(V, W0, H0,
+                                                   order="jacobi"),
+    }, iters=10)
+    for path, ms in it_ms.items():
+        say("15 timing", path=path, ms_per_iter=f"{ms:.4f}",
+            phase6_plain_f32_mu_ms=f"{plain_ms:.4f}", card=card)
+    return {name: {"launches": launches[name],
+                   "max_abs_err": max_abs.get(name, 0.0),
+                   "ms": t_ms[name], "plain_ms": t_ms[name + "_plain"],
+                   "bound_ms": bounds[name][0], "bound_by": bounds[name][1],
+                   "library_ms": library[name]}
+            for name in bounds}
+
+
 def main() -> None:
     if not (HERE / "nmftpu_torch").is_dir():
         fail(f"no nmftpu_torch package beside {__file__}")
@@ -784,7 +1152,8 @@ def main() -> None:
         fail(f"ML-20M shape: kernels not launched: {launched}")
 
     # the main path ends here; the launches below only check the kernels
-    main_path_launches = {**K.LAUNCHES, **Q.LAUNCHES}
+    main_path_launches = {k: v for k, v in {**K.LAUNCHES, **Q.LAUNCHES}
+                          .items() if k in DENSE}
     if min(main_path_launches.values()) < 1:
         fail(f"a kernel of the path never launched: {main_path_launches}")
 
@@ -829,6 +1198,7 @@ def main() -> None:
     for path, ms in it_ms.items():
         say("6 timing", path=path, ms_per_iter=f"{ms:.4f}",
             TFLOP_s=f"{flops / ms / 1e9:.2f}", card=card)
+    plain_ms = it_ms["plain_f32"]
     k_ms = abba_ms({
         "w_update_fused": lambda: K.w_update_fused(V, W, H, Gw),
         "h_update_fused": lambda: K.h_update_fused(V, W, H, Gh),
@@ -965,11 +1335,20 @@ def main() -> None:
     bounds["ell_rowsums"] = (ell["bound_ms"], ell["bound_by"])
     library_ms = {"ell_rowsums": ell["library_ms"]}
 
+    # -- 13-15. slice 4a: HALS, Jacobi and int8 x int8 MU ---------------------
+    new = slice4a_phases(nt, card, dev, V, W0, H0, Vq, scale, plain_ms)
+    for name, f in new.items():
+        max_abs[name], k_ms[name], p_ms[name] = (f["max_abs_err"], f["ms"],
+                                                 f["plain_ms"])
+        bounds[name] = (f["bound_ms"], f["bound_by"])
+        library_ms[name] = f["library_ms"]
+
     if "jax" in sys.modules:
         fail("jax was imported")
 
     launches = {**main_path_launches, **serve_launches,
-                "ell_rowsums": ell["launches"]}
+                "ell_rowsums": ell["launches"],
+                **{name: f["launches"] for name, f in new.items()}}
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": SOURCES[name],
          "replaces": REPLACES[name], "launches": launches[name],

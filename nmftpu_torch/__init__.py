@@ -4,10 +4,14 @@ A second package beside ``nmftpu`` (the JAX reference, which it never
 imports). It mirrors ``nmftpu``'s module names and public surface:
 
 * ``nmf`` / ``compute``: dense multiplicative-update NMF under the
-  Frobenius objective, with V stored as float32, bfloat16 or int8;
+  Frobenius and KL objectives, Gauss–Seidel or Jacobi, with V stored as
+  float32, bfloat16 or int8 (int8 x int8 numerators on CUDA kernels,
+  ``kernels/dual_numer.py``), and dense HALS (the column sweep on a CUDA
+  kernel, ``kernels/hals_sweep.py``);
 * ``use_pallas=True`` routes the two MU half-steps to hand-written CUDA
-  kernels for sm_90a (``kernels/dense_mu.py``, ``kernels/quantized.py``,
-  sources in ``csrc/``), built with nvcc at first use;
+  kernels for sm_90a (``kernels/dense_mu.py``, ``kernels/quantized.py``;
+  with int8 V and mu_style="jacobi", the dual-numerator kernel), sources
+  in ``csrc/``, built with nvcc at first use;
 * init strategies copy / random / mean_columns, the convergence loop
   with threshold, stats and best-of-N restarts;
 * sparse V (``nmftpu_torch.sparse`` containers) through ``nmf`` /

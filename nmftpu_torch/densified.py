@@ -14,16 +14,19 @@ contract of ``dot_general(bf16, bf16, preferred_element_type=f32)``:
 the rounded operands are upcast and multiplied in float32, where each
 product of two bf16 values is exact (``linalg.dense._bf16_dot``).
 
-The int8 storage (``densify_quantized`` and the int8 branches) needs the
-int8 x int8 contraction that ROADMAP queue 1 item 2 still owes, and
-raises in ``sparse_ops``.
+The int8 storage (``densify_quantized`` and the int8 branches) is not
+ported yet (ROADMAP queue 1 item 9) and raises in ``sparse_ops``.
 """
 
 from __future__ import annotations
 
 import torch
 
-from nmftpu_torch.linalg.dense import _apply_order, _bf16_dot
+from nmftpu_torch.linalg.dense import (
+    _apply_order,
+    _bf16_dot,
+    _jacobi_kl_scale,
+)
 from nmftpu_torch.sparse_ops import DeviceCOO, _chunks
 
 
@@ -79,7 +82,9 @@ def _kl_numer_h_blocked(Vd, Q, H, eps, block_rows):
 def mu_update_kl_densified(Vd, W, H, eps=1e-9, order="WH", block_rows=4096):
     """KL MU against a dense bf16 V, blockwise over row panels: one pass
     over V per half-step; WH = W_blk H and the ratio V/(WH) live only at
-    panel size. Orders "WH" and "HW"; "jacobi" raises."""
+    panel size. Orders "WH", "HW" and "jacobi" (both numerators from the
+    incoming factors, with the KL scale correction of
+    ``linalg.dense.mu_update_kl``; ΣV is summed in float32)."""
 
     def upd_w(W, H):
         numer = _kl_numer_w_blocked(Vd, W, H, eps, block_rows)
@@ -91,6 +96,15 @@ def mu_update_kl_densified(Vd, W, H, eps=1e-9, order="WH", block_rows=4096):
         w_sum = torch.clamp(torch.sum(W, dim=0), min=eps)[:, None]
         return H * (numer / w_sum)
 
+    if order == "jacobi":
+        numer_w = _kl_numer_w_blocked(Vd, W, H, eps, block_rows)
+        numer_h = _kl_numer_h_blocked(Vd, W, H, eps, block_rows)
+        h_sum = torch.clamp(torch.sum(H, dim=1), min=eps)
+        w_sum = torch.clamp(torch.sum(W, dim=0), min=eps)
+        inv_a = _jacobi_kl_scale(torch.sum(Vd, dtype=torch.float32),
+                                 w_sum, h_sum, eps)
+        return (W * (numer_w / h_sum[None, :]) * inv_a,
+                H * (numer_h / w_sum[:, None]) * inv_a)
     return _apply_order(upd_w, upd_h, W, H, order)
 
 

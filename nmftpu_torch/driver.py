@@ -32,7 +32,7 @@ def _dense_ops(config: NmfConfig) -> LoopOps:
         frobenius=lambda V, aux, W, He, svsq: D.frobenius_error(
             V, W, He, svsq
         ),
-        kl=None,
+        kl=lambda V, aux, W, He: D.kl_error(V, W, He),
         sum_v_sq=lambda V: torch.sum(V * V),
         numel=lambda V: V.shape[0] * V.shape[1],
     )

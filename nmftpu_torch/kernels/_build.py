@@ -45,7 +45,19 @@ _RESERVOIR = [_P] * 4 + [_I] * 3 + [_LL, _I, _P]
 _COUNT = [_P] * 4 + [_I] * 3 + [_LL, _P]
 # (vals, cols, table, out, nseg, w, r, stream)
 _ELL = [_P] * 4 + [_LL, _I, _I, _P]
+# (V, X, out, n, m, r, stream)
+_INT8 = [_P] * 3 + [_I] * 3 + [_P]
+# (x, numer, denom, out, count, eps, stream)
+_MULDIV = [_P] * 4 + [_LL, ctypes.c_double, _P]
 ENTRIES = {
+    "nmftpu_int8_vht": _INT8,
+    "nmftpu_int8_wtv": _INT8,
+    # (V, Wq, Hq, nw, nh, n, m, r, stream)
+    "nmftpu_int8_dual": [_P] * 5 + [_I] * 3 + [_P],
+    # (XHt, G, W, out, n, r, block, stream)
+    "nmftpu_hals_sweep_f32": [_P] * 4 + [_I] * 3 + [_P],
+    "nmftpu_muldiv_f32": _MULDIV,
+    "nmftpu_muldiv_f64": _MULDIV,
     "nmftpu_ell_rowsums_f32": _ELL,
     "nmftpu_ell_rowsums_f64": _ELL,
     "nmftpu_w_update_f32": _MU,

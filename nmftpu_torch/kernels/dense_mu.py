@@ -9,7 +9,9 @@ GEMM accumulates in registers, the block applies the Gram denominator over
 the full rank, and the multiply/divide epilogue runs before the only
 store, so the numerator never reaches device memory. The kernels compute
 in float32 on the CUDA cores; the source states the precision contract and
-what bounds them.
+what bounds them. `fused_multiply_divide`, the elementwise
+X * numer / (denom + eps) on its own, is a third kernel
+(``csrc/muldiv.cu``); as in ``nmftpu``, no update path calls it.
 
 Beside each wrapper is its plain torch twin (``*_plain``), the same
 function written with ``torch.matmul``. A wrapper runs the twin only when
@@ -24,7 +26,8 @@ import torch
 from nmftpu_torch.kernels import _build
 from nmftpu_torch.linalg.dense import _apply_order
 
-LAUNCHES = {"w_update_fused": 0, "h_update_fused": 0}
+LAUNCHES = {"w_update_fused": 0, "h_update_fused": 0,
+            "fused_multiply_divide": 0}
 
 
 def _on_cpu(*tensors) -> bool:
@@ -130,6 +133,48 @@ def h_update_fused(V, W, H, G, eps=1e-9):
     _check_cuda_operands("h_update_fused", V, torch.float32, W, H, G)
     return launch("nmftpu_h_update_f32", "h_update_fused", LAUNCHES,
                   V, None, W, H, G, torch.empty_like(H), eps)
+
+
+# ---------------------------------------------------------------------------
+# Standalone fused multiply-divide (csrc/muldiv.cu); no update path calls
+# it, as in nmftpu
+# ---------------------------------------------------------------------------
+
+_MULDIV_ENTRIES = {torch.float32: "nmftpu_muldiv_f32",
+                   torch.float64: "nmftpu_muldiv_f64"}
+
+
+def fused_multiply_divide_plain(X, numer, denom, eps=1e-9):
+    """X * numer / (denom + eps)."""
+    return X * numer / (denom + eps)
+
+
+def fused_multiply_divide(X, numer, denom, eps=1e-9):
+    """X * numer / (denom + eps) in one elementwise pass, bit-equal to the
+    plain version; three tensors of one shape and dtype (float32 or
+    float64 on CUDA). Returns a new tensor."""
+    if not X.shape == numer.shape == denom.shape:
+        raise ValueError(
+            "fused_multiply_divide: X, numer and denom must have one shape; "
+            f"got {tuple(X.shape)}, {tuple(numer.shape)}, "
+            f"{tuple(denom.shape)}")
+    if _on_cpu(X, numer, denom):
+        return fused_multiply_divide_plain(X, numer, denom, eps)
+    if not X.dtype == numer.dtype == denom.dtype or \
+            X.dtype not in _MULDIV_ENTRIES:
+        raise TypeError(
+            "fused_multiply_divide: X, numer and denom must all be float32 "
+            f"or all float64; got {X.dtype}, {numer.dtype}, {denom.dtype}")
+    for name, t in (("X", X), ("numer", numer), ("denom", denom)):
+        if not t.is_contiguous():
+            raise ValueError(f"fused_multiply_divide: {name} must be "
+                             "contiguous")
+    out = torch.empty_like(X)
+    _build.launch(_MULDIV_ENTRIES[X.dtype], "fused_multiply_divide",
+                  X.device, X.data_ptr(), numer.data_ptr(), denom.data_ptr(),
+                  out.data_ptr(), X.numel(), float(eps))
+    LAUNCHES["fused_multiply_divide"] += 1
+    return out
 
 
 def mu_update_frobenius_fused(V, W, H, eps=1e-9, order="WH"):

@@ -258,7 +258,7 @@ def _check_ported(config: NmfConfig) -> None:
         _unported("objective='beta-divergence' on sparse V", "slice 3")
     if config.v_storage == "int8":
         _unported("v_storage='int8' (densify_quantized)",
-                  "slice 3, with queue 1 item 2's int8 contraction")
+                  "slice 3 item 9")
 
 
 def build_sparse_update(config: NmfConfig):

@@ -116,10 +116,17 @@ def test_kl_update_matches_nmftpu(block_rows, order):
 
 
 def test_kl_update_jacobi_raises():
-    _, _, tV, W, H = _dense_pair()
-    with pytest.raises(NotImplementedError, match="jacobi"):
+    """The jacobi order is ported (the dense bf16 KL route takes it):
+    it matches nmftpu; an order that is none of WH, HW, jacobi raises."""
+    _, jV, tV, W, H = _dense_pair()
+    tW, tH = TD.mu_update_kl_densified(tV, torch.tensor(W), torch.tensor(H),
+                                       order="jacobi")
+    jW, jH = JD.mu_update_kl_densified(jV, jnp.asarray(W), jnp.asarray(H),
+                                       order="jacobi")
+    assert _rel(tW, jW) < RTOL_STEP and _rel(tH, jH) < RTOL_STEP
+    with pytest.raises(NotImplementedError, match="WHW"):
         TD.mu_update_kl_densified(tV, torch.tensor(W), torch.tensor(H),
-                                  order="jacobi")
+                                  order="WHW")
 
 
 @pytest.mark.parametrize("block_rows", BLOCKS)

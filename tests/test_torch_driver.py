@@ -312,13 +312,19 @@ def test_registry_routes(monkeypatch, knobs, route):
 
 
 @pytest.mark.parametrize("knobs,where", [
-    ({"algorithm": "hals"}, "slice 4"),
+    # HALS, dense KL, jacobi and int8 without use_pallas are ported (slice
+    # 4a); these cases keep their ids and now hold what still raises
+    pytest.param({"algorithm": "acls"}, "slice 4b", id="knobs0-slice 4"),
     ({"algorithm": "als"}, "slice 4"),
-    ({"objective": "kl"}, "slice 1"),
+    pytest.param({"objective": "kl", "v_storage": "int8"}, "slice 3 item 9",
+                 id="knobs2-slice 1"),
     ({"objective": "beta", "beta": 0.5}, "slice 4"),
-    ({"mu_style": "jacobi"}, "slice 4"),
+    pytest.param({"mu_style": "jacobi", "objective": "kl",
+                  "v_storage": "int8"}, "slice 3 item 9",
+                 id="knobs4-slice 4"),
     ({"alpha_confidence": 1.0}, "slice 3"),
-    ({"v_storage": "int8"}, "int8 tensor-core"),
+    pytest.param({"v_storage": "int8", "alpha_confidence": 1.0}, "slice 3",
+                 id="knobs6-int8 tensor-core"),
     ({"vectorize_runs": True, "num_runs": 2}, "slice 5"),
 ])
 def test_unported_configurations_raise(knobs, where):

@@ -15,6 +15,8 @@ torch = pytest.importorskip("torch")
 import nmftpu_torch as nt  # noqa: E402
 from nmftpu_torch.kernels import count_above as CA  # noqa: E402
 from nmftpu_torch.kernels import dense_mu as K  # noqa: E402
+from nmftpu_torch.kernels import dual_numer as DN  # noqa: E402
+from nmftpu_torch.kernels import hals_sweep as HS  # noqa: E402
 from nmftpu_torch.kernels import mips_reservoir as MR  # noqa: E402
 from nmftpu_torch.kernels import quantized as Q  # noqa: E402
 from nmftpu_torch.kernels import sparse_ell_kernel as SEK  # noqa: E402
@@ -67,7 +69,8 @@ def test_kernels_match_twins(dev, shape, v_kind):
     torch.cuda.synchronize()
     for got, want in pairs:
         torch.testing.assert_close(got, want, rtol=RTOL, atol=0)
-    assert all(counts[k] == before[k] + 1 for k in counts)
+    assert all(counts[k] == before[k] + 1 for k in counts
+               if k != "fused_multiply_divide")
 
 
 def test_wrappers_reject_what_the_kernels_do_not_take(dev):
@@ -329,3 +332,168 @@ def test_sparse_nmf_on_the_card_matches_the_cpu(dev):
             torch.testing.assert_close(got.H.cpu(), want.H, rtol=rtol,
                                        atol=1e-5)
             np.testing.assert_allclose(got.error, want.error, rtol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# slice 4a: HALS sweep, int8 numerators, fused multiply-divide
+# ---------------------------------------------------------------------------
+
+# float32 sums in another order than the blocked twin, amplified by the
+# clamp and the division by the hessian; nmftpu's bound for its own kernel
+HALS_ATOL = 3e-5
+
+
+@pytest.mark.parametrize("n,r,zero_col", [(1000, 37, 5), (4096, 256, None),
+                                          (2048, 512, None), (50, 5, 0),
+                                          (33, 16, None), (70, 100, 99)])
+@pytest.mark.parametrize("block", [16, 7])
+def test_hals_sweep_matches_twin(dev, n, r, zero_col, block):
+    g = torch.Generator(device=dev).manual_seed(n + r)
+    X = torch.randn(n, r, generator=g, device=dev)
+    A = torch.randn(r, r, generator=g, device=dev)
+    G = A @ A.T + torch.eye(r, device=dev)
+    if zero_col is not None:
+        G[zero_col, :] = 0.0
+        G[:, zero_col] = 0.0
+    W = torch.rand(n, r, generator=g, device=dev)
+    before = HS.LAUNCHES["hals_sweep"]
+    got = HS.hals_sweep(X, G, W, block=block)
+    want = HS.hals_sweep_plain(X, G, W, block=block)
+    torch.cuda.synchronize()
+    assert HS.LAUNCHES["hals_sweep"] == before + 1
+    torch.testing.assert_close(got, want, rtol=0,
+                               atol=HALS_ATOL * float(want.abs().max()))
+    if zero_col is not None:
+        assert torch.equal(got[:, zero_col], W[:, zero_col])
+
+
+@pytest.mark.parametrize("shape", [(1000, 1500, 37), (4096, 4096, 256),
+                                   (3, 5, 2), (130, 67, 70), (257, 4099, 64),
+                                   (5000, 300, 8)])
+def test_int8_numerators_match_twins(dev, shape):
+    """Integer sums: the kernels equal their float64 twins exactly; the
+    dual entry takes both its paths (RB = 1 and 4) across the shapes."""
+    n, m, r = shape
+    g = torch.Generator(device=dev).manual_seed(n + m + r)
+
+    def q(*s):
+        return torch.randint(-127, 128, s, generator=g, device=dev,
+                             dtype=torch.int8)
+
+    Vq, Wq, Hq = q(n, m), q(n, r), q(r, m)
+    before = dict(DN.LAUNCHES)
+    nw, nh = DN.dual_int8(Vq, Wq, Hq)
+    a, b = DN.vht_int8(Vq, Hq), DN.wtv_int8(Vq, Wq)
+    a0, b0 = DN.vht_int8_plain(Vq, Hq), DN.wtv_int8_plain(Vq, Wq)
+    torch.cuda.synchronize()
+    assert all(DN.LAUNCHES[k] == before[k] + 1 for k in DN.LAUNCHES)
+    for got, want in ((nw, a0), (a, a0), (nh, b0), (b, b0)):
+        assert got.dtype == torch.int32 and torch.equal(got, want)
+
+
+def test_dual_numerators_match_the_one_sided_path(dev):
+    V = 5.0 * torch.rand(700, 900, device=dev)
+    W = torch.rand(700, 24, device=dev)
+    H = torch.rand(24, 900, device=dev)
+    Vq, sv = Q.quantize_v(V)
+    got = DN.dual_numerators_int8(Vq, sv, W, H)
+    want = DN.dual_numerators_int8_plain(Vq, sv, W, H)
+    for x, y in zip(got, want):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("shape", [(4096, 4096), (1000, 37), (7,), (3, 1)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("offset", [0, 1])
+def test_fused_multiply_divide_matches_twin(dev, shape, dtype, offset):
+    """Bit for bit, on 16-byte-aligned operands (vector loads) and on
+    operands one element in (the scalar path)."""
+    g = torch.Generator(device=dev).manual_seed(sum(shape))
+    x, y, z = (torch.rand(*shape, generator=g, device=dev,
+                          dtype=dtype).flatten()[offset:]
+               for _ in range(3))
+    before = K.LAUNCHES["fused_multiply_divide"]
+    got = K.fused_multiply_divide(x, y, z)
+    want = K.fused_multiply_divide_plain(x, y, z)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["fused_multiply_divide"] == before + 1
+    assert torch.equal(got, want)
+
+
+def test_slice_4a_wrappers_reject_what_the_kernels_do_not_take(dev):
+    X = torch.randn(64, 20, device=dev)
+    G = torch.eye(20, device=dev)
+    with pytest.raises(ValueError, match="contiguous"):
+        HS.hals_sweep(X, G, X.T.contiguous().T)
+    with pytest.raises(TypeError, match="float32"):
+        HS.hals_sweep(X.double(), G.double(), X.double())
+    with pytest.raises(ValueError, match="different devices"):
+        HS.hals_sweep(X, G.cpu(), X)
+    Vq = torch.zeros(30, 40, dtype=torch.int8, device=dev)
+    with pytest.raises(TypeError, match="int8"):
+        DN.vht_int8(Vq, torch.zeros(4, 40, device=dev))
+    with pytest.raises(ValueError, match="contiguous"):
+        DN.wtv_int8(Vq, torch.zeros(4, 30, dtype=torch.int8,
+                                    device=dev).T)
+    with pytest.raises(TypeError, match="float32"):
+        K.fused_multiply_divide(X, X.double(), X)
+
+
+@pytest.mark.parametrize("knobs", [
+    {"algorithm": "hals"},
+    {"algorithm": "hals", "update_order": "HW", "lambda_w": 0.1,
+     "l1_h": 0.05},
+    {"mu_style": "jacobi"},
+    {"mu_style": "jacobi", "objective": "kullback-leibler"},
+    {"mu_style": "jacobi", "v_storage": "bfloat16"},
+])
+def test_slice_4a_on_the_card_matches_the_cpu(dev, knobs):
+    """nmf on the card (HALS through the sweep kernel at r = 24) and on
+    the CPU (the blocked twin) from the same W0/H0. HALS factors are
+    compared after one iteration only: later a float32 ulp can flip a
+    clamp and move them to another point of (nearly) equal error, so the
+    ten-iteration runs are compared on their errors."""
+    g = torch.Generator().manual_seed(8)
+    V = 5.0 * torch.rand(300, 257, generator=g)
+    W0 = torch.rand(300, 24, generator=g) + 0.05
+    H0 = torch.rand(24, 257, generator=g) + 0.05
+    kw = dict(init="copy", W0=W0, H0=H0, num_iterations=10,
+              check_interval=5, **knobs)
+    before = HS.LAUNCHES["hals_sweep"]
+    got = nt.nmf(V, 24, device="cuda", **kw)
+    want = nt.nmf(V, 24, device="cpu", **kw)
+    rtol = 2e-2 if knobs.get("v_storage") == "bfloat16" else 1e-3
+    if knobs.get("algorithm") == "hals":
+        assert HS.LAUNCHES["hals_sweep"] - before == 20
+        np.testing.assert_allclose(got.error, want.error, rtol=1e-3)
+        kw["num_iterations"] = 1
+        got = nt.nmf(V, 24, device="cuda", **kw)
+        want = nt.nmf(V, 24, device="cpu", **kw)
+        rtol = 1e-4
+    torch.testing.assert_close(got.W.cpu(), want.W, rtol=rtol, atol=1e-5)
+    torch.testing.assert_close(got.H.cpu(), want.H, rtol=rtol, atol=1e-5)
+    np.testing.assert_allclose(got.error, want.error, rtol=1e-4)
+
+
+@pytest.mark.parametrize("knobs,entries", [
+    ({}, ("vht_int8", "wtv_int8")),
+    ({"mu_style": "jacobi"}, ("vht_int8", "wtv_int8")),
+    ({"mu_style": "jacobi", "use_pallas": True}, ("dual_numerators_int8",)),
+])
+def test_int8_nmf_on_the_card_matches_the_cpu(dev, knobs, entries):
+    """int8 V through the int8 kernels on the card and through their
+    twins on the CPU: the same integers, so the errors agree to float32
+    roundoff of the rest of the step (factors may differ by a
+    requantization step, so they are compared through the errors)."""
+    g = torch.Generator().manual_seed(9)
+    V = 5.0 * torch.rand(300, 257, generator=g)
+    W0 = torch.rand(300, 24, generator=g) + 0.05
+    H0 = torch.rand(24, 257, generator=g) + 0.05
+    kw = dict(init="copy", W0=W0, H0=H0, num_iterations=10,
+              check_interval=2, v_storage="int8", **knobs)
+    before = dict(DN.LAUNCHES)
+    got = nt.nmf(V, 24, device="cuda", **kw)
+    want = nt.nmf(V, 24, device="cpu", **kw)
+    assert all(DN.LAUNCHES[k] - before[k] == 10 for k in entries)
+    np.testing.assert_allclose(got.stats.errors, want.stats.errors,
+                               rtol=1e-3)

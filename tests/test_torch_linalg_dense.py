@@ -60,9 +60,11 @@ def test_full_iteration_matches(order, dtype):
 
 
 def test_unported_order_raises():
+    """WH, HW and jacobi are the orders; anything else raises (jacobi is
+    held against nmftpu in test_torch_jacobi.py)."""
     V, W, H = (torch.tensor(a) for a in _inputs((8, 9, 2), np.float32))
     with pytest.raises(NotImplementedError):
-        TD.mu_update_frobenius(V, W, H, order="jacobi")
+        TD.mu_update_frobenius(V, W, H, order="WHW")
 
 
 @pytest.mark.parametrize("order", ["WH", "HW"])
