@@ -74,12 +74,12 @@ CHECK_INTERVAL = 10
 
 def kernel_class(name: str) -> str:
     if any(k in name for k in ("update_kernel", "hals_sweep_kernel",
-                               "dual_kernel", "gemm_int8_kernel",
-                               "muldiv_kernel")):
+                               "int8_numer_kernel", "muldiv_kernel")):
         return "port_kernels"
     if "ell_rowsums_kernel" in name:
         return "ell_rowsums"
-    if "reservoir_kernel" in name:
+    # the scans (float32 and tensor-core) and the merge of a split walk
+    if "reservoir_" in name:
         return "reservoir_scan"
     if "count_kernel" in name:
         return "count_above"

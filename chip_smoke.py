@@ -19,9 +19,11 @@ the int8 x int8 numerator kernels and the HALS sweep against their twins
 rank 512 and the ML-20M shape (dense float32 V, rank 64) with HALS
 through the sweep kernel, and run Jacobi MU (Frobenius and KL; float32,
 bfloat16 and int8 V, int8 with the dual-numerator kernel) and int8 x int8
-Gauss-Seidel MU against their Gauss-Seidel and kernel counterparts. Every
-phase prints its results; any failure exits non-zero. Without a CUDA
-device it exits 1 and runs nothing.
+Gauss-Seidel MU against their Gauss-Seidel and kernel counterparts. After
+the build, cuobjdump -sass counts each kernel's tensor-core instructions
+and the script fails unless the int8 numerator kernels and the bf16 and
+int8 reservoir scans have some. Every phase prints its results; any
+failure exits non-zero. Without a CUDA device it exits 1 and runs nothing.
 
 The line before the last is a JSON object {"kernels": [...]}; the last
 line is {"ok": true, "device": {...}}.
@@ -30,6 +32,8 @@ line is {"ok": true, "device": {...}}.
 from __future__ import annotations
 
 import json
+import re
+import shutil
 import subprocess
 import sys
 import time
@@ -137,6 +141,13 @@ DENSE = ("w_update_fused", "h_update_fused", "w_update_fused_q",
          "h_update_fused_q")
 
 
+# the kernels that must run on the tensor cores: (symbol fragment, how
+# many instantiations); cuobjdump -sass must show wgmma (IGMMA/HGMMA) or
+# mma.sync (IMMA/HMMA) instructions in each
+TENSOR_CORE_KERNELS = (("int8_numer_kernel", 3), ("reservoir_tc_kernel", 2))
+TC_OPCODE = re.compile(r"\b(IGMMA|HGMMA|IMMA|HMMA)\b")
+
+
 def say(phase: str, **fields) -> None:
     print(f"[{phase}] " + "  ".join(f"{k}={v}" for k, v in fields.items()),
           flush=True)
@@ -154,6 +165,49 @@ def nvidia_smi_line() -> str:
         capture_output=True, text=True, check=True,
     ).stdout.strip().splitlines()
     return out[0]
+
+
+def cuda_tool(name: str) -> str:
+    for path in (shutil.which(name), f"/usr/local/cuda/bin/{name}"):
+        if path and Path(path).exists():
+            return path
+    fail(f"{name} not found")
+
+
+def sass_tensor_core_counts(lib_path) -> dict:
+    """{kernel symbol (demangled): its count of tensor-core instructions}
+    for every kernel in the built library, from cuobjdump -sass."""
+    sass = subprocess.run([cuda_tool("cuobjdump"), "-sass", str(lib_path)],
+                          capture_output=True, text=True, check=True).stdout
+    counts, name = {}, None
+    for line in sass.splitlines():
+        head = re.match(r"\s*Function : (\S+)", line)
+        if head:
+            name = head.group(1)
+            counts[name] = 0
+        elif name is not None:
+            counts[name] += len(TC_OPCODE.findall(line))
+    filt = shutil.which("c++filt") or shutil.which("cu++filt")
+    if filt and counts:
+        names = subprocess.run([filt], input="\n".join(counts),
+                               capture_output=True, text=True,
+                               check=True).stdout.splitlines()
+        counts = dict(zip(names, counts.values()))
+    return counts
+
+
+def check_tensor_cores(lib_path) -> None:
+    """Phase 2's SASS check: print each kernel's tensor-core instruction
+    count; fail unless every instantiation of TENSOR_CORE_KERNELS has
+    some."""
+    counts = sass_tensor_core_counts(lib_path)
+    for name, c in sorted(counts.items()):
+        say("2 sass", kernel=name, tensor_core_instructions=c)
+    for frag, want in TENSOR_CORE_KERNELS:
+        found = {k: c for k, c in counts.items() if frag in k}
+        if len(found) != want or min(found.values(), default=0) < 1:
+            fail(f"{frag}: expected {want} kernels with tensor-core "
+                 f"instructions, found {found}")
 
 
 def rel_err(a, b) -> tuple[float, float]:
@@ -262,7 +316,9 @@ def check_reservoir(MR, label, Wq, H, m, slots):
     SCAN_RTOL; where the ids differ, the two competing items' float64
     scores (at the kernel's operand values) within SCAN_RTOL. Returns
     (max |score difference|, candidate scores of the twin)."""
+    before = dict(MR.VARIANT_LAUNCHES)
     s, i = MR.reservoir_scan(Wq, H, m, slots)
+    ran = [k for k in before if MR.VARIANT_LAUNCHES[k] > before[k]]
     s0, i0 = MR.reservoir_scan_plain(Wq, H, m, slots)
     torch.cuda.synchronize()
     fin = torch.isfinite(s0)
@@ -277,7 +333,7 @@ def check_reservoir(MR, label, Wq, H, m, slots):
     got = (qd * H[:, i[q, c].long()].double().T).sum(1)
     want = (qd * H[:, i0[q, c].long()].double().T).sum(1)
     far = int(((got - want).abs() > SCAN_RTOL * want.abs()).sum())
-    say("7 reservoir_scan", case=label, max_abs=f"{max_abs:.3e}",
+    say("7 reservoir_scan", case=label, kernels=ran, max_abs=f"{max_abs:.3e}",
         max_rel=f"{rel:.3e}", rtol=SCAN_RTOL,
         slots_with_other_id_at_near_tie=len(q) - far,
         slots_with_other_id_beyond_tol=far)
@@ -693,16 +749,16 @@ def check_hals(HS, label, n, r, gen, dev, zero_col=None) -> float:
     return diff
 
 
-def check_int8(DN, label, Vq, Wq, Hq) -> None:
+def check_int8(DN, label, Vq, WqT, Hq) -> None:
     """Kernel #6 (dual entry, both outputs) and the one-sided entries
     against the exact float64 products: equal, and every sum inside the
     int32 range, so that "equal" needs no wrap-around."""
-    exact_w, exact_h = DN.vht_exact(Vq, Hq), DN.wtv_exact(Vq, Wq)
+    exact_w, exact_h = DN.vht_exact(Vq, Hq), DN.wtv_exact(Vq, WqT)
     peak = max(float(exact_w.abs().max()), float(exact_h.abs().max()))
     want_w, want_h = DN._wrap_int32(exact_w), DN._wrap_int32(exact_h)
     del exact_w, exact_h
-    nw, nh = DN.dual_int8(Vq, Wq, Hq)
-    vht, wtv = DN.vht_int8(Vq, Hq), DN.wtv_int8(Vq, Wq)
+    nw, nh = DN.dual_int8(Vq, WqT, Hq)
+    vht, wtv = DN.vht_int8(Vq, Hq), DN.wtv_int8(Vq, WqT)
     torch.cuda.synchronize()
     same = {"dual_nw": torch.equal(nw, want_w),
             "dual_nh": torch.equal(nh, want_h),
@@ -759,9 +815,39 @@ def slice4a_phases(nt, card, dev, V, W0, H0, Vq, scale, plain_ms) -> dict:
             ("ragged 1000x1500 r=37", ragged,
              torch.rand(1000, 37, generator=gen, device=dev),
              torch.rand(37, 1500, generator=gen, device=dev))):
-        check_int8(DN, label, Vqc, D.quantize_sym(Wc)[1],
+        check_int8(DN, label, Vqc, D.quantize_sym_t(Wc)[1],
                    D.quantize_sym(Hc)[1])
+    # #6 at the ML-20M shape, where reading V (3.70 GB) once pays: the
+    # kernels, the float64 twins, and torch._int_mm for V Hqᵀ (Wqᵀ V's
+    # contraction, n = 138,493, is not a multiple of 8, which _int_mm needs)
+    WqT5, Hq5 = D.quantize_sym_t(W5)[1], D.quantize_sym(H5)[1]
     del W5, H5, ragged
+    ml_ms = abba_ms({
+        "dual_numerators_int8": lambda: DN.dual_int8(Vq5, WqT5, Hq5),
+        "dual_numerators_int8_plain": lambda: DN.dual_int8_plain(
+            Vq5, WqT5, Hq5),
+        "vht_int8": lambda: DN.vht_int8(Vq5, Hq5),
+        "vht_int8_plain": lambda: DN.vht_int8_plain(Vq5, Hq5),
+        "vht_int8_library": lambda: torch._int_mm(Vq5, Hq5.t()),
+        "wtv_int8": lambda: DN.wtv_int8(Vq5, WqT5),
+        "wtv_int8_plain": lambda: DN.wtv_int8_plain(Vq5, WqT5),
+    }, iters=3)
+    ml_bounds = {
+        "dual_numerators_int8": bound(4 * n5 * m5 * r5,
+                                      n5 * m5 + 5 * r5 * (n5 + m5),
+                                      INT8_PEAK),
+        "vht_int8": bound(2 * n5 * m5 * r5, n5 * m5 + r5 * m5 + 4 * n5 * r5,
+                          INT8_PEAK),
+        "wtv_int8": bound(2 * n5 * m5 * r5, n5 * m5 + n5 * r5 + 4 * r5 * m5,
+                          INT8_PEAK),
+    }
+    for name, (b_ms, b_by) in ml_bounds.items():
+        say("13 kernel timing", kernel=name, shape=f"{n5}x{m5} r={r5}",
+            ms=f"{ml_ms[name]:.4f}", plain_ms=f"{ml_ms[name + '_plain']:.4f}",
+            library_ms=(f"{ml_ms['vht_int8_library']:.4f}"
+                        if name == "vht_int8" else None),
+            bound_ms=f"{b_ms:.4f}", bound_by=b_by, card=card)
+    del WqT5, Hq5
     for label, shape in (("4096x4096", (4096, 4096)),
                          ("ragged 1000x37", (1000, 37))):
         x, y, z = (torch.rand(*shape, generator=gen, device=dev)
@@ -773,29 +859,30 @@ def slice4a_phases(nt, card, dev, V, W0, H0, Vq, scale, plain_ms) -> dict:
             fail(f"fused_multiply_divide {label}: kernel differs from its "
                  "twin")
     # timing at the main path's 4096^2 / r = 256 shapes
-    Wq, Hq = D.quantize_sym(W0)[1], D.quantize_sym(H0)[1]
+    WqT, Hq = D.quantize_sym_t(W0)[1], D.quantize_sym(H0)[1]
     XHt, G = V @ H0.T, H0 @ H0.T
     x, y, z = (torch.rand(n, m, generator=gen, device=dev) for _ in range(3))
     # the library yardstick for #6: cuBLASLt's int8 GEMM through
     # torch._int_mm, in the operand layouts it takes (B column-major),
     # which costs Vq's transpose, made here once
-    VqT, WqT = Vq.t().contiguous(), Wq.t().contiguous()
+    VqT = Vq.t().contiguous()
     lib_w, lib_ht = torch._int_mm(Vq, Hq.t()), torch._int_mm(VqT, WqT.t())
-    nw, nh = DN.dual_int8(Vq, Wq, Hq)
+    nw, nh = DN.dual_int8(Vq, WqT, Hq)
     lib_same = bool(torch.equal(lib_w, nw) and torch.equal(lib_ht.t(), nh))
     del lib_w, lib_ht, nw, nh
     t_ms = abba_ms({
         "hals_sweep": lambda: HS.hals_sweep(XHt, G, W0),
         "hals_sweep_plain": lambda: HS.hals_sweep_plain(XHt, G, W0),
-        "dual_numerators_int8": lambda: DN.dual_int8(Vq, Wq, Hq),
-        "dual_numerators_int8_plain": lambda: DN.dual_int8_plain(Vq, Wq, Hq),
+        "dual_numerators_int8": lambda: DN.dual_int8(Vq, WqT, Hq),
+        "dual_numerators_int8_plain": lambda: DN.dual_int8_plain(Vq, WqT,
+                                                                 Hq),
         "dual_numerators_int8_library": lambda: (
             torch._int_mm(Vq, Hq.t()), torch._int_mm(VqT, WqT.t())),
         "vht_int8": lambda: DN.vht_int8(Vq, Hq),
         "vht_int8_plain": lambda: DN.vht_int8_plain(Vq, Hq),
         "vht_int8_library": lambda: torch._int_mm(Vq, Hq.t()),
-        "wtv_int8": lambda: DN.wtv_int8(Vq, Wq),
-        "wtv_int8_plain": lambda: DN.wtv_int8_plain(Vq, Wq),
+        "wtv_int8": lambda: DN.wtv_int8(Vq, WqT),
+        "wtv_int8_plain": lambda: DN.wtv_int8_plain(Vq, WqT),
         "wtv_int8_library": lambda: torch._int_mm(VqT, WqT.t()),
         "fused_multiply_divide": lambda: K.fused_multiply_divide(x, y, z),
         "fused_multiply_divide_plain": lambda: K.fused_multiply_divide_plain(
@@ -1037,6 +1124,7 @@ def main() -> None:
              .read_text().splitlines() if "registers" in ln]
     say("2 build", library=lib_path.name, seconds=f"{secs:.2f}",
         ptxas=" | ".join(ptxas))
+    check_tensor_cores(lib_path)
 
     # -- 3. each kernel against its plain twin -------------------------------
     max_abs = dict.fromkeys(REPLACES, 0.0)
@@ -1295,7 +1383,12 @@ def main() -> None:
     torch.cuda.empty_cache()
     Wq = W8[torch.as_tensor(batches[512], device=dev)]
     Wk = (Wq * hs).contiguous()
+    before = dict(MR.VARIANT_LAUNCHES)
     cand = MR.reservoir_scan(Wk, Hq, SERVE_ITEMS, 4096)[0]
+    ran = {k: MR.VARIANT_LAUNCHES[k] - before[k] for k in before}
+    say("9 variant", reservoir_scan=ran)
+    if ran != {"tc": 1, "tc_unaligned": 0, "f32": 0, "merge": 0}:
+        fail(f"phase 9 does not time the aligned tensor-core scan: {ran}")
     theta = cand.topk(SERVE_K, dim=1).values[:, -1].contiguous()
     t_ms = abba_ms({
         "reservoir_scan": lambda: MR.reservoir_scan(Wk, Hq, SERVE_ITEMS,

@@ -41,19 +41,22 @@ _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _MU = [_P] * 6 + [_I] * 3 + [ctypes.c_float, _P]
 # (Wq, H, out_s, out_i, b, r, m, ldh, slots, stream)
 _RESERVOIR = [_P] * 4 + [_I] * 3 + [_LL, _I, _P]
+# ... and (tiles_per_split, splits, g) before the stream; g (and gv, gw
+# of the int8 entries) is a `copy_alignment`
+_RESERVOIR_TC = [_P] * 4 + [_I] * 3 + [_LL] + [_I] * 4 + [_P]
 # (Wq, H, theta, counts, b, r, m, ldh, stream)
 _COUNT = [_P] * 4 + [_I] * 3 + [_LL, _P]
 # (vals, cols, table, out, nseg, w, r, stream)
 _ELL = [_P] * 4 + [_LL, _I, _I, _P]
-# (V, X, out, n, m, r, stream)
-_INT8 = [_P] * 3 + [_I] * 3 + [_P]
+# (V, X, out, n, m, r, gv, gw, stream)
+_INT8 = [_P] * 3 + [_I] * 5 + [_P]
 # (x, numer, denom, out, count, eps, stream)
 _MULDIV = [_P] * 4 + [_LL, ctypes.c_double, _P]
 ENTRIES = {
     "nmftpu_int8_vht": _INT8,
     "nmftpu_int8_wtv": _INT8,
-    # (V, Wq, Hq, nw, nh, n, m, r, stream)
-    "nmftpu_int8_dual": [_P] * 5 + [_I] * 3 + [_P],
+    # (V, WqT, Hq, nw, nh, n, m, r, gv, gw, stream)
+    "nmftpu_int8_dual": [_P] * 5 + [_I] * 5 + [_P],
     # (XHt, G, W, out, n, r, block, stream)
     "nmftpu_hals_sweep_f32": [_P] * 4 + [_I] * 3 + [_P],
     "nmftpu_muldiv_f32": _MULDIV,
@@ -65,8 +68,10 @@ ENTRIES = {
     "nmftpu_w_update_i8": _MU,
     "nmftpu_h_update_i8": _MU,
     "nmftpu_reservoir_scan_f32": _RESERVOIR,
-    "nmftpu_reservoir_scan_bf16": _RESERVOIR,
-    "nmftpu_reservoir_scan_i8": _RESERVOIR,
+    "nmftpu_reservoir_scan_bf16": _RESERVOIR_TC,
+    "nmftpu_reservoir_scan_i8": _RESERVOIR_TC,
+    # (part_s, part_i, out_s, out_i, splits, b, slots, stream)
+    "nmftpu_reservoir_merge": [_P] * 4 + [_I] * 3 + [_P],
     "nmftpu_count_above_bf16": _COUNT,
     "nmftpu_count_above_i8": _COUNT,
 }
@@ -155,6 +160,17 @@ def load() -> ctypes.CDLL:
     lib.nmftpu_error_string.argtypes = [ctypes.c_int]
     lib.nmftpu_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def copy_alignment(*byte_offsets) -> int:
+    """The widest copy, 16, 8, 4 or 1 bytes, to which every offset (an
+    operand's address, its row stride in bytes, a tile's step) is
+    aligned: the tensor-core kernels stage rows with cp.async copies of
+    that size, so any row stride takes the same kernel."""
+    for g in (16, 8, 4):
+        if all(x % g == 0 for x in byte_offsets):
+            return g
+    return 1
 
 
 def check(rc: int, what: str) -> None:

@@ -196,6 +196,19 @@ def quantize_sym(X, clip=127.0):
     return scale.to(torch.float32), Xq
 
 
+def quantize_sym_t(X, clip=127.0):
+    """`quantize_sym` of X (n, r) with Xq emitted transposed, (r, n) and
+    contiguous, as the int8 kernels take the W side: the same scale and
+    the same integers bit for bit (the same elementwise operations, with
+    the quotient written in the transposed layout)."""
+    scale = torch.clamp(X.abs().amax() / clip, min=1e-30)
+    Xt = torch.empty((X.shape[1], X.shape[0]), dtype=X.dtype,
+                     device=X.device)
+    torch.div(X.T, scale, out=Xt)
+    Xq = torch.clamp(torch.round(Xt), -clip, clip).to(torch.int8)
+    return scale.to(torch.float32), Xq
+
+
 def _rhs_vht_int8(Vq, scale_v, X):
     """V·Xᵀ (n, r) with int8 V: X requantized per call, int8 × int8 →
     int32 (``kernels.dual_numer.vht_int8``), both scales after."""
@@ -209,8 +222,8 @@ def _rhs_wtv_int8(Vq, scale_v, X):
     """Xᵀ·V (r, m) with int8 V; X (n, r) requantized per call."""
     from nmftpu_torch.kernels import dual_numer as DN
 
-    s_x, Xq = quantize_sym(X)
-    return DN.wtv_int8(Vq, Xq).to(torch.float32) * (scale_v * s_x)
+    s_x, XqT = quantize_sym_t(X)
+    return DN.wtv_int8(Vq, XqT).to(torch.float32) * (scale_v * s_x)
 
 
 def mu_update_frobenius_int8x8(Vq, scale_v, W, H, eps=1e-9, order="WH",

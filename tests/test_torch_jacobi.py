@@ -9,6 +9,7 @@ sums of at most a few hundred terms in two orders); integer contractions
 exactly (atol 0)."""
 
 import os
+import re
 
 import numpy as np
 import pytest
@@ -169,6 +170,19 @@ def test_quantize_sym_bit_equal(name, dtype):
     assert st.numpy() == np.asarray(sj)
 
 
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("name", list(_quant_cases()))
+def test_quantize_sym_t_is_the_transposed_quantize_sym(name, dtype):
+    """The int8 kernels take Wqᵀ (r, n) contiguous: quantize_sym_t emits it
+    directly, with quantize_sym's scale and integers bit for bit."""
+    X = torch.tensor(_quant_cases()[name].astype(dtype))
+    s, Xq = TD.quantize_sym(X)
+    st, XqT = TD.quantize_sym_t(X)
+    assert XqT.is_contiguous() and XqT.shape == (X.shape[1], X.shape[0])
+    assert XqT.dtype == torch.int8 and torch.equal(XqT, Xq.T)
+    assert torch.equal(st, s)
+
+
 def _int8_problem(shape, seed):
     V, W, H = _inputs(shape, np.float32, seed)
     sv, Vq = JD.quantize_sym(jnp.asarray(V))
@@ -243,13 +257,39 @@ def test_int8_wrappers_on_cpu_run_the_twins_and_count_nothing():
     _, (Vqt, _), W, H = _int8_problem((40, 30, 4), seed=11)
     Wq, Hq = TD.quantize_sym(torch.tensor(W))[1], \
         TD.quantize_sym(torch.tensor(H))[1]
+    WqT = TD.quantize_sym_t(torch.tensor(W))[1]
     before = dict(DN.LAUNCHES)
     assert torch.equal(DN.vht_int8(Vqt, Hq), DN.vht_int8_plain(Vqt, Hq))
-    assert torch.equal(DN.wtv_int8(Vqt, Wq), DN.wtv_int8_plain(Vqt, Wq))
-    for a, b in zip(DN.dual_int8(Vqt, Wq, Hq),
-                    DN.dual_int8_plain(Vqt, Wq, Hq)):
+    assert torch.equal(DN.wtv_int8(Vqt, WqT), DN.wtv_int8_plain(Vqt, WqT))
+    assert torch.equal(DN.wtv_int8(Vqt, WqT),
+                       (Wq.double().T @ Vqt.double()).to(torch.int32))
+    for a, b in zip(DN.dual_int8(Vqt, WqT, Hq),
+                    DN.dual_int8_plain(Vqt, WqT, Hq)):
         assert torch.equal(a, b)
     assert DN.LAUNCHES == before
+
+
+@pytest.mark.parametrize("call", ["wtv_int8", "dual_int8"])
+def test_int8_entries_take_the_transposed_factor(call):
+    """The W side comes as Wqᵀ (r, n): Wq (n, r) is refused when n != r."""
+    _, (Vqt, _), W, H = _int8_problem((40, 30, 4), seed=13)
+    Wq, Hq = TD.quantize_sym(torch.tensor(W))[1], \
+        TD.quantize_sym(torch.tensor(H))[1]
+    args = (Vqt, Wq) if call == "wtv_int8" else (Vqt, Wq, Hq)
+    with pytest.raises(ValueError, match="expected Vq"):
+        getattr(DN, call)(*args)
+
+
+def test_int8_kernels_keep_int32_wraparound():
+    """The tensor-core kernels sum with wgmma's .s32.s8.s8 and no
+    .satfinite, so their int32 sums wrap like XLA's and the twins'."""
+    from nmftpu_torch.kernels import _build
+
+    src = (_build.CSRC / "dual_numer.cu").read_text() + \
+        (_build.CSRC / "hopper_tc.cuh").read_text()
+    asm = re.findall(r'"[^"\n]*"', src)      # the string literals
+    assert any(".s32.s8.s8" in a for a in asm)
+    assert not any("satfinite" in a for a in asm)
 
 
 @pytest.mark.parametrize("bad", ["dtype", "strided", "shape"])

@@ -13,6 +13,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 import nmftpu_torch as nt  # noqa: E402
+from nmftpu_torch.kernels import _build  # noqa: E402
 from nmftpu_torch.kernels import count_above as CA  # noqa: E402
 from nmftpu_torch.kernels import dense_mu as K  # noqa: E402
 from nmftpu_torch.kernels import dual_numer as DN  # noqa: E402
@@ -110,6 +111,13 @@ def test_fused_paths_match_the_plain_path(dev, knobs):
 SCAN_RTOL = 1e-5
 SCAN_SHAPES = [(37, 37, 10007, 1024), (70, 8, 5000, 128), (1, 3, 100, 64),
                (130, 256, 70000, 4096)]
+# the tensor-core scan's edges: unaligned m and r = 37, R not a multiple
+# of the 64-slot tile, b not a multiple of the 128-query block, a walk
+# split into ranges and merged, R = 16384 (the escalation's), r = 288
+# (MAX_RANK_TC)
+TC_SCAN_SHAPES = [(37, 37, 10007, 1000), (200, 37, 10001, 100),
+                  (129, 64, 100003, 16384), (300, 256, 1 << 18, 4096),
+                  (5, 288, 20000, 192), (130, 16, 1 << 20, 64)]
 
 
 def _table(dev, r, m, dtype, seed=2):
@@ -141,6 +149,53 @@ def test_reservoir_scan_matches_twin(dev, shape, dtype):
     got = (qd * H[:, i[q, c].long()].double().T).sum(1)
     want = (qd * H[:, i0[q, c].long()].double().T).sum(1)
     assert bool(((got - want).abs() <= SCAN_RTOL * want.abs()).all())
+
+
+def _same_candidates(Wq, H, s, i, s0, i0):
+    torch.testing.assert_close(s, s0, rtol=SCAN_RTOL, atol=0)
+    q, c = ((i != i0) & torch.isfinite(s0)).nonzero(as_tuple=True)
+    qd = Wq.to(torch.bfloat16).double()[q]
+    got = (qd * H[:, i[q, c].long()].double().T).sum(1)
+    want = (qd * H[:, i0[q, c].long()].double().T).sum(1)
+    assert bool(((got - want).abs() <= SCAN_RTOL * want.abs()).all())
+
+
+@pytest.mark.parametrize("shape", TC_SCAN_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.int8])
+def test_tensor_core_scan_edges_match_twin(dev, shape, dtype):
+    """The tensor-core entries at their edges, with the variant that ran:
+    16-byte copies only where the table's rows and tiles are 16-byte
+    aligned, a merge exactly when the plan splits the walk."""
+    b, r, m, slots = shape
+    g = torch.Generator(device=dev).manual_seed(b + r + m)
+    Wq = torch.rand(b, r, generator=g, device=dev)
+    H = _table(dev, r, m, dtype, seed=r)
+    before = dict(MR.VARIANT_LAUNCHES)
+    s, i = MR.reservoir_scan(Wq, H, m, slots)
+    s0, i0 = MR.reservoir_scan_plain(Wq, H, m, slots)
+    torch.cuda.synchronize()
+    ran = {k: MR.VARIANT_LAUNCHES[k] - before[k] for k in before}
+    es = H.element_size()
+    aligned = _build.copy_alignment(H.data_ptr(), m * es,
+                                    slots * es) == 16
+    splits = MR.tc_plan(b, slots, m)[1]
+    assert ran == {"tc": int(aligned), "tc_unaligned": int(not aligned),
+                   "f32": 0, "merge": int(splits > 1)}
+    _same_candidates(Wq, H, s, i, s0, i0)
+
+
+def test_tensor_core_scan_keeps_the_lower_id_on_ties(dev):
+    """Equal scores across tiles and across the ranges of a split walk:
+    the kernel keeps the twin's ids exactly (ties need no tolerance)."""
+    b, r, m, slots = 3, 16, 64 * 40, 64
+    H = torch.zeros(r, m, device=dev, dtype=torch.int8)
+    H[0, ::3] = 5                      # every third item scores the same
+    H[1, 7::64] = 2                    # column 7's items score lower
+    Wq = torch.ones(b, r, device=dev)
+    assert MR.tc_plan(b, slots, m)[1] > 1
+    s, i = MR.reservoir_scan(Wq, H, m, slots)
+    s0, i0 = MR.reservoir_scan_plain(Wq, H, m, slots)
+    assert torch.equal(s, s0) and torch.equal(i, i0)
 
 
 @pytest.mark.parametrize("shape", SCAN_SHAPES)
@@ -380,15 +435,55 @@ def test_int8_numerators_match_twins(dev, shape):
         return torch.randint(-127, 128, s, generator=g, device=dev,
                              dtype=torch.int8)
 
-    Vq, Wq, Hq = q(n, m), q(n, r), q(r, m)
+    Vq, WqT, Hq = q(n, m), q(r, n), q(r, m)
     before = dict(DN.LAUNCHES)
-    nw, nh = DN.dual_int8(Vq, Wq, Hq)
-    a, b = DN.vht_int8(Vq, Hq), DN.wtv_int8(Vq, Wq)
-    a0, b0 = DN.vht_int8_plain(Vq, Hq), DN.wtv_int8_plain(Vq, Wq)
+    nw, nh = DN.dual_int8(Vq, WqT, Hq)
+    a, b = DN.vht_int8(Vq, Hq), DN.wtv_int8(Vq, WqT)
+    a0, b0 = DN.vht_int8_plain(Vq, Hq), DN.wtv_int8_plain(Vq, WqT)
     torch.cuda.synchronize()
     assert all(DN.LAUNCHES[k] == before[k] + 1 for k in DN.LAUNCHES)
     for got, want in ((nw, a0), (a, a0), (nh, b0), (b, b0)):
         assert got.dtype == torch.int32 and torch.equal(got, want)
+
+
+@pytest.mark.parametrize("shape", [(40, 26744, 64), (1000, 1500, 37),
+                                   (600, 26743, 70), (513, 4099, 256)])
+def test_int8_numerators_at_unaligned_strides(dev, shape):
+    """Row strides of 8 mod 16 bytes (ML-20M's m = 26,744), 4 mod 16
+    (1,500), odd (26,743) and 3 mod 16 (4,099; Wqᵀ's stride n = 513 is
+    odd too): the kernels' narrower copies, exact at atol 0."""
+    n, m, r = shape
+    g = torch.Generator(device=dev).manual_seed(n + m)
+    Vq, WqT, Hq = (torch.randint(-127, 128, s, generator=g, device=dev,
+                                 dtype=torch.int8)
+                   for s in ((n, m), (r, n), (r, m)))
+    nw, nh = DN.dual_int8(Vq, WqT, Hq)
+    a, b = DN.vht_int8(Vq, Hq), DN.wtv_int8(Vq, WqT)
+    a0, b0 = DN.vht_int8_plain(Vq, Hq), DN.wtv_int8_plain(Vq, WqT)
+    torch.cuda.synchronize()
+    for got, want in ((nw, a0), (a, a0), (nh, b0), (b, b0)):
+        assert torch.equal(got, want)
+
+
+def test_int8_numerators_wrap_like_xla(dev):
+    """A contraction of 140,000 > 133,143 products of 127 * 127 leaves the
+    int32 range: the kernels wrap modulo 2**32 as their twins (and XLA)
+    do, for the dual entry and both one-sided ones."""
+    n, m, r = 140_000, 96, 8
+    Vq = torch.full((n, m), 127, dtype=torch.int8, device=dev)
+    Vq[:, 1::2] = -127
+    WqT = torch.full((r, n), 127, dtype=torch.int8, device=dev)
+    Hq = torch.full((r, m), 127, dtype=torch.int8, device=dev)
+    Vl = torch.full((8, n), 127, dtype=torch.int8, device=dev)
+    Hl = torch.full((r, n), 127, dtype=torch.int8, device=dev)
+    nw, nh = DN.dual_int8(Vq, WqT, Hq)
+    want_h = DN.wtv_int8_plain(Vq, WqT)
+    assert int(DN.wtv_exact(Vq, WqT).abs().max()) >= 2**31
+    assert torch.equal(nh, want_h) and torch.equal(DN.wtv_int8(Vq, WqT),
+                                                   want_h)
+    assert torch.equal(DN.vht_int8(Vl, Hl), DN.vht_int8_plain(Vl, Hl))
+    assert int(DN.vht_exact(Vl, Hl).abs().max()) >= 2**31
+    assert torch.equal(nw, DN.vht_int8_plain(Vq, Hq))
 
 
 def test_dual_numerators_match_the_one_sided_path(dev):
@@ -433,7 +528,7 @@ def test_slice_4a_wrappers_reject_what_the_kernels_do_not_take(dev):
     with pytest.raises(TypeError, match="int8"):
         DN.vht_int8(Vq, torch.zeros(4, 40, device=dev))
     with pytest.raises(ValueError, match="contiguous"):
-        DN.wtv_int8(Vq, torch.zeros(4, 30, dtype=torch.int8,
+        DN.wtv_int8(Vq, torch.zeros(30, 4, dtype=torch.int8,
                                     device=dev).T)
     with pytest.raises(TypeError, match="float32"):
         K.fused_multiply_divide(X, X.double(), X)

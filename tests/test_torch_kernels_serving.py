@@ -134,6 +134,103 @@ def test_reservoir_twin_tie_keeps_the_lower_id():
     assert s.tolist() == [[1.0, 0.5, 1.0, 0.0]]
 
 
+def _split_scan(Wq, H, m, slots, cuts):
+    """The twin over the tile ranges [cuts[i], cuts[i + 1]), merged."""
+    parts = [MR.reservoir_scan_plain(Wq, H, m, slots, tiles=(a, c))
+             for a, c in zip(cuts, cuts[1:])]
+    return MR.reservoir_merge_plain(torch.stack([p[0] for p in parts]),
+                                    torch.stack([p[1] for p in parts]))
+
+
+@pytest.mark.parametrize("shape", RES_SHAPES)
+@pytest.mark.parametrize("kind", ["bfloat16", "int8_vector"])
+def test_reservoir_split_walk_merges_to_the_one_pass_scan(shape, kind):
+    """The tensor-core scan's split: the tile walk cut at several j (an
+    empty range, halves, every tile alone), each range scanned by the twin
+    and the ranges merged in order, equals the one-pass twin bit for bit
+    and nmftpu's _reservoir_scan in interpret mode."""
+    b, r, m, slots = shape
+    Wq, H = _inputs(b, r, m, seed=m + 7)
+    Hj, Ht, sc = _tables(H)[kind]
+    Wq_eff = Wq if sc is None else Wq * sc
+    tiles = -(-m // slots)
+    Hp = jnp.pad(Hj, ((0, 0), (0, tiles * slots - m)))
+    s_ref, i_ref = JR._reservoir_scan(jnp.asarray(Wq_eff), Hp, m, slots, b,
+                                      interpret=True)
+    s1, i1 = MR.reservoir_scan_plain(torch.tensor(Wq_eff), Ht, m, slots)
+    for cuts in ([0, 0, tiles], [0, tiles // 2, tiles],
+                 list(range(tiles + 1))):
+        s, i = _split_scan(torch.tensor(Wq_eff), Ht, m, slots, cuts)
+        assert torch.equal(s, s1) and torch.equal(i, i1), cuts
+        assert_same_candidates(s, i, s_ref, i_ref)
+
+
+@pytest.mark.parametrize("cuts", [[0, 1, 3], [0, 2, 3], [0, 1, 2, 3]])
+def test_reservoir_split_walk_keeps_the_lower_id_on_ties(cuts):
+    """Equal scores in different ranges: the merge keeps the earlier,
+    lower id first, as the one-pass scan and nmftpu's kernel do."""
+    Wq = torch.ones(1, 2)
+    H = torch.tensor([[1.0, 0.0, 1.0, 0.0, 1.0, 0.5],
+                      [0.0, 0.0, 0.0, 0.0, 0.0, 0.0]])
+    s, i = _split_scan(Wq, H, 6, 2, cuts)
+    assert i.tolist() == [[0, 5, 2, 1]]
+    assert s.tolist() == [[1.0, 0.5, 1.0, 0.0]]
+    s_ref, i_ref = JR._reservoir_scan(jnp.asarray(Wq.numpy()),
+                                      jnp.asarray(H.numpy()), 6, 2, 1,
+                                      interpret=True)
+    assert np.asarray(i_ref).tolist() == i.tolist()
+
+
+@pytest.mark.parametrize("b,slots,m,plan", [
+    (512, 4096, 10_485_760, (2560, 1)),    # config 5: 256 blocks, one range
+    (2048, 4096, 10_485_760, (2560, 1)),
+    (512, 16_384, 10_485_760, (640, 1)),   # the escalation's slots
+    (37, 1024, 10_007, (5, 2)),            # 8 blocks: ranges of >= 4 tiles
+    (4, 64, 10_000_000, (1184, 132)),      # 1 block: about one per SM
+    (1, 64, 100, (2, 1)),
+])
+def test_tc_plan(b, slots, m, plan):
+    assert MR.tc_plan(b, slots, m) == plan
+
+
+@pytest.mark.parametrize("b,slots", [(4096, 4096), (1, 64)])
+def test_tc_plan_keeps_each_range_under_65536_tiles(b, slots):
+    """A block keeps 16-bit tile indices, so no range may hold more."""
+    m = 2**31 - 1
+    tiles = -(-m // slots)
+    per, splits = MR.tc_plan(b, slots, m)
+    assert per <= 65536 and (splits - 1) * per < tiles <= splits * per
+
+
+@pytest.mark.parametrize("offsets,g", [
+    ((0, 10_485_760, 4096), 16),       # config 5's int8 table
+    ((0, 2 * 10_485_760, 2 * 4096), 16),
+    ((0, 26_744, 64), 8),              # 8 mod 16: ML-20M's m
+    ((0, 1500, 64), 4),
+    ((0, 10_007, 1024), 1),            # phase 7's odd m
+    ((0, 2 * 10_007, 2 * 1024), 1),    # bf16 rows 2 mod 4 bytes
+    ((8, 4096, 4096), 8),              # the base address counts too
+])
+def test_copy_alignment(offsets, g):
+    assert _build.copy_alignment(*offsets) == g
+
+
+def test_tensor_core_tables_have_their_own_rank_limit():
+    """The bf16/int8 entries keep 768 r bytes in shared memory (r <= 288);
+    float32 tables keep the CUDA-core kernel's limit."""
+    for dtype, limit in ((torch.bfloat16, MR.MAX_RANK_TC),
+                         (torch.int8, MR.MAX_RANK_TC),
+                         (torch.float32, MR.MAX_RANK)):
+        ok = MR.check_scan_operands("t", torch.zeros(2, limit),
+                                    torch.zeros(limit, 9, dtype=dtype), 9,
+                                    (dtype,))
+        assert ok == (2, limit)
+        with pytest.raises(ValueError, match=str(limit)):
+            MR.check_scan_operands("t", torch.zeros(2, limit + 1),
+                                   torch.zeros(limit + 1, 9, dtype=dtype), 9,
+                                   (dtype,))
+
+
 @pytest.mark.parametrize("kind", ["float32", "bfloat16", "int8_vector",
                                   "int8_scalar"])
 def test_reservoir_topk_mips_matches_nmftpu(kind):
@@ -257,6 +354,7 @@ def test_cpu_wrappers_run_the_twins_and_count_nothing():
     assert torch.equal(CA.count_above_fused(Wt, Hb, theta),
                        CA.count_above_fused_plain(Wt, Hb, theta))
     assert (dict(MR.LAUNCHES), dict(CA.LAUNCHES)) == counts
+    assert not any(MR.VARIANT_LAUNCHES.values())
 
 
 @pytest.mark.parametrize("bad,error", [
