@@ -1,20 +1,28 @@
 """Ablation of the two tensor-core kernels on one NVIDIA GPU: where the
-time of the reservoir scan (#8) and of the int8 numerators (#6) goes.
+time of the reservoir scan (#8) and of the int8 numerators (#6) goes, and
+what splitting the scan's tile walk buys at small batches.
 
     python3 chip_ablate.py [--out DIR]
 
 Builds variants of nmftpu_torch/csrc/{mips_reservoir,dual_numer}.cu with
-one part removed each (a text patch of the source: the carry fold, the
-table conversion, the products, a class of loads or atomics; and one with
-the scan's k-loop unrolled at compile time for r = 256), one nvcc per
-variant, all started together, into nmftpu_torch/_build/ablate/. Then it
-times each variant's C entry with CUDA events on random data at the
-main paths' shapes: the reservoir scan at BASELINE config 5 (int8 table,
-10,485,760 items, r = 256, b = 512, 4096 slots) and the dual, vht and wtv
-entries at 4096^2 / r = 256 and at the ML-20M shape (138,493 x 26,744,
-r = 64, 0.54% nonzero). A variant computes wrong results by design: only
-its time is read. The time a part costs is the base time minus the time
-without it; parts that overlap each other do not add up.
+one part removed each (a text patch of the source, listed in VARIANTS:
+the carry fold, the table conversion, the products, a class of loads or
+atomics; and one with the scan's k-loop unrolled at compile time for
+r = 256), through the package's builder (`_build.build` of a directory
+of patched copies), all variants at once. A variant whose patch no longer
+matches its source is reported and skipped. Then it times each variant's
+C entry with CUDA events on random data at the main paths' shapes: the
+reservoir scan at BASELINE config 5 (int8 table, 10,485,760 items,
+r = 256, b = 512, 4096 slots) and the dual, vht and wtv entries at
+4096^2 / r = 256 and at the ML-20M shape (138,493 x 26,744, r = 64,
+0.54% nonzero). A variant computes wrong results by design: only its time
+is read. The time a part costs is the base time minus the time without
+it; parts that overlap each other do not add up.
+
+Last, on the unpatched kernel and config 5's table, it times the scan at
+b = 64 and 256 with the walk in one range and split into 2 and 3 ranges
+(the split's merge kernel included): the grid there is 64 and 128 blocks
+of 128 queries x 64 slots for the card's 132 SMs.
 
 Prints one line per (entry, shape, variant) and the card's name and power
 limit; writes DIR/ablation.json (DIR defaults to profile_out/). Without a
@@ -26,8 +34,8 @@ from __future__ import annotations
 import argparse
 import ctypes
 import json
-import subprocess
 import sys
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import torch
@@ -49,16 +57,17 @@ VARIANTS = {
                  "      tc_fold<false>(cur, s1, s2, ix, nc, "
                  "static_cast<uint32_t>(t));", "      ;")],
     "no_convert": [("mips_reservoir.cu",
-                    "      tc_convert<T>(raw + ((t + 1) % NR) * raw_bytes, "
-                    "tile, r, rp);", "")],
-    "no_mma": [("mips_reservoir.cu", "for (int s = 0; s < rp / 16; ++s)",
+                    "    tc_convert<T>(raw + (u % NR) * raw_bytes, tile, "
+                    "min(kc, r - c * kc), kd,\n                  kc);", "")],
+    "no_mma": [("mips_reservoir.cu", "for (int s = 0; s < kd / 16; ++s)",
                 "for (int s = 0; s < 0; ++s)")],
     "no_table_loads": [("mips_reservoir.cu",
-                        "      if (t + NR < nt) load_raw(t + NR);", "")],
+                        "    if (u + NR - 1 < steps) load_raw(u + NR - 1);",
+                        "")],
     # not a removal: the k-loop over r = 256 with a compile-time trip
     # count, which ptxas can follow (its notes change from C7514 to C7515)
     "static_k_loop": [("mips_reservoir.cu",
-                       "    for (int s = 0; s < rp / 16; ++s)\n",
+                       "    for (int s = 0; s < kd / 16; ++s)\n",
                        "#pragma unroll\n    for (int s = 0; s < 16; ++s)\n")],
     "no_chunk_loads": [("dual_numer.cu",
                         "    if (c + PF < nchunks) load_chunk(c + PF);", "")],
@@ -78,39 +87,41 @@ RESERVOIR = ("base", "no_fold", "no_convert", "no_mma", "no_table_loads",
              "static_k_loop")
 INT8 = ("base", "no_chunk_loads", "no_transpose", "no_nw_mma", "no_nh_mma",
         "no_nh_atomics", "no_nw_atomics")
+SCAN_ENTRIES = ("nmftpu_reservoir_scan_i8", "nmftpu_reservoir_merge",
+                "nmftpu_int8_vht", "nmftpu_int8_wtv", "nmftpu_int8_dual")
+
+
+def patched_copy(name: str, patches, out: Path) -> Path | None:
+    """out/name holding SOURCES with `patches` applied; None (and a note)
+    when a patch no longer matches its source."""
+    d = out / name
+    d.mkdir(parents=True, exist_ok=True)
+    for src in SOURCES:
+        text = (_build.CSRC / src).read_text()
+        for f, old, new in patches:
+            if f == src:
+                if old not in text:
+                    print(f"[ablate] variant={name} skipped: {src} no "
+                          f"longer holds {old!r}", flush=True)
+                    return None
+                text = text.replace(old, new)
+        (d / src).write_text(text)
+    return d
 
 
 def build(out: Path) -> dict:
-    """{variant: loaded library} built from patched copies of SOURCES."""
-    nvcc = _build._nvcc()
-    flags = [f for f in _build.NVCC_FLAGS if f not in ("-Xptxas", "-v")]
-    procs = {}
-    for name, patches in VARIANTS.items():
-        d = out / name
-        d.mkdir(parents=True, exist_ok=True)
-        for src in SOURCES:
-            text = (_build.CSRC / src).read_text()
-            for f, old, new in patches:
-                if f == src:
-                    if old not in text:
-                        fail(f"{name}: the source no longer holds {old!r}")
-                    text = text.replace(old, new)
-            (d / src).write_text(text)
-        lib = d / "lib.so"
-        procs[name] = (lib, subprocess.Popen(
-            [nvcc, *flags, "-shared", "-o", str(lib),
-             str(d / "mips_reservoir.cu"), str(d / "dual_numer.cu")],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    """{variant: loaded library}, each built by `_build.build`."""
+    dirs = {name: patched_copy(name, patches, out)
+            for name, patches in VARIANTS.items()}
+    dirs = {name: d for name, d in dirs.items() if d is not None}
+    if "base" not in dirs:
+        fail("the unpatched sources did not copy")
+    with ThreadPoolExecutor(len(dirs)) as pool:
+        paths = dict(zip(dirs, pool.map(_build.build, dirs.values())))
     libs = {}
-    for name, (lib, p) in procs.items():
-        log = p.communicate()[0]
-        if p.returncode:
-            fail(f"{name}: nvcc failed\n{log[-3000:]}")
-        cdll = ctypes.CDLL(str(lib))
-        cdll.nmftpu_reservoir_scan_i8.argtypes = (
-            _build.ENTRIES["nmftpu_reservoir_scan_i8"])
-        for entry in ("nmftpu_int8_vht", "nmftpu_int8_wtv",
-                      "nmftpu_int8_dual"):
+    for name, path in paths.items():
+        cdll = ctypes.CDLL(str(path))
+        for entry in SCAN_ENTRIES:
             getattr(cdll, entry).argtypes = _build.ENTRIES[entry]
         libs[name] = cdll
     return libs
@@ -140,6 +151,29 @@ def ratings_like(n, m, gen):
     return V
 
 
+def split_scan(lib, Wq, H, m, slots, splits, stream):
+    """The scan with its walk cut into `splits` ranges, then the merge
+    (a callable returning the first nonzero launch code)."""
+    b, r = Wq.shape
+    tiles = -(-m // slots)
+    per = -(-tiles // splits)
+    ps = torch.empty(splits, b, 2 * slots, device="cuda")
+    pi = torch.empty(splits, b, 2 * slots, dtype=torch.int32, device="cuda")
+    out_s = torch.empty(b, 2 * slots, device="cuda")
+    out_i = torch.empty(b, 2 * slots, dtype=torch.int32, device="cuda")
+
+    def run():
+        rc = lib.nmftpu_reservoir_scan_i8(
+            Wq.data_ptr(), H.data_ptr(), ps.data_ptr(), pi.data_ptr(), b, r,
+            m, m, slots, per, -(-tiles // per), 16, stream)
+        if rc or splits == 1:
+            return rc
+        return lib.nmftpu_reservoir_merge(
+            ps.data_ptr(), pi.data_ptr(), out_s.data_ptr(), out_i.data_ptr(),
+            -(-tiles // per), b, slots, stream)
+    return run
+
+
 def main() -> None:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--out", default=str(HERE / "profile_out"))
@@ -163,17 +197,18 @@ def main() -> None:
     Wq = torch.rand(b, r, generator=gen, device="cuda")
     H = torch.randint(-127, 128, (r, m), generator=gen, device="cuda",
                       dtype=torch.int8)
-    out_s = torch.empty(b, 2 * slots, device="cuda")
-    out_i = torch.empty(b, 2 * slots, dtype=torch.int32, device="cuda")
-    tiles = -(-m // slots)
     for name in RESERVOIR:
-        lib = libs[name]
-        record("reservoir_scan_i8", f"b={b} r={r} m={m} R={slots}", name,
-               event_ms(lambda: lib.nmftpu_reservoir_scan_i8(
-                   Wq.data_ptr(), H.data_ptr(), out_s.data_ptr(),
-                   out_i.data_ptr(), b, r, m, m, slots, tiles, 1, 16,
-                   stream), iters=3))
-    del Wq, H, out_s, out_i
+        if name in libs:
+            record("reservoir_scan_i8", f"b={b} r={r} m={m} R={slots}", name,
+                   event_ms(split_scan(libs[name], Wq, H, m, slots, 1,
+                                       stream), iters=3))
+    for nb in (64, 256):
+        for splits in (1, 2, 3):
+            record("reservoir_scan_i8", f"b={nb} r={r} m={m} R={slots}",
+                   f"{splits}_range" + ("" if splits == 1 else "s_merged"),
+                   event_ms(split_scan(libs["base"], Wq[:nb].contiguous(), H,
+                                       m, slots, splits, stream), iters=5))
+    del Wq, H
 
     for n, m, r in ((4096, 4096, 256), (138_493, 26_744, 64)):
         if n == m:
@@ -191,6 +226,8 @@ def main() -> None:
         gw = _build.copy_alignment(n, WqT.data_ptr())
         iters = 20 if n == m else 3
         for name in INT8:
+            if name not in libs:
+                continue
             lib = libs[name]
             calls = {
                 "dual": lambda: lib.nmftpu_int8_dual(

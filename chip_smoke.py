@@ -144,7 +144,7 @@ DENSE = ("w_update_fused", "h_update_fused", "w_update_fused_q",
 # the kernels that must run on the tensor cores: (symbol fragment, how
 # many instantiations); cuobjdump -sass must show wgmma (IGMMA/HGMMA) or
 # mma.sync (IMMA/HMMA) instructions in each
-TENSOR_CORE_KERNELS = (("int8_numer_kernel", 3), ("reservoir_tc_kernel", 2))
+TENSOR_CORE_KERNELS = (("int8_numer_kernel", 3), ("reservoir_tc_kernel", 4))
 TC_OPCODE = re.compile(r"\b(IGMMA|HGMMA|IMMA|HMMA)\b")
 
 

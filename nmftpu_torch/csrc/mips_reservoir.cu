@@ -30,17 +30,22 @@
 // row strides such as m = 10,007 take the same kernel) into a ring of raw
 // stages (4 for int8, 2 for bf16), and is converted to bf16 and
 // transposed to K-major in shared memory by all threads; then each
-// warpgroup issues wgmma m64n64k16 (float32 accumulators) over r. The
-// accumulators are double-buffered: while the tensor cores score tile
+// warpgroup issues wgmma m64n64k16 (float32 accumulators) over r. Up to
+// r = 288 a tile comes in whole; above it (up to r = 832) the queries
+// still stay whole in shared memory, but each tile comes in as equal
+// chunks of its rank (tc_chunk), staged, converted and issued one after
+// another into the tile's one accumulator (reservoir_tc_kernel<T, true>).
+// The accumulators are double-buffered: while the tensor cores score tile
 // t + 1, the CUDA cores fold tile t into the carry. The carry is three
 // registers per (query, slot) in the accumulator's fragment layout: s1,
 // s2 and both ids packed as 16-bit tile indices relative to the block's
 // first tile (id = j R + s0 + col; the host keeps every block's range
 // under 65,536 tiles). Columns beyond R or m score -inf.
-// When the grid of (b / 128) x (R / 64) blocks would leave SMs idle, the
-// host splits the walk over j into ranges, each block writes its range's
-// candidates, and reservoir_merge_kernel folds the ranges in increasing
-// order with the same rule. The one-pass result is the top two of each
+// When the grid of (b / 128) x (R / 64) blocks fills at most half the SMs,
+// the host splits the walk over j into as many ranges as one wave of
+// blocks holds (tc_plan: b = 64 at R = 4096 takes 2), each block writes
+// its range's candidates, and reservoir_merge_kernel folds the ranges in
+// increasing order with the same rule. The one-pass result is the top two of each
 // slot ordered by (score descending, id ascending), and folding a later
 // range's best then second keeps that order, so the split result is
 // identical.
@@ -144,13 +149,32 @@ __host__ __device__ constexpr int raw_stages() {
 
 __host__ __device__ inline int tc_rank(int r) { return (r + 15) / 16 * 16; }
 
-// queries (TC_Q x rp bf16), two converted tiles (TC_S x rp bf16), the raw
-// ring (r x TC_S values of T per stage)
-template <typename T>
+// Shared memory: the queries (TC_Q x rp bf16, 256 rp bytes) stay for the
+// whole walk; two converted tiles (TC_S x kc bf16) and the raw ring (kc x
+// TC_S values of T a stage) take 512 bytes per unit of kc, the depth of
+// the rank chunk a step stages. Up to rp = TC_WHOLE_RANK a step stages
+// the whole rank (kc = rp); above it, the rank is streamed in chunks of
+// equal depth kc < rp, all accumulating into one tile's accumulator.
+constexpr size_t TC_SMEM_MAX = 227 * 1024;   // a block's most, on the H100
+constexpr int TC_WHOLE_RANK = 288;
+constexpr int TC_MAX_RANK = 832;
+static_assert(768 * TC_WHOLE_RANK <= TC_SMEM_MAX, "whole-rank tiles fit");
+static_assert(256 * TC_MAX_RANK + 512 * 16 <= TC_SMEM_MAX,
+              "16-deep chunks fit");
+
+__host__ __device__ inline int tc_chunk(int rp) {
+  const size_t left = TC_SMEM_MAX - 256 * static_cast<size_t>(rp);
+  const int most = static_cast<int>(left / 512) / 16 * 16;
+  const int chunks = (rp + most - 1) / most;
+  return (rp + 16 * chunks - 1) / (16 * chunks) * 16;
+}
+
+template <typename T, bool CHUNKED>
 size_t tc_smem_bytes(int r) {
   const size_t rp = tc_rank(r);
-  return 2 * rp * TC_Q + 2 * (2 * rp * TC_S) +
-         raw_stages<T>() * static_cast<size_t>(r) * TC_S * sizeof(T);
+  const size_t kc = CHUNKED ? tc_chunk(static_cast<int>(rp)) : rp;
+  return 2 * rp * TC_Q + 2 * (2 * kc * TC_S) +
+         raw_stages<T>() * kc * TC_S * sizeof(T);
 }
 
 __device__ __forceinline__ uint32_t bf16x2(float lo, float hi) {
@@ -198,14 +222,14 @@ __device__ __forceinline__ void tc_load_raw(uint8_t* raw,
   }
 }
 
-// op (TC_S rows = items, K = rp, bf16 K-major) = raw transposed, as bf16;
-// zero for k >= r. A unit is 4 items x 8 depths; the item order is
-// XOR-skewed by lane so that each 16-byte store of a warp's 8-lane phase
-// hits its own banks.
+// op (TC_S rows = items, depths [0, kd) of a tile kc deep, bf16 K-major)
+// = raw transposed, as bf16; zero for k >= r. A unit is 4 items x 8
+// depths; the item order is XOR-skewed by lane so that each 16-byte store
+// of a warp's 8-lane phase hits its own banks.
 template <typename T>
 __device__ __forceinline__ void tc_convert(const uint8_t* raw, uint8_t* op,
-                                           int r, int rp) {
-  const int units = (TC_S / 4) * (rp / 8);
+                                           int r, int kd, int kc) {
+  const int units = (TC_S / 4) * (kd / 8);
   for (int u = threadIdx.x; u < units; u += TC_THREADS) {
     const int uq = u % (TC_S / 4);
     const int k8 = u / (TC_S / 4);
@@ -232,7 +256,7 @@ __device__ __forceinline__ void tc_convert(const uint8_t* raw, uint8_t* op,
           f[t] = __float_as_uint(
               __uint_as_float(__byte_perm(w[t], 0x4B000000u, 0x7650u | x)) -
               8388736.0f);
-        *reinterpret_cast<uint4*>(op + cm_offset(4 * uq + x, 16 * k8, 2 * rp)) =
+        *reinterpret_cast<uint4*>(op + cm_offset(4 * uq + x, 16 * k8, 2 * kc)) =
             make_uint4(__byte_perm(f[0], f[1], 0x7632),
                        __byte_perm(f[2], f[3], 0x7632),
                        __byte_perm(f[4], f[5], 0x7632),
@@ -254,7 +278,7 @@ __device__ __forceinline__ void tc_convert(const uint8_t* raw, uint8_t* op,
         uint32_t h[8];
 #pragma unroll
         for (int t = 0; t < 8; ++t) h[t] = (x & 2) ? w[t].y : w[t].x;
-        *reinterpret_cast<uint4*>(op + cm_offset(4 * uq + x, 16 * k8, 2 * rp)) =
+        *reinterpret_cast<uint4*>(op + cm_offset(4 * uq + x, 16 * k8, 2 * kc)) =
             make_uint4(__byte_perm(h[0], h[1], sel),
                        __byte_perm(h[2], h[3], sel),
                        __byte_perm(h[4], h[5], sel),
@@ -303,7 +327,8 @@ __device__ __forceinline__ void tc_fold(const float (&acc)[32],
 // Block (x, y, z): queries [128 x, +128), slots [64 y, +64), tiles
 // [z tps, (z + 1) tps) of the walk; writes its candidates to
 // out[(z b + q) 2R + slot] (the final output when z has one value).
-template <typename T>
+// Step u stages chunk u % chunks of the rank of tile u / chunks.
+template <typename T, bool CHUNKED>
 __global__ void __launch_bounds__(TC_THREADS, 1)
 reservoir_tc_kernel(const float* __restrict__ Wq, const T* __restrict__ H,
                     float* __restrict__ out_s, int* __restrict__ out_i,
@@ -312,10 +337,12 @@ reservoir_tc_kernel(const float* __restrict__ Wq, const T* __restrict__ H,
   constexpr int NR = raw_stages<T>();
   extern __shared__ __align__(128) uint8_t tc_smem[];
   const int rp = tc_rank(r);
+  const int kc = CHUNKED ? tc_chunk(rp) : rp;
+  const int chunks = CHUNKED ? (rp + kc - 1) / kc : 1;
   uint8_t* Qs = tc_smem;
   uint8_t* op = Qs + 2 * rp * TC_Q;              // two tiles
-  uint8_t* raw = op + 2 * (2 * rp * TC_S);       // NR stages
-  const size_t raw_bytes = static_cast<size_t>(r) * TC_S * sizeof(T);
+  uint8_t* raw = op + 2 * (2 * kc * TC_S);       // NR stages
+  const size_t raw_bytes = static_cast<size_t>(kc) * TC_S * sizeof(T);
   const int q0 = blockIdx.x * TC_Q;
   const int s0 = blockIdx.y * TC_S;
   const int scols = min(TC_S, R - s0);
@@ -324,6 +351,7 @@ reservoir_tc_kernel(const float* __restrict__ Wq, const T* __restrict__ H,
   const long long j0 = static_cast<long long>(blockIdx.z) * tps;
   const int nt = static_cast<int>(max(0LL, min(tiles - j0,
                                                static_cast<long long>(tps))));
+  const int steps = nt * chunks;
   const int wg = threadIdx.x >> 7;
   const int warp = (threadIdx.x >> 5) & 3;
   const int lane = threadIdx.x & 31;
@@ -332,17 +360,35 @@ reservoir_tc_kernel(const float* __restrict__ Wq, const T* __restrict__ H,
     const long long c0 = (j0 + t) * R + s0;
     return static_cast<int>(min(static_cast<long long>(scols), m - c0));
   };
-  auto load_raw = [&](int t) {
-    tc_load_raw<T>(raw + (t % NR) * raw_bytes, H, ldh, r, (j0 + t) * R + s0,
-                   ncols(t), g);
+  auto load_raw = [&](int u) {
+    const int t = u / chunks, c = u - t * chunks;
+    tc_load_raw<T>(raw + (u % NR) * raw_bytes,
+                   H + static_cast<long long>(c) * kc * ldh, ldh,
+                   min(kc, r - c * kc), (j0 + t) * R + s0, ncols(t), g);
   };
-  auto issue = [&](float (&acc)[32], const uint8_t* tile) {
+  // convert step u's raw tile into op[u & 1] and issue its products into
+  // acc (on top of the tile's earlier chunks)
+  auto advance = [&](float (&acc)[32], int u) {
+    const int c = u % chunks;
+    const int kd = min(kc, rp - c * kc);
+    cp_async_wait<NR - 2>();
+    __syncthreads();     // raw u is in; wgmma u - 2 is done everywhere
+    uint8_t* tile = op + (u & 1) * (2 * kc * TC_S);
+    tc_convert<T>(raw + (u % NR) * raw_bytes, tile, min(kc, r - c * kc), kd,
+                  kc);
+    fence_async_smem();
+    __syncthreads();
+    if (u + NR - 1 < steps) load_raw(u + NR - 1);
+    cp_async_commit();
     wgmma_fence();
-    fence_regs(acc);
-    const uint64_t dq = make_desc(smem_u32(Qs + wg * 64 * 2 * rp), 2 * rp);
-    const uint64_t dt = make_desc(smem_u32(tile), 2 * rp);
-    for (int s = 0; s < rp / 16; ++s)
-      wgmma_bf16_m64n64k16(acc, dq + s * DESC_STEP, dt + s * DESC_STEP, s > 0);
+    if (c == 0) fence_regs(acc);
+    const uint64_t dq =
+        make_desc(smem_u32(Qs + wg * 64 * 2 * rp), 2 * rp) +
+        (c * kc / 16) * DESC_STEP;
+    const uint64_t dt = make_desc(smem_u32(tile), 2 * kc);
+    for (int s = 0; s < kd / 16; ++s)
+      wgmma_bf16_m64n64k16(acc, dq + s * DESC_STEP, dt + s * DESC_STEP,
+                           c > 0 || s > 0);
     wgmma_commit();
   };
 
@@ -357,34 +403,22 @@ reservoir_tc_kernel(const float* __restrict__ Wq, const T* __restrict__ H,
 
   tc_stage_queries(Qs, Wq, b, r, rp, q0);
 #pragma unroll
-  for (int t = 0; t < NR - 1; ++t) {
-    if (t < nt) load_raw(t);
+  for (int u = 0; u < NR - 1; ++u) {
+    if (u < steps) load_raw(u);
     cp_async_commit();
   }
-  if (nt > 0) {
-    cp_async_wait<NR - 2>();
-    __syncthreads();
-    tc_convert<T>(raw, op, r, rp);
-    fence_async_smem();
-    __syncthreads();
-    if (NR - 1 < nt) load_raw(NR - 1);
-    cp_async_commit();
-    issue(accA, op);
-  }
+  if (steps > 0) advance(accA, 0);
 
-  // tile t was issued into `cur`: convert and issue tile t + 1 into
-  // `nxt`, then fold `cur` while the tensor cores score t + 1
+  // tile t's first chunk was issued into `cur`: issue its other chunks,
+  // then tile t + 1's first into `nxt`, and fold `cur` while the tensor
+  // cores score t + 1
   auto step = [&](float (&cur)[32], float (&nxt)[32], int t) {
+    for (int c = 1; c < chunks; ++c) {
+      advance(cur, t * chunks + c);
+      wgmma_wait<1>();
+    }
     if (t + 1 < nt) {
-      cp_async_wait<NR - 2>();
-      __syncthreads();     // raw t + 1 is in; wgmma t - 1 is done everywhere
-      uint8_t* tile = op + ((t + 1) & 1) * (2 * rp * TC_S);
-      tc_convert<T>(raw + ((t + 1) % NR) * raw_bytes, tile, r, rp);
-      fence_async_smem();
-      __syncthreads();
-      if (t + NR < nt) load_raw(t + NR);
-      cp_async_commit();
-      issue(nxt, tile);
+      advance(nxt, (t + 1) * chunks);
       wgmma_wait<1>();
     } else {
       wgmma_wait<0>();
@@ -467,24 +501,36 @@ int launch(const float* Wq, const T* H, float* out_s, int* out_i, int b,
   return static_cast<int>(cudaGetLastError());
 }
 
+template <typename T, bool CHUNKED>
+int launch_tc_as(const float* Wq, const T* H, float* out_s, int* out_i,
+                 int b, int r, int m, long long ldh, int R, int tps,
+                 int splits, int g, cudaStream_t stream) {
+  const size_t smem = tc_smem_bytes<T, CHUNKED>(r);
+  cudaError_t err = cudaFuncSetAttribute(
+      reservoir_tc_kernel<T, CHUNKED>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((b + TC_Q - 1) / TC_Q,
+                  static_cast<unsigned>((R + TC_S - 1) / TC_S), splits);
+  reservoir_tc_kernel<T, CHUNKED><<<grid, TC_THREADS, smem, stream>>>(
+      Wq, H, out_s, out_i, b, r, m, ldh, R, tps, g);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <typename T>
 int launch_tc(const float* Wq, const T* H, float* out_s, int* out_i, int b,
               int r, int m, long long ldh, int R, int tps, int splits,
               int g, cudaStream_t stream) {
-  const size_t smem = tc_smem_bytes<T>(r);
   const long long ytiles = (R + TC_S - 1) / TC_S;
-  if (tps < 1 || tps > 65536 || splits < 1 || splits > 65535 ||
-      ytiles > 65535 || !(g == 16 || g == 8 || g == 4 || g == 1))
+  if (r < 1 || r > TC_MAX_RANK || tps < 1 || tps > 65536 || splits < 1 ||
+      splits > 65535 || ytiles > 65535 ||
+      !(g == 16 || g == 8 || g == 4 || g == 1))
     return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = cudaFuncSetAttribute(
-      reservoir_tc_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((b + TC_Q - 1) / TC_Q, static_cast<unsigned>(ytiles),
-                  splits);
-  reservoir_tc_kernel<T><<<grid, TC_THREADS, smem, stream>>>(
-      Wq, H, out_s, out_i, b, r, m, ldh, R, tps, g);
-  return static_cast<int>(cudaGetLastError());
+  return tc_rank(r) <= TC_WHOLE_RANK
+             ? launch_tc_as<T, false>(Wq, H, out_s, out_i, b, r, m, ldh, R,
+                                      tps, splits, g, stream)
+             : launch_tc_as<T, true>(Wq, H, out_s, out_i, b, r, m, ldh, R,
+                                     tps, splits, g, stream);
 }
 
 }  // namespace

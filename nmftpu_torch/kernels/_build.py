@@ -77,13 +77,14 @@ ENTRIES = {
 }
 
 
-def _sources() -> list[Path]:
-    return sorted(CSRC.glob("*.cu"))
+def _sources(src: Path | None = None) -> list[Path]:
+    return sorted((src or CSRC).glob("*.cu"))
 
 
-def _source_hash() -> str:
+def _source_hash(src: Path | None = None) -> str:
+    src = src or CSRC
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for p in sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh")):
+    for p in sorted(src.glob("*.cu")) + sorted(src.glob("*.cuh")):
         h.update(p.name.encode())
         h.update(p.read_bytes())
     return h.hexdigest()[:16]
@@ -105,15 +106,17 @@ def _nvcc() -> str:
     )
 
 
-def library_path() -> Path:
-    return BUILD_DIR / f"libnmftpu_torch_{_source_hash()}.so"
+def library_path(src: Path | None = None) -> Path:
+    return BUILD_DIR / f"libnmftpu_torch_{_source_hash(src)}.so"
 
 
-def build() -> Path:
-    """Compile the sources unless a library for their hash exists; return
-    its path. The compiler's output (including ``-Xptxas -v``'s register
-    and shared-memory report) is kept beside it as ``<library>.log``."""
-    out = library_path()
+def build(src: Path | None = None) -> Path:
+    """Compile the sources in `src` (by default the package's ``csrc/``;
+    a directory of patched copies builds a variant) unless a library for
+    their hash exists; return its path. The compiler's output (including
+    ``-Xptxas -v``'s register and shared-memory report) is kept beside it
+    as ``<library>.log``."""
+    out = library_path(src)
     if out.exists():
         return out
     nvcc = _nvcc()
@@ -124,9 +127,9 @@ def build() -> Path:
     os.close(fd)
     log = out.with_suffix(".so.log")
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as objdir:
-        objs = [str(Path(objdir) / f"{src.stem}.o") for src in _sources()]
-        compiles = [[nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(src)]
-                    for obj, src in zip(objs, _sources())]
+        objs = [str(Path(objdir) / f"{cu.stem}.o") for cu in _sources(src)]
+        compiles = [[nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(cu)]
+                    for obj, cu in zip(objs, _sources(src))]
         # one nvcc per source, all running at once
         procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                   stderr=subprocess.STDOUT, text=True)

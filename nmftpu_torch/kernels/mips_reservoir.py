@@ -11,9 +11,11 @@ The scan is hand-written CUDA (``csrc/mips_reservoir.cu``). For bf16
 and int8 tables it runs on the bf16 tensor cores (``wgmma``): each block
 owns 128 queries x 64 consecutive slots, keeps their carry in registers
 and walks a range of item tiles in increasing order, so no score reaches
-device memory. When the grid would leave SMs idle, `tc_plan` splits the
-walk over the tiles into ranges and a second small kernel merges the
-ranges' candidates (`reservoir_merge_plain` is that merge in torch).
+device memory. Above r = 288 each tile's rank comes in as chunks that
+accumulate into one product, so every table takes r <= MAX_RANK. When
+the grid fills at most half the SMs, `tc_plan` splits the walk over the
+tiles into ranges and a second small kernel merges the ranges'
+candidates (`reservoir_merge_plain` is that merge in torch).
 float32 tables keep the CUDA-core fmaf tile (a bf16 product would round
 the table). The source states the precision contract and what bounds it.
 `reservoir_scan_plain` is the same function in torch (the twin of
@@ -40,11 +42,10 @@ LAUNCHES = {"reservoir_scan": 0}
 VARIANT_LAUNCHES = {"tc": 0, "tc_unaligned": 0, "f32": 0, "merge": 0}
 
 # the float32 kernel keeps a 64-query block as (r x 65) float32 in shared
-# memory, next to an 8 KB table slice, within the 227 KB a block may use
+# memory, next to an 8 KB table slice, within the 227 KB a block may use;
+# the tensor-core kernel keeps 128 bf16 queries (256 r bytes) beside
+# chunks of the table tiles
 MAX_RANK = 832
-# the tensor-core kernel keeps 128 bf16 queries, two converted (64 x r)
-# bf16 tiles and 256 r bytes of raw tiles: 768 r bytes at r <= 288
-MAX_RANK_TC = 288
 _SMS = 132              # the H100's SMs: the grid the split plan fills
 _TC_QUERIES, _TC_SLOTS = 128, 64
 
@@ -55,10 +56,12 @@ _ENTRIES = {
 }
 
 
-def check_scan_operands(what, Wq, H, m_items, table_dtypes):
+def check_scan_operands(what, Wq, H, m_items, table_dtypes,
+                        max_rank=MAX_RANK):
     """What the scan kernels take: Wq (b, r) float32, H (r, cols) of one
     of `table_dtypes`, both contiguous; 1 <= m_items <= cols < 2**31 and
-    r <= MAX_RANK. Returns (b, r)."""
+    r <= max_rank (None: any r, as the plain twins take). Returns
+    (b, r)."""
     if Wq.ndim != 2 or H.ndim != 2 or Wq.shape[1] != H.shape[0]:
         raise ValueError(f"{what}: expected Wq (b, r) and H (r, m); got "
                          f"{tuple(Wq.shape)} and {tuple(H.shape)}")
@@ -71,10 +74,9 @@ def check_scan_operands(what, Wq, H, m_items, table_dtypes):
         if not t.is_contiguous():
             raise ValueError(f"{what}: {name} must be contiguous")
     b, r = Wq.shape
-    max_rank = MAX_RANK if H.dtype == torch.float32 else MAX_RANK_TC
-    if b < 1 or not 1 <= r <= max_rank:
-        raise ValueError(f"{what}: need b >= 1 and 1 <= r <= {max_rank} "
-                         f"for a {H.dtype} table, got b={b}, r={r}")
+    if b < 1 or r < 1 or (max_rank is not None and r > max_rank):
+        raise ValueError(f"{what}: need b >= 1 and 1 <= r <= {max_rank}, "
+                         f"got b={b}, r={r}")
     if not 1 <= m_items <= H.shape[1] or H.shape[1] >= 2**31:
         raise ValueError(f"{what}: need 1 <= m_items <= {H.shape[1]} "
                          f"< 2**31, got m_items={m_items}")
@@ -136,15 +138,14 @@ def reservoir_merge_plain(parts_s, parts_i):
 
 def tc_plan(b, slots, m_items, sms=_SMS):
     """(tiles per range, ranges) of the tensor-core scan's walk over the
-    ceil(m_items / slots) tiles. One range while the (b / 128) x
-    (slots / 64) blocks fill the card; else enough ranges to give it
-    about one block per SM, each of at least 4 tiles. A block's tile
-    index is 16-bit, so no range exceeds 65,536 tiles."""
+    ceil(m_items / slots) tiles. The (b / 128) x (slots / 64) blocks
+    times the ranges stay within one wave of one block per SM, each
+    range of at least 4 tiles: a second wave of shorter ranges takes as
+    long as one wave of whole walks. A block's tile index is 16-bit, so
+    no range exceeds 65,536 tiles."""
     tiles = -(-m_items // slots)
     blocks = -(-b // _TC_QUERIES) * -(-slots // _TC_SLOTS)
-    splits = 1 if blocks >= sms else min(-(-sms // blocks),
-                                         max(1, tiles // 4))
-    splits = max(splits, -(-tiles // 65536))
+    splits = max(1, min(sms // blocks, tiles // 4), -(-tiles // 65536))
     per = -(-tiles // splits)
     return per, -(-tiles // per)
 
@@ -154,9 +155,10 @@ def reservoir_scan(Wq, H, m_items, slots):
     by the CUDA kernels for CUDA tensors; see `reservoir_scan_plain`."""
     if slots < 1:
         raise ValueError(f"slots must be >= 1, got {slots}")
+    cpu = _on_cpu(Wq, H)
     b, r = check_scan_operands("reservoir_scan", Wq, H, m_items,
-                               tuple(_ENTRIES))
-    if _on_cpu(Wq, H):
+                               tuple(_ENTRIES), None if cpu else MAX_RANK)
+    if cpu:
         return reservoir_scan_plain(Wq, H, m_items, slots)
     dev = H.device
     out_s = torch.empty((b, 2 * slots), dtype=torch.float32, device=dev)

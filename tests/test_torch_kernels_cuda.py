@@ -110,14 +110,17 @@ def test_fused_paths_match_the_plain_path(dev, knobs):
 # float32 sums of r <= 256 products in two orders: ~sqrt(r) * 2^-24
 SCAN_RTOL = 1e-5
 SCAN_SHAPES = [(37, 37, 10007, 1024), (70, 8, 5000, 128), (1, 3, 100, 64),
-               (130, 256, 70000, 4096)]
+               (130, 256, 70000, 4096), (40, 512, 3001, 256)]
 # the tensor-core scan's edges: unaligned m and r = 37, R not a multiple
 # of the 64-slot tile, b not a multiple of the 128-query block, a walk
 # split into ranges and merged, R = 16384 (the escalation's), r = 288
-# (MAX_RANK_TC)
+# (the most a tile stages whole), r = 304, 512 and 832 (MAX_RANK: the
+# rank streamed in chunks, 2, 3 and 26 of them)
 TC_SCAN_SHAPES = [(37, 37, 10007, 1000), (200, 37, 10001, 100),
                   (129, 64, 100003, 16384), (300, 256, 1 << 18, 4096),
-                  (5, 288, 20000, 192), (130, 16, 1 << 20, 64)]
+                  (5, 288, 20000, 192), (130, 16, 1 << 20, 64),
+                  (70, 304, 9001, 256), (300, 512, 50000, 1024),
+                  (9, 832, 5003, 128)]
 
 
 def _table(dev, r, m, dtype, seed=2):

@@ -185,8 +185,10 @@ def test_reservoir_split_walk_keeps_the_lower_id_on_ties(cuts):
     (512, 4096, 10_485_760, (2560, 1)),    # config 5: 256 blocks, one range
     (2048, 4096, 10_485_760, (2560, 1)),
     (512, 16_384, 10_485_760, (640, 1)),   # the escalation's slots
-    (37, 1024, 10_007, (5, 2)),            # 8 blocks: ranges of >= 4 tiles
-    (4, 64, 10_000_000, (1184, 132)),      # 1 block: about one per SM
+    (64, 4096, 10_485_760, (1280, 2)),     # 64 blocks: two ranges fill a wave
+    (256, 4096, 10_485_760, (2560, 1)),    # 128 blocks: a wave already
+    (37, 1024, 10_007, (5, 2)),            # 16 blocks: ranges of >= 4 tiles
+    (4, 64, 10_000_000, (1184, 132)),      # 1 block: one per SM
     (1, 64, 100, (2, 1)),
 ])
 def test_tc_plan(b, slots, m, plan):
@@ -215,20 +217,46 @@ def test_copy_alignment(offsets, g):
     assert _build.copy_alignment(*offsets) == g
 
 
-def test_tensor_core_tables_have_their_own_rank_limit():
-    """The bf16/int8 entries keep 768 r bytes in shared memory (r <= 288);
-    float32 tables keep the CUDA-core kernel's limit."""
-    for dtype, limit in ((torch.bfloat16, MR.MAX_RANK_TC),
-                         (torch.int8, MR.MAX_RANK_TC),
-                         (torch.float32, MR.MAX_RANK)):
-        ok = MR.check_scan_operands("t", torch.zeros(2, limit),
-                                    torch.zeros(limit, 9, dtype=dtype), 9,
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.int8,
+                                   torch.float32])
+def test_every_table_takes_ranks_up_to_max_rank(dtype):
+    """The kernels take r <= MAX_RANK for every table type (the
+    tensor-core scan streams ranks above 288 in chunks); the twins take
+    any rank (max_rank=None)."""
+    for r in (512, MR.MAX_RANK):
+        ok = MR.check_scan_operands("t", torch.zeros(2, r),
+                                    torch.zeros(r, 9, dtype=dtype), 9,
                                     (dtype,))
-        assert ok == (2, limit)
-        with pytest.raises(ValueError, match=str(limit)):
-            MR.check_scan_operands("t", torch.zeros(2, limit + 1),
-                                   torch.zeros(limit + 1, 9, dtype=dtype), 9,
-                                   (dtype,))
+        assert ok == (2, r)
+    big = (torch.zeros(2, MR.MAX_RANK + 1),
+           torch.zeros(MR.MAX_RANK + 1, 9, dtype=dtype))
+    with pytest.raises(ValueError, match=str(MR.MAX_RANK)):
+        MR.check_scan_operands("t", *big, 9, (dtype,))
+    assert MR.check_scan_operands("t", *big, 9, (dtype,), None) == \
+        (2, MR.MAX_RANK + 1)
+
+
+@pytest.mark.parametrize("kind", ["bfloat16", "int8_vector"])
+def test_cpu_wrappers_take_ranks_above_the_kernels_limit(kind):
+    """On CPU tensors the wrappers run the twins, which have no rank
+    limit: at a rank above MAX_RANK they give the twins' results, and
+    the scan nmftpu's _reservoir_scan's in interpret mode."""
+    b, r, m, slots = 3, MR.MAX_RANK + 8, 200, 64
+    Wq, H = _inputs(b, r, m, seed=11)
+    Hj, Ht, sc = _tables(H)[kind]
+    Wq_eff = torch.tensor(Wq if sc is None else Wq * sc)
+    s, i = MR.reservoir_scan(Wq_eff, Ht, m, slots)
+    s0, i0 = MR.reservoir_scan_plain(Wq_eff, Ht, m, slots)
+    assert torch.equal(s, s0) and torch.equal(i, i0)
+    Hp = jnp.pad(Hj, ((0, 0), (0, 256 - m)))
+    s_ref, i_ref = JR._reservoir_scan(jnp.asarray(Wq_eff.numpy()), Hp, m,
+                                      slots, b, interpret=True)
+    assert_same_candidates(s, i, s_ref, i_ref)
+    theta = s[:, 5]
+    hs = None if sc is None else torch.tensor(sc)
+    assert torch.equal(
+        CA.count_above_fused(torch.tensor(Wq), Ht, theta, h_scale=hs),
+        CA.count_above_fused_plain(torch.tensor(Wq), Ht, theta, h_scale=hs))
 
 
 @pytest.mark.parametrize("kind", ["float32", "bfloat16", "int8_vector",
