@@ -1,23 +1,26 @@
-"""Ablation of the two tensor-core kernels on one NVIDIA GPU: where the
-time of the reservoir scan (#8) and of the int8 numerators (#6) goes, and
-what splitting the scan's tile walk buys at small batches.
+"""Ablation of the tensor-core kernels on one NVIDIA GPU: where the time
+of the reservoir scan (#8), the count-above scan (#9) and the int8
+numerators (#6) goes, and what splitting the scan's tile walk buys at
+small batches.
 
     python3 chip_ablate.py [--out DIR]
 
-Builds variants of nmftpu_torch/csrc/{mips_reservoir,dual_numer}.cu with
-one part removed each (a text patch of the source, listed in VARIANTS:
-the carry fold, the table conversion, the products, a class of loads or
-atomics; and one with the scan's k-loop unrolled at compile time for
-r = 256), through the package's builder (`_build.build` of a directory
-of patched copies), all variants at once. A variant whose patch no longer
-matches its source is reported and skipped. Then it times each variant's
-C entry with CUDA events on random data at the main paths' shapes: the
-reservoir scan at BASELINE config 5 (int8 table, 10,485,760 items,
-r = 256, b = 512, 4096 slots) and the dual, vht and wtv entries at
-4096^2 / r = 256 and at the ML-20M shape (138,493 x 26,744, r = 64,
-0.54% nonzero). A variant computes wrong results by design: only its time
-is read. The time a part costs is the base time minus the time without
-it; parts that overlap each other do not add up.
+Builds variants of nmftpu_torch/csrc/{mips_reservoir,count_above,
+dual_numer}.cu with one part removed each (a text patch of the source,
+listed in VARIANTS: the carry fold or the count's compare, the table
+conversion, the products, a class of loads or atomics; one with the
+scan's k-loop unrolled at compile time for r = 256, and the count with
+3 or 4 warpgroups walking the tiles), each compiled by `_build.build`
+from a directory of patched copies, all variants at once.
+A variant whose patch no longer matches its source is reported and
+skipped. Then it times each variant's C entry with CUDA events on random
+data at the main paths' shapes: the reservoir scan and the count at
+BASELINE config 5 (int8 table, 10,485,760 items, r = 256, b = 512, 4096
+slots; the count with a threshold no score reaches) and the dual, vht
+and wtv entries at 4096^2 / r = 256 and at the ML-20M shape (138,493 x
+26,744, r = 64, 0.54% nonzero). A variant computes wrong results by
+design: only its time is read. The time a part costs is the base time
+minus the time without it; parts that overlap each other do not add up.
 
 Last, on the unpatched kernel and config 5's table, it times the scan at
 b = 64 and 256 with the walk in one range and split into 2 and 3 ranges
@@ -46,8 +49,8 @@ sys.path.insert(0, str(HERE))
 from chip_smoke import fail, nvidia_smi_line  # noqa: E402
 from nmftpu_torch.kernels import _build  # noqa: E402
 
-SOURCES = ("mips_reservoir.cu", "dual_numer.cu", "hopper_tc.cuh",
-           "mips_tile.cuh")
+SOURCES = ("mips_reservoir.cu", "dual_numer.cu", "count_above.cu",
+           "hopper_tc.cuh", "mips_tile.cuh", "tc_scan.cuh")
 NEVER = "false && "
 
 # variant -> [(source, text, replacement)]
@@ -58,7 +61,8 @@ VARIANTS = {
                  "static_cast<uint32_t>(t));", "      ;")],
     "no_convert": [("mips_reservoir.cu",
                     "    tc_convert<T>(raw + (u % NR) * raw_bytes, tile, "
-                    "min(kc, r - c * kc), kd,\n                  kc);", "")],
+                    "min(kc, r - c * kc), kd,\n                  kc, "
+                    "threadIdx.x, TC_THREADS);", "")],
     "no_mma": [("mips_reservoir.cu", "for (int s = 0; s < kd / 16; ++s)",
                 "for (int s = 0; s < 0; ++s)")],
     "no_table_loads": [("mips_reservoir.cu",
@@ -69,6 +73,27 @@ VARIANTS = {
     "static_k_loop": [("mips_reservoir.cu",
                        "    for (int s = 0; s < kd / 16; ++s)\n",
                        "#pragma unroll\n    for (int s = 0; s < 16; ++s)\n")],
+    "count_no_epilogue": [("count_above.cu",
+                           "  // most tiles hold no score near",
+                           "  return false;\n  // most tiles hold no score "
+                           "near")],
+    "count_no_convert": [("count_above.cu",
+                          "      tc_convert<T>(raw + (u % NR) * raw_bytes, "
+                          "op, min(kc, r - c * kc), kd,\n"
+                          "                    kc, tid, 128);", "")],
+    "count_no_mma": [("count_above.cu",
+                      "      for (int s = 0; s < kd / 16; ++s) {",
+                      "      for (int s = 0; s < 0; ++s) {")],
+    "count_no_table_loads": [("count_above.cu",
+                              "      if (u + NR - 1 < steps) "
+                              "load_raw(u + NR - 1);", "")],
+    # not removals: three and four warpgroups walking the tiles (ranks up
+    # to 512 fit their shared memory)
+    **{f"count_{w}_warpgroups": [
+        ("count_above.cu", "constexpr int CT_WGS = 2;",
+         f"constexpr int CT_WGS = {w};"),
+        ("count_above.cu", "constexpr int CT_MAX_RANK = 832;",
+         "constexpr int CT_MAX_RANK = 512;")] for w in (3, 4)},
     "no_chunk_loads": [("dual_numer.cu",
                         "    if (c + PF < nchunks) load_chunk(c + PF);", "")],
     "no_transpose": [("dual_numer.cu", "      transpose_chunk(v, vt);", "")],
@@ -85,9 +110,12 @@ VARIANTS = {
 }
 RESERVOIR = ("base", "no_fold", "no_convert", "no_mma", "no_table_loads",
              "static_k_loop")
+COUNT = ("base", "count_no_epilogue", "count_no_convert", "count_no_mma",
+         "count_no_table_loads", "count_3_warpgroups", "count_4_warpgroups")
 INT8 = ("base", "no_chunk_loads", "no_transpose", "no_nw_mma", "no_nh_mma",
         "no_nh_atomics", "no_nw_atomics")
 SCAN_ENTRIES = ("nmftpu_reservoir_scan_i8", "nmftpu_reservoir_merge",
+                "nmftpu_count_above_i8",
                 "nmftpu_int8_vht", "nmftpu_int8_wtv", "nmftpu_int8_dual")
 
 
@@ -202,6 +230,24 @@ def main() -> None:
             record("reservoir_scan_i8", f"b={b} r={r} m={m} R={slots}", name,
                    event_ms(split_scan(libs[name], Wq, H, m, slots, 1,
                                        stream), iters=3))
+    # the count at config 5 with a threshold no score reaches: every pair
+    # is compared, none counts, none goes through the band
+    from nmftpu_torch.kernels.count_above import count_plan
+    lim = torch.full((3 * b,), 1e30, device="cuda")
+    counts = torch.zeros(b, dtype=torch.int32, device="cuda")
+    nband = torch.zeros(1, dtype=torch.int64, device="cuda")
+    pairs = torch.empty(2 * 8192, dtype=torch.int32, device="cuda")
+    per = count_plan(b, m)[0]
+    for name in COUNT:
+        if name in libs:
+            lib = libs[name]
+            record("count_above_i8", f"b={b} r={r} m={m}", name, event_ms(
+                lambda: lib.nmftpu_count_above_i8(
+                    Wq.data_ptr(), H.data_ptr(), lim.data_ptr(),
+                    counts.data_ptr(), pairs.data_ptr(),
+                    nband.data_ptr(), 8192, b, r, m, m, per, 16,
+                    stream), iters=3))
+    del lim, counts, nband, pairs
     for nb in (64, 256):
         for splits in (1, 2, 3):
             record("reservoir_scan_i8", f"b={nb} r={r} m={m} R={slots}",

@@ -76,12 +76,13 @@ def kernel_class(name: str) -> str:
     if any(k in name for k in ("update_kernel", "hals_sweep_kernel",
                                "int8_numer_kernel", "muldiv_kernel")):
         return "port_kernels"
-    if "ell_rowsums_kernel" in name:
+    if "ell_spmm_kernel" in name:
         return "ell_rowsums"
     # the scans (float32 and tensor-core) and the merge of a split walk
     if "reservoir_" in name:
         return "reservoir_scan"
-    if "count_kernel" in name:
+    # the tensor-core count and its band re-score
+    if "count_tc_kernel" in name or "count_band_kernel" in name:
         return "count_above"
     low = name.lower()
     if "indexselect" in low or "gather" in low:

@@ -59,8 +59,15 @@ E2E_RTOL = 1e-3
 
 # phases 7-9: the serving kernels. Scores are float32 sums of 256 exact
 # products in two orders, ~sqrt(256) * 2^-24 = 1e-6 relative apart;
-# 1e-5 leaves 10x. Ids and counts may differ only at such near-ties.
+# 1e-5 leaves 10x. Reservoir ids may differ only at such near-ties. The
+# count must equal the chain count exactly: the reference counts a float32
+# matmul's scores where they lie farther than SCAN_RTOL |theta| from theta
+# and re-scores the rest by the k-ordered chain (_gather_scores).
 SCAN_RTOL = 1e-5
+# the band's constant (kernels/count_above.py BAND_C, in units of
+# r 2^-23 ||q||_1 h_max) must exceed the largest tensor-core error seen on
+# the full tables, in those units, this many times
+BAND_MARGIN = 4
 # BASELINE config 5 at full width; users as ML-20M's
 SERVE_USERS, SERVE_ITEMS, SERVE_RANK = 138_493, 10_485_760, 256
 SERVE_SEEN = 100            # seen items per user, uniform over the catalog
@@ -144,7 +151,8 @@ DENSE = ("w_update_fused", "h_update_fused", "w_update_fused_q",
 # the kernels that must run on the tensor cores: (symbol fragment, how
 # many instantiations); cuobjdump -sass must show wgmma (IGMMA/HGMMA) or
 # mma.sync (IMMA/HMMA) instructions in each
-TENSOR_CORE_KERNELS = (("int8_numer_kernel", 3), ("reservoir_tc_kernel", 4))
+TENSOR_CORE_KERNELS = (("int8_numer_kernel", 3), ("reservoir_tc_kernel", 4),
+                       ("count_tc_kernel", 4))
 TC_OPCODE = re.compile(r"\b(IGMMA|HGMMA|IMMA|HMMA)\b")
 
 
@@ -315,7 +323,8 @@ def check_reservoir(MR, label, Wq, H, m, slots):
     """The reservoir kernel against its twin, slot by slot: scores within
     SCAN_RTOL; where the ids differ, the two competing items' float64
     scores (at the kernel's operand values) within SCAN_RTOL. Returns
-    (max |score difference|, candidate scores of the twin)."""
+    (max |score difference|, candidate scores of the twin, the kernel's
+    candidates (scores, ids))."""
     before = dict(MR.VARIANT_LAUNCHES)
     s, i = MR.reservoir_scan(Wq, H, m, slots)
     ran = [k for k in before if MR.VARIANT_LAUNCHES[k] > before[k]]
@@ -339,29 +348,111 @@ def check_reservoir(MR, label, Wq, H, m, slots):
         slots_with_other_id_beyond_tol=far)
     if not rel <= SCAN_RTOL or far:
         fail(f"reservoir_scan {label}: kernel disagrees with its twin")
-    return max_abs, s0
+    return max_abs, s0, (s, i)
 
 
-def check_count(CA, label, Wq, H, theta, h_scale):
-    """The count kernel against its twin at theta; the counts may differ
-    by at most the number of items whose twin score lies within
-    SCAN_RTOL of theta (counted with the twin at theta(1 -+ SCAN_RTOL),
-    theta > 0 here). Returns max |count difference|."""
-    got = CA.count_above_fused(Wq, H, theta, h_scale=h_scale)
-    want = CA.count_above_fused_plain(Wq, H, theta, h_scale=h_scale)
-    near = (CA.count_above_fused_plain(Wq, H, theta * (1 - SCAN_RTOL),
-                                       h_scale=h_scale)
-            - CA.count_above_fused_plain(Wq, H, theta * (1 + SCAN_RTOL),
-                                         h_scale=h_scale))
+def tensor_core_error(Wq, H, h_scale, h_max, cand, rows=128) -> float:
+    """The largest |tensor-core score - chain score| over the reservoir
+    kernel's finite candidates `cand` (scores, ids), each row's in units
+    of r 2^-23 ||q||_1 h_max (q the bf16 scan operand): the quantity the
+    count kernel's band constant must bound. The chain is
+    retrieval.mips._gather_scores."""
+    from nmftpu_torch._operands import _scan_operands
+    from nmftpu_torch.retrieval.mips import _gather_scores
+
+    s, i = cand
+    q = _scan_operands(Wq, H.dtype, h_scale)[0]
+    unit = q.shape[1] * 2.0**-23 * q.double().abs().sum(1) * float(h_max)
+    worst = 0.0
+    for lo in range(0, s.shape[0], rows):
+        hi = min(lo + rows, s.shape[0])
+        chain = _gather_scores(Wq[lo:hi], H, i[lo:hi], h_scale)
+        fin = torch.isfinite(s[lo:hi])
+        err = ((s[lo:hi] - chain).abs().double() / unit[lo:hi, None])[fin]
+        worst = max(worst, float(err.max()) if err.numel() else 0.0)
+    return worst
+
+
+def chain_count(Wq, H, theta, h_scale, block=1 << 17):
+    """#{j : chain(q, j) > theta} per row, the count the certificate needs:
+    a float32 matmul decides the pairs farther than SCAN_RTOL |theta| from
+    a finite theta, and retrieval.mips._gather_scores (the k-ordered
+    chain) re-scores the rest. Returns (counts (b,) int32, pairs
+    re-scored)."""
+    from nmftpu_torch._operands import _scan_operands
+    from nmftpu_torch.retrieval.mips import _gather_scores
+
+    q = _scan_operands(Wq, H.dtype, h_scale)[0]
+    b, m = Wq.shape[0], H.shape[1]
+    slack = torch.where(torch.isfinite(theta), SCAN_RTOL * theta.abs(),
+                        torch.zeros_like(theta))[:, None]
+    count = torch.zeros(b, dtype=torch.int64, device=H.device)
+    rows, cols = [], []
+    for lo in range(0, m, block):
+        s = q @ H[:, lo:lo + block].float()
+        near = (s - theta[:, None]).abs() <= slack
+        count += ((s > theta[:, None]) & ~near).sum(1)
+        rr, cc = near.nonzero(as_tuple=True)
+        rows.append(rr)
+        cols.append(cc + lo)
+        del s, near
+    rows, cols = torch.cat(rows), torch.cat(cols)
+    for lo in range(0, rows.numel(), 1 << 20):
+        rr, cc = rows[lo:lo + (1 << 20)], cols[lo:lo + (1 << 20)]
+        sc = _gather_scores(Wq[rr], H, cc[:, None], h_scale)[:, 0]
+        count.index_add_(0, rr, (sc > theta[rr]).long())
+    return count.int(), rows.numel()
+
+
+def check_count(CA, label, Wq, H, theta, h_scale, h_max=None,
+                all_band=False) -> tuple[int, int]:
+    """The count kernel against the exact chain count (`chain_count`):
+    equal in every row. With `all_band`, every pair of a finite-theta row
+    must have gone through the band. Returns (the largest count
+    difference measured, the kernel's band pairs)."""
+    before = CA.band_pairs()
+    got = CA.count_above_fused(Wq, H, theta, h_scale=h_scale, h_max=h_max)
+    band = CA.band_pairs() - before
+    want, rescored = chain_count(Wq, H, theta, h_scale)
     torch.cuda.synchronize()
-    d = (got - want).abs()
-    say("7 count_above", case=label, max_count_diff=int(d.max()),
-        near_tie_bound_of_that_row=int(near[int(d.argmax())]),
-        rows_over_bound=int((d > near).sum()),
+    d = int((got - want).abs().max())
+    say("7 count_above", case=label, max_count_diff=d, band_pairs=band,
+        reference_rescored_pairs=rescored,
         mean_count=f"{float(want.float().mean()):.2f}")
-    if bool((d > near).any()):
-        fail(f"count_above {label}: kernel disagrees with its twin")
-    return float(d.max())
+    if d != 0:
+        fail(f"count_above {label}: kernel differs from the chain count")
+    finite_rows = int(torch.isfinite(theta).sum())
+    if all_band and band != finite_rows * H.shape[1]:
+        fail(f"count_above {label}: {band} band pairs, expected every pair "
+             f"({finite_rows * H.shape[1]})")
+    return d, band
+
+
+def check_zero_queries(CA, rec, Wq, theta, card) -> int:
+    """A batch of config 5 whose queries 3, 130, 300 and 511 (one in each
+    128-query block) are all zero, as a user with no factors is: they
+    score exactly 0 on every item and their kth score, theta, is 0, so all
+    m items tie it. The count must stay exact and those ties must not go
+    through the band; the batch is timed beside the same batch without
+    them. Returns the largest count difference."""
+    zero = torch.tensor([3, 130, 300, 511], device=Wq.device)
+    Wz, tz = Wq.clone(), theta.clone()
+    Wz[zero], tz[zero] = 0.0, 0.0
+    m = rec.H.shape[1]
+    d, band = check_count(CA, f"zero queries b={Wq.shape[0]} m={m} int8",
+                          Wz, rec.H, tz, rec._h_scale)
+    ms = abba_ms({
+        "zero_queries": lambda: CA.count_above_fused(
+            Wz, rec.H, tz, h_scale=rec._h_scale),
+        "no_zero_queries": lambda: CA.count_above_fused(
+            Wq, rec.H, theta, h_scale=rec._h_scale)}, iters=3)
+    say("7 count_above", case="zero queries timing", band_pairs=band,
+        ms_with_zero_queries=f"{ms['zero_queries']:.3f}",
+        ms_without=f"{ms['no_zero_queries']:.3f}", card=card)
+    if band >= m:
+        fail(f"count_above zero queries: {band} band pairs, so an all-zero "
+             f"row's {m} ties went through the band")
+    return d
 
 
 def rows_not_exact(s, i, s_ex, i_ex, k):
@@ -408,7 +499,7 @@ def serve_table(MR, CA, td, rec, train, batches, card) -> None:
                     .tolist()) for u in users]
         torch.cuda.reset_peak_memory_stats()
         before = (MR.LAUNCHES["reservoir_scan"],
-                  CA.LAUNCHES["count_above"])
+                  CA.LAUNCHES["count_above"], CA.band_pairs())
         s_ex, i_ex = exact.recommend(users, k=SERVE_K + 1)
         s, i = rec.recommend(users, k=SERVE_K)
         recall = np.mean([
@@ -424,13 +515,15 @@ def serve_table(MR, CA, td, rec, train, batches, card) -> None:
                               for row in range(b))
         launched = (MR.LAUNCHES["reservoir_scan"] - before[0],
                     CA.LAUNCHES["count_above"] - before[1])
+        band = CA.band_pairs() - before[2]
         finite = bool(np.isfinite(s).all() and np.isfinite(s_c).all())
         say("8 serve", table=td, batch=b, k=SERVE_K,
             recall_at_100=f"{recall:.6f}", seen_violations=violations,
             certified_fraction=f"{cert.mean():.6f}",
             rows_not_exact=not_exact,
             certified_seen_violations=cert_violations,
-            finite=finite, launches=launched,
+            finite=finite, launches=launched, count_band_pairs=band,
+            band_pairs_per_query=f"{band / b:.4f}",
             peak_GiB=f"{torch.cuda.max_memory_allocated() / 2**30:.1f}")
         if not (recall >= RECALL_FLOOR and violations == 0
                 and not_exact == 0 and cert_violations == 0 and finite):
@@ -520,6 +613,34 @@ def check_ell(SEK, label, buckets, table) -> float:
     return worst_abs
 
 
+def check_ell_products(SEK, SE, label, pair, W, H) -> float:
+    """The fused path (one launch per product, every bucket, sums added
+    into the rows) against the plain ELL products in both directions:
+    V Hᵀ (n, r) and Wᵀ V (r, m) within ELL_RTOL. Returns max |difference|.
+    """
+    worst = 0.0
+    for direction, fused, plain in (
+            ("V Ht", lambda: SEK.v_ht_ell_pallas(pair.rows, H),
+             lambda: SE.v_ht_ell(pair.rows, H)),
+            ("Wt V", lambda: SEK.wt_v_ell_pallas(pair, W),
+             lambda: SE.wt_v_ell(pair, W))):
+        before = SEK.LAUNCHES["ell_rowsums"]
+        got = fused()
+        launched = SEK.LAUNCHES["ell_rowsums"] - before
+        want = plain()
+        torch.cuda.synchronize()
+        a, rel = rel_err(got, want)
+        worst = max(worst, a)
+        say("10 ell_spmm", case=label, product=direction,
+            dtype=str(H.dtype), launches=launched, max_abs=f"{a:.3e}",
+            max_rel=f"{rel:.3e}", rtol=ELL_RTOL)
+        if not (rel <= ELL_RTOL and launched == 1):
+            fail(f"ell_spmm {label} {direction}: fused path disagrees with "
+                 f"the plain product or took {launched} launches")
+        del got, want
+    return worst
+
+
 def sparse_phases(nt, ratings, card, dev) -> dict:
     """Phases 10-12 on the host CSR `ratings` (config 2's shape): kernel
     #10 against its twin, the sparse engines end to end through
@@ -546,6 +667,8 @@ def sparse_phases(nt, ratings, card, dev) -> dict:
                                   ("Vt W", pair.cols, Wt)):
             max_abs = max(max_abs, check_ell(
                 SEK, f"ragged 1000x1500 r=37 {label}", ell.buckets, table))
+        max_abs = max(max_abs, check_ell_products(
+            SEK, SE, "ragged 1000x1500 r=37", pair, Wt, Ht.T))
     cfg = NmfConfig(rank=r, init_method=Initialization.COPY_EXISTING,
                     num_iterations=SPARSE_ITERS, check_interval=SPARSE_CHECK)
     t0 = time.perf_counter()
@@ -567,6 +690,8 @@ def sparse_phases(nt, ratings, card, dev) -> dict:
     max_abs = max(max_abs, check_ell(
         SEK, f"ML-20M shape r={r} Vt W (table {n}x{r})", pair.cols.buckets,
         Wt))
+    max_abs = max(max_abs, check_ell_products(
+        SEK, SE, f"ML-20M shape r={r}", pair, Wt, Ht.T))
     del Ht, Wt
 
     # -- 11. config 2 end to end (the third main path) ----------------------
@@ -628,7 +753,8 @@ def sparse_phases(nt, ratings, card, dev) -> dict:
     # the two KL engines' factors, for the record (no limit: densified
     # rounds W and H to bf16 in each contraction)
     dw_kl = float((res_ek.W - res_dk.W).abs().max() / res_dk.W.abs().max())
-    say("11 checks", ell_rowsums_launches=launches, kernel_vs_plain_W=
+    say("11 checks", ell_rowsums_launches_one_per_product=launches,
+        kernel_vs_plain_W=
         f"{dw:.3e}", kernel_vs_plain_H=f"{dh:.3e}", rtol=SPARSE_E2E_RTOL,
         kl_start=f"{kl0:.6g}", kl_ell=f"{res_ek.kl_error:.6g}",
         kl_densified=f"{res_dk.kl_error:.6g}", kl_rel=f"{dkl:.3e}",
@@ -682,28 +808,36 @@ def sparse_phases(nt, ratings, card, dev) -> dict:
     for path, ms in it_ms.items():
         say("12 timing", path=path, ms_per_iter=f"{ms:.3f}", card=card)
     Ht0 = H0.T.contiguous()
-    # cuSPARSE through torch.sparse.mm: the library yardstick, timed here
-    # and called nowhere in the port (torch warns that its sparse CSR
-    # support is in beta)
-    with warnings.catch_warnings():
-        warnings.simplefilter("ignore", UserWarning)
-        Vcsr = torch.sparse_csr_tensor(
-            torch.from_numpy(ratings.indptr).to(dev),
-            torch.from_numpy(ratings.indices.astype(np.int64)).to(dev),
-            torch.from_numpy(ratings.data).to(dev), size=(n, m),
-            check_invariants=True)
+    # cuSPARSE through torch.sparse.mm, on V and on Vᵀ as CSR: the library
+    # yardsticks, timed here and called nowhere in the port (torch warns
+    # that its sparse CSR support is in beta)
+    def device_csr(csr):
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", UserWarning)
+            return torch.sparse_csr_tensor(
+                torch.from_numpy(csr.indptr).to(dev),
+                torch.from_numpy(csr.indices.astype(np.int64)).to(dev),
+                torch.from_numpy(csr.data).to(dev), size=csr.shape,
+                check_invariants=True)
+
+    Vcsr, VTcsr = device_csr(ratings), device_csr(ratings.T.to_csr())
     _, lib_rel = rel_err(torch.sparse.mm(Vcsr, Ht0),
                          SEK.v_ht_ell_pallas(pair.rows, H0))
+    _, lib_rel_wtv = rel_err(torch.sparse.mm(VTcsr, W0),
+                             SEK.wt_v_ell_pallas(pair, W0).T)
+    out_vht = torch.zeros(n, r, device=dev)
+    out_wtv = torch.zeros(m, r, device=dev)
     sp_ms = abba_ms({
         "kernel_path": lambda: SEK.v_ht_ell_pallas(pair.rows, H0),
-        "kernel_only": lambda: [SEK.bucket_rowsums(b.vals, b.cols, Ht0)
-                                for b in pair.rows.buckets],
+        "kernel_only": lambda: SEK.ell_spmm(pair.rows.buckets, Ht0,
+                                            out_vht.zero_()),
         "plain_path": lambda: SE.v_ht_ell(pair.rows, H0),
         "torch_sparse_mm": lambda: torch.sparse.mm(Vcsr, Ht0),
         "kernel_path_WtV": lambda: SEK.wt_v_ell_pallas(pair, W0),
-        "kernel_only_WtV": lambda: [SEK.bucket_rowsums(b.vals, b.cols, W0)
-                                    for b in pair.cols.buckets],
+        "kernel_only_WtV": lambda: SEK.ell_spmm(pair.cols.buckets, W0,
+                                                out_wtv.zero_()),
         "plain_path_WtV": lambda: SE.wt_v_ell(pair, W0),
+        "torch_sparse_mm_WtV": lambda: torch.sparse.mm(VTcsr, W0),
     }, iters=5)
     # one V Ht SpMM needs each nonzero's value and column once, the table
     # and the output: counted over the nonzeros, not the padded lanes
@@ -714,9 +848,13 @@ def sparse_phases(nt, ratings, card, dev) -> dict:
         say("12 spmm timing", path=path, ms=f"{ms:.4f}",
             GB_s_of_needed_bytes=f"{nbytes / ms / 1e6:.1f}", card=card)
     say("12 spmm bound", bound_ms=f"{bound_ms:.4f}", bound_by=bound_by,
-        library_vs_kernel_path_max_rel=f"{lib_rel:.3e}", card=card)
-    if not lib_rel <= 1e-4:
-        fail(f"torch.sparse.mm and the kernel path disagree ({lib_rel:.3e})")
+        gathered_row_GB=f"{nnz * r * 4 / 1e9:.2f}",
+        library_vs_kernel_path_max_rel=f"{lib_rel:.3e}",
+        library_vs_kernel_path_WtV_max_rel=f"{lib_rel_wtv:.3e}", card=card)
+    if not (lib_rel <= 1e-4 and lib_rel_wtv <= 1e-4):
+        fail(f"torch.sparse.mm and the kernel path disagree ({lib_rel:.3e}, "
+             f"{lib_rel_wtv:.3e})")
+    del Vcsr, VTcsr, out_vht, out_wtv
     return {"launches": launches, "max_abs_err": max_abs,
             "ms": sp_ms["kernel_path"], "plain_ms": sp_ms["plain_path"],
             "library_ms": sp_ms["torch_sparse_mm"], "bound_ms": bound_ms,
@@ -1100,6 +1238,7 @@ def main() -> None:
     from nmftpu_torch.kernels import mips_reservoir as MR
     from nmftpu_torch.kernels import quantized as Q
     from nmftpu_torch.linalg import dense as D
+    from nmftpu_torch.retrieval.mips import _gather_scores
     from nmftpu_torch.serving import quantize_table
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1327,12 +1466,30 @@ def main() -> None:
                      else quantize_table(Hf))
             Wk = Wq if hs is None else Wq * hs
             label = f"b={b} r={r} m={m} R={slots} {td}"
-            a, cand = check_reservoir(MR, label, Wk, H, m, slots)
+            a, cand, _ = check_reservoir(MR, label, Wk, H, m, slots)
             max_abs["reservoir_scan"] = max(max_abs["reservoir_scan"], a)
             theta = cand.topk(SERVE_K, dim=1).values[:, -1].contiguous()
-            max_abs["count_above"] = max(max_abs["count_above"], check_count(
-                CA, label, Wq, H, theta, hs))
+            d, _ = check_count(CA, label, Wq, H, theta, hs)
+            max_abs["count_above"] = max(max_abs["count_above"], d)
         del Wq, Hf, H, hs, Wk, cand, theta
+    # every item ties theta: one column repeated, theta its chain score
+    # (row 0: -inf, every item counts); each pair goes through the band,
+    # the default list of 4,096 overflows, and the count stays exact
+    gen = torch.Generator(device=dev).manual_seed(SEED + 77)
+    b, r, m = 37, 37, 10_007
+    Wq = torch.rand(b, r, generator=gen, device=dev)
+    col = torch.rand(r, 1, generator=gen, device=dev)
+    for td in ("bfloat16", "int8"):
+        H, hs = ((col.to(torch.bfloat16), None) if td == "bfloat16"
+                 else quantize_table(col))
+        H = H.expand(r, m).contiguous()
+        theta = _gather_scores(Wq, H, torch.zeros(b, 1, dtype=torch.int32,
+                                                  device=dev), hs)[:, 0]
+        theta[0] = float("-inf")
+        d, _ = check_count(CA, f"all ties b={b} r={r} m={m} {td}", Wq, H,
+                           theta.contiguous(), hs, all_band=True)
+        max_abs["count_above"] = max(max_abs["count_above"], d)
+    del Wq, col, H, hs, theta
 
     gen8 = torch.Generator(device=dev).manual_seed(SEED + 8)
     t0 = time.perf_counter()
@@ -1349,6 +1506,7 @@ def main() -> None:
     recs = {td: nt.Recommender(W8, H8, train=train, method="reservoir",
                                table_dtype=td)
             for td in ("int8", "bfloat16")}
+    tc_err = dict.fromkeys(recs, 0.0)
     for td, b, slots in (("int8", 512, 4096), ("int8", 512, 16384),
                          ("int8", 2048, 4096),
                          ("bfloat16", 512, 4096), ("bfloat16", 512, 16384)):
@@ -1356,13 +1514,29 @@ def main() -> None:
         Wq = rec.W[torch.as_tensor(batches[b], device=dev)]
         Wk = Wq if rec._h_scale is None else Wq * rec._h_scale
         label = f"full table b={b} R={slots} {td}"
-        a, cand = check_reservoir(MR, label, Wk, rec.H, SERVE_ITEMS, slots)
+        a, cand, got = check_reservoir(MR, label, Wk, rec.H, SERVE_ITEMS,
+                                       slots)
         max_abs["reservoir_scan"] = max(max_abs["reservoir_scan"], a)
+        h_max = CA.table_h_max(rec.H, rec._h_max)
+        tc_err[td] = max(tc_err[td], tensor_core_error(
+            Wq, rec.H, rec._h_scale, h_max, got))
         theta = cand.topk(SERVE_K, dim=1).values[:, -1].contiguous()
-        max_abs["count_above"] = max(max_abs["count_above"], check_count(
-            CA, label, Wq, rec.H, theta, rec._h_scale))
-        del Wq, Wk, cand, theta
+        d, _ = check_count(CA, label, Wq, rec.H, theta, rec._h_scale,
+                           rec._h_max)
+        max_abs["count_above"] = max(max_abs["count_above"], d)
+        if td == "int8" and b == 512 and slots == 4096:
+            d = check_zero_queries(CA, rec, Wq, theta, card)
+            max_abs["count_above"] = max(max_abs["count_above"], d)
+        del Wq, Wk, cand, got, theta
     del rec
+    # the band's constant against the tensor cores' largest error seen
+    for td, err in tc_err.items():
+        say("7 band", table=td, largest_tc_error_in_r_ulps_of_A=f"{err:.4g}",
+            band_constant=CA.BAND_C, margin=f"{CA.BAND_C / err:.4g}"
+            if err else "inf", required_margin=BAND_MARGIN)
+        if not CA.BAND_C >= BAND_MARGIN * err:
+            fail(f"{td}: the tensor cores' error {err:.4g} leaves the band "
+                 f"constant {CA.BAND_C} less than {BAND_MARGIN}x margin")
 
     # -- 8. serving end to end at config 5 (the second main path) -----------
     for counts in (MR.LAUNCHES, CA.LAUNCHES):
@@ -1390,6 +1564,9 @@ def main() -> None:
     if ran != {"tc": 1, "tc_unaligned": 0, "f32": 0, "merge": 0}:
         fail(f"phase 9 does not time the aligned tensor-core scan: {ran}")
     theta = cand.topk(SERVE_K, dim=1).values[:, -1].contiguous()
+    band = CA.band_pairs()
+    CA.count_above_fused(Wq, Hq, theta, h_scale=hs)
+    band = CA.band_pairs() - band
     t_ms = abba_ms({
         "reservoir_scan": lambda: MR.reservoir_scan(Wk, Hq, SERVE_ITEMS,
                                                     4096),
@@ -1416,7 +1593,8 @@ def main() -> None:
             "int8", ms=f"{k_ms[name]:.3f}", plain_ms=f"{p_ms[name]:.3f}",
             TFLOP_s=f"{flops / k_ms[name] / 1e9:.2f}",
             bound_ms=f"{bounds[name][0]:.4f}", bound_by=bounds[name][1],
-            card=card)
+            **({"band_pairs_per_call": band} if name == "count_above"
+               else {}), card=card)
     del Hq, hs, Wq, Wk, cand, theta, W8, train
     torch.cuda.empty_cache()
 

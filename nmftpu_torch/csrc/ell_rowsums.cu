@@ -1,48 +1,55 @@
-// ELL segment SpMM: per padded segment s of one ELL bucket,
+// ELL sparse-times-dense product for Hopper (sm_90a), one launch per
+// product, with a plain C interface loaded through ctypes
+// (nmftpu_torch/kernels/_build.py):
 //
-//     out[s, :] = Σ_{k < w} vals[s, k] · table[cols[s, k], :]      (nseg, r)
+//     out[rows[s], :] += Σ_{k < w} vals[s, k] · table[cols[s, k], :]
 //
-// for Hopper (sm_90a), with a plain C interface loaded through ctypes
-// (nmftpu_torch/kernels/_build.py).
+// for every padded segment s of up to MAX_BUCKETS ELL buckets at once,
+// into a zeroed (n, r) out: V·Hᵀ from the row container, (Wᵀ·V)ᵀ from the
+// transposed one.
 //
 // Replaces the TPU kernel nmftpu/kernels/sparse_ell_kernel.py:98
 // bucket_rowsums_pallas (kernel _make_seg_rowsum_kernel :58, pallas_call
-// :140). The contract is the TPU kernel's: segment sums only. The scatter
-// of segments into rows stays outside, as an index_add_ on out_row (the
-// TPU version leaves it to an XLA sorted scatter). Pad lanes are
-// (col 0, val 0) and pad segments are all zero, so they add exact zeros
-// and need no special case. The TPU's VMEM table budget, one-step grid and
-// scan over segment groups are not carried over: here the table stays in
-// global memory and L2, and one launch covers the whole bucket.
+// :140), and the scatter of segment sums into rows that nmftpu leaves to
+// XLA: here each segment's sum goes straight into its row, so the (nseg,
+// r) segment sums never reach device memory. The TPU's VMEM table budget,
+// one-step grid and scan over segment groups are not carried over.
+// Segment sums alone (bucket_rowsums) are the same launch with rows[s] =
+// s.
 //
 // Precision contract: a template over float and double that multiplies
-// and accumulates in the element type (fma in k order, 0..w-1). The TPU
-// kernel sums in float32 even for a float64 table; this one does not.
-// Against the plain torch twin (kernels/sparse_ell_kernel.py
-// bucket_rowsums_plain, another summation order) the relative error is
-// about sqrt(w) · 2^-24 in float32 on nonnegative data (w <= 512).
+// and accumulates in the element type, fma in k order over the segment's
+// lanes with a nonzero value. Skipping a zero lane changes nothing for a
+// finite table (fma(0, x, acc) = acc), so a row with one segment gets the
+// bits the k-ordered sum of all lanes gives. A row with several segments
+// adds them with atomics, in an order that changes from run to run, as
+// index_add_ on CUDA does. Against the plain twin (another summation
+// order) the relative error is about sqrt(w) · 2^-24 in float32 on
+// nonnegative data (w <= 512).
 //
-// Work split: one warp owns one segment at a time, and a grid-stride loop
-// walks the segments. The warp reads the segment's cols/vals 32 at a time
-// (coalesced) and broadcasts each (col, val) pair with __shfl_sync. Lane l
-// owns VEC contiguous columns in each of NP 32·VEC-column groups of the
-// gathered table row, so one table row is read as one coalesced 256 B
-// (r = 64, float2) or 512 B (r = 128, float4) access; columns beyond r
-// are masked, and rows wider than 32·VEC·NP run in several passes. The k
-// loop is unrolled by four, so four independent row gathers are in flight
-// per warp (the gather is latency-bound). Sums stay in registers and each
-// segment's row is written once. Offsets are 64-bit.
+// Work split. Buckets come widest first (the wrapper orders them), so the
+// 512-wide segments start first and do not form the tail. A warp takes
+// two consecutive segments at a time, one per half-warp of 16 lanes, in a
+// grid-stride walk over the segments of all buckets. A half-warp reads its
+// segment's (col, val) pairs 16 at a time (coalesced); a warp ballot on
+// val != 0 leaves only the nonzero lanes, so pad lanes and all-zero pad
+// segments cost only that read. Each nonzero pair is broadcast by a
+// shuffle, and lane l of the half gathers VEC contiguous columns in each
+// of NP 16·VEC-column groups of the table row: at r = 64 one float4 a
+// lane, so a row is one coalesced 256 B read. Up to 8 row gathers are
+// in flight per half-warp (8 / NP pairs), 16 per warp. Sums stay in
+// registers; the half then adds them into out[rows[s]] with vector
+// atomics (float4 / float2 on sm_90, double as two scalars). Rows wider
+// than 16·VEC·NP columns take several passes. Offsets are 64-bit.
 //
 // What bounds it on the H100: at the ML-20M shape and r = 64 the gathered
-// tables are small (Hᵀ 26,744 × 64 × 4 B = 6.8 MB, W 138,493 × 64 × 4 B =
-// 35 MB) and live in the 50 MB L2, so the kernel streams vals/cols from
-// HBM and gathers rows from L2. Counted over the 20M nonzeros, one SpMM
-// must move about 160 MB of vals + cols, the table and an nseg × r × 4 B
-// output: about 0.2 GB, 60 µs at 3.35 TB/s. Its 2·nnz·r = 2.6 GFLOP take
-// 38 µs at 67 TFLOP/s of float32: bytes bound it. This first kernel
-// spends nothing on reaching that bound. Fusing the row scatter, ordering
-// segments by width and overlapping the gathers (cp.async / TMA gathers)
-// are later work.
+// tables (Hᵀ 26,744 × 64 × 4 B = 6.8 MB, W 138,493 × 64 × 4 B = 35 MB)
+// fit the 50 MB L2, so the kernel streams vals/cols from HBM and gathers
+// rows from L2. Counted over the 20M nonzeros, one product must move about
+// 160 MB of vals + cols, the table and the output: 0.2 GB, 60 µs at 3.35
+// TB/s, while its 2·nnz·r = 2.6 GFLOP take 38 µs at 67 TFLOP/s of float32.
+// The gathers themselves are nnz · r · 4 B = 5.1 GB of L2 traffic a
+// product, which at the L2's rate (several TB/s) is the realistic floor.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -52,7 +59,25 @@ namespace {
 constexpr int WARPS = 8;                 // warps per block
 constexpr int THREADS = 32 * WARPS;
 constexpr unsigned FULL = 0xffffffffu;
-constexpr int UNROLL = 4;                // row gathers in flight per warp
+constexpr int HALF = 16;                 // lanes per segment
+constexpr int MAX_BUCKETS = 8;
+constexpr int GATHERS = 8;               // row loads in flight per lane
+
+template <typename T>
+struct Bucket {
+  const T* vals;        // (nseg, w)
+  const int* cols;      // (nseg, w)
+  const int* rows;      // (nseg,)
+  long long first;      // index of its first segment among all buckets
+  int w;
+};
+
+template <typename T>
+struct Plan {
+  Bucket<T> b[MAX_BUCKETS];
+  long long nseg;       // segments of all buckets
+  int nb;
+};
 
 template <typename T, int VEC> struct VecOf;
 template <> struct VecOf<float, 1> { using type = float; };
@@ -71,15 +96,18 @@ __device__ __forceinline__ void load_vec(const T* __restrict__ p,
   for (int i = 0; i < VEC; ++i) x[i] = e[i];
 }
 
+// out[0, VEC) += x, atomically
 template <typename T, int VEC>
-__device__ __forceinline__ void store_vec(T* __restrict__ p,
-                                          const T (&x)[VEC]) {
-  using V = typename VecOf<T, VEC>::type;
-  V v;
-  T* e = reinterpret_cast<T*>(&v);
+__device__ __forceinline__ void add_vec(T* p, const T (&x)[VEC]) {
+  if constexpr (sizeof(T) == 4 && VEC == 4) {
+    atomicAdd(reinterpret_cast<float4*>(p), make_float4(x[0], x[1], x[2],
+                                                        x[3]));
+  } else if constexpr (sizeof(T) == 4 && VEC == 2) {
+    atomicAdd(reinterpret_cast<float2*>(p), make_float2(x[0], x[1]));
+  } else {
 #pragma unroll
-  for (int i = 0; i < VEC; ++i) e[i] = x[i];
-  *reinterpret_cast<V*>(p) = v;
+    for (int i = 0; i < VEC; ++i) atomicAdd(p + i, x[i]);
+  }
 }
 
 __device__ __forceinline__ float fma_t(float a, float b, float c) {
@@ -89,108 +117,113 @@ __device__ __forceinline__ double fma_t(double a, double b, double c) {
   return fma(a, b, c);
 }
 
-// Add val · table[col, c0 + (32 p + lane) VEC + i] into acc[p][i] for
-// UNROLL (col, val) pairs at once: all gathers are issued before the fmas.
-template <typename T, int VEC, int NP, int N>
-__device__ __forceinline__ void gather_fma(T (&acc)[NP][VEC],
-                                           const T* __restrict__ table,
-                                           const int (&col)[N],
-                                           const T (&val)[N], int r, int c0,
-                                           int lane) {
-  T x[N][NP][VEC];
-#pragma unroll
-  for (int u = 0; u < N; ++u) {
-    const T* row = table + static_cast<long long>(col[u]) * r;
-#pragma unroll
-    for (int p = 0; p < NP; ++p) {
-      const int c = c0 + (32 * p + lane) * VEC;
-      if (c < r) {
-        load_vec<T, VEC>(row + c, x[u][p]);
-      } else {
-#pragma unroll
-        for (int i = 0; i < VEC; ++i) x[u][p][i] = T(0);
-      }
-    }
-  }
-#pragma unroll
-  for (int u = 0; u < N; ++u)
-#pragma unroll
-    for (int p = 0; p < NP; ++p)
-#pragma unroll
-      for (int i = 0; i < VEC; ++i)
-        acc[p][i] = fma_t(val[u], x[u][p][i], acc[p][i]);
-}
-
 template <typename T, int VEC, int NP>
 __global__ void __launch_bounds__(THREADS)
-ell_rowsums_kernel(const T* __restrict__ vals, const int* __restrict__ cols,
-                   const T* __restrict__ table, T* __restrict__ out,
-                   long long nseg, int w, int r) {
-  constexpr int TILE = 32 * VEC * NP;    // columns per pass
+ell_spmm_kernel(const __grid_constant__ Plan<T> plan,
+                const T* __restrict__ table, T* __restrict__ out, int r) {
+  constexpr int TILE = HALF * VEC * NP;  // columns per pass
+  constexpr int U = GATHERS / NP;        // pairs gathered at once
   const int lane = threadIdx.x & 31;
-  const long long nwarps =
-      static_cast<long long>(gridDim.x) * WARPS;
-  for (long long s = static_cast<long long>(blockIdx.x) * WARPS +
+  const int half = lane >> 4;
+  const int hl = lane & (HALF - 1);
+  const long long tasks = (plan.nseg + 1) / 2;
+  const long long nwarps = static_cast<long long>(gridDim.x) * WARPS;
+  for (long long t = static_cast<long long>(blockIdx.x) * WARPS +
                      threadIdx.x / 32;
-       s < nseg; s += nwarps) {
-    const T* sv = vals + s * w;
-    const int* sc = cols + s * w;
+       t < tasks; t += nwarps) {
+    const long long s = 2 * t + half;   // this half's segment
+    Bucket<T> bk = plan.b[0];
+#pragma unroll
+    for (int i = 1; i < MAX_BUCKETS; ++i)
+      if (i < plan.nb && s >= plan.b[i].first) bk = plan.b[i];
+    const bool live = s < plan.nseg;
+    const long long ls = s - bk.first;  // the segment within its bucket
+    const int w = live ? bk.w : 0;
+    const T* sv = bk.vals + ls * bk.w;
+    const int* sc = bk.cols + ls * bk.w;
+    // both halves run every loop below the same number of times, so each
+    // shuffle and ballot has all 32 lanes
+    const int wmax = max(w, __shfl_xor_sync(FULL, w, HALF));
     for (int c0 = 0; c0 < r; c0 += TILE) {
       T acc[NP][VEC];
 #pragma unroll
       for (int p = 0; p < NP; ++p)
 #pragma unroll
         for (int i = 0; i < VEC; ++i) acc[p][i] = T(0);
-      for (int kb = 0; kb < w; kb += 32) {
-        // lane l holds pair kb + l; every loop bound below is uniform
-        // across the warp, so each shuffle has all 32 lanes
-        const int k = kb + lane;
+      bool any = false;
+      for (int kb = 0; kb < wmax; kb += HALF) {
+        const int k = kb + hl;
         const int my_col = k < w ? sc[k] : 0;
         const T my_val = k < w ? sv[k] : T(0);
-        const int nk = w - kb < 32 ? w - kb : 32;
-        int j = 0;
-        for (; j + UNROLL <= nk; j += UNROLL) {
-          int col[UNROLL];
-          T val[UNROLL];
+        unsigned bits = (__ballot_sync(FULL, my_val != T(0)) >>
+                         (HALF * half)) & 0xffffu;
+        const int nk = __popc(bits);
+        const int nmax = max(nk, __shfl_xor_sync(FULL, nk, HALF));
+        any |= nk > 0;
+        for (int j = 0; j < nmax; j += U) {
+          // the next U nonzero lanes of this half, in k order
+          int col[U];
+          T val[U];
 #pragma unroll
-          for (int u = 0; u < UNROLL; ++u) {
-            col[u] = __shfl_sync(FULL, my_col, j + u);
-            val[u] = __shfl_sync(FULL, my_val, j + u);
+          for (int u = 0; u < U; ++u) {
+            const int src = bits ? __ffs(bits) - 1 : 0;
+            bits &= bits - 1;
+            col[u] = __shfl_sync(FULL, my_col, HALF * half + src);
+            val[u] = __shfl_sync(FULL, my_val, HALF * half + src);
           }
-          gather_fma<T, VEC, NP, UNROLL>(acc, table, col, val, r, c0, lane);
-        }
-        for (; j < nk; ++j) {
-          int col[1] = {__shfl_sync(FULL, my_col, j)};
-          T val[1] = {__shfl_sync(FULL, my_val, j)};
-          gather_fma<T, VEC, NP, 1>(acc, table, col, val, r, c0, lane);
+          T x[U][NP][VEC];
+#pragma unroll
+          for (int u = 0; u < U; ++u) {
+            const T* row = table + static_cast<long long>(col[u]) * r;
+#pragma unroll
+            for (int p = 0; p < NP; ++p) {
+              const int c = c0 + (HALF * p + hl) * VEC;
+              if (j + u < nk && c < r) {
+                load_vec<T, VEC>(row + c, x[u][p]);
+              } else {
+#pragma unroll
+                for (int i = 0; i < VEC; ++i) x[u][p][i] = T(0);
+              }
+            }
+          }
+#pragma unroll
+          for (int u = 0; u < U; ++u) {
+            if (j + u >= nk) break;
+#pragma unroll
+            for (int p = 0; p < NP; ++p)
+#pragma unroll
+              for (int i = 0; i < VEC; ++i)
+                acc[p][i] = fma_t(val[u], x[u][p][i], acc[p][i]);
+          }
         }
       }
-      T* so = out + s * r;
+      if (!any) continue;               // nothing to add: a pad segment
+      T* so = out + static_cast<long long>(bk.rows[ls]) * r;
 #pragma unroll
       for (int p = 0; p < NP; ++p) {
-        const int c = c0 + (32 * p + lane) * VEC;
-        if (c < r) store_vec<T, VEC>(so + c, acc[p]);
+        const int c = c0 + (HALF * p + hl) * VEC;
+        if (c < r) add_vec<T, VEC>(so + c, acc[p]);
       }
     }
   }
 }
 
 template <typename T, int VEC, int NP>
-int launch_t(const T* vals, const int* cols, const T* table, T* out,
-             long long nseg, int w, int r, cudaStream_t stream) {
+int launch_t(const Plan<T>& plan, const T* table, T* out, int r,
+             cudaStream_t stream) {
   int device = 0, sms = 0;
   cudaError_t err = cudaGetDevice(&device);
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
                                  device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  // enough blocks for every SM several times over; the grid-stride loop
-  // takes the rest of a large bucket
-  const long long want = (nseg + WARPS - 1) / WARPS;
+  // enough blocks for every SM several times over; the grid-stride walk
+  // takes the rest
+  const long long want = ((plan.nseg + 1) / 2 + WARPS - 1) / WARPS;
   const long long cap = 32LL * sms;
   const unsigned grid = static_cast<unsigned>(want < cap ? want : cap);
-  ell_rowsums_kernel<T, VEC, NP><<<grid, THREADS, 0, stream>>>(
-      vals, cols, table, out, nseg, w, r);
+  ell_spmm_kernel<T, VEC, NP><<<grid, THREADS, 0, stream>>>(plan, table,
+                                                            out, r);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -198,22 +231,39 @@ bool aligned(const void* p, size_t bytes) {
   return reinterpret_cast<uintptr_t>(p) % bytes == 0;
 }
 
-// The widest vector a row can take (r a multiple of VEC, r >= 32 VEC so no
-// lane idles, both pointers aligned to it), then the fewest column groups
-// that cover r in one pass (at most 4; wider rows take more passes).
+// desc: nb rows of (vals, cols, rows, nseg, w), in launch order. The
+// widest vector a row can take (r a multiple of VEC, both pointers
+// aligned to it), then the fewest column groups that cover r in one pass
+// (at most 4; wider rows take more passes).
 template <typename T>
-int launch(const T* vals, const int* cols, const T* table, T* out,
-           long long nseg, int w, int r, cudaStream_t stream) {
+int launch(const long long* desc, int nb, const T* table, T* out, int r,
+           cudaStream_t stream) {
+  if (nb < 1 || nb > MAX_BUCKETS || r < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  Plan<T> plan{};
+  long long first = 0;
+  for (int i = 0; i < nb; ++i) {
+    const long long* d = desc + 5 * i;
+    plan.b[i] = Bucket<T>{reinterpret_cast<const T*>(d[0]),
+                          reinterpret_cast<const int*>(d[1]),
+                          reinterpret_cast<const int*>(d[2]), first,
+                          static_cast<int>(d[4])};
+    if (d[3] < 0 || d[4] < 1) return static_cast<int>(cudaErrorInvalidValue);
+    first += d[3];
+  }
+  plan.nseg = first;
+  plan.nb = nb;
+  if (first == 0) return 0;
   auto fits = [&](int vec) {
     const size_t bytes = vec * sizeof(T);
-    return vec * sizeof(T) <= 16 && r % vec == 0 && r >= 32 * vec &&
-           aligned(table, bytes) && aligned(out, bytes);
+    return bytes <= 16 && r % vec == 0 && aligned(table, bytes) &&
+           aligned(out, bytes);
   };
   const int vec = fits(4) ? 4 : fits(2) ? 2 : 1;
-  const int np = r <= 32 * vec ? 1 : r <= 64 * vec ? 2 : 4;
-#define NMFTPU_ELL_CASE(V, P)                                           \
-  if (vec == V && np == P)                                              \
-    return launch_t<T, V, P>(vals, cols, table, out, nseg, w, r, stream);
+  const int np = r <= HALF * vec ? 1 : r <= 2 * HALF * vec ? 2 : 4;
+#define NMFTPU_ELL_CASE(V, P)                                        \
+  if (vec == V && np == P)                                           \
+    return launch_t<T, V, P>(plan, table, out, r, stream);
   NMFTPU_ELL_CASE(1, 1) NMFTPU_ELL_CASE(1, 2) NMFTPU_ELL_CASE(1, 4)
   NMFTPU_ELL_CASE(2, 1) NMFTPU_ELL_CASE(2, 2) NMFTPU_ELL_CASE(2, 4)
   if constexpr (sizeof(T) == 4) {
@@ -225,22 +275,23 @@ int launch(const T* vals, const int* cols, const T* table, T* out,
 
 }  // namespace
 
-// C interface: vals (nseg, w) and table (m, r) of the entry's type, cols
-// (nseg, w) int32 in [0, m), out (nseg, r) of the entry's type; all
-// row-major and contiguous. Launches on `stream` and returns
-// cudaGetLastError() (0 = launched).
+// C interface: desc (5 nb) int64 on the host, one row per bucket in launch
+// order: the device addresses of its vals (nseg, w) of the entry's type,
+// cols (nseg, w) int32 in [0, m) and rows (nseg,) int32 in [0, n), then
+// nseg and w; table (m, r) and out (n, r) of the entry's type, out zeroed
+// by the caller; all row-major and contiguous. Launches on `stream` (no
+// launch when every bucket is empty) and returns cudaGetLastError() (0 =
+// launched).
 extern "C" {
 
-int nmftpu_ell_rowsums_f32(const float* vals, const int* cols,
-                           const float* table, float* out, long long nseg,
-                           int w, int r, cudaStream_t stream) {
-  return launch<float>(vals, cols, table, out, nseg, w, r, stream);
+int nmftpu_ell_spmm_f32(const long long* desc, int nb, const float* table,
+                        float* out, int r, cudaStream_t stream) {
+  return launch<float>(desc, nb, table, out, r, stream);
 }
 
-int nmftpu_ell_rowsums_f64(const double* vals, const int* cols,
-                           const double* table, double* out, long long nseg,
-                           int w, int r, cudaStream_t stream) {
-  return launch<double>(vals, cols, table, out, nseg, w, r, stream);
+int nmftpu_ell_spmm_f64(const long long* desc, int nb, const double* table,
+                        double* out, int r, cudaStream_t stream) {
+  return launch<double>(desc, nb, table, out, r, stream);
 }
 
 }  // extern "C"

@@ -1,5 +1,6 @@
 // Hopper (sm_90a) building blocks shared by the tensor-core kernels
-// (dual_numer.cu, mips_reservoir.cu): shared-memory operand layout and
+// (dual_numer.cu, mips_reservoir.cu, count_above.cu; the scans' staging
+// steps are in tc_scan.cuh): shared-memory operand layout and
 // wgmma descriptors, cp.async with zero fill, the async-proxy fence, and
 // the three warpgroup matrix products the kernels issue.
 //

@@ -22,8 +22,9 @@
 // the twin's k-ordered chain (mips_tile.cuh): scores agree to about
 // sqrt(r) 2^-24 relative, ids may differ only at such near-ties. The
 // certificate is unaffected: recommend_certified re-scores candidates in
-// k order (retrieval/mips.py _gather_scores) and count_above.cu keeps its
-// fmaf chain. A block of 256 threads (two warpgroups) owns 128 queries
+// k order (retrieval/mips.py _gather_scores), and count_above.cu re-scores
+// every item whose tensor-core score falls near that threshold by the same
+// k-ordered chain. A block of 256 threads (two warpgroups) owns 128 queries
 // (64 a warpgroup, staged once as bf16, K-major) and 64 slots, and walks a
 // range of tiles j in increasing order. Each table tile (r x 64) comes in
 // by cp.async (16-, 8-, 4- or 1-byte copies with zero fill, so unaligned
@@ -64,8 +65,8 @@
 // product), which at n = 64 is the shared-memory bandwidth itself; the
 // conversion and the carry fold run on the CUDA cores beside it.
 
-#include "hopper_tc.cuh"
 #include "mips_tile.cuh"
+#include "tc_scan.cuh"
 
 namespace {
 
@@ -140,14 +141,11 @@ reservoir_kernel(const float* __restrict__ Wq, const T* __restrict__ H,
 
 constexpr int TC_THREADS = 256;   // two warpgroups
 constexpr int TC_Q = 128;         // queries per block, 64 a warpgroup
-constexpr int TC_S = 64;          // slots (table columns) per tile
 
 template <typename T>
 __host__ __device__ constexpr int raw_stages() {
   return sizeof(T) == 1 ? 4 : 2;
 }
-
-__host__ __device__ inline int tc_rank(int r) { return (r + 15) / 16 * 16; }
 
 // Shared memory: the queries (TC_Q x rp bf16, 256 rp bytes) stay for the
 // whole walk; two converted tiles (TC_S x kc bf16) and the raw ring (kc x
@@ -155,7 +153,6 @@ __host__ __device__ inline int tc_rank(int r) { return (r + 15) / 16 * 16; }
 // the rank chunk a step stages. Up to rp = TC_WHOLE_RANK a step stages
 // the whole rank (kc = rp); above it, the rank is streamed in chunks of
 // equal depth kc < rp, all accumulating into one tile's accumulator.
-constexpr size_t TC_SMEM_MAX = 227 * 1024;   // a block's most, on the H100
 constexpr int TC_WHOLE_RANK = 288;
 constexpr int TC_MAX_RANK = 832;
 static_assert(768 * TC_WHOLE_RANK <= TC_SMEM_MAX, "whole-rank tiles fit");
@@ -175,117 +172,6 @@ size_t tc_smem_bytes(int r) {
   const size_t kc = CHUNKED ? tc_chunk(static_cast<int>(rp)) : rp;
   return 2 * rp * TC_Q + 2 * (2 * kc * TC_S) +
          raw_stages<T>() * kc * TC_S * sizeof(T);
-}
-
-__device__ __forceinline__ uint32_t bf16x2(float lo, float hi) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&h);
-}
-
-// Qs (TC_Q rows, K = rp, bf16 K-major) = bf16(Wq[q0 + q, k]), zero for
-// q0 + q >= b or k >= r. Thread e writes the 16 bytes at Qs + 16 e.
-__device__ __forceinline__ void tc_stage_queries(uint8_t* Qs,
-                                                 const float* __restrict__ Wq,
-                                                 int b, int r, int rp,
-                                                 int q0) {
-  const int kc8 = rp / 8;
-  for (int e = threadIdx.x; e < TC_Q * kc8; e += TC_THREADS) {
-    const int q = q0 + (e >> 3) / kc8 * 8 + (e & 7);
-    const int k = 8 * ((e >> 3) % kc8);
-    float v[8];
-#pragma unroll
-    for (int t = 0; t < 8; ++t)
-      v[t] = q < b && k + t < r ? Wq[static_cast<long long>(q) * r + k + t]
-                                : 0.f;
-    *reinterpret_cast<uint4*>(Qs + 16 * e) =
-        make_uint4(bf16x2(v[0], v[1]), bf16x2(v[2], v[3]),
-                   bf16x2(v[4], v[5]), bf16x2(v[6], v[7]));
-  }
-}
-
-// The raw tile: rows k < r of items [c0, c0 + ncols) of H into raw
-// (r x TC_S values, row-major), zero beyond ncols. Thread e copies the
-// 16 bytes at raw + 16 e.
-template <typename T>
-__device__ __forceinline__ void tc_load_raw(uint8_t* raw,
-                                            const T* __restrict__ H,
-                                            long long ldh, int r,
-                                            long long c0, int ncols, int g) {
-  constexpr int PER = 16 / sizeof(T);          // values per copy
-  constexpr int CPR = TC_S / PER;              // copies per row
-  for (int e = threadIdx.x; e < r * CPR; e += TC_THREADS) {
-    const int k = e / CPR;
-    const int c = PER * (e % CPR);
-    const int valid = min(max(ncols - c, 0), PER) * static_cast<int>(sizeof(T));
-    const T* src = valid ? H + k * ldh + c0 + c : H;
-    copy16(raw + 16 * e, reinterpret_cast<const int8_t*>(src), valid, g);
-  }
-}
-
-// op (TC_S rows = items, depths [0, kd) of a tile kc deep, bf16 K-major)
-// = raw transposed, as bf16; zero for k >= r. A unit is 4 items x 8
-// depths; the item order is XOR-skewed by lane so that each 16-byte store
-// of a warp's 8-lane phase hits its own banks.
-template <typename T>
-__device__ __forceinline__ void tc_convert(const uint8_t* raw, uint8_t* op,
-                                           int r, int kd, int kc) {
-  const int units = (TC_S / 4) * (kd / 8);
-  for (int u = threadIdx.x; u < units; u += TC_THREADS) {
-    const int uq = u % (TC_S / 4);
-    const int k8 = u / (TC_S / 4);
-    const int skew = (uq >> 1) & 3;
-    if constexpr (sizeof(T) == 1) {
-      // v -> bf16 without the quarter-rate conversion unit: the float
-      // 2^23 + (v + 128) has the bits 0x4B0000uu with uu = v ^ 0x80;
-      // subtracting 2^23 + 128 leaves v exactly, and as |v| <= 127 the
-      // float's low 16 bits are zero, so its high half is bf16(v)
-      uint32_t w[8];
-#pragma unroll
-      for (int t = 0; t < 8; ++t) {
-        const int k = 8 * k8 + t;
-        w[t] = (k < r ? *reinterpret_cast<const uint32_t*>(
-                            raw + k * TC_S + 4 * uq)
-                      : 0u) ^ 0x80808080u;
-      }
-#pragma unroll
-      for (int s = 0; s < 4; ++s) {
-        const int x = s ^ skew;
-        uint32_t f[8];
-#pragma unroll
-        for (int t = 0; t < 8; ++t)
-          f[t] = __float_as_uint(
-              __uint_as_float(__byte_perm(w[t], 0x4B000000u, 0x7650u | x)) -
-              8388736.0f);
-        *reinterpret_cast<uint4*>(op + cm_offset(4 * uq + x, 16 * k8, 2 * kc)) =
-            make_uint4(__byte_perm(f[0], f[1], 0x7632),
-                       __byte_perm(f[2], f[3], 0x7632),
-                       __byte_perm(f[4], f[5], 0x7632),
-                       __byte_perm(f[6], f[7], 0x7632));
-      }
-    } else {
-      uint2 w[8];
-#pragma unroll
-      for (int t = 0; t < 8; ++t) {
-        const int k = 8 * k8 + t;
-        w[t] = k < r ? *reinterpret_cast<const uint2*>(
-                           raw + 2 * (k * TC_S + 4 * uq))
-                     : make_uint2(0u, 0u);
-      }
-#pragma unroll
-      for (int s = 0; s < 4; ++s) {
-        const int x = s ^ skew;
-        const uint32_t sel = (x & 1) ? 0x7632u : 0x5410u;
-        uint32_t h[8];
-#pragma unroll
-        for (int t = 0; t < 8; ++t) h[t] = (x & 2) ? w[t].y : w[t].x;
-        *reinterpret_cast<uint4*>(op + cm_offset(4 * uq + x, 16 * k8, 2 * kc)) =
-            make_uint4(__byte_perm(h[0], h[1], sel),
-                       __byte_perm(h[2], h[3], sel),
-                       __byte_perm(h[4], h[5], sel),
-                       __byte_perm(h[6], h[7], sel));
-      }
-    }
-  }
 }
 
 // Fold one scored tile (local index jl) into the carry, strict '>';
@@ -364,7 +250,8 @@ reservoir_tc_kernel(const float* __restrict__ Wq, const T* __restrict__ H,
     const int t = u / chunks, c = u - t * chunks;
     tc_load_raw<T>(raw + (u % NR) * raw_bytes,
                    H + static_cast<long long>(c) * kc * ldh, ldh,
-                   min(kc, r - c * kc), (j0 + t) * R + s0, ncols(t), g);
+                   min(kc, r - c * kc), (j0 + t) * R + s0, ncols(t), g,
+                   threadIdx.x, TC_THREADS);
   };
   // convert step u's raw tile into op[u & 1] and issue its products into
   // acc (on top of the tile's earlier chunks)
@@ -375,7 +262,7 @@ reservoir_tc_kernel(const float* __restrict__ Wq, const T* __restrict__ H,
     __syncthreads();     // raw u is in; wgmma u - 2 is done everywhere
     uint8_t* tile = op + (u & 1) * (2 * kc * TC_S);
     tc_convert<T>(raw + (u % NR) * raw_bytes, tile, min(kc, r - c * kc), kd,
-                  kc);
+                  kc, threadIdx.x, TC_THREADS);
     fence_async_smem();
     __syncthreads();
     if (u + NR - 1 < steps) load_raw(u + NR - 1);
@@ -401,7 +288,7 @@ reservoir_tc_kernel(const float* __restrict__ Wq, const T* __restrict__ H,
     accA[i] = accB[i] = 0.f;
   }
 
-  tc_stage_queries(Qs, Wq, b, r, rp, q0);
+  tc_stage_queries<TC_Q>(Qs, Wq, b, r, rp, q0, threadIdx.x, TC_THREADS);
 #pragma unroll
   for (int u = 0; u < NR - 1; ++u) {
     if (u < steps) load_raw(u);

@@ -1,7 +1,8 @@
-// The scoring tile shared by the serving kernels (mips_reservoir.cu,
-// count_above.cu): a block of 64 queries held in shared memory for the
-// whole scan, times one 64-column slice of the item table, summed in
-// float32 registers.
+// The float32 scoring tile of the serving kernels (mips_reservoir.cu's
+// float32-table scan; count_above.cu takes table_value for its exact
+// re-score): a block of 64 queries held in shared memory for the whole
+// scan, times one 64-column slice of the item table, summed in float32
+// registers.
 //
 // Precision contract, the same in both kernels and in their plain torch
 // twins (nmftpu_torch/kernels/): each query value is rounded to bf16

@@ -44,10 +44,11 @@ _RESERVOIR = [_P] * 4 + [_I] * 3 + [_LL, _I, _P]
 # ... and (tiles_per_split, splits, g) before the stream; g (and gv, gw
 # of the int8 entries) is a `copy_alignment`
 _RESERVOIR_TC = [_P] * 4 + [_I] * 3 + [_LL] + [_I] * 4 + [_P]
-# (Wq, H, theta, counts, b, r, m, ldh, stream)
-_COUNT = [_P] * 4 + [_I] * 3 + [_LL, _P]
-# (vals, cols, table, out, nseg, w, r, stream)
-_ELL = [_P] * 4 + [_LL, _I, _I, _P]
+# (Wq, H, lim, counts, pairs, nband, cap, b, r, m, ldh, tiles_per_block,
+# g, stream)
+_COUNT = [_P] * 6 + [_I] * 4 + [_LL, _I, _I, _P]
+# (desc, nb, table, out, r, stream); desc a host int64 array
+_ELL = [_P, _I, _P, _P, _I, _P]
 # (V, X, out, n, m, r, gv, gw, stream)
 _INT8 = [_P] * 3 + [_I] * 5 + [_P]
 # (x, numer, denom, out, count, eps, stream)
@@ -61,8 +62,8 @@ ENTRIES = {
     "nmftpu_hals_sweep_f32": [_P] * 4 + [_I] * 3 + [_P],
     "nmftpu_muldiv_f32": _MULDIV,
     "nmftpu_muldiv_f64": _MULDIV,
-    "nmftpu_ell_rowsums_f32": _ELL,
-    "nmftpu_ell_rowsums_f64": _ELL,
+    "nmftpu_ell_spmm_f32": _ELL,
+    "nmftpu_ell_spmm_f64": _ELL,
     "nmftpu_w_update_f32": _MU,
     "nmftpu_h_update_f32": _MU,
     "nmftpu_w_update_i8": _MU,

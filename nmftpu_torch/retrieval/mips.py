@@ -196,14 +196,17 @@ def topk_mips_certified(Wq, H, k, block=1048576, candidate_k=None,
     return s, i, _certify(Wq, H, s, block, h_scale, seen, k)
 
 
-def certify_topk(Wq, H, top_s, k, block=1048576, h_scale=None, seen=None):
+def certify_topk(Wq, H, top_s, k, block=1048576, h_scale=None, seen=None,
+                 h_max=None):
     """The certificate pass alone, for candidate top-k scores from ANY
     scan: certified[u] iff at most k-1 items score strictly above
     top_s[u, k-1] (seen items discounted). H must hold only real items.
-    Returns (b,) bool."""
+    h_max: max |H| of a bf16 table, if known (the count kernel's exact
+    band needs it, and reads the table for it otherwise). Returns (b,)
+    bool."""
     dev = H.device
     return _certify(Wq, H, _tensor(top_s, dev), block, h_scale,
-                    None if seen is None else _tensor(seen, dev), k)
+                    None if seen is None else _tensor(seen, dev), k, h_max)
 
 
 def _kernel_counts(table_dtype, h_scale) -> bool:
@@ -217,14 +220,15 @@ def _kernel_counts(table_dtype, h_scale) -> bool:
             and torch.as_tensor(h_scale).ndim == 1)
 
 
-def _count_above(Wq, H, theta, block, h_scale):
+def _count_above(Wq, H, theta, block, h_scale, h_max=None):
     """Per-row count of items scoring strictly above theta (b,). On the
     card bf16 and vector-scaled int8 tables go to the fused kernel, which
-    never writes a score; otherwise a blocked GEMM + compare-reduce."""
+    never writes a score and counts exactly against the k-ordered scores
+    of `_gather_scores`; otherwise a blocked GEMM + compare-reduce."""
     if H.is_cuda and _kernel_counts(H.dtype, h_scale):
         from nmftpu_torch.kernels.count_above import count_above_fused
 
-        return count_above_fused(Wq, H, theta, h_scale=h_scale)
+        return count_above_fused(Wq, H, theta, h_scale=h_scale, h_max=h_max)
     m = H.shape[1]
     count = torch.zeros(Wq.shape[0], dtype=torch.int32, device=H.device)
     for lo in range(0, m, block):
@@ -233,10 +237,10 @@ def _count_above(Wq, H, theta, block, h_scale):
     return count
 
 
-def _certify(Wq, H, top_s, block, h_scale, seen, k):
+def _certify(Wq, H, top_s, block, h_scale, seen, k, h_max=None):
     m = H.shape[1]
     theta = top_s[:, k - 1].contiguous()                  # kth-best score
-    count = _count_above(Wq, H, theta, block, h_scale)
+    count = _count_above(Wq, H, theta, block, h_scale, h_max)
     if seen is not None:
         # discount excluded items that score above theta: gather their
         # table columns directly (b*S columns, tiny next to the scan).
@@ -276,10 +280,10 @@ def _gather_scores(Wq, H, ids, h_scale=None):
 
     The r products are summed one by one in index order. For bf16 and
     int8 tables each product is exact in float32, so these sums are bit
-    for bit the ones the CUDA kernels form with their fmaf chains
-    (``csrc/mips_tile.cuh``): a threshold taken from these scores meets
-    the count kernel's scores with no rounding between them, and the kth
-    item never counts as above itself."""
+    for bit the fmaf chains against which the count kernel counts
+    (``csrc/count_above.cu``): a threshold taken from these scores meets
+    the counted scores with no rounding between them, and the kth item
+    never counts as above itself."""
     q, post = _scan_operands(Wq, H.dtype, h_scale)
     b, S = ids.shape
     r = H.shape[0]

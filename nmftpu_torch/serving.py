@@ -32,6 +32,7 @@ import numpy as np
 import torch
 
 from nmftpu_torch._operands import _tensor
+from nmftpu_torch.kernels.count_above import table_h_max
 from nmftpu_torch.kernels.mips_reservoir import reservoir_topk_mips
 from nmftpu_torch.retrieval.exclusion import build_block_exclusion
 from nmftpu_torch.retrieval.mips import (
@@ -148,6 +149,10 @@ class Recommender:
         self.W = _tensor(W, device, torch.float32)
         self.H = table
         self._h_scale = h_scale
+        # max |H| of a bf16 table, once: the count kernel's exact band
+        # needs it on every certified call
+        self._h_max = (table_h_max(table)
+                       if table.dtype == torch.bfloat16 else None)
         self.table_dtype = {v: k for k, v in TABLE_DTYPES.items()}[
             table.dtype]
         self._m_items = int(table.shape[1])
@@ -342,7 +347,8 @@ class Recommender:
             invalid=s0 == float("-inf"), seen=seen_os,
         )
         cert1 = certify_topk(Wq, self.H, s1, k, block=self.block,
-                             h_scale=self._h_scale, seen=seen_os)
+                             h_scale=self._h_scale, seen=seen_os,
+                             h_max=self._h_max)
         s1, i1, cert1 = (t.cpu().numpy() for t in (s1, i1, cert1))
         ok = np.flatnonzero(cert1)
         s[rows[ok]], i[rows[ok]] = s1[ok], i1[ok]
@@ -378,7 +384,8 @@ class Recommender:
                 h_scale=self._h_scale,
             )
             cert = certify_topk(Wq, self.H, s, k, block=self.block,
-                                h_scale=self._h_scale, seen=seen_full)
+                                h_scale=self._h_scale, seen=seen_full,
+                                h_max=self._h_max)
             return s, i, cert
         if self.method == "reservoir":
             # candidates from the reservoir scan, re-scored at the
@@ -399,7 +406,8 @@ class Recommender:
                 invalid=s0 == float("-inf"), seen=seen_os,
             )
             cert = certify_topk(Wq, self.H, s, k, block=self.block,
-                                h_scale=self._h_scale, seen=seen_os)
+                                h_scale=self._h_scale, seen=seen_os,
+                                h_max=self._h_max)
             return s, i, cert
         return topk_mips_certified(
             Wq, self.H, k, block=self.block, candidate_k=candidate_k,

@@ -201,17 +201,38 @@ def test_tensor_core_scan_keeps_the_lower_id_on_ties(dev):
     assert torch.equal(s, s0) and torch.equal(i, i0)
 
 
+def _count_inputs(dev, b, r, m, kind, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    Wq = torch.rand(b, r, generator=g, device=dev)
+    if kind == "bfloat16":
+        return Wq, _table(dev, r, m, torch.bfloat16, seed), None
+    return (Wq, _table(dev, r, m, torch.int8, seed),
+            torch.rand(r, generator=g, device=dev) + 0.01)
+
+
+def _chain(Wq, H, hs):
+    """The (b, m) chain scores: bf16(q[k]) H[k, j] summed in float32 one
+    product at a time in k order (each product is exact), q the scan
+    operand; the scores the count must be exact against."""
+    from nmftpu_torch._operands import _scan_operands
+
+    q = _scan_operands(Wq, H.dtype, hs)[0]
+    acc = torch.zeros(q.shape[0], H.shape[1], device=H.device)
+    for k in range(H.shape[0]):
+        acc.addcmul_(q[:, k:k + 1], H[k].float()[None, :])
+    return acc
+
+
+def _chain_count(chain, theta):
+    return (chain > theta[:, None]).sum(1, dtype=torch.int32)
+
+
 @pytest.mark.parametrize("shape", SCAN_SHAPES)
 @pytest.mark.parametrize("kind", ["bfloat16", "int8_vector"])
 def test_count_above_matches_twin(dev, shape, kind):
     b, r, m, _ = shape
+    Wq, H, hs = _count_inputs(dev, b, r, m, kind, b + r)
     g = torch.Generator(device=dev).manual_seed(b + r)
-    Wq = torch.rand(b, r, generator=g, device=dev)
-    if kind == "bfloat16":
-        H, hs = _table(dev, r, m, torch.bfloat16), None
-    else:
-        H = _table(dev, r, m, torch.int8)
-        hs = torch.rand(r, generator=g, device=dev) + 0.01
     theta = torch.rand(b, generator=g, device=dev) * r * 0.3
     theta[0] = float("-inf")
     before = CA.LAUNCHES["count_above"]
@@ -220,12 +241,75 @@ def test_count_above_matches_twin(dev, shape, kind):
     torch.cuda.synchronize()
     assert CA.LAUNCHES["count_above"] == before + 1
     assert int(got[0]) == m
-    # scores within rounding of theta may fall either way
+    # exact against the chain; the twin (a float32 matmul) may differ only
+    # at scores within rounding of theta
+    assert torch.equal(got, _chain_count(_chain(Wq, H, hs), theta))
     q = (Wq * hs if hs is not None else Wq).to(torch.bfloat16).double()
     full = q @ H.double()
     near = ((full - theta[:, None].double()).abs()
             <= SCAN_RTOL * full.abs()).sum(1)
     assert bool(((got - want).abs() <= near).all())
+
+
+@pytest.mark.parametrize("b", [37, 512])
+@pytest.mark.parametrize("r", [37, 256, 512])
+@pytest.mark.parametrize("kind", ["bfloat16", "int8_vector"])
+def test_count_above_equals_the_chain_count(dev, b, r, kind):
+    """theta is each row's 100th chain score, as the certificate takes it
+    (unaligned m = 10,007): the item at theta must not count, so the
+    band's exact re-score decides it. Row 1 counts nothing (+inf), row 2
+    everything (-inf)."""
+    m = 10_007
+    Wq, H, hs = _count_inputs(dev, b, r, m, kind, b * r)
+    chain = _chain(Wq, H, hs)
+    theta = chain.topk(100, dim=1).values[:, -1].contiguous()
+    theta[1], theta[2] = float("inf"), float("-inf")
+    before = (CA.LAUNCHES["count_above"], CA.band_pairs())
+    got = CA.count_above_fused(Wq, H, theta, h_scale=hs)
+    assert CA.LAUNCHES["count_above"] == before[0] + 1
+    assert torch.equal(got, _chain_count(chain, theta))
+    assert got[1] == 0 and got[2] == m and bool((got[3:] <= 99).all())
+    # at least the item at theta of every finite row went through the band
+    assert CA.band_pairs() - before[1] >= b - 2
+
+
+def test_count_above_all_ties_go_through_the_band(dev):
+    """Every item of the table is one column repeated, so every item ties
+    theta: all b * m pairs go through the band (the list of 4,096
+    overflows and the kernel re-scores the rest where it finds them) and
+    none counts; the -inf row counts every item."""
+    b, r, m = 37, 37, 10_007
+    g = torch.Generator(device=dev).manual_seed(9)
+    Wq = torch.rand(b, r, generator=g, device=dev)
+    col = torch.rand(r, 1, generator=g, device=dev).to(torch.bfloat16)
+    H = col.expand(r, m).contiguous()
+    theta = _chain(Wq, H[:, :1], None)[:, 0].contiguous()
+    theta[0] = float("-inf")
+    before = CA.band_pairs()
+    got = CA.count_above_fused(Wq, H, theta)
+    assert int(got[0]) == m and bool((got[1:] == 0).all())
+    assert CA.band_pairs() - before == (b - 1) * m
+
+
+@pytest.mark.parametrize("kind", ["bfloat16", "int8_vector"])
+def test_count_above_zero_queries_skip_the_band(dev, kind):
+    """Rows whose query is all zero score exactly 0 on every item: theta 0
+    (their kth score) counts none and -1 counts all, exactly, and none of
+    their m ties goes through the band, in any of the four 128-query
+    blocks."""
+    b, r, m = 512, 256, 10_007
+    Wq, H, hs = _count_inputs(dev, b, r, m, kind, 12)
+    zero = torch.tensor([3, 130, 300, 511], device=dev)
+    Wq[zero] = 0.0
+    chain = _chain(Wq, H, hs)
+    theta = chain.topk(100, dim=1).values[:, -1].contiguous()
+    theta[zero] = torch.tensor([0.0, -1.0, 0.0, 0.0], device=dev)
+    before = CA.band_pairs()
+    got = CA.count_above_fused(Wq, H, theta, h_scale=hs)
+    band = CA.band_pairs() - before
+    assert torch.equal(got, _chain_count(chain, theta))
+    assert got[zero].tolist() == [0, m, 0, 0]
+    assert b - len(zero) <= band < m
 
 
 def test_serving_wrappers_reject_what_the_kernels_do_not_take(dev):
@@ -338,10 +422,88 @@ def test_ell_pallas_path_matches_the_plain_path(dev):
     got = SEK.mu_update_frobenius_ell_pallas(pair, W, H)
     want = SE.mu_update_frobenius_ell(pair, W, H)
     torch.cuda.synchronize()
-    assert SEK.LAUNCHES["ell_rowsums"] - before == \
-        len(pair.rows.buckets) + len(pair.cols.buckets)
+    # one launch per product: V Hᵀ, then Wᵀ V
+    assert SEK.LAUNCHES["ell_rowsums"] - before == 2
     for x, y in zip(got, want):
         torch.testing.assert_close(x, y, rtol=1e-4, atol=0)
+
+
+def _ell_csr(seed, n=5000, m=3000, dtype=np.float32):
+    """A CSR as ratings come: most rows hold 1..8 nonzeros (over 2,048
+    segments in the narrowest bucket, so it is padded to a multiple of
+    2,048), a few hold 9..600 (some split over two buckets at seg_max =
+    512), one holds 1,300 (three segments: 512, 512, 276), one is empty,
+    and every 7th stored value is an explicit zero."""
+    from nmftpu_torch.sparse import SparseCSR
+
+    rng = np.random.default_rng(seed)
+    lens = rng.integers(1, 9, n)
+    lens[rng.choice(n, 40, replace=False)] = rng.integers(9, 600, 40)
+    lens[3], lens[4] = 1300, 0
+    lens[10:17] = (12, 24, 48, 96, 192, 384, 520)    # every width's bucket
+    indptr = np.zeros(n + 1, np.int64)
+    np.cumsum(lens, out=indptr[1:])
+    indices = np.concatenate([np.sort(rng.choice(m, k, replace=False))
+                              for k in lens]).astype(np.int32)
+    data = rng.uniform(0.5, 5.0, int(indptr[-1])).astype(dtype)
+    data[::7] = 0.0
+    return SparseCSR(indptr, indices, data, (n, m))
+
+
+@pytest.mark.parametrize("r", [37, 64, 128, 256])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_ell_spmm_matches_the_plain_product(dev, r, dtype):
+    """Both directions of one container pair in one launch each, against
+    the plain ELL product; a row with one segment is bit for bit the
+    segment's sum from `bucket_rowsums` (the same kernel, each segment its
+    own row), since skipped zero lanes change nothing and the atomic adds
+    into a zero."""
+    from nmftpu_torch import sparse_ell as SE
+
+    csr = _ell_csr(r)
+    pair = SE.build_ell_pair(csr, dtype=dtype, device=dev)
+    assert any(b.vals.shape[0] % 2048 == 0 and b.vals.shape[0] > 2048
+               for b in pair.rows.buckets)
+    g = torch.Generator(device=dev).manual_seed(r)
+    W = torch.rand(csr.shape[0], r, generator=g, device=dev, dtype=dtype)
+    H = torch.rand(r, csr.shape[1], generator=g, device=dev, dtype=dtype)
+    before = SEK.LAUNCHES["ell_rowsums"]
+    vht = SEK.v_ht_ell_pallas(pair.rows, H)
+    wtv = SEK.wt_v_ell_pallas(pair, W)
+    torch.cuda.synchronize()
+    assert SEK.LAUNCHES["ell_rowsums"] - before == 2
+    torch.testing.assert_close(vht, SE.v_ht_ell(pair.rows, H),
+                               rtol=ELL_RTOL[dtype], atol=0)
+    torch.testing.assert_close(wtv, SE.wt_v_ell(pair, W),
+                               rtol=ELL_RTOL[dtype], atol=0)
+    # rows with one real segment (pad segments repeat a row, all zero)
+    Ht = H.T.contiguous()
+    real = torch.zeros(csr.shape[0], dtype=torch.int64, device=dev)
+    for b in pair.rows.buckets:
+        real.index_add_(0, b.out_row, (b.vals != 0).any(1).long())
+    checked = 0
+    for b in pair.rows.buckets:
+        seg = SEK.bucket_rowsums(b.vals, b.cols, Ht)
+        one = ((b.vals != 0).any(1) & (real[b.out_row] == 1)).nonzero()[:, 0]
+        assert torch.equal(vht[b.out_row[one]], seg[one])
+        checked += one.numel()
+    assert checked > csr.shape[0] // 2
+
+
+def test_ell_spmm_takes_more_buckets_than_one_launch(dev):
+    """Ten bucket widths: the product takes two launches of at most
+    MAX_BUCKETS buckets, into the same output."""
+    from nmftpu_torch import sparse_ell as SE
+
+    csr = _ell_csr(3, n=1500)
+    widths = (1, 2, 4, 8, 16, 32, 64, 128, 256, 512)
+    ell = SE.build_ell_rows(csr, device=dev, buckets=widths)
+    assert len(ell.buckets) > SEK.MAX_BUCKETS
+    H = torch.rand(64, csr.shape[1], device=dev)
+    before = SEK.LAUNCHES["ell_rowsums"]
+    got = SEK.v_ht_ell_pallas(ell, H)
+    assert SEK.LAUNCHES["ell_rowsums"] - before == 2
+    torch.testing.assert_close(got, SE.v_ht_ell(ell, H), rtol=1e-5, atol=0)
 
 
 def test_ell_wrapper_rejects_what_the_kernel_does_not_take(dev):

@@ -341,6 +341,57 @@ def test_pallas_path_keeps_float64():
         assert _rel(rp, x) > 1e-9
 
 
+def test_descriptor_order_is_widest_first():
+    """One launch takes the buckets widest first, ties in their order, so
+    the longest segments start first and do not form the launch's tail."""
+    def bucket(w, tag):
+        return TE.EllBucket(vals=torch.zeros(tag, w), cols=torch.zeros(
+            tag, w, dtype=torch.int32), out_row=torch.zeros(
+            tag, dtype=torch.int32), width=w)
+
+    bs = [bucket(8, 1), bucket(512, 2), bucket(16, 3), bucket(512, 4),
+          bucket(64, 5)]
+    order = TK.descriptor_order(bs)
+    assert [b.width for b in order] == [512, 512, 64, 16, 8]
+    assert [b.vals.shape[0] for b in order] == [2, 4, 5, 3, 1]
+
+
+def _with_explicit_zeros(dense, every=5):
+    """The matrix as a CSR whose every `every`-th stored value is an
+    explicit zero: zero lanes inside segments, besides the pad lanes."""
+    csr = js.from_dense(dense).to_csr()
+    data = np.asarray(csr.data).copy()
+    data[::every] = 0.0
+    return js.SparseCSR(csr.indptr, csr.indices, data, csr.shape)
+
+
+@pytest.mark.parametrize("kw", [SEG, dict(seg_max=16, buckets=(4, 8, 16),
+                                          chunk_segments=8)])
+def test_ell_spmm_plain_matches_nmftpu_with_explicit_zeros(kw):
+    """ell_spmm_plain (the launch's function: buckets in descriptor order,
+    each segment's sum added into its row) against nmftpu's
+    Pallas products in interpret mode, both directions, on a container
+    with explicit zeros inside segments and padded buckets."""
+    dense, _, _ = _matrix()
+    jsp = _with_explicit_zeros(dense)
+    jp = JE.build_ell_pair(jsp, dtype=jnp.float32, **kw)
+    tp = TE.build_ell_pair(sparse_from_nmftpu(jsp), device="cpu", **kw)
+    W, H = _factors(*dense.shape)
+    before = TK.LAUNCHES["ell_rowsums"]
+    vht = TK.ell_spmm_plain(tp.rows.buckets, torch.tensor(H.T.copy()),
+                            torch.zeros(dense.shape[0], RANK))
+    wtv = TK.ell_spmm_plain(tp.cols.buckets, torch.tensor(W),
+                            torch.zeros(dense.shape[1], RANK))
+    assert TK.LAUNCHES["ell_rowsums"] == before
+    assert _rel(vht, JK.v_ht_ell_pallas(jp.rows, jnp.asarray(H),
+                                        interpret=True)) < RTOL_F32
+    assert _rel(wtv.T, JK.wt_v_ell_pallas(jp, jnp.asarray(W),
+                                          interpret=True)) < RTOL_F32
+    # the wrappers run that model on CPU tensors
+    assert torch.equal(TK.v_ht_ell_pallas(tp.rows, torch.tensor(H)), vht)
+    assert torch.equal(TK.wt_v_ell_pallas(tp, torch.tensor(W)), wtv.T)
+
+
 def test_kernel_wrapper_checks_shapes_on_the_cpu():
     vals, cols, Ht = (torch.rand(4, 8), torch.zeros(4, 8, dtype=torch.int32),
                       torch.rand(10, 3))
