@@ -1,9 +1,9 @@
-"""Ablation of the tensor-core kernels on one NVIDIA GPU: where the time
-of the reservoir scan (#8), the count-above scan (#9) and the int8
-numerators (#6) goes, and what splitting the scan's tile walk buys at
-small batches.
+"""Ablation of the hand-written kernels on one NVIDIA GPU: where the time
+of the reservoir scan (#8), the count-above scan (#9), the int8
+numerators (#6), the split-tf32 MU half-steps (#1-#4) and the HALS sweep
+(#7) goes, and what splitting the scan's tile walk buys at small batches.
 
-    python3 chip_ablate.py [--out DIR]
+    python3 chip_ablate.py [--out DIR] [--kernels all|scan|mu]
 
 Builds variants of nmftpu_torch/csrc/{mips_reservoir,count_above,
 dual_numer}.cu with one part removed each (a text patch of the source,
@@ -27,6 +27,14 @@ b = 64 and 256 with the walk in one range and split into 2 and 3 ranges
 (the split's merge kernel included): the grid there is 64 and 128 blocks
 of 128 queries x 64 slots for the card's 132 SMs.
 
+With --kernels mu (or all) it builds variants of dense_mu.cu and
+hals_sweep.cu (without the lo products, without the per-stage promotion,
+without the hi/lo conversion, the products or the raw loads, or with a
+5-stage ring; the sweep without the panel prefetch, the chain or the
+base) and times the four MU entries at 4096^2 / r = 256 (float32 and
+int8 V) and the sweep at 4096 x 256, 2048 x 512 and 138,493 x 64.
+--kernels scan skips them.
+
 Prints one line per (entry, shape, variant) and the card's name and power
 limit; writes DIR/ablation.json (DIR defaults to profile_out/). Without a
 CUDA device it exits 1.
@@ -49,8 +57,9 @@ sys.path.insert(0, str(HERE))
 from chip_smoke import fail, nvidia_smi_line  # noqa: E402
 from nmftpu_torch.kernels import _build  # noqa: E402
 
-SOURCES = ("mips_reservoir.cu", "dual_numer.cu", "count_above.cu",
-           "hopper_tc.cuh", "mips_tile.cuh", "tc_scan.cuh")
+SCAN_SOURCES = ("mips_reservoir.cu", "dual_numer.cu", "count_above.cu",
+                "hopper_tc.cuh", "mips_tile.cuh", "tc_scan.cuh")
+MU_SOURCES = ("dense_mu.cu", "hals_sweep.cu", "hopper_tc.cuh")
 NEVER = "false && "
 
 # variant -> [(source, text, replacement)]
@@ -107,6 +116,65 @@ VARIANTS = {
     "no_nw_atomics": [("dual_numer.cu",
                        "      if (f < r && row < n && accw[i] != 0)",
                        "      if (" + NEVER + "accw[i] != 0)")],
+    # #1-#4 and #7, built from MU_SOURCES
+    "mu_base": [],
+    "mu_no_lo": [("dense_mu.cu",
+                  "      if constexpr (SPLIT_A) mma<WN>(part, dal + step, "
+                  "dbh + step, kk > 0);\n"
+                  "      mma<WN>(part, dah + step, dbl + step, SPLIT_A || "
+                  "kk > 0);\n", ""),
+                 ("dense_mu.cu",
+                  "mma<WN>(part, dah + step, dbh + step, 1);",
+                  "mma<WN>(part, dah + step, dbh + step, kk > 0);")],
+    "mu_no_promote": [("dense_mu.cu",
+                       "    wgmma_wait<0>();\n    fence_regs(part);\n"
+                       "#pragma unroll\n"
+                       "    for (int i = 0; i < WN / 2; ++i) acc[i] += "
+                       "part[i];\n", "    wgmma_wait<1>();\n")],
+    "mu_no_convert": [("dense_mu.cu", "      convert(t + 1);\n", "")],
+    "mu_no_mma": [("dense_mu.cu", "for (int kk = 0; kk < BK / 8; ++kk)",
+                   "for (int kk = 0; kk < 0; ++kk)")],
+    "mu_no_loads": [("dense_mu.cu",
+                     "    if (t + NSTAGE - 1 < tiles) load(t + NSTAGE - 1);",
+                     "")],
+    "hals_no_prefetch": [("hals_sweep.cu", "      cp_async_wait<1>();",
+                          "      cp_async_wait<0>();")],
+    # not a removal: a deeper ring of copies
+    "mu_ring5": [("dense_mu.cu", "constexpr int NSTAGE = 3;",
+                  "constexpr int NSTAGE = 5;")],
+    # diagnostics: the copies of stage t + NSTAGE - 1 issued after the
+    # products of stage t; the factor tile loaded and split only for the
+    # first stages (wrong results); no wait for the copies (wrong
+    # results); the products of one warpgroup only (wrong results)
+    "mu_loads_late": [("dense_mu.cu",
+                       "    if (t + NSTAGE - 1 < tiles) load(t + NSTAGE - 1);"
+                       "\n    cp_async_commit();\n", ""),
+                      ("dense_mu.cu", "    wgmma_commit();\n",
+                       "    wgmma_commit();\n"
+                       "    if (t + NSTAGE - 1 < tiles) load(t + NSTAGE - 1);"
+                       "\n    cp_async_commit();\n")],
+    "mu_b_once": [("dense_mu.cu", "    load_raw<C::NB, NT, B_KC>(raw_b",
+                   "    if (t < NSTAGE) load_raw<C::NB, NT, B_KC>(raw_b"),
+                  ("dense_mu.cu", "    convert_raw<C::NB, NT, B_KC, float>(raw_b",
+                   "    if (t < 2) convert_raw<C::NB, NT, B_KC, float>(raw_b")],
+    "mu_no_copy_wait": [("dense_mu.cu", "      cp_async_wait<NSTAGE - 2>();\n",
+                         "")],
+    "mu_one_wg_mma": [("dense_mu.cu", "for (int kk = 0; kk < BK / 8; ++kk)",
+                       "for (int kk = 0; kk < (wg ? 0 : BK / 8); ++kk)")],
+    # the sweep with 16 or 8 rows a block at 4096 x 256 (2 or 3 blocks an
+    # SM), and with the division in the chain
+    "hals_tr16": [("hals_sweep.cu", "(n + tr - 1) / tr >= 128;",
+                   "(n + tr - 1) / tr >= 256;")],
+    "hals_tr8": [("hals_sweep.cu", "(n + tr - 1) / tr >= 128;",
+                  "(n + tr - 1) / tr >= 512;")],
+    "hals_div": [("hals_sweep.cu",
+                  "? fmaxf(fmaf(-grad, rh[j], old[q][j]), 0.f)",
+                  "? fmaxf(old[q][j] - grad / d[j * MAXB + j], 0.f)")],
+    "hals_no_chain": [("hals_sweep.cu", "      if (j < b) {\n",
+                       "      if (" + NEVER + "j < b) {\n")],
+    "hals_no_base": [("hals_sweep.cu",
+                      "for (int q = ks; q < quads; q += KS) {",
+                      "for (int q = ks; q < 0; q += KS) {")],
 }
 RESERVOIR = ("base", "no_fold", "no_convert", "no_mma", "no_table_loads",
              "static_k_loop")
@@ -117,14 +185,27 @@ INT8 = ("base", "no_chunk_loads", "no_transpose", "no_nw_mma", "no_nh_mma",
 SCAN_ENTRIES = ("nmftpu_reservoir_scan_i8", "nmftpu_reservoir_merge",
                 "nmftpu_count_above_i8",
                 "nmftpu_int8_vht", "nmftpu_int8_wtv", "nmftpu_int8_dual")
+MU = ("mu_base", "mu_no_lo", "mu_no_promote", "mu_no_convert", "mu_no_mma",
+      "mu_no_loads", "mu_ring5", "mu_loads_late", "mu_b_once",
+      "mu_no_copy_wait", "mu_one_wg_mma")
+HALS = ("mu_base", "hals_no_prefetch", "hals_no_chain", "hals_no_base",
+        "hals_tr16", "hals_tr8", "hals_div")
+MU_ENTRIES = ("nmftpu_w_update_f32", "nmftpu_h_update_f32",
+              "nmftpu_w_update_i8", "nmftpu_h_update_i8",
+              "nmftpu_hals_sweep_f32")
+
+
+def is_mu(variant: str) -> bool:
+    return variant.startswith(("mu_", "hals_"))
 
 
 def patched_copy(name: str, patches, out: Path) -> Path | None:
-    """out/name holding SOURCES with `patches` applied; None (and a note)
-    when a patch no longer matches its source."""
+    """out/name holding the variant's sources (MU_SOURCES or
+    SCAN_SOURCES) with `patches` applied; None (and a note) when a patch
+    no longer matches its source."""
     d = out / name
     d.mkdir(parents=True, exist_ok=True)
-    for src in SOURCES:
+    for src in MU_SOURCES if is_mu(name) else SCAN_SOURCES:
         text = (_build.CSRC / src).read_text()
         for f, old, new in patches:
             if f == src:
@@ -137,19 +218,23 @@ def patched_copy(name: str, patches, out: Path) -> Path | None:
     return d
 
 
-def build(out: Path) -> dict:
-    """{variant: loaded library}, each built by `_build.build`."""
+def build(out: Path, kernels: str) -> dict:
+    """{variant: loaded library}, each built by `_build.build`, for the
+    variants of `kernels` (all, scan or mu)."""
     dirs = {name: patched_copy(name, patches, out)
-            for name, patches in VARIANTS.items()}
+            for name, patches in VARIANTS.items()
+            if kernels == "all" or is_mu(name) == (kernels == "mu")}
     dirs = {name: d for name, d in dirs.items() if d is not None}
-    if "base" not in dirs:
-        fail("the unpatched sources did not copy")
+    for base in {"all": ("base", "mu_base"), "scan": ("base",),
+                 "mu": ("mu_base",)}[kernels]:
+        if base not in dirs:
+            fail("the unpatched sources did not copy")
     with ThreadPoolExecutor(len(dirs)) as pool:
         paths = dict(zip(dirs, pool.map(_build.build, dirs.values())))
     libs = {}
     for name, path in paths.items():
         cdll = ctypes.CDLL(str(path))
-        for entry in SCAN_ENTRIES:
+        for entry in MU_ENTRIES if is_mu(name) else SCAN_ENTRIES:
             getattr(cdll, entry).argtypes = _build.ENTRIES[entry]
         libs[name] = cdll
     return libs
@@ -205,12 +290,13 @@ def split_scan(lib, Wq, H, m, slots, splits, stream):
 def main() -> None:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--out", default=str(HERE / "profile_out"))
+    p.add_argument("--kernels", choices=("all", "scan", "mu"), default="all")
     args = p.parse_args()
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: no CUDA device")
     card = nvidia_smi_line()
     print(card, flush=True)
-    libs = build(_build.BUILD_DIR / "ablate")
+    libs = build(_build.BUILD_DIR / "ablate", args.kernels)
     stream = torch.cuda.current_stream().cuda_stream
     gen = torch.Generator(device="cuda").manual_seed(20240611)
     rows = []
@@ -220,6 +306,69 @@ def main() -> None:
                      "ms": ms, "card": card})
         print(f"[ablate] entry={entry}  shape={shape}  variant={variant}  "
               f"ms={ms:.4f}", flush=True)
+
+    if args.kernels != "scan":
+        mu_and_hals(libs, gen, stream, record)
+    if args.kernels != "mu":
+        scans(libs, gen, stream, record)
+    out = Path(args.out)
+    out.mkdir(parents=True, exist_ok=True)
+    (out / "ablation.json").write_text(json.dumps(rows, indent=1))
+
+
+def mu_and_hals(libs, gen, stream, record) -> None:
+    """The MU entries at 4096^2 / r = 256 and the sweep at phase 14's
+    shapes, per variant."""
+    from nmftpu_torch.kernels.dense_mu import mu_splits
+
+    n = m = 4096
+    r = 256
+    V = 5.0 * torch.rand(n, m, generator=gen, device="cuda")
+    Vq = torch.randint(0, 128, (n, m), generator=gen, device="cuda",
+                       dtype=torch.int8)
+    scale = torch.full((1,), 5.0 / 127, device="cuda")
+    W = torch.rand(n, r, generator=gen, device="cuda") + 0.05
+    H = torch.rand(r, m, generator=gen, device="cuda") + 0.05
+    Gw, Gh = H @ H.T, W.T @ W
+    outs = {"w": torch.empty_like(W), "h": torch.empty_like(H)}
+    plans = {step: mu_splits(n, m, r) for step in ("w", "h")}
+    ws = torch.empty(max(plans.values()) * n * r, device="cuda")
+    # the kernel leaves its arrival counters at zero
+    counters = torch.zeros(n // 64, dtype=torch.int32, device="cuda")
+    for name in MU:
+        if name not in libs:
+            continue
+        for step, v_kind in (("w", "f32"), ("h", "f32"), ("w", "i8"),
+                             ("h", "i8")):
+            fn = getattr(libs[name], f"nmftpu_{step}_update_{v_kind}")
+            Vx, sp = (V, None) if v_kind == "f32" else (Vq, scale)
+            G = Gw if step == "w" else Gh
+            record(f"{step}_update_{v_kind}", f"{n}x{m} r={r}", name,
+                   event_ms(lambda: fn(
+                       Vx.data_ptr(), None if sp is None else sp.data_ptr(),
+                       W.data_ptr(), H.data_ptr(), G.data_ptr(),
+                       outs[step].data_ptr(), ws.data_ptr(),
+                       counters.data_ptr(), n, m, r, plans[step], 1e-9,
+                       stream), iters=20))
+    del V, Vq, W, H, Gw, Gh, outs, ws
+    for hn, hr in ((4096, 256), (2048, 512), (138_493, 64)):
+        X = torch.randn(hn, hr, generator=gen, device="cuda")
+        A = torch.randn(hr, hr, generator=gen, device="cuda")
+        G = A @ A.T + torch.eye(hr, device="cuda")
+        W = torch.rand(hn, hr, generator=gen, device="cuda")
+        out = torch.empty_like(W)
+        for name in HALS:
+            if name in libs:
+                lib = libs[name]
+                record("hals_sweep", f"{hn}x{hr}", name, event_ms(
+                    lambda: lib.nmftpu_hals_sweep_f32(
+                        X.data_ptr(), G.data_ptr(), W.data_ptr(),
+                        out.data_ptr(), hn, hr, 16, stream), iters=10))
+
+
+def scans(libs, gen, stream, record) -> None:
+    """The reservoir scan, the count and the int8 numerators per
+    variant, and the reservoir scan's split walk."""
 
     b, r, m, slots = 512, 256, 10_485_760, 4096
     Wq = torch.rand(b, r, generator=gen, device="cuda")
@@ -290,10 +439,6 @@ def main() -> None:
                 record(f"int8_{entry}", f"{n}x{m} r={r}", name,
                        event_ms(fn, iters))
         del V, WqT, Hq, nw, nh
-
-    out = Path(args.out)
-    out.mkdir(parents=True, exist_ok=True)
-    (out / "ablation.json").write_text(json.dumps(rows, indent=1))
 
 
 if __name__ == "__main__":

@@ -15,8 +15,9 @@ For each it prints one line with
 - ms per MU iteration, per W half-step and per H half-step (each with
   its Gram), by CUDA events in A B C C B A order, TF32 off;
 - from torch.profiler over a 20-iteration ``nmftpu_torch.nmf`` run with a
-  check every 10: device ms per iteration by kernel class (the port's
-  kernels, cuBLAS/CUTLASS GEMMs, everything else) and the device's idle
+  check every 10: device ms per iteration by kernel class (each of the
+  port's dense kernels: mu_update, hals_sweep, int8_numer, muldiv;
+  cuBLAS/CUTLASS GEMMs, everything else) and the device's idle
   share over the span from its first to its last kernel. The profiler
   widens the host's launch gaps, so the idle share is an upper bound.
 
@@ -73,9 +74,14 @@ CHECK_INTERVAL = 10
 
 
 def kernel_class(name: str) -> str:
-    if any(k in name for k in ("update_kernel", "hals_sweep_kernel",
-                               "int8_numer_kernel", "muldiv_kernel")):
-        return "port_kernels"
+    # the dense kernels: the split-tf32 MU half-steps (#1-#4), the HALS
+    # sweep (#7), the int8 numerators (#6) and the multiply-divide (#5)
+    for frag, cls in (("update_kernel", "mu_update"),
+                      ("hals_sweep_kernel", "hals_sweep"),
+                      ("int8_numer_kernel", "int8_numer"),
+                      ("muldiv_kernel", "muldiv")):
+        if frag in name:
+            return cls
     if "ell_spmm_kernel" in name:
         return "ell_rowsums"
     # the scans (float32 and tensor-core) and the merge of a split walk

@@ -21,9 +21,13 @@ through the sweep kernel, and run Jacobi MU (Frobenius and KL; float32,
 bfloat16 and int8 V, int8 with the dual-numerator kernel) and int8 x int8
 Gauss-Seidel MU against their Gauss-Seidel and kernel counterparts. After
 the build, cuobjdump -sass counts each kernel's tensor-core instructions
-and the script fails unless the int8 numerator kernels and the bf16 and
-int8 reservoir scans have some. Every phase prints its results; any
-failure exits non-zero. Without a CUDA device it exits 1 and runs nothing.
+and the script fails unless the int8 numerator kernels, the bf16 and
+int8 reservoir and count scans and the split-tf32 MU kernels have some.
+Phases 3, 5 and 13 also hold the MU kernels (#1-#4) and the HALS sweep
+(#7) against float64: their error at most 4x the plain float32 twin's.
+Every phase prints its results; any failure exits non-zero, as does a
+kernel timed below its bound. Without a CUDA device it exits 1 and runs
+nothing.
 
 The line before the last is a JSON object {"kernels": [...]}; the last
 line is {"ok": true, "device": {...}}.
@@ -51,6 +55,12 @@ SEED = 20240611
 # relative; the ratio num / den adds two such errors. 1e-4 leaves >10x.
 KERNEL_RTOL = 1e-4
 KERNEL_SHAPES = [(4096, 4096, 256), (943, 1682, 32), (1000, 1500, 37)]
+# phases 3, 5 and 13: the float64 check. #1-#4 multiply on the tensor
+# cores in split tf32 and #7 sums in another order; one tf32 pass (2^-11
+# relative) would pass KERNEL_RTOL, so every output is also held against
+# a float64 product: its largest relative error (#7: largest error over
+# max|W|) at most F64_FACTOR times the plain float32 twin's
+F64_FACTOR = 4
 # phase 4: final W/H of 50 kernel iterations vs the plain path, as
 # max|a - b| / max|b|. The per-step reordering error above compounds over
 # the run: 3e-6 after 50 steps at 1024^2 / r = 64 on the CPU; 1e-3 leaves
@@ -110,6 +120,7 @@ ML20M = (138_493, 26_744, 64, 20_000_263)
 # the card's peaks (NVIDIA's H100 SXM data sheet, dense): float32 on the
 # CUDA cores, bf16 and int8 on the tensor cores, HBM bandwidth
 F32_PEAK, BF16_PEAK, INT8_PEAK = 67e12, 989e12, 1979e12
+TF32_PEAK = 495e12
 HBM_BYTES_PER_S = 3.35e12
 
 # where each kernel's TPU original is (file:line of the wrapper that
@@ -152,7 +163,7 @@ DENSE = ("w_update_fused", "h_update_fused", "w_update_fused_q",
 # many instantiations); cuobjdump -sass must show wgmma (IGMMA/HGMMA) or
 # mma.sync (IMMA/HMMA) instructions in each
 TENSOR_CORE_KERNELS = (("int8_numer_kernel", 3), ("reservoir_tc_kernel", 4),
-                       ("count_tc_kernel", 4))
+                       ("count_tc_kernel", 4), ("update_kernel", 8))
 TC_OPCODE = re.compile(r"\b(IGMMA|HGMMA|IMMA|HMMA)\b")
 
 
@@ -224,6 +235,41 @@ def rel_err(a, b) -> tuple[float, float]:
     diff = (a - b).abs()
     tiny = torch.finfo(b.dtype).tiny
     return float(diff.max()), float((diff / b.abs().clamp_min(tiny)).max())
+
+
+def f64_check(phase: str, name: str, label: str, got, plain, exact,
+              scaled=False) -> None:
+    """The float64 check: fail unless the kernel's error against `exact`
+    is at most F64_FACTOR times the plain twin's. Relative per element
+    (rel_err), or with `scaled` over max|exact| (#7)."""
+    if scaled:
+        top = float(exact.abs().max())
+        k = float((got.double() - exact).abs().max()) / top
+        p = float((plain.double() - exact).abs().max()) / top
+    else:
+        k, p = rel_err(got.double(), exact)[1], rel_err(plain.double(),
+                                                       exact)[1]
+    say(f"{phase} float64", kernel=name, case=label, kernel_err=f"{k:.3e}",
+        plain_f32_err=f"{p:.3e}", ratio=f"{k / p:.3f}" if p else "inf",
+        limit=F64_FACTOR)
+    if not k <= F64_FACTOR * p:
+        fail(f"{name} {label}: error {k:.3e} against float64 exceeds "
+             f"{F64_FACTOR}x the plain float32 twin's {p:.3e}")
+
+
+def mu_exact(step: str, V, scale, W, H, G, eps=1e-9, rows=8192):
+    """One MU half-step ("w" or "h") in float64 on V * scale (scale None:
+    1), V's rows taken in chunks so that no float64 copy of V exists."""
+    W64, H64, G64 = W.double(), H.double(), G.double()
+    s = 1.0 if scale is None else float(scale)
+    if step == "w":
+        num = torch.cat([V[i:i + rows].double() @ H64.T
+                         for i in range(0, V.shape[0], rows)]) * s
+        return W64 * num / (W64 @ G64 + eps)
+    num = torch.zeros_like(H64)
+    for i in range(0, V.shape[0], rows):
+        num += W64[i:i + rows].T @ V[i:i + rows].double()
+    return H64 * (num * s) / (G64 @ H64 + eps)
 
 
 def cuda_ms(fn, iters: int) -> float:
@@ -874,6 +920,7 @@ def check_hals(HS, label, n, r, gen, dev, zero_col=None) -> float:
     W = torch.rand(n, r, generator=gen, device=dev)
     got = HS.hals_sweep(X, G, W)
     want = HS.hals_sweep_plain(X, G, W)
+    exact = HS.hals_sweep_plain(X.double(), G.double(), W.double())
     torch.cuda.synchronize()
     diff = float((got - want).abs().max())
     scale = float(want.abs().max())
@@ -884,6 +931,7 @@ def check_hals(HS, label, n, r, gen, dev, zero_col=None) -> float:
         zero_hessian_column_kept=kept)
     if not (diff <= HALS_ATOL * scale and kept):
         fail(f"hals_sweep {label}: kernel disagrees with its twin")
+    f64_check("13", "hals_sweep", label, got, want, exact, scaled=True)
     return diff
 
 
@@ -1274,6 +1322,10 @@ def main() -> None:
         H = torch.rand(r, m, generator=gen, device=dev) + 0.05
         Vq, scale = Q.quantize_v(V)
         Gw, Gh = H @ H.T, W.T @ W
+        exact = {"w": mu_exact("w", V, None, W, H, Gw),
+                 "h": mu_exact("h", V, None, W, H, Gh),
+                 "w_q": mu_exact("w", Vq, scale, W, H, Gw),
+                 "h_q": mu_exact("h", Vq, scale, W, H, Gh)}
         cases = {
             "w_update_fused": (K.w_update_fused(V, W, H, Gw),
                                K.w_update_fused_plain(V, W, H, Gw)),
@@ -1298,7 +1350,9 @@ def main() -> None:
             if not rel <= KERNEL_RTOL:
                 fail(f"{name} {n}x{m} r={r}: max rel {rel:.3e} > "
                      f"{KERNEL_RTOL}")
-        del V, W, H, Vq, scale, Gw, Gh, cases
+            key = name[0] + ("_q" if name.endswith("_q") else "")
+            f64_check("3", name, f"{n}x{m} r={r}", got, want, exact[key])
+        del V, W, H, Vq, scale, Gw, Gh, cases, exact
 
     # the main path starts here: every count from zero
     for counts in (K.LAUNCHES, Q.LAUNCHES):
@@ -1384,24 +1438,34 @@ def main() -> None:
     if min(main_path_launches.values()) < 1:
         fail(f"a kernel of the path never launched: {main_path_launches}")
 
-    # the int8 kernels against their twins on this run's Vq, scale and
-    # final factors: the only shape with n * m >= 2**31 (64-bit offsets)
-    # and with a partial second wave of H-step blocks. quantize_v is
-    # deterministic, so this Vq is the one the run used. Every term is
-    # nonnegative and most of V is zero, so each sum has at most a
-    # column's or a row's nonzeros: KERNEL_RTOL holds as in phase 3.
+    # the kernels against their twins and float64 on this run's V (float32
+    # and its Vq, scale) and final factors: the only shape with
+    # n * m >= 2**31 (64-bit offsets) and whose H step splits its depth
+    # (418 blocks over n = 138,493). quantize_v is deterministic, so this
+    # Vq is the one the run used. Every term is nonnegative and most of V
+    # is zero, so each sum has at most a column's or a row's nonzeros:
+    # KERNEL_RTOL holds as in phase 3.
     Vq5, scale5 = Q.quantize_v(R)
-    # the same ratings as a host CSR: config 2's sparse V for phases 10-12
-    ratings = ratings_csr(R)
-    del R
     W5, H5 = res.W, res.H
     Gw, Gh = H5 @ H5.T, W5.T @ W5
-    for name, kernel, plain, G in (
-        ("w_update_fused_q", Q.w_update_fused_q, Q.w_update_fused_q_plain, Gw),
-        ("h_update_fused_q", Q.h_update_fused_q, Q.h_update_fused_q_plain, Gh),
-    ):
-        got = kernel(Vq5, scale5, W5, H5, G)
-        want = plain(Vq5, scale5, W5, H5, G)
+    ml_cases = {
+        "w_update_fused": (lambda: K.w_update_fused(R, W5, H5, Gw),
+                           lambda: K.w_update_fused_plain(R, W5, H5, Gw),
+                           ("w", R, None, Gw)),
+        "h_update_fused": (lambda: K.h_update_fused(R, W5, H5, Gh),
+                           lambda: K.h_update_fused_plain(R, W5, H5, Gh),
+                           ("h", R, None, Gh)),
+        "w_update_fused_q": (
+            lambda: Q.w_update_fused_q(Vq5, scale5, W5, H5, Gw),
+            lambda: Q.w_update_fused_q_plain(Vq5, scale5, W5, H5, Gw),
+            ("w", Vq5, scale5, Gw)),
+        "h_update_fused_q": (
+            lambda: Q.h_update_fused_q(Vq5, scale5, W5, H5, Gh),
+            lambda: Q.h_update_fused_q_plain(Vq5, scale5, W5, H5, Gh),
+            ("h", Vq5, scale5, Gh)),
+    }
+    for name, (kernel, plain, (step, Vx, sx, G)) in ml_cases.items():
+        got, want = kernel(), plain()
         torch.cuda.synchronize()
         a, rel = rel_err(got, want)
         max_abs[name] = max(max_abs[name], a)
@@ -1410,8 +1474,21 @@ def main() -> None:
         if not rel <= KERNEL_RTOL:
             fail(f"{name} {n5}x{m5} r={r5}: max rel {rel:.3e} > "
                  f"{KERNEL_RTOL}")
+        f64_check("5", name, f"{n5}x{m5} r={r5}", got, want,
+                  mu_exact(step, Vx, sx, W5, H5, G))
         del got, want
-    del Vq5, scale5, res, W5, H5, Gw, Gh
+    # the kernels' times at this shape (the kernels line keeps phase 6's)
+    ml_ms = abba_ms({**{k: f[0] for k, f in ml_cases.items()},
+                     **{k + "_plain": f[1] for k, f in ml_cases.items()}},
+                    iters=2)
+    for name in ml_cases:
+        say("5 kernel timing", kernel=name, shape=f"{n5}x{m5} r={r5}",
+            ms=f"{ml_ms[name]:.4f}", plain_ms=f"{ml_ms[name + '_plain']:.4f}",
+            card=card)
+    del ml_cases
+    # the same ratings as a host CSR: config 2's sparse V for phases 10-12
+    ratings = ratings_csr(R)
+    del R, Vq5, scale5, res, W5, H5, Gw, Gh
 
     # -- 6. timing at 4096^2, r = 256 ----------------------------------------
     W, H = W0, H0
@@ -1443,12 +1520,16 @@ def main() -> None:
     bounds = {}
     for name in DENSE:
         # V read once (float32 or int8), W, H, G read, one factor written;
-        # the numerator GEMM and the Gram apply on the float32 CUDA cores
+        # the numerator and the Gram apply as the kernel runs them, on the
+        # tensor cores in split tf32: three products of each float32
+        # operand pair, two where V is int8 (exact in tf32); the
+        # denominator's operands are float32, three products
         v_bytes = 1 if name.endswith("_q") else 4
         out = n * r if name.startswith("w") else r * m
-        bounds[name] = bound(2 * n * m * r + 2 * out * r,
+        bounds[name] = bound((2 if name.endswith("_q") else 3) * 2 * n * m * r
+                             + 3 * 2 * out * r,
                              v_bytes * n * m + 4 * (n * r + r * m + r * r
-                                                    + out), F32_PEAK)
+                                                    + out), TF32_PEAK)
         say("6 kernel timing", kernel=name, ms=f"{k_ms[name]:.4f}",
             plain_ms=f"{p_ms[name]:.4f}", bound_ms=f"{bounds[name][0]:.4f}",
             bound_by=bounds[name][1], card=card)
@@ -1616,6 +1697,11 @@ def main() -> None:
 
     if "jax" in sys.modules:
         fail("jax was imported")
+    # a time below the least the card could take means a wrong bound
+    below = {name: (k_ms[name], bounds[name][0]) for name in REPLACES
+             if k_ms[name] < bounds[name][0]}
+    if below:
+        fail(f"kernels timed below their bound (ms, bound_ms): {below}")
 
     launches = {**main_path_launches, **serve_launches,
                 "ell_rowsums": ell["launches"],

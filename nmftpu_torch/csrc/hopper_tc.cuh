@@ -1,8 +1,9 @@
 // Hopper (sm_90a) building blocks shared by the tensor-core kernels
 // (dual_numer.cu, mips_reservoir.cu, count_above.cu; the scans' staging
 // steps are in tc_scan.cuh): shared-memory operand layout and
-// wgmma descriptors, cp.async with zero fill, the async-proxy fence, and
-// the three warpgroup matrix products the kernels issue.
+// wgmma descriptors, cp.async with zero fill, the async-proxy fence, the
+// tf32 hi/lo split, and the warpgroup matrix products the kernels issue
+// (dense_mu.cu takes the tf32 ones).
 //
 // Operand layout. wgmma reads both operands from shared memory, K-major
 // (the contracted index contiguous), in the no-swizzle "core matrix"
@@ -13,7 +14,8 @@
 // tile's depth in bytes. A tile of `rows` x `kbytes` is rows * kbytes
 // contiguous bytes; cm_offset gives the byte of (row, k). The first 64
 // rows of a tile start at byte 0, the next 64 at 64 * kbytes, and one
-// 32-byte step of depth (a k32 int8 or k16 bf16 product) is 256 bytes.
+// 32-byte step of depth (a k32 int8, k16 bf16 or k8 tf32 product) is
+// 256 bytes.
 //
 // Accumulator fragment of a 64 x N product (int32 or float32, N / 2
 // registers a thread): register i of lane l in warp w of the warpgroup
@@ -227,6 +229,71 @@ __device__ __forceinline__ void wgmma_bf16_m64n64k16(
         "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
         "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
         "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+
+// tf32 operands (wgmma k8 = 32 bytes of depth, the same step as above):
+// the tensor cores read a float's sign, exponent and top 10 mantissa
+// bits. x = hi + lo + O(2^-22 |x|) with hi = rn_tf32(x) and
+// lo = rn_tf32(x - hi); x - hi is exact in float32 (it has at most 13
+// significant bits), so a product of two such pairs to float32 accuracy
+// is hi·hi + hi·lo + lo·hi (lo·lo is below 2^-22 of it).
+// rn_tf32: to nearest, ties away from zero (cvt.rna.tf32.f32's rounding),
+// in two integer operations: half an ulp of tf32 added to the magnitude
+// bits, the 13 bits below tf32's mantissa cleared (infinities stay)
+__device__ __forceinline__ float tf32_rn(float x) {
+  return __uint_as_float((__float_as_uint(x) + 0x1000u) & 0xFFFFE000u);
+}
+
+__device__ __forceinline__ void tf32_split(float x, float& hi, float& lo) {
+  hi = tf32_rn(x);
+  lo = tf32_rn(x - hi);
+}
+
+__device__ __forceinline__ void wgmma_tf32_m64n64k8(
+    float (&d)[32], uint64_t da, uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+__device__ __forceinline__ void wgmma_tf32_m64n128k8(
+    float (&d)[64], uint64_t da, uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
+      "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
+      "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "l"(da), "l"(db), "r"(accumulate));
 }
 

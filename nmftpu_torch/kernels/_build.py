@@ -37,8 +37,8 @@ NVCC_FLAGS = (
 )
 
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-# (V, scale, W, H, G, out, n, m, r, eps, stream)
-_MU = [_P] * 6 + [_I] * 3 + [ctypes.c_float, _P]
+# (V, scale, W, H, G, out, ws, counters, n, m, r, splits, eps, stream)
+_MU = [_P] * 8 + [_I] * 4 + [ctypes.c_float, _P]
 # (Wq, H, out_s, out_i, b, r, m, ldh, slots, stream)
 _RESERVOIR = [_P] * 4 + [_I] * 3 + [_LL, _I, _P]
 # ... and (tiles_per_split, splits, g) before the stream; g (and gv, gw

@@ -4,13 +4,16 @@ One Lee–Seung half-step for W is
     W <- W * (V H^T) / (W G + eps),   G = H H^T,
 and for H
     H <- H * (W^T V) / (G H + eps),   G = W^T W.
-Each is one hand-written CUDA kernel (``csrc/dense_mu.cu``): the numerator
-GEMM accumulates in registers, the block applies the Gram denominator over
-the full rank, and the multiply/divide epilogue runs before the only
-store, so the numerator never reaches device memory. The kernels compute
-in float32 on the CUDA cores; the source states the precision contract and
-what bounds them. `fused_multiply_divide`, the elementwise
-X * numer / (denom + eps) on its own, is a third kernel
+Each is one hand-written CUDA kernel (``csrc/dense_mu.cu``) on the tensor
+cores: float32 operands split into tf32 hi and lo parts as their tiles are
+staged (hi·hi + hi·lo + lo·hi, float32 accuracy; the source states the
+precision argument and what bounds the kernel). A block owns 64 rows of V
+(the W step) or 64 columns (the H step) and all r factors up to 256 (128
+rows or columns when r <= 64), so V is read once; the numerator never
+reaches device memory except as the partial sums of a split depth
+(`mu_splits`), which the last block of a tile adds in split order before
+the Gram denominator and the multiply/divide epilogue, the only store. `fused_multiply_divide`, the
+elementwise X * numer / (denom + eps) on its own, is a third kernel
 (``csrc/muldiv.cu``); as in ``nmftpu``, no update path calls it.
 
 Beside each wrapper is its plain torch twin (``*_plain``), the same
@@ -79,15 +82,65 @@ def _check_cuda_operands(what, V, v_dtype, W, H, G, scale=None):
     return n, m, r
 
 
+# the kernel's depth stage, the most stages in one split's promoted sum,
+# and the SMs of an H100 (the split rule's default)
+MU_STAGE, MU_MAX_STAGES, H100_SMS = 16, 512, 132
+
+
+def mu_tile(r):
+    """(rows, factors, blocks an SM) of one block of the kernel: 128 rows
+    and 64 factors for r <= 64, else 64 rows and 256 factors (`Cfg` in
+    ``csrc/dense_mu.cu``; the two must agree)."""
+    return (128, 64, 2) if r <= 64 else (64, 256, 1)
+
+
+def mu_splits(rows, depth, r, sms=H100_SMS):
+    """How many parts the kernel splits a half-step's depth into: `rows`
+    is the product's row count (n for the W step, m for the H step),
+    `depth` its contraction (m, n). At least enough that no split is
+    deeper than MU_MAX_STAGES stages (its promoted float32 sum stays
+    short); then, with fewer blocks than about two waves of the card, the
+    fewest splits that give two waves, or one wave at least 90% full,
+    each split at least 16 stages deep. Every split is non-empty (the
+    kernel checks)."""
+    tile_rows, cols, per_sm = mu_tile(r)
+    base = -(-rows // tile_rows) * -(-r // cols)
+    slots = sms * per_sm
+    stages = -(-depth // MU_STAGE)
+    least = -(-stages // MU_MAX_STAGES)
+    best = least
+    for s in range(least, max(least, stages // 16) + 1):
+        per = -(-stages // s)
+        best = -(-stages // per)
+        blocks = base * best
+        waves = -(-blocks // slots)
+        if blocks >= 2 * slots or (blocks >= 0.9 * slots
+                                   and blocks >= 0.9 * waves * slots):
+            break
+    return best
+
+
 def launch(entry, what, counts, V, scale, W, H, G, out, eps):
     """Launch one C entry of the library on the current stream of V's
-    device, raise on a launch error, and count the launch."""
+    device, raise on a launch error, and count the launch. The split
+    depth's workspace (splits x rows x r float32 partials) and its
+    arrival counters (zeroed) are allocated here."""
     n, m = V.shape
+    r = H.shape[0]
+    # the H step's product is (m, r) over depth n, the W step's (n, r)
+    rows, depth = (m, n) if entry.startswith("nmftpu_h_") else (n, m)
+    splits = mu_splits(rows, depth, r,
+                       torch.cuda.get_device_properties(V.device)
+                       .multi_processor_count)
+    ws = torch.empty(splits * rows * r, dtype=torch.float32, device=V.device)
+    tile_rows, cols, _ = mu_tile(r)
+    counters = torch.zeros(-(-rows // tile_rows) * -(-r // cols),
+                           dtype=torch.int32, device=V.device)
     _build.launch(
         entry, what, V.device,
         V.data_ptr(), None if scale is None else scale.data_ptr(),
         W.data_ptr(), H.data_ptr(), G.data_ptr(), out.data_ptr(),
-        n, m, H.shape[0], float(eps),
+        ws.data_ptr(), counters.data_ptr(), n, m, r, splits, float(eps),
     )
     counts[what] += 1
     return out

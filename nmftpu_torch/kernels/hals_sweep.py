@@ -6,11 +6,14 @@ One HALS half-step is a cyclic Gauss–Seidel sweep over the r columns of W:
     for t in 0..r:  W[:, t] <- max(W[:, t] - (W G[:, t] - XHt[:, t]) / G[t, t], 0)
 
 sequential in t and independent across rows. The kernel
-(``csrc/hals_sweep.cu``) gives each row of W to one warp, keeps the row in
-shared memory for the whole sweep and stages G's column blocks in shared
-memory, blocked like ``linalg.dense._hals_half_sweep_blocked``: a dot
-product per column of the block for the gradient base, then the b-step
-chain with rank-1 corrections, in registers.
+(``csrc/hals_sweep.cu``) gives each block TR rows of W (32 at r = 256),
+kept in shared memory for the whole sweep, and streams G's column panels
+through a two-buffer cp.async ring, blocked like
+``linalg.dense._hals_half_sweep_blocked``: a (TR x b) gradient base of
+depth r, summed by each thread over a 4 x 4 tile and a slice of the depth
+quads and then across the slices in order, then the b-step chain with
+rank-1 corrections, in registers, multiplying by the hessian's reciprocal
+where the blocked sweep divides.
 
 Not carried over from the TPU version: the transposed (r, tile_n) layout
 and the host-built stack of transposed diagonal blocks (``GbbT``), the
@@ -32,6 +35,10 @@ LAUNCHES = {"hals_sweep": 0}
 
 # the widest column block the kernel takes
 MAX_BLOCK = 16
+# the largest rank: four rows of W (each r floats, padded to 4 mod 8
+# quads) beside G's panels and the partial bases (51,264 bytes) in a
+# block's 232,448 bytes of shared memory
+MAX_RANK = 11_324
 
 
 def _check_shapes(XHt, G, W):
@@ -44,7 +51,7 @@ def _check_shapes(XHt, G, W):
 
 def _check_cuda_operands(XHt, G, W, block):
     """What the CUDA entry takes: float32, contiguous, extents in
-    [1, 2**31), block in [1, MAX_BLOCK]."""
+    [1, 2**31), r <= MAX_RANK, block in [1, MAX_BLOCK]."""
     for name, t in (("XHt", XHt), ("G", G), ("W", W)):
         if t.dtype != torch.float32:
             raise TypeError(f"hals_sweep: {name} must be float32, got "
@@ -55,6 +62,9 @@ def _check_cuda_operands(XHt, G, W, block):
     if min(n, r) < 1 or max(n, r) >= 2**31:
         raise ValueError(f"hals_sweep: extents must lie in [1, 2**31), got "
                          f"n={n}, r={r}")
+    if r > MAX_RANK:
+        raise ValueError(f"hals_sweep: rank {r} exceeds the kernel's "
+                         f"{MAX_RANK}")
     if not 1 <= block <= MAX_BLOCK:
         raise ValueError(f"hals_sweep: block must lie in [1, {MAX_BLOCK}], "
                          f"got {block}")

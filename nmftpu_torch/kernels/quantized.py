@@ -3,9 +3,11 @@
 
 V is stored once as int8 with one per-matrix scale, V ~= scale * Vq,
 which quarters the bytes of V read per half-step. The CUDA kernels are
-the float32 ones of ``csrc/dense_mu.cu`` instantiated for ``int8_t``: the
-int8 tile upcasts exactly, the sums run in float32, and the scale
-multiplies each numerator once in the epilogue.
+those of ``csrc/dense_mu.cu`` instantiated for ``int8_t``: the int8 tile
+is exact in tf32, so each numerator product on the tensor cores takes
+two terms (V·hi + V·lo of the float32 factor) instead of three, the sums
+run in float32, and the scale multiplies each numerator once in the
+epilogue.
 
 Unlike ``nmftpu``'s ``w_update_fused_q``/``h_update_fused_q``, which take
 Hᵀ and Wᵀ, these take W and H as they are: the kernels read both along

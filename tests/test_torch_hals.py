@@ -340,3 +340,79 @@ def test_cuda_operand_checks(bad, error):
     with pytest.raises(error):
         HS._check_cuda_operands(X, G, W, block)
     HS._check_cuda_operands(*_t(*_sweep_inputs(20, 18, np.float32)), 16)
+
+
+# ---------------------------------------------------------------------------
+# the kernel's summation order (csrc/hals_sweep.cu), modelled in torch
+# ---------------------------------------------------------------------------
+
+
+def _fma32(a, b, c):
+    """float32 fmaf: the exact product plus c, rounded once (through
+    float64, which holds a float32 product exactly)."""
+    return (a.double() * b.double() + c.double()).float()
+
+
+def _kernel_order_sweep(XHt, G, W, block=16, rows=32):
+    """The blocked sweep in the CUDA kernel's order: a block of `rows`
+    rows sums each base over KS = 256 / rows slices of the depth (the
+    depth quads k // 4 = ks mod KS, each slice's fmaf in increasing k),
+    adds the slices in order, then runs the chain as max(fmaf(-grad,
+    1/hess, old), 0) with fmaf rank-1 corrections."""
+    n, r = W.shape
+    ks_count = 256 // rows
+    W = W.clone()
+    for s in range(0, r, block):
+        b = min(block, r - s)
+        Gb = G[:, s:s + b]
+        partial = []
+        for ks in range(ks_count):
+            acc = torch.zeros(n, b)
+            for k in (k for k in range(r) if (k // 4) % ks_count == ks):
+                acc = _fma32(W[:, k:k + 1], Gb[k][None, :], acc)
+            partial.append(acc)
+        base = partial[0]
+        for p in partial[1:]:
+            base = base + p
+        base = base - XHt[:, s:s + b]
+        Gbb = Gb[s:s + b]
+        old_cols = W[:, s:s + b].clone()
+        for j in range(b):
+            old, hess = old_cols[:, j], Gbb[j, j]
+            if hess != 0:
+                rh = torch.reciprocal(hess)
+                new = torch.clamp(_fma32(-base[:, j], rh, old), min=0.0)
+            else:
+                new = old
+            W[:, s + j] = new
+            base = _fma32((new - old)[:, None], Gbb[j][None, :], base)
+    return W
+
+
+@pytest.mark.parametrize("rows", [32, 4])
+@pytest.mark.parametrize("n,r,zero_col,block", [(70, 24, None, 16),
+                                                (40, 37, 5, 16),
+                                                (33, 40, 39, 7)])
+def test_kernel_order_matches_nmftpu_kernel(rows, n, r, zero_col, block):
+    """The CUDA kernel's order of sums (sliced depth, slices added in
+    order, fmaf chain by the reciprocal hessian) against nmftpu's Pallas
+    sweep in interpret mode,
+    at the bound the card holds the kernel to (3e-5 * max|W|), for the
+    largest and the smallest row tile (8 and 64 depth slices)."""
+    X, G, W = _sweep_inputs(n, r, np.float32, seed=n + r + rows,
+                            zero_col=zero_col)
+    want = np.asarray(JH.hals_sweep(*_j(X, G, W), block=block,
+                                    interpret=True))
+    got = _kernel_order_sweep(*_t(X, G, W), block=block, rows=rows).numpy()
+    np.testing.assert_allclose(got, want, rtol=0,
+                               atol=KERNEL_ATOL * np.abs(want).max())
+    if zero_col is not None:
+        np.testing.assert_array_equal(got[:, zero_col], W[:, zero_col])
+
+
+def test_cuda_operand_checks_refuse_ranks_past_the_kernels():
+    W = torch.zeros(4, HS.MAX_RANK + 1)
+    with pytest.raises(ValueError, match="rank"):
+        HS._check_cuda_operands(W, torch.eye(2), W, 16)
+    W = torch.zeros(4, HS.MAX_RANK)
+    HS._check_cuda_operands(W, torch.eye(2), W, 16)

@@ -300,3 +300,126 @@ def test_launch_error_is_raised(monkeypatch):
     with pytest.raises(RuntimeError, match="invalid configuration"):
         _build.check(9, "w_update_fused")
     _build.check(0, "w_update_fused")
+
+
+# ---------------------------------------------------------------------------
+# the split-tf32 products of csrc/dense_mu.cu, modelled in torch
+# ---------------------------------------------------------------------------
+
+# one 16-deep stage of the kernel: two k8 products, each summed by the
+# tensor cores into a fresh float32 accumulator, then added to the sum
+STAGE, K8 = 16, 8
+
+
+def _tf32(x):
+    """Round float32 to tf32 (10 mantissa bits), to nearest with ties away
+    from zero, as cvt.rna.tf32.f32 does."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _rz32(x):
+    """float64 -> float32 rounded toward zero: the tensor cores' sums are
+    modelled as truncating (the worst case the kernel's design allows
+    for)."""
+    y = x.to(torch.float32)
+    over = y.double().abs() > x.abs()
+    return torch.where(over, torch.nextafter(y, torch.zeros_like(y)), y)
+
+
+def _tensor_core_product(pairs, depth, promote):
+    """A · Bᵀ as the kernel issues it: per k8 step, each (A part, B part)
+    of `pairs` is one product whose 8 terms are exact and whose sum with
+    the accumulator is truncated to float32. With `promote`, a fresh
+    accumulator per 16-deep stage, added to the sum with float32
+    rounding; else one accumulator for the whole depth."""
+    a0, b0 = pairs[0]
+    total = torch.zeros(a0.shape[0], b0.shape[0], dtype=torch.float32)
+    part = torch.zeros_like(total)
+    for k0 in range(0, depth, K8):
+        for a, b in pairs:
+            exact = a[:, k0:k0 + K8].double() @ b[:, k0:k0 + K8].double().T
+            part = _rz32(part.double() + exact)
+        if promote and (k0 + K8) % STAGE == 0:
+            total, part = total + part, torch.zeros_like(part)
+    return total + part
+
+
+def _split(x):
+    hi = _tf32(x)
+    return hi, _tf32(x - hi)
+
+
+def _max_rel(x, exact):
+    return float(((x.double() - exact).abs() / exact.abs()).max())
+
+
+@pytest.mark.parametrize("v_kind", ["float32", "int8"])
+def test_split_tf32_stays_within_float32_error(v_kind):
+    """At K = 4096 on nonnegative data (V about 0..5 as the kernel checks
+    draw it, factors 0.05..1): the split products (3 for float32 V, 2 for
+    int8 V, whose values are exact in tf32), promoted per stage, stay
+    within 4x a float32 matmul's largest relative error against float64
+    (the bound chip_smoke.py phases 3 and 5 hold the kernels to); one
+    tf32 pass, and the split without promotion under truncating sums, do
+    not. This is the argument behind the kernel's design."""
+    rng = np.random.default_rng(11)
+    K = 4096
+    if v_kind == "float32":
+        A = torch.tensor(rng.uniform(0.0, 5.0, (16, K)).astype(np.float32))
+    else:
+        A = torch.tensor(rng.integers(0, 128, (16, K)).astype(np.float32))
+    B = torch.tensor(rng.uniform(0.05, 1.0, (16, K)).astype(np.float32))
+    exact = A.double() @ B.double().T
+    f32 = _max_rel(A @ B.T, exact)
+    (ah, al), (bh, bl) = _split(A), _split(B)
+    assert torch.equal(ah + al, A) or v_kind == "float32"
+    pairs = ([(ah, bh), (ah, bl)] if v_kind == "int8"
+             else [(al, bh), (ah, bl), (ah, bh)])
+    split = _max_rel(_tensor_core_product(pairs, K, promote=True), exact)
+    chained = _max_rel(_tensor_core_product(pairs, K, promote=False), exact)
+    one_pass = _max_rel(_tensor_core_product([(ah, bh)], K, promote=True),
+                        exact)
+    assert split <= 4 * f32, (split, f32)
+    assert one_pass > 4 * f32, (one_pass, f32)
+    assert chained > 4 * f32, (chained, f32)
+
+
+def test_tf32_rounding_model():
+    """The model's rounding: 10 mantissa bits kept, ties away from zero,
+    and hi + lo reproduces x to 2^-21."""
+    x = torch.tensor([1.0 + 2.0**-11, 1.0 + 3 * 2.0**-12, -(1.0 + 2.0**-11),
+                      1.0 + 2.0**-12], dtype=torch.float32)
+    np.testing.assert_array_equal(
+        _tf32(x).numpy(), np.array([1.0 + 2.0**-10, 1.0 + 2.0**-10,
+                                    -(1.0 + 2.0**-10), 1.0], np.float32))
+    v = torch.tensor(np.random.default_rng(3).uniform(0.01, 5.0, 1000)
+                     .astype(np.float32))
+    hi, lo = _split(v)
+    assert float(((hi.double() + lo.double() - v.double()).abs()
+                  / v.double()).max()) <= 2.0**-21
+
+
+@pytest.mark.parametrize("rows,depth,r,want", [
+    (4096, 4096, 256, 2),          # 64 blocks: two splits fill one wave
+    (26_744, 138_493, 64, 17),     # ML-20M H step: 8,656 stages
+    (138_493, 26_744, 64, 4),      # ML-20M W step: 1,672 stages
+    (2048, 2048, 512, 2),          # 64 blocks, two factor chunks
+    (4096, 4096, 300, 1),          # two factor chunks, 128 blocks
+    (64, 16, 8, 1),                # one stage: nothing to split
+])
+def test_mu_splits(rows, depth, r, want):
+    assert K.mu_splits(rows, depth, r) == want
+
+
+@pytest.mark.parametrize("rows,depth,r", [(943, 1682, 32), (1, 5000, 300),
+                                          (1000, 1500, 37), (70, 4099, 130),
+                                          (5, 1_000_000, 8)])
+def test_mu_splits_are_never_empty(rows, depth, r):
+    """The kernel refuses a split with no stage: every split the rule
+    picks holds one, at least 16 when split, at most MU_MAX_STAGES."""
+    s = K.mu_splits(rows, depth, r)
+    stages = -(-depth // K.MU_STAGE)
+    per = -(-stages // s)
+    assert -(-stages // per) == s
+    assert (s == 1 or per >= 16) and per <= K.MU_MAX_STAGES

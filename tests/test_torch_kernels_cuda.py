@@ -46,7 +46,11 @@ def _factors(shape, dev, seed=0):
     return V, W, H
 
 
-SHAPES = [(943, 1682, 32), (1000, 1500, 37), (64, 65, 1), (70, 3, 130)]
+SHAPES = [(943, 1682, 32), (1000, 1500, 37), (64, 65, 1), (70, 3, 130),
+          # r = 64 (one n64 warpgroup), 256 (two n128), 300 (two factor
+          # chunks), ragged n and m; tall shapes split the depth
+          (300, 257, 64), (1037, 515, 256), (513, 777, 300),
+          (30_011, 301, 64), (301, 30_011, 64), (20_000, 133, 256)]
 
 
 @pytest.mark.parametrize("shape", SHAPES)
@@ -83,21 +87,71 @@ def test_wrappers_reject_what_the_kernels_do_not_take(dev):
         K.w_update_fused(V.double(), W, H, G)
     with pytest.raises(ValueError, match="different devices"):
         K.w_update_fused(V.cpu(), W, H, G)
+    Vq, scale = Q.quantize_v(V)
+    with pytest.raises(TypeError, match="int8"):
+        Q.h_update_fused_q(V, scale, W, H, W.T @ W)
+    with pytest.raises(TypeError, match="scale"):
+        Q.w_update_fused_q(Vq, scale.double(), W, H, G)
+    with pytest.raises(TypeError, match="float32"):
+        K.h_update_fused(V, W, H.double(), G)
+    with pytest.raises(ValueError, match="expected"):
+        K.h_update_fused(V, W, H, G[:4])
 
 
+# the float64 check of chip_smoke.py phases 3 and 5: one tf32 pass is
+# about 2^-11 relative and would pass RTOL; the split products must keep
+# float32's accuracy, within 4x the plain float32 twin's largest error
+F64_FACTOR = 4
+
+
+def _f64_errors(kernel, plain, exact):
+    def rel(x):
+        return float(((x.double() - exact).abs() / exact.abs()).max())
+    return rel(kernel), rel(plain)
+
+
+@pytest.mark.parametrize("shape", [(2048, 4096, 256), (1000, 1500, 37),
+                                   (30_011, 301, 64), (301, 30_011, 64)])
+@pytest.mark.parametrize("v_kind", ["float32", "int8"])
+def test_kernels_keep_float32_accuracy(dev, shape, v_kind):
+    V, W, H = _factors(shape, dev, seed=5)
+    Gw, Gh = H @ H.T, W.T @ W
+    Vq, scale = Q.quantize_v(V)
+    V64 = (Vq.double() * scale.double() if v_kind == "int8"
+           else V.double())
+    W64, H64 = W.double(), H.double()
+    want_w = W64 * (V64 @ H64.T) / (W64 @ Gw.double() + 1e-9)
+    want_h = H64 * (W64.T @ V64) / (Gh.double() @ H64 + 1e-9)
+    if v_kind == "float32":
+        pairs = [(K.w_update_fused(V, W, H, Gw),
+                  K.w_update_fused_plain(V, W, H, Gw), want_w),
+                 (K.h_update_fused(V, W, H, Gh),
+                  K.h_update_fused_plain(V, W, H, Gh), want_h)]
+    else:
+        pairs = [(Q.w_update_fused_q(Vq, scale, W, H, Gw),
+                  Q.w_update_fused_q_plain(Vq, scale, W, H, Gw), want_w),
+                 (Q.h_update_fused_q(Vq, scale, W, H, Gh),
+                  Q.h_update_fused_q_plain(Vq, scale, W, H, Gh), want_h)]
+    torch.cuda.synchronize()
+    for got, plain, exact in pairs:
+        k_err, p_err = _f64_errors(got, plain, exact)
+        assert k_err <= F64_FACTOR * p_err, (k_err, p_err)
+
+
+@pytest.mark.parametrize("rank", [12, 37, 256])
 @pytest.mark.parametrize("knobs", [{"use_pallas": True},
                                    {"use_pallas": True, "v_storage": "int8"}])
-def test_fused_paths_match_the_plain_path(dev, knobs):
+def test_fused_paths_match_the_plain_path(dev, knobs, rank):
     """20 MU iterations through nmf(): kernels vs torch.matmul on the same
     V (the dequantized one for int8), same W0/H0."""
-    V, W0, H0 = _factors((300, 257, 12), dev, seed=1)
+    V, W0, H0 = _factors((300, 257, rank), dev, seed=1)
     V_plain = V
     if knobs.get("v_storage") == "int8":
         Vq, scale = Q.quantize_v(V)
         V_plain = Vq.float() * scale
     kw = dict(init="copy", W0=W0, H0=H0, num_iterations=20, check_interval=5)
-    got = nt.nmf(V, 12, **kw, **knobs)
-    want = nt.nmf(V_plain, 12, **kw, use_pallas=False)
+    got = nt.nmf(V, rank, **kw, **knobs)
+    want = nt.nmf(V_plain, rank, **kw, use_pallas=False)
     assert got.W.device.type == "cuda"
     torch.testing.assert_close(got.W, want.W, rtol=1e-3, atol=1e-6)
     torch.testing.assert_close(got.H, want.H, rtol=1e-3, atol=1e-6)
@@ -565,7 +619,9 @@ HALS_ATOL = 3e-5
 
 @pytest.mark.parametrize("n,r,zero_col", [(1000, 37, 5), (4096, 256, None),
                                           (2048, 512, None), (50, 5, 0),
-                                          (33, 16, None), (70, 100, 99)])
+                                          (33, 16, None), (70, 100, 99),
+                                          (600, 832, 400), (3000, 512, None),
+                                          (20_000, 64, None), (5, 300, 1)])
 @pytest.mark.parametrize("block", [16, 7])
 def test_hals_sweep_matches_twin(dev, n, r, zero_col, block):
     g = torch.Generator(device=dev).manual_seed(n + r)
@@ -689,6 +745,12 @@ def test_slice_4a_wrappers_reject_what_the_kernels_do_not_take(dev):
         HS.hals_sweep(X.double(), G.double(), X.double())
     with pytest.raises(ValueError, match="different devices"):
         HS.hals_sweep(X, G.cpu(), X)
+    with pytest.raises(ValueError, match="block"):
+        HS.hals_sweep(X, G, X, block=17)
+    wide = torch.zeros(2, HS.MAX_RANK + 1, device=dev)
+    with pytest.raises(ValueError, match="rank"):
+        HS.hals_sweep(wide, torch.empty(HS.MAX_RANK + 1, HS.MAX_RANK + 1,
+                                        device=dev), wide)
     Vq = torch.zeros(30, 40, dtype=torch.int8, device=dev)
     with pytest.raises(TypeError, match="int8"):
         DN.vht_int8(Vq, torch.zeros(4, 40, device=dev))
