@@ -1,7 +1,7 @@
 """Where one MU iteration and one serving batch of the PyTorch/CUDA port
 (nmftpu_torch) spend their time on one NVIDIA GPU.
 
-    python3 chip_profile.py [--out DIR]
+    python3 chip_profile.py [--out DIR] [--cells dense,serving,sparse,slice8]
 
 Two shapes -- 4096 x 4096 at rank 256 (bench.py's headline) and the
 ML-20M shape 138,493 x 26,744 at rank 64, with chip_smoke.py's synthetic
@@ -36,9 +36,16 @@ torch.profiler over a 20-iteration ``SparsePlan.run`` with a check every
 10, device ms per iteration by class (the ELL kernel, gathers,
 index_add_ scatters, GEMMs, everything else) and the idle share, and
 one line with the ms of each engine's Frobenius and KL error checks.
-Every line ends with the card's nvidia-smi name and power limit. The profiler traces and
-summary.json go to --out (default: profile_out/ beside this script).
-Exits 1 without a CUDA device.
+Then slice 8's paths (cell "slice8"): at config 2's shape, int8
+densified MU under Frobenius (#6's one-sided entries) and KL and masked
+completion (Frobenius, KL) on ELL and scatter, each profiled over a
+5-iteration run; then BASELINE config 3 at full size (chip_smoke.py's
+phase-16 data, rank 128, alpha 40) on the densified bf16 and int8, ELL
+and scatter engines, each profiled over a 2-iteration run; ms per
+iteration by CUDA events as above. --cells picks a subset of the four
+cells. Every line ends with the card's nvidia-smi name and power limit.
+The profiler traces and summary.json go to --out (default: profile_out/
+beside this script). Exits 1 without a CUDA device.
 """
 
 from __future__ import annotations
@@ -54,6 +61,9 @@ import numpy as np
 import torch
 
 from chip_smoke import (
+    C3_ALPHA,
+    C3_RANK,
+    CONFIG3,
     HERE,
     SEED,
     abba_ms,
@@ -71,6 +81,9 @@ from chip_smoke import (
 
 PROFILE_ITERS = 20
 CHECK_INTERVAL = 10
+# slice 8's paths are 10-400 ms an iteration: fewer iterations profiled
+S8_PROFILE_ITERS = 5
+C3_PROFILE_ITERS = 2
 
 
 def kernel_class(name: str) -> str:
@@ -131,7 +144,13 @@ def device_summary(trace: Path, iters: int) -> dict:
 def main() -> None:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--out", default=str(HERE / "profile_out"))
+    p.add_argument("--cells", default="dense,serving,sparse,slice8",
+                   help="comma-separated subset of dense, serving, sparse, "
+                        "slice8 (default: all)")
     args = p.parse_args()
+    cells = set(args.cells.split(","))
+    if not cells <= {"dense", "serving", "sparse", "slice8"}:
+        fail(f"unknown cells: {sorted(cells)}")
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: no CUDA device")
 
@@ -150,8 +169,9 @@ def main() -> None:
 
     eps = 1e-9
     summary = {"card": card}
-    for cell, (n, m, r) in (("4096^2_r256", (4096, 4096, 256)),
-                            ("ml20m_shape_r64", (138_493, 26_744, 64))):
+    dense_cells = (("4096^2_r256", (4096, 4096, 256)),
+                   ("ml20m_shape_r64", (138_493, 26_744, 64)))
+    for cell, (n, m, r) in dense_cells if "dense" in cells else ():
         gen = torch.Generator(device=dev).manual_seed(SEED + n)
         if n == m:
             V = synthetic_lowrank(n, m, r, gen, dev)
@@ -225,7 +245,19 @@ def main() -> None:
         del V, Vq, scale, W, H, halves, iteration, svsq
         torch.cuda.empty_cache()
 
-    # -- serving: config 5 at full width, int8 table -------------------------
+    if "serving" in cells:
+        serving_cell(nt, dev, card, out, summary)
+    if cells & {"sparse", "slice8"}:
+        sparse_cells(nt, dev, card, out, summary, cells)
+
+    if "jax" in sys.modules:
+        fail("jax was imported")
+    (out / "summary.json").write_text(json.dumps(summary, indent=1))
+    print(json.dumps(summary), flush=True)
+
+
+def serving_cell(nt, dev, card, out, summary) -> None:
+    """Config 5 at full width, int8 table: each serving path profiled."""
     W8, H8, train = serving_data(
         torch.Generator(device=dev).manual_seed(SEED + 8), dev)
     rec = nt.Recommender(W8, H8, train=train, method="reservoir",
@@ -267,13 +299,33 @@ def main() -> None:
     del rec, exact, W8, train
     torch.cuda.empty_cache()
 
-    # -- sparse: config 2 at full width (ELL with and without the kernel,
-    #    densified bf16), Frobenius and KL --------------------------------
+
+def profiled(plan, config, W, H, trace: Path, iters: int) -> dict:
+    """One warm-up run of `config` on `plan`, then one under
+    torch.profiler: device ms per iteration by class and idle share."""
+    plan.run(config, W0=W, H0=H)
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        plan.run(config, W0=W, H0=H)
+        torch.cuda.synchronize()
+    prof.export_chrome_trace(str(trace))
+    return device_summary(trace, iters)
+
+
+def sparse_cells(nt, dev, card, out, summary, cells) -> None:
+    """Config 2 at full width (ELL with and without the kernel, densified
+    bf16; Frobenius and KL), then slice 8's paths: config 3 on its four
+    engines, int8 densified and masked completion at config 2's shape."""
     from nmftpu_torch import densified as DF
     from nmftpu_torch import sparse_ell as SE
+    from nmftpu_torch import sparse_ops as TS
     from nmftpu_torch.config import Initialization, NmfConfig, Objective
     from nmftpu_torch.kernels import sparse_ell_kernel as SEK
+    from nmftpu_torch.linalg import dense as D
 
+    eps = 1e-9
     n, m, r = 138_493, 26_744, 64
     gen = torch.Generator(device=dev).manual_seed(SEED + 5)
     R = synthetic_ratings(n, m, 20_000_263, gen, dev)
@@ -284,72 +336,141 @@ def main() -> None:
     W = (torch.rand(n, r, generator=gen, device=dev) + 1e-4) * scale
     H = (torch.rand(r, m, generator=gen, device=dev) + 1e-4) * scale
 
-    def config(objective, **knobs):
-        return NmfConfig(rank=r, objective=objective,
+    def config(objective, iters=PROFILE_ITERS, check=CHECK_INTERVAL,
+               rank=r, **knobs):
+        return NmfConfig(rank=rank, objective=objective,
                          init_method=Initialization.COPY_EXISTING,
-                         num_iterations=PROFILE_ITERS,
-                         check_interval=CHECK_INTERVAL, **knobs)
+                         num_iterations=iters, check_interval=check,
+                         **knobs)
+
+    def report(cell, paths, iters, it_ms):
+        summary.setdefault(cell, {})
+        for path, (plan, cfg, Wi, Hi) in paths.items():
+            row = {"ms_per_iter": it_ms[path],
+                   **profiled(plan, cfg, Wi, Hi, out / f"{cell}_{path}.json",
+                              iters)}
+            summary[cell][path] = row
+            say("profile", cell=cell, path=path,
+                ms_per_iter=f"{it_ms[path]:.4f}",
+                device_ms_per_iter={k: round(v, 4) for k, v in
+                                    row["device_ms_per_iter"].items()},
+                idle_share=f"{row['idle_share']:.4f}", card=card)
 
     fro, kl = Objective.FROBENIUS, Objective.KL
-    ell = nt.prepare_sparse(ratings, config(fro), strategy="ell", device=dev)
-    dense = nt.prepare_sparse(ratings, config(fro), strategy="densified",
-                              device=dev)
-    pair, Vd = ell.operand, dense.operand
-    Wp = torch.nn.functional.pad(W, (0, 0, 0, Vd.shape[0] - n))
-    paths = {
-        "ell_kernel_frobenius": (
-            ell, config(fro, use_pallas=True),
-            lambda: SEK.mu_update_frobenius_ell_pallas(pair, W, H, eps)),
-        "ell_plain_frobenius": (
-            ell, config(fro),
-            lambda: SE.mu_update_frobenius_ell(pair, W, H, eps)),
-        "ell_kl": (ell, config(kl),
-                   lambda: SE.mu_update_kl_ell(pair, W, H, eps)),
-        "densified_frobenius": (
-            dense, config(fro),
-            lambda: D.mu_update_frobenius_bf16v(Vd, Wp, H, eps)),
-        "densified_kl": (dense, config(kl),
-                         lambda: DF.mu_update_kl_densified(Vd, Wp, H, eps)),
-    }
-    it_ms = abba_ms({k: v[2] for k, v in paths.items()}, 3)
-    svsq_e, svsq_d = SE.sum_v_sq_ell(pair.rows), DF.sum_v_sq_densified(Vd)
-    checks = abba_ms({
-        "ell_frobenius_kernel": lambda: SE.frobenius_error_ell(
-            pair, W, H, svsq_e, wt_v=SEK.wt_v_ell_pallas),
-        "ell_frobenius_plain": lambda: SE.frobenius_error_ell(
-            pair, W, H, svsq_e),
-        "ell_kl": lambda: SE.kl_error_ell(pair, W, H),
-        "densified_frobenius": lambda: DF.frobenius_error_densified(
-            Vd, Wp, H, svsq_d),
-        "densified_kl": lambda: DF.kl_error_densified(Vd, Wp, H),
-    }, 3)
-    say("check", cell="sparse_ml20m_r64",
-        error_check_ms={k: round(v, 4) for k, v in checks.items()},
-        card=card)
-    summary["sparse_ml20m_r64"] = {"error_check_ms": checks}
-    for path, (plan, cfg, _) in paths.items():
-        plan.run(cfg, W0=W, H0=H)
-        torch.cuda.synchronize()
-        with torch.profiler.profile(activities=[
-                torch.profiler.ProfilerActivity.CPU,
-                torch.profiler.ProfilerActivity.CUDA]) as prof:
-            plan.run(cfg, W0=W, H0=H)
-            torch.cuda.synchronize()
-        trace = out / f"sparse_ml20m_r64_{path}.json"
-        prof.export_chrome_trace(str(trace))
-        row = {"ms_per_iter": it_ms[path],
-               **device_summary(trace, PROFILE_ITERS)}
-        summary["sparse_ml20m_r64"][path] = row
-        say("profile", cell="sparse_ml20m_r64", path=path,
-            ms_per_iter=f"{it_ms[path]:.4f}",
-            device_ms_per_iter={k: round(v, 4) for k, v in
-                                row["device_ms_per_iter"].items()},
-            idle_share=f"{row['idle_share']:.4f}", card=card)
+    if "sparse" in cells:
+        ell = nt.prepare_sparse(ratings, config(fro), strategy="ell",
+                                device=dev)
+        dense = nt.prepare_sparse(ratings, config(fro), strategy="densified",
+                                  device=dev)
+        pair, Vd = ell.operand, dense.operand
+        Wp = torch.nn.functional.pad(W, (0, 0, 0, Vd.shape[0] - n))
+        paths = {
+            "ell_kernel_frobenius": (
+                ell, config(fro, use_pallas=True),
+                lambda: SEK.mu_update_frobenius_ell_pallas(pair, W, H, eps)),
+            "ell_plain_frobenius": (
+                ell, config(fro),
+                lambda: SE.mu_update_frobenius_ell(pair, W, H, eps)),
+            "ell_kl": (ell, config(kl),
+                       lambda: SE.mu_update_kl_ell(pair, W, H, eps)),
+            "densified_frobenius": (
+                dense, config(fro),
+                lambda: D.mu_update_frobenius_bf16v(Vd, Wp, H, eps)),
+            "densified_kl": (dense, config(kl),
+                             lambda: DF.mu_update_kl_densified(Vd, Wp, H,
+                                                               eps)),
+        }
+        it_ms = abba_ms({k: v[2] for k, v in paths.items()}, 3)
+        svsq_e, svsq_d = SE.sum_v_sq_ell(pair.rows), DF.sum_v_sq_densified(Vd)
+        checks = abba_ms({
+            "ell_frobenius_kernel": lambda: SE.frobenius_error_ell(
+                pair, W, H, svsq_e, wt_v=SEK.wt_v_ell_pallas),
+            "ell_frobenius_plain": lambda: SE.frobenius_error_ell(
+                pair, W, H, svsq_e),
+            "ell_kl": lambda: SE.kl_error_ell(pair, W, H),
+            "densified_frobenius": lambda: DF.frobenius_error_densified(
+                Vd, Wp, H, svsq_d),
+            "densified_kl": lambda: DF.kl_error_densified(Vd, Wp, H),
+        }, 3)
+        say("check", cell="sparse_ml20m_r64",
+            error_check_ms={k: round(v, 4) for k, v in checks.items()},
+            card=card)
+        summary["sparse_ml20m_r64"] = {"error_check_ms": checks}
+        report("sparse_ml20m_r64",
+               {k: (p, c, W, H) for k, (p, c, _) in paths.items()},
+               PROFILE_ITERS, it_ms)
+        del ell, dense, pair, Vd, Wp, paths
+        torch.cuda.empty_cache()
+    if "slice8" not in cells:
+        return
 
-    if "jax" in sys.modules:
-        fail("jax was imported")
-    (out / "summary.json").write_text(json.dumps(summary, indent=1))
-    print(json.dumps(summary), flush=True)
+    # -- slice 8 at config 2's shape: int8 densified, masked completion ------
+    iters = S8_PROFILE_ITERS
+    q = nt.prepare_sparse(ratings, config(fro, v_storage="int8"),
+                          strategy="densified", device=dev)
+    Vq, vscale = q.operand
+    Wp = torch.nn.functional.pad(W, (0, 0, 0, Vq.shape[0] - n))
+    paths = {"int8_densified_frobenius": (
+                 q, config(fro, iters, iters, v_storage="int8"),
+                 lambda: D.mu_update_frobenius_int8x8(Vq, vscale, Wp, H)),
+             "int8_densified_kl": (
+                 q, config(kl, iters, iters, v_storage="int8"),
+                 lambda: DF.mu_update_kl_densified(Vq, Wp, H,
+                                                   scale=vscale))}
+    it_ms = abba_ms({k: v[2] for k, v in paths.items()}, 2)
+    report("slice8_ml20m_r64",
+           {k: (p, c, W, H) for k, (p, c, _) in paths.items()}, iters, it_ms)
+    del q, Vq, vscale, Wp, paths
+    torch.cuda.empty_cache()
+    for strategy in ("ell", "scatter"):
+        plan = nt.prepare_sparse(ratings, config(fro, mask="observed"),
+                                 strategy=strategy, device=dev)
+        op = plan.operand
+        fns = ({fro: SE.mu_update_frobenius_masked_ell,
+                kl: SE.mu_update_kl_masked_ell} if strategy == "ell" else
+               {fro: TS.mu_update_frobenius_masked,
+                kl: TS.mu_update_kl_masked})
+        paths = {f"masked_{strategy}_{o.name.lower()}": (
+                     plan, config(o, iters, iters, mask="observed"),
+                     lambda f=fns[o]: f(op, W, H))
+                 for o in (fro, kl)}
+        it_ms = abba_ms({k: v[2] for k, v in paths.items()}, 2)
+        report("slice8_ml20m_r64",
+               {k: (p, c, W, H) for k, (p, c, _) in paths.items()}, iters,
+               it_ms)
+        del plan, op, paths
+        torch.cuda.empty_cache()
+    del ratings, W, H
+
+    # -- config 3 at full size on its four engines ---------------------------
+    from nmftpu_torch.data.synthetic import synthetic_powerlaw_sparse
+
+    sp3 = synthetic_powerlaw_sparse(rank=16, **CONFIG3)
+    sp3.data[:] = 1.0
+    csr = sp3.to_csr()
+    del sp3
+    n, m = csr.shape
+    r3 = C3_RANK
+    g3 = torch.Generator(device=dev).manual_seed(SEED + 16)
+    s3 = (csr.nnz / (n * m) / r3) ** 0.5
+    W3 = (torch.rand(n, r3, generator=g3, device=dev) + 1e-4) * s3
+    H3 = (torch.rand(r3, m, generator=g3, device=dev) + 1e-4) * s3
+    summary["config3"] = {"nnz": csr.nnz}
+    for label, strategy, knobs in (("densified_bf16", "densified", {}),
+                                   ("densified_int8", "densified",
+                                    {"v_storage": "int8"}),
+                                   ("ell", "ell", {}),
+                                   ("scatter", "scatter", {})):
+        cfg = config(fro, C3_PROFILE_ITERS, C3_PROFILE_ITERS, rank=r3,
+                     alpha_confidence=C3_ALPHA, **knobs)
+        plan = nt.prepare_sparse(csr, cfg, strategy=strategy, device=dev)
+        op, update = plan.operand, plan._bundle(cfg).update
+        Wp = torch.nn.functional.pad(W3, (0, 0, 0, plan.n_pad - n))
+        it_ms = abba_ms({label: lambda: update(op, (), Wp, H3)}, 1)
+        report("config3", {label: (plan, cfg, W3, H3)}, C3_PROFILE_ITERS,
+               it_ms)
+        del plan, op, update, Wp
+        torch.cuda.empty_cache()
 
 
 if __name__ == "__main__":

@@ -25,6 +25,17 @@ and the script fails unless the int8 numerator kernels, the bf16 and
 int8 reservoir and count scans and the split-tf32 MU kernels have some.
 Phases 3, 5 and 13 also hold the MU kernels (#1-#4) and the HALS sweep
 (#7) against float64: their error at most 4x the plain float32 twin's.
+Phase 16 runs BASELINE config 3 at full size (138,000 x 27,000
+power-law clicks from nmftpu_torch.data.synthetic, values 1, rank 128,
+alpha_confidence 40) through prepare_sparse / SparsePlan.run on the
+densified bf16 engine (auto's choice), densified int8, ELL and scatter:
+the weighted objective must fall on each, one step must match a float64
+recomputation on a row and a column sample, ELL and scatter must agree,
+and the densified engines' objectives must agree with ELL's; it prints
+ms per iteration and peak device memory. Phase 17, at config 2's shape,
+runs int8 densified MU (Frobenius through #6's one-sided entries, whose
+launches it counts and holds against the exact product; KL) and masked
+completion (Frobenius and KL) on ELL and scatter, which must agree.
 Every phase prints its results; any failure exits non-zero, as does a
 kernel timed below its bound. Without a CUDA device it exits 1 and runs
 nothing.
@@ -116,6 +127,37 @@ HALS_STEP_RTOL = 1e-4
 HALS_E2E_RTOL = 2e-3
 # ML-20M's shape, rank and rating count (phases 5 and 13-15)
 ML20M = (138_493, 26_744, 64, 20_000_263)
+
+# phases 16-17: confidence weighting, int8 densified storage, masked
+# completion. BASELINE config 3 as scripts/graded_configs_tpu.py builds
+# it: 138,000 x 27,000, 40M power-law draws (duplicates collapse: the
+# true nnz is read from the result), values 1, rank 128, alpha 40
+CONFIG3 = dict(n=138_000, m=27_000, nnz=40_000_000, alpha_user=0.9,
+               alpha_item=0.9, seed=2)
+C3_RANK, C3_ALPHA = 128, 40.0
+# each engine: one step (checked against float64), then C3_ITERS - 1 more
+C3_ITERS = 4
+# one step against a float64 recomputation of the weighted update on a
+# row and a column sample, max|a - b| / max|b|. ELL and scatter: float32
+# sums of up to a row's or a column's nonzeros in another order,
+# ~sqrt(K) 2^-24 ~ 1e-6; 1e-4 leaves 100x. Densified: each sum is of
+# nonnegative terms, each term's bf16 roundings bound its relative error:
+# the numerator rounds the partner factor (C.V = 41 is exact), the
+# denominator W and H inside WH, then C.WH, then the partner (4 roundings);
+# a row or column with few nonzeros averages nothing away, so the ratio's
+# bound 5 * 2^-9 = 9.8e-3 is the limit. An update without the alpha term
+# is off by O(1)
+C3_STEP_RTOL = {"float32": 1e-4, "bf16": 5 * 2**-9}
+# ELL against scatter after C3_ITERS: the same float32 update, gathers
+# against atomic scatters (as SPARSE_E2E_RTOL)
+C3_ENGINES_RTOL = 1e-3
+# the weighted objective sum c (v - wh)^2 after C3_ITERS, densified (bf16
+# and int8) against ELL: the bf16 roundings move each step's factors by
+# ~1e-4 (above); the objective moves by at most about twice that
+# relative, compounded over C3_ITERS steps
+C3_OBJECTIVE_RTOL = 1e-3
+# phase 17 at config 2's shape, rank 64
+S8_ITERS = 4
 
 # the card's peaks (NVIDIA's H100 SXM data sheet, dense): float32 on the
 # CUDA cores, bf16 and int8 on the tensor cores, HBM bandwidth
@@ -1272,6 +1314,319 @@ def slice4a_phases(nt, card, dev, V, W0, H0, Vq, scale, plain_ms) -> dict:
             for name in bounds}
 
 
+def device_triplets(csr, dev):
+    """(rows, cols, values float64) of a host CSR's nonzeros on `dev`."""
+    n = csr.shape[0]
+    rows = np.repeat(np.arange(n, dtype=np.int32), np.diff(csr.indptr))
+    return (torch.from_numpy(rows).to(dev),
+            torch.from_numpy(np.asarray(csr.indices, np.int32)).to(dev),
+            torch.from_numpy(np.asarray(csr.data, np.float64)).to(dev))
+
+
+def weighted_objective(trip, W, H, alpha, chunk=1 << 21) -> float:
+    """sum c (v - wh)^2 with c = 1 + alpha v at the nonzeros, 1 elsewhere,
+    in float64: sum_nz [v^2 - 2 v wh + alpha v (v - wh)^2] + <W^T W, H H^T>
+    (the zeros' (wh)^2 summed by the Gram identity)."""
+    rows, cols, v = trip
+    W64, Ht64 = W.double(), H.double().T.contiguous()
+    total = torch.zeros((), dtype=torch.float64, device=W.device)
+    for s in range(0, v.shape[0], chunk):
+        wh = (W64[rows[s:s + chunk]] * Ht64[cols[s:s + chunk]]).sum(1)
+        vv = v[s:s + chunk]
+        total += torch.sum(vv * vv - 2.0 * vv * wh
+                           + alpha * vv * (vv - wh) ** 2)
+    quad = torch.sum((W64.T @ W64) * (Ht64.T @ Ht64))
+    return float(total + quad)
+
+
+def dense_lines(csr, idx, dev) -> torch.Tensor:
+    """Rows `idx` of a host CSR as a dense float64 (len(idx), m) tensor."""
+    out = np.zeros((len(idx), csr.shape[1]))
+    for k, i in enumerate(idx):
+        a, b = csr.indptr[i], csr.indptr[i + 1]
+        out[k, csr.indices[a:b]] = csr.data[a:b]
+    return torch.from_numpy(out).to(dev)
+
+
+def weighted_step_error(Vr, Vc, rows, cols, W0, H0, W1, H1, alpha,
+                        eps=1e-9) -> float:
+    """One weighted MU step ("WH" order) recomputed in float64: the W
+    half-step on rows `rows` (dense Vr) from (W0, H0), the H half-step on
+    columns `cols` (dense Vc, n x len(cols)) from the engine's (W1, H0).
+    Returns the larger max|a - b| / max|b| of the two samples."""
+    H0d, W1d = H0.double(), W1.double()
+    Wr = W0[rows].double()
+    C = 1.0 + alpha * Vr
+    want_w = Wr * (((C * Vr) @ H0d.T) / ((C * (Wr @ H0d)) @ H0d.T + eps))
+    Hc = H0d[:, cols]
+    C = 1.0 + alpha * Vc
+    want_h = Hc * ((W1d.T @ (C * Vc)) / (W1d.T @ (C * (W1d @ Hc)) + eps))
+    return max(rel_err(W1[rows], want_w)[1], rel_err(H1[:, cols], want_h)[1])
+
+
+def slice8_phases(nt, card, dev, ratings) -> dict:
+    """Phases 16-17: BASELINE config 3 at full size on the four engines
+    (densified bf16 by `auto`, densified int8, ELL, scatter), then int8
+    densified MU (Frobenius through #6's one-sided entries, and KL) and
+    masked completion on ELL and scatter at config 2's shape (`ratings`).
+    Returns phase 17's launches of the one-sided entries and their
+    largest difference from the exact product."""
+    from nmftpu_torch import densified as DF
+    from nmftpu_torch import sparse_ell as SE
+    from nmftpu_torch import sparse_ops as TS
+    from nmftpu_torch.config import Initialization, NmfConfig, Objective
+    from nmftpu_torch.data.synthetic import synthetic_powerlaw_sparse
+    from nmftpu_torch.kernels import dual_numer as DN
+    from nmftpu_torch.linalg import dense as D
+
+    # -- 16. BASELINE config 3 at full size ----------------------------------
+    t0 = time.perf_counter()
+    sp3 = synthetic_powerlaw_sparse(rank=16, **CONFIG3)
+    sp3.data[:] = 1.0
+    csr = sp3.to_csr()
+    csc = sp3.T.to_csr()
+    del sp3
+    n, m = csr.shape
+    nnz, r, alpha = csr.nnz, C3_RANK, C3_ALPHA
+    say("16 data", shape=f"{n}x{m}", requested_nnz=CONFIG3["nnz"], nnz=nnz,
+        rank=r, alpha_confidence=alpha,
+        make_s=f"{time.perf_counter() - t0:.2f}")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 16)
+    # W0/H0 drawn as the random init draws them: (u + 1e-4) sqrt(mean V / r)
+    scale = (nnz / (n * m) / r) ** 0.5
+    W0 = (torch.rand(n, r, generator=gen, device=dev) + 1e-4) * scale
+    H0 = (torch.rand(r, m, generator=gen, device=dev) + 1e-4) * scale
+    trip = device_triplets(csr, dev)
+    rng = np.random.default_rng(SEED + 16)
+    # the most popular user and item (index 0 under the power law) and a
+    # random sample of each
+    rows = np.concatenate([[0], rng.choice(np.arange(1, n), 63,
+                                           replace=False)])
+    cols = np.concatenate([[0], rng.choice(np.arange(1, m), 63,
+                                           replace=False)])
+    Vr, Vc = dense_lines(csr, rows, dev), dense_lines(csc, cols, dev).T
+    obj0 = weighted_objective(trip, W0, H0, alpha)
+
+    def cfg(iters, **knobs):
+        return NmfConfig(rank=r, alpha_confidence=alpha,
+                         init_method=Initialization.COPY_EXISTING,
+                         num_iterations=iters, check_interval=iters,
+                         **knobs)
+
+    engines = {"densified bf16 (auto)": ("auto", {}, "bf16"),
+               "densified int8": ("densified", {"v_storage": "int8"},
+                                  "bf16"),
+               "ell": ("ell", {}, "float32"),
+               "scatter": ("scatter", {}, "float32")}
+    final = {}
+    for label, (strategy, knobs, kind) in engines.items():
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        plan = nt.prepare_sparse(csr, cfg(1, **knobs), strategy=strategy,
+                                 device=dev)
+        torch.cuda.synchronize()
+        prep_s = time.perf_counter() - t0
+        if strategy == "auto" and plan.strategy != "densified":
+            fail(f"config 3: strategy='auto' resolved to {plan.strategy!r}, "
+                 "not 'densified'")
+        one = plan.run(cfg(1, **knobs), W0=W0, H0=H0)
+        step = weighted_step_error(Vr, Vc, rows, cols, W0, H0, one.W, one.H,
+                                   alpha)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        res = plan.run(cfg(C3_ITERS - 1, **knobs), W0=one.W, H0=one.H)
+        end.record()
+        end.synchronize()
+        loop_ms = start.elapsed_time(end) / (C3_ITERS - 1)
+        peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+        # one iteration alone by CUDA events (the update the loop runs)
+        op = plan.operand
+        update = plan._bundle(cfg(1, **knobs)).update
+        Wp = torch.nn.functional.pad(W0, (0, 0, 0, plan.n_pad - n))
+        it_ms = event_ms(lambda: update(op, (), Wp, H0), 1)
+        obj1 = weighted_objective(trip, one.W, one.H, alpha)
+        objn = weighted_objective(trip, res.W, res.H, alpha)
+        finite = bool(torch.isfinite(res.W).all()
+                      and torch.isfinite(res.H).all())
+        say("16 config 3", engine=label, strategy=plan.strategy,
+            iterations=C3_ITERS, ms_per_iter=f"{it_ms:.3f}",
+            loop_ms_per_iter_with_checks=f"{loop_ms:.3f}",
+            prepare_s=f"{prep_s:.2f}", peak_GiB=f"{peak:.2f}",
+            nm_float32_GiB=f"{4 * n * m / 2**30:.2f}",
+            objective=[f"{obj0:.9g}", f"{obj1:.9g}", f"{objn:.9g}"],
+            one_step_vs_float64=f"{step:.3e}", rtol=C3_STEP_RTOL[kind],
+            finite=finite, card=card)
+        if not finite:
+            fail(f"config 3 {label}: non-finite factors")
+        if not obj0 > obj1 > objn:
+            fail(f"config 3 {label}: the weighted objective did not fall: "
+                 f"{obj0}, {obj1}, {objn}")
+        if not step <= C3_STEP_RTOL[kind]:
+            fail(f"config 3 {label}: one step is {step:.3e} from float64 "
+                 f"(> {C3_STEP_RTOL[kind]})")
+        if label.startswith("densified") and not peak < 4 * n * m / 2**30:
+            fail(f"config 3 {label}: peak {peak:.2f} GiB reaches an n*m "
+                 "float32 array")
+        final[label] = (res.W, res.H, objn)
+        del plan, op, update, one, res, Wp
+        torch.cuda.empty_cache()
+    (We, He, obj_e), (Ws, Hs, _) = final["ell"], final["scatter"]
+    dw = float((We - Ws).abs().max() / Ws.abs().max())
+    dh = float((He - Hs).abs().max() / Hs.abs().max())
+    d_obj = {label: abs(final[label][2] / obj_e - 1)
+             for label in ("densified bf16 (auto)", "densified int8")}
+    say("16 checks", ell_vs_scatter_W=f"{dw:.3e}",
+        ell_vs_scatter_H=f"{dh:.3e}", rtol=C3_ENGINES_RTOL,
+        densified_vs_ell_objective={k: f"{v:.3e}" for k, v in d_obj.items()},
+        objective_rtol=C3_OBJECTIVE_RTOL)
+    if not (dw <= C3_ENGINES_RTOL and dh <= C3_ENGINES_RTOL):
+        fail(f"config 3: ELL and scatter differ (W {dw:.3e}, H {dh:.3e})")
+    if not max(d_obj.values()) <= C3_OBJECTIVE_RTOL:
+        fail(f"config 3: densified and ELL objectives differ: {d_obj}")
+    del final, We, He, Ws, Hs, trip, Vr, Vc, W0, H0, csr, csc
+    torch.cuda.empty_cache()
+
+    # -- 17. int8 densified and masked completion at config 2's shape --------
+    n, m = ratings.shape
+    r = SPARSE_RANK
+    gen = torch.Generator(device=dev).manual_seed(SEED + 17)
+    scale = (float(ratings.data.sum(dtype=np.float64)) / (n * m) / r) ** 0.5
+    W0 = (torch.rand(n, r, generator=gen, device=dev) + 1e-4) * scale
+    H0 = (torch.rand(r, m, generator=gen, device=dev) + 1e-4) * scale
+
+    def cfg17(**knobs):
+        return NmfConfig(rank=r, init_method=Initialization.COPY_EXISTING,
+                         num_iterations=S8_ITERS, check_interval=1, **knobs)
+
+    def timed(label, plan, config, fn):
+        """Run `config` on `plan` from (W0, H0), print its errors and one
+        iteration's ms (CUDA events); return the result and #6's launch
+        counts read just after the run."""
+        t0 = time.perf_counter()
+        res = plan.run(config, W0=W0, H0=H0)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launched = dict(DN.LAUNCHES)
+        ms = event_ms(fn, 1)
+        finite = bool(torch.isfinite(res.W).all()
+                      and torch.isfinite(res.H).all())
+        say("17 e2e", run=label, strategy=plan.strategy,
+            errors=[f"{e:.6g}" for e in res.stats.errors],
+            kl_error=res.kl_error, rmsd=f"{res.rmsd:.6g}",
+            ms_per_iter=f"{ms:.3f}", seconds=f"{secs:.3f}", finite=finite,
+            card=card)
+        if not finite:
+            fail(f"{label}: non-finite factors")
+        return res, launched
+
+    # int8 densified, Frobenius through #6's one-sided entries (the main
+    # path of this phase: counts from zero, read just after the run)
+    plan = nt.prepare_sparse(ratings, cfg17(v_storage="int8"),
+                             strategy="auto", device=dev)
+    if plan.strategy != "densified":
+        fail(f"int8: strategy='auto' resolved to {plan.strategy!r}")
+    Vq, vscale = plan.operand
+    Wp = torch.nn.functional.pad(W0, (0, 0, 0, Vq.shape[0] - n))
+    DN.LAUNCHES.update(dict.fromkeys(DN.LAUNCHES, 0))
+    res, launched = timed(
+        "int8 densified frobenius", plan, cfg17(v_storage="int8"),
+        lambda: D.mu_update_frobenius_int8x8(Vq, vscale, Wp, H0))
+    launches = {k: launched[k] for k in ("vht_int8", "wtv_int8")}
+    errs = res.stats.errors
+    say("17 checks", run="int8 densified frobenius", launches=launches,
+        iterations=res.num_iterations, scale=f"{float(vscale):.6g}")
+    if not (min(launches.values()) >= res.num_iterations
+            and sum(launches.values()) >= 2 * res.num_iterations):
+        fail(f"int8 densified: #6's one-sided entries launched {launches} "
+             f"times in {res.num_iterations} iterations")
+    if not errs[-1] < errs[0]:
+        fail(f"int8 densified frobenius: the error did not fall: {errs}")
+    # the entries at this path's shapes (Vq row-padded, the run's final
+    # factors quantized) against the exact product
+    Wf = torch.nn.functional.pad(res.W, (0, 0, 0, Vq.shape[0] - n))
+    _, Hq = D.quantize_sym(res.H)
+    _, WqT = D.quantize_sym_t(Wf)
+    exact_w, exact_h = DN.vht_exact(Vq, Hq), DN.wtv_exact(Vq, WqT)
+    peak = max(float(exact_w.abs().max()), float(exact_h.abs().max()))
+    got_w, got_h = DN.vht_int8(Vq, Hq), DN.wtv_int8(Vq, WqT)
+    diff = max(float((got_w.double() - exact_w).abs().max()),
+               float((got_h.double() - exact_h).abs().max()))
+    say("17 int8 numerators", shape=f"{Vq.shape[0]}x{m} r={r}",
+        max_abs_diff=diff, max_abs_sum=f"{peak:.6g}", int32_limit=2**31 - 1)
+    if peak >= 2**31 or diff != 0:
+        fail("int8 densified: the one-sided entries differ from the exact "
+             "product (or a sum leaves the int32 range)")
+    del exact_w, exact_h, got_w, got_h, Wf, Hq, WqT
+    kl_cfg = cfg17(v_storage="int8", objective=Objective.KL)
+    kl0 = float(DF.kl_error_densified(Vq, Wp, H0, scale=vscale))
+    res, _ = timed("int8 densified kl", plan, kl_cfg,
+                lambda: DF.mu_update_kl_densified(Vq, Wp, H0, scale=vscale))
+    say("17 checks", run="int8 densified kl", kl_start=f"{kl0:.6g}",
+        kl_end=f"{res.kl_error:.6g}")
+    if not res.kl_error < kl0:
+        fail("int8 densified kl: D_KL did not fall")
+    del plan, Vq, vscale, Wp, res
+    torch.cuda.empty_cache()
+
+    # masked completion, Frobenius and KL, on ELL and scatter
+    masked = {}
+    for strategy in ("ell", "scatter"):
+        plan = nt.prepare_sparse(ratings, cfg17(mask="observed"),
+                                 strategy=strategy, device=dev)
+        op = plan.operand
+        for obj in (Objective.FROBENIUS, Objective.KL):
+            config = cfg17(mask="observed", objective=obj)
+            if strategy == "ell":
+                fn = (SE.mu_update_frobenius_masked_ell
+                      if obj is Objective.FROBENIUS
+                      else SE.mu_update_kl_masked_ell)
+                start = (SE.frobenius_error_masked_ell(op, W0, H0),
+                         SE.kl_error_masked_ell(op, W0, H0))
+            else:
+                fn = (TS.mu_update_frobenius_masked
+                      if obj is Objective.FROBENIUS
+                      else TS.mu_update_kl_masked)
+                start = (TS.frobenius_error_masked(op, W0, H0),
+                         TS.kl_error_masked(op, W0, H0))
+            res, _ = timed(f"masked {obj.value} {strategy}", plan, config,
+                           lambda: fn(op, W0, H0))
+            errs = res.stats.errors
+            end = (res.frobenius_error if obj is Objective.FROBENIUS
+                   else res.kl_error)
+            begin = float(start[0 if obj is Objective.FROBENIUS else 1])
+            say("17 checks", run=f"masked {obj.value} {strategy}",
+                start=f"{begin:.6g}", end=f"{end:.6g}",
+                rmsd_denominator=f"nnz={ratings.nnz}",
+                rmsd_check=f"{res.frobenius_error / ratings.nnz ** 0.5:.6g}")
+            if not (end < begin and abs(res.rmsd - res.frobenius_error
+                                        / ratings.nnz ** 0.5)
+                    <= 1e-6 * res.rmsd):
+                fail(f"masked {obj.value} {strategy}: the masked objective "
+                     "did not fall, or the RMSD is not over the observed set")
+            if obj is Objective.FROBENIUS and not all(
+                    b < a for a, b in zip(errs[:-1], errs[1:])):
+                fail(f"masked frobenius {strategy}: the masked error is not "
+                     f"monotone: {errs}")
+            masked[strategy, obj] = (res.W, res.H)
+        del plan, op
+        torch.cuda.empty_cache()
+    for obj in (Objective.FROBENIUS, Objective.KL):
+        (We, He), (Ws, Hs) = masked["ell", obj], masked["scatter", obj]
+        dw = float((We - Ws).abs().max() / Ws.abs().max())
+        dh = float((He - Hs).abs().max() / Hs.abs().max())
+        say("17 checks", run=f"masked {obj.value}", ell_vs_scatter_W=
+            f"{dw:.3e}", ell_vs_scatter_H=f"{dh:.3e}", rtol=C3_ENGINES_RTOL)
+        if not (dw <= C3_ENGINES_RTOL and dh <= C3_ENGINES_RTOL):
+            fail(f"masked {obj.value}: ELL and scatter differ (W {dw:.3e}, "
+                 f"H {dh:.3e})")
+    del masked
+    torch.cuda.empty_cache()
+    return {"launches": launches, "max_abs_err": diff}
+
+
 def main() -> None:
     if not (HERE / "nmftpu_torch").is_dir():
         fail(f"no nmftpu_torch package beside {__file__}")
@@ -1681,7 +2036,6 @@ def main() -> None:
 
     # -- 10-12. sparse V at config 2's full width (ELL, densified) ----------
     ell = sparse_phases(nt, ratings, card, dev)
-    del ratings
     max_abs["ell_rowsums"] = ell["max_abs_err"]
     k_ms["ell_rowsums"], p_ms["ell_rowsums"] = ell["ms"], ell["plain_ms"]
     bounds["ell_rowsums"] = (ell["bound_ms"], ell["bound_by"])
@@ -1694,6 +2048,15 @@ def main() -> None:
                                                  f["plain_ms"])
         bounds[name] = (f["bound_ms"], f["bound_by"])
         library_ms[name] = f["library_ms"]
+
+    # -- 16-17. slice 8: config 3 on every engine, int8 densified, masked ---
+    torch.cuda.empty_cache()
+    s8 = slice8_phases(nt, card, dev, ratings)
+    del ratings
+    # #6's one-sided entries: phase 15's launches and phase 17's
+    for name, count in s8["launches"].items():
+        new[name]["launches"] += count
+        max_abs[name] = max(max_abs[name], s8["max_abs_err"])
 
     if "jax" in sys.modules:
         fail("jax was imported")

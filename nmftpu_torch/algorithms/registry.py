@@ -24,8 +24,14 @@ mu_style="jacobi", else update_order):
                                           mu_update_frobenius_bf16v
   Frobenius, use_pallas=True           -> kernels.dense_mu (CUDA kernels)
   Frobenius                            -> linalg.dense.mu_update_frobenius
-  KL, v_storage="bfloat16"             -> densified.mu_update_kl_densified
+  KL, v_storage="int8" or "bfloat16"   -> densified.mu_update_kl_densified
+                                          (int8: with the scale)
   KL                                   -> linalg.dense.mu_update_kl
+
+Confidence weighting (alpha_confidence > 0, MU under Frobenius) comes
+first: float32 V -> linalg.dense.mu_update_frobenius_weighted with
+C = 1 + alpha·V as the aux; bfloat16 and int8 V ->
+densified.mu_update_frobenius_weighted_densified (int8 with the scale).
 
 On the CPU, ``nmftpu`` runs int8 V as a bf16-dequantized contraction;
 the port takes the int8 x int8 route on every device. Every other
@@ -46,6 +52,16 @@ def _unported(what: str, where: str):
         f"{what} is not ported to nmftpu_torch yet ({where} in "
         "ROADMAP.md); run it with nmftpu"
     )
+
+
+def _low_precision_v(v_storage: str):
+    """make_aux for the densified routes: (Vq int8, scale) from
+    `quantize_v` for int8 storage, (V in bf16, None) for bfloat16."""
+    if v_storage == "int8":
+        from nmftpu_torch.kernels import quantized as Q
+
+        return Q.quantize_v
+    return lambda V: (V.to(torch.bfloat16), None)
 
 
 def _jacobi_order(config: NmfConfig) -> str:
@@ -85,16 +101,41 @@ def build_dense_update(config: NmfConfig):
         _unported(f"algorithm={config.algorithm.value!r}", "slice 4b")
     if config.objective is Objective.BETA:
         _unported("objective='beta-divergence'", "slice 4b")
-    if config.alpha_confidence > 0.0:
-        _unported("confidence weighting (alpha_confidence > 0)", "slice 3")
     order = _jacobi_order(config)
     kl = config.objective is Objective.KL
 
-    if kl and config.v_storage == "int8":
-        _unported("objective='kl' with v_storage='int8' (the quantized "
-                  "densified KL)", "slice 3 item 9, densify_quantized")
+    if config.alpha_confidence > 0.0 and config.v_storage == "float32":
+        # config validation keeps weighting to MU under Frobenius, and
+        # away from jacobi
+        alpha = config.alpha_confidence
 
-    if config.v_storage == "int8":
+        def make_aux(V):
+            return (1.0 + alpha * V,)
+
+        def update(V, aux, W, H):
+            return D.mu_update_frobenius_weighted(V, aux[0], W, H, eps=eps,
+                                                  order=order)
+
+    elif config.alpha_confidence > 0.0 or (
+            kl and config.v_storage != "float32"):
+        # bf16 or int8 V, weighted or KL: the densified row-panel updates
+        # (C = 1 + alpha V rebuilt per panel, never at n x m)
+        from nmftpu_torch import densified as DF
+
+        make_aux = _low_precision_v(config.v_storage)
+        alpha = config.alpha_confidence
+
+        if kl:
+            def update(V, aux, W, H):
+                return DF.mu_update_kl_densified(aux[0], W, H, eps=eps,
+                                                 order=order, scale=aux[1])
+        else:
+            def update(V, aux, W, H):
+                return DF.mu_update_frobenius_weighted_densified(
+                    aux[0], W, H, alpha, eps=eps, order=order,
+                    scale=aux[1])
+
+    elif config.v_storage == "int8":
         from nmftpu_torch.kernels import quantized as Q
 
         def make_aux(V):
@@ -118,16 +159,9 @@ def build_dense_update(config: NmfConfig):
         def make_aux(V):
             return (V.to(torch.bfloat16),)
 
-        if kl:
-            from nmftpu_torch import densified as DF
-
-            def update(V, aux, W, H):
-                return DF.mu_update_kl_densified(aux[0], W, H, eps=eps,
-                                                 order=order)
-        else:
-            def update(V, aux, W, H):
-                return D.mu_update_frobenius_bf16v(aux[0], W, H, eps=eps,
-                                                   order=order)
+        def update(V, aux, W, H):
+            return D.mu_update_frobenius_bf16v(aux[0], W, H, eps=eps,
+                                               order=order)
 
     elif kl:
 

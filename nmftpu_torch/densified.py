@@ -1,21 +1,25 @@
-"""Densified-bf16 sparse strategy (port of the bf16 MU Frobenius/KL
-subset of ``nmftpu/densified.py``).
+"""Densified sparse strategy (port of the MU Frobenius/KL and weighted
+subset of ``nmftpu/densified.py``, bf16 and int8 storage).
 
 Whenever the interaction matrix fits device memory as bfloat16 (ML-20M
-is 7.4 GB), the nonzeros are scattered into a dense bf16 V ONCE and the
-updates run dense: computing the zeros costs less than gathering around
-them. The Frobenius objective is unchanged (it is defined over all nm
-entries); KL and its divergence run over row panels of `block_rows`
-rows, so neither the dense ratio V/(WH) nor any V-sized float32 copy
-ever exists.
+is 7.4 GB) or int8, the nonzeros are scattered into a dense V ONCE and
+the updates run dense: computing the zeros costs less than gathering
+around them. The Frobenius objective is unchanged (it is defined over
+all nm entries); KL, its divergence and the confidence-weighted update
+run over row panels of `block_rows` rows, so neither the dense ratio
+V/(WH), nor C = 1 + αV, nor C⊙(WH), nor any V-sized float32 copy ever
+exists.
 
 Every contraction takes bf16-rounded operands and sums in float32, the
 contract of ``dot_general(bf16, bf16, preferred_element_type=f32)``:
 the rounded operands are upcast and multiplied in float32, where each
 product of two bf16 values is exact (``linalg.dense._bf16_dot``).
 
-The int8 storage (``densify_quantized`` and the int8 branches) is not
-ported yet (ROADMAP queue 1 item 9) and raises in ``sparse_ops``.
+int8 storage (`densify_quantized`): V ~= scale · Vq with one symmetric
+scale. The KL numerators fold the scale in after the contraction; the
+weighted update applies it per panel before the confidence; the
+Frobenius MU runs on ``linalg.dense.mu_update_frobenius_int8x8`` (the
+int8 kernels' one-sided entries on the card).
 """
 
 from __future__ import annotations
@@ -47,15 +51,40 @@ def densify(coo: DeviceCOO, dtype=torch.bfloat16,
     return acc
 
 
+def densify_quantized(coo: DeviceCOO, row_multiple: int = 1,
+                      clip: float = 127.0):
+    """Scatter the padded COO into a dense (n_pad, m) int8 tensor with one
+    symmetric per-matrix scale, V ~= scale · Vq -> (Vq, scale float32
+    0-dim). The same padding contract as `densify`. Each value rounds
+    to scale · round(v / scale) (half to even, clipped to ±clip), an
+    error of at most scale / 2; exact where the values lie on a grid of
+    at most 255 levels (e.g. implicit-feedback 1s). Duplicate
+    coordinates sum IN INT8, as in ``nmftpu``: two entries of one cell
+    can wrap past 127 (a behaviour of the reference, kept)."""
+    n, m = coo.shape
+    n_pad = ((n + row_multiple - 1) // row_multiple) * row_multiple
+    scale = torch.clamp(coo.values.abs().amax() / clip,
+                        min=1e-30).to(torch.float32)
+    acc = torch.zeros((n_pad, m), dtype=torch.int8, device=coo.values.device)
+    flat = acc.view(-1)
+    for v, rr, cc in _chunks(coo):
+        q = torch.clamp(torch.round(v.to(torch.float32) / scale), -clip,
+                        clip).to(torch.int8)
+        flat.index_add_(0, rr.long() * m + cc, q)
+    return acc, scale
+
+
 def _panels(n: int, block_rows: int):
     """(start, stop) of the row panels, the last one possibly shorter."""
     return ((s, min(s + block_rows, n)) for s in range(0, n, block_rows))
 
 
-def _kl_numer_w_blocked(Vd, Q, P, eps, block_rows):
+def _kl_numer_w_blocked(Vd, Q, P, eps, block_rows, scale=None):
     """Blockwise numerator (V / (Q P)) Pᵀ -> (n, r) for the left-factor
     KL half-step; Q (n, r) forms the reconstruction with P (r, m). Each
-    panel's WH and ratio exist at panel size only."""
+    panel's WH and ratio exist at panel size only. `scale` (int8
+    storage, V = scale · Vd): the ratio Vq / (WH + eps) is contracted
+    and the scalar multiplies the result, as in ``nmftpu``."""
     n = Vd.shape[0]
     Pt = P.T.to(torch.bfloat16)
     out = torch.empty((n, Q.shape[1]), dtype=torch.float32, device=Vd.device)
@@ -63,12 +92,13 @@ def _kl_numer_w_blocked(Vd, Q, P, eps, block_rows):
         WH = _bf16_dot(Q[s:e], P)
         ratio = Vd[s:e].float() / (WH + eps)
         out[s:e] = _bf16_dot(ratio, Pt)
-    return out
+    return out if scale is None else out * scale
 
 
-def _kl_numer_h_blocked(Vd, Q, H, eps, block_rows):
+def _kl_numer_h_blocked(Vd, Q, H, eps, block_rows, scale=None):
     """Blockwise numerator Qᵀ (V / (Q H)) -> (r, m) for the right-factor
-    KL half-step, accumulated over row panels."""
+    KL half-step, accumulated over row panels; `scale` as in
+    `_kl_numer_w_blocked`."""
     n = Vd.shape[0]
     out = torch.zeros((Q.shape[1], H.shape[1]), dtype=torch.float32,
                       device=Vd.device)
@@ -76,35 +106,90 @@ def _kl_numer_h_blocked(Vd, Q, H, eps, block_rows):
         WH = _bf16_dot(Q[s:e], H)
         ratio = Vd[s:e].float() / (WH + eps)
         out += _bf16_dot(Q[s:e].T, ratio)
-    return out
+    return out if scale is None else out * scale
 
 
-def mu_update_kl_densified(Vd, W, H, eps=1e-9, order="WH", block_rows=4096):
-    """KL MU against a dense bf16 V, blockwise over row panels: one pass
-    over V per half-step; WH = W_blk H and the ratio V/(WH) live only at
-    panel size. Orders "WH", "HW" and "jacobi" (both numerators from the
-    incoming factors, with the KL scale correction of
-    ``linalg.dense.mu_update_kl``; ΣV is summed in float32)."""
+def mu_update_kl_densified(Vd, W, H, eps=1e-9, order="WH", block_rows=4096,
+                           scale=None):
+    """KL MU against a dense bf16 or int8 V, blockwise over row panels:
+    one pass over V per half-step; WH = W_blk H and the ratio V/(WH)
+    live only at panel size. Orders "WH", "HW" and "jacobi" (both
+    numerators from the incoming factors, with the KL scale correction
+    of ``linalg.dense.mu_update_kl``; ΣV is summed in float32). `scale`:
+    int8-stored V = scale · Vd, folded into the numerators (and ΣV)."""
 
     def upd_w(W, H):
-        numer = _kl_numer_w_blocked(Vd, W, H, eps, block_rows)
+        numer = _kl_numer_w_blocked(Vd, W, H, eps, block_rows, scale)
         h_sum = torch.clamp(torch.sum(H, dim=1), min=eps)[None, :]
         return W * (numer / h_sum)
 
     def upd_h(W, H):
-        numer = _kl_numer_h_blocked(Vd, W, H, eps, block_rows)
+        numer = _kl_numer_h_blocked(Vd, W, H, eps, block_rows, scale)
         w_sum = torch.clamp(torch.sum(W, dim=0), min=eps)[:, None]
         return H * (numer / w_sum)
 
     if order == "jacobi":
-        numer_w = _kl_numer_w_blocked(Vd, W, H, eps, block_rows)
-        numer_h = _kl_numer_h_blocked(Vd, W, H, eps, block_rows)
+        numer_w = _kl_numer_w_blocked(Vd, W, H, eps, block_rows, scale)
+        numer_h = _kl_numer_h_blocked(Vd, W, H, eps, block_rows, scale)
         h_sum = torch.clamp(torch.sum(H, dim=1), min=eps)
         w_sum = torch.clamp(torch.sum(W, dim=0), min=eps)
-        inv_a = _jacobi_kl_scale(torch.sum(Vd, dtype=torch.float32),
-                                 w_sum, h_sum, eps)
+        sum_v = torch.sum(Vd, dtype=torch.float32)
+        if scale is not None:
+            sum_v = sum_v * scale
+        inv_a = _jacobi_kl_scale(sum_v, w_sum, h_sum, eps)
         return (W * (numer_w / h_sum[None, :]) * inv_a,
                 H * (numer_h / w_sum[:, None]) * inv_a)
+    return _apply_order(upd_w, upd_h, W, H, order)
+
+
+def mu_update_frobenius_weighted_densified(Vd, W, H, alpha, eps=1e-9,
+                                           order="WH", block_rows=4096,
+                                           scale=None):
+    """Confidence-weighted MU (c = 1 + alpha·v) against a dense bf16 or
+    int8 V, over row panels: per panel V32 = V in float32 (times `scale`
+    for int8), C = 1 + alpha·V32, WH as a bf16 x bf16 -> float32
+    product, then C⊙V and C⊙WH, which the contractions with H or W round
+    to bf16 (where ``nmftpu`` rounds them). Each half-step computes only
+    its own numerator and denominator, so C and C⊙WH exist at panel size
+    only. Orders "WH" and "HW"."""
+    n = Vd.shape[0]
+
+    def panel_terms(W, H, s, e):
+        """(C⊙V, C⊙WH) of rows s:e, float32."""
+        V32 = Vd[s:e].float()
+        if scale is not None:
+            V32 = V32 * scale
+        C = V32 * alpha
+        C += 1.0
+        CWH = _bf16_dot(W[s:e], H)
+        CWH *= C
+        C *= V32
+        return C, CWH
+
+    def upd_w(W, H):
+        Ht = H.T
+        numer = torch.empty((n, W.shape[1]), dtype=torch.float32,
+                            device=Vd.device)
+        denom = torch.empty_like(numer)
+        for s, e in _panels(n, block_rows):
+            CV, CWH = panel_terms(W, H, s, e)
+            numer[s:e] = _bf16_dot(CV, Ht)
+            del CV
+            denom[s:e] = _bf16_dot(CWH, Ht)
+        return W * (numer / (denom + eps))
+
+    def upd_h(W, H):
+        numer = torch.zeros((W.shape[1], H.shape[1]), dtype=torch.float32,
+                            device=Vd.device)
+        denom = torch.zeros_like(numer)
+        for s, e in _panels(n, block_rows):
+            CV, CWH = panel_terms(W, H, s, e)
+            Wt = W[s:e].T
+            numer += _bf16_dot(Wt, CV)
+            del CV
+            denom += _bf16_dot(Wt, CWH)
+        return H * (numer / (denom + eps))
+
     return _apply_order(upd_w, upd_h, W, H, order)
 
 
@@ -118,12 +203,25 @@ def frobenius_error_densified(Vd, W, H, sum_v_sq, block_rows=4096):
     return torch.sqrt(torch.clamp(sum_v_sq - 2.0 * cross + quad, min=0.0))
 
 
-def kl_error_densified(Vd, W, H, eps=1e-12, block_rows=4096):
-    """Blockwise D_KL(V || WH) against dense bf16 V (no V-sized
-    intermediates)."""
+def frobenius_error_int8_densified(Vq, scale, W, H, sum_v_sq,
+                                   block_rows=4096):
+    """Gram-trick ||scale·Vq - WH||_F. The cross term contracts bf16 W
+    with Vq in row panels (int8 is exact in bf16), scaled after;
+    `sum_v_sq` must come from `sum_v_sq_int8_densified`."""
+    WtV = _bf16_dot(W.T, Vq, block_rows)
+    cross = scale * torch.sum(WtV * H)
+    quad = torch.sum((W.T @ W) * (H @ H.T))
+    return torch.sqrt(torch.clamp(sum_v_sq - 2.0 * cross + quad, min=0.0))
+
+
+def kl_error_densified(Vd, W, H, eps=1e-12, block_rows=4096, scale=None):
+    """Blockwise D_KL(V || WH) against dense bf16 V, or int8 V with
+    `scale` (dequantized per panel); no V-sized intermediates."""
     total = torch.zeros((), dtype=torch.float32, device=Vd.device)
     for s, e in _panels(Vd.shape[0], block_rows):
         V32 = Vd[s:e].float()
+        if scale is not None:
+            V32 = V32 * scale
         WH = _bf16_dot(W[s:e], H)
         term = torch.where(
             V32 > 0,
@@ -142,3 +240,8 @@ def sum_v_sq_densified(Vd, block_rows=4096):
         blk = Vd[s:e].float()
         total += torch.sum(blk * blk)
     return total
+
+
+def sum_v_sq_int8_densified(Vq, scale, block_rows=4096):
+    """||scale·Vq||_F² = scale² · Σ Vq², the sum in float32 per panel."""
+    return scale * scale * sum_v_sq_densified(Vq, block_rows)

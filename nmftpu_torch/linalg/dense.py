@@ -1,6 +1,7 @@
 """Dense update rules and error metrics, plain torch (port of the MU
-(Frobenius and KL, Gauss–Seidel and Jacobi, float32 / bf16 / int8 V) and
-HALS subset of ``nmftpu/linalg/dense.py``).
+(Frobenius and KL, Gauss–Seidel and Jacobi, float32 / bf16 / int8 V;
+confidence-weighted Frobenius) and HALS subset of
+``nmftpu/linalg/dense.py``).
 
 Conventions
 -----------
@@ -142,20 +143,24 @@ def _bf16_dot(a, b, block_rows=4096):
     The larger operand is upcast one panel of `block_rows` rows at a
     time (rows of `a` if it is the larger, else rows of `b`, the
     contraction dimension), so a V-sized operand never gets a float32
-    copy; the panels change only the float32 summation order."""
-    a, b = a.to(torch.bfloat16), b.to(torch.bfloat16)
+    copy (nor, when it is int8, a bf16 one: int8 values are exact in
+    bf16); the panels change only the float32 summation order."""
+
+    def up(x):
+        return x.to(torch.bfloat16).float()
+
     if a.numel() >= b.numel():
-        bf = b.float()
+        bf = up(b)
         out = torch.empty((a.shape[0], b.shape[1]), dtype=torch.float32,
                           device=a.device)
         for s in range(0, a.shape[0], block_rows):
-            out[s:s + block_rows] = a[s:s + block_rows].float() @ bf
+            out[s:s + block_rows] = up(a[s:s + block_rows]) @ bf
         return out
-    af = a.float()
+    af = up(a)
     out = torch.zeros((a.shape[0], b.shape[1]), dtype=torch.float32,
                       device=a.device)
     for s in range(0, b.shape[0], block_rows):
-        out += af[:, s:s + block_rows] @ b[s:s + block_rows].float()
+        out += af[:, s:s + block_rows] @ up(b[s:s + block_rows])
     return out
 
 
@@ -257,6 +262,34 @@ def mu_update_frobenius_int8x8(Vq, scale_v, W, H, eps=1e-9, order="WH",
         return _jacobi_fro_apply(
             W, H, numer_w, numer_h, W.T @ W, H @ H.T, eps,
         )
+    return _apply_order(upd_w, upd_h, W, H, order)
+
+
+# ---------------------------------------------------------------------------
+# Confidence-weighted MU (implicit feedback, BASELINE config 3)
+# ---------------------------------------------------------------------------
+
+
+def mu_update_frobenius_weighted(V, C, W, H, eps=1e-9, order="WH"):
+    """Confidence-weighted MU: minimizes ||sqrt(C) ⊙ (V - WH)||_F², with
+    C an elementwise confidence (1 + alpha·V, built once by the
+    registry):
+
+        W <- W ⊙ ((C⊙V) Hᵀ) / ((C⊙(WH)) Hᵀ + eps)
+        H <- H ⊙ (Wᵀ (C⊙V)) / (Wᵀ (C⊙(WH)) + eps)
+
+    Dense float V: C⊙V once, C⊙(WH) per half-step at n·m size, as in
+    ``nmftpu``. Orders "WH" and "HW"."""
+    CV = C * V
+
+    def upd_w(W, H):
+        CWH = C * (W @ H)
+        return W * ((CV @ H.T) / (CWH @ H.T + eps))
+
+    def upd_h(W, H):
+        CWH = C * (W @ H)
+        return H * ((W.T @ CV) / (W.T @ CWH + eps))
+
     return _apply_order(upd_w, upd_h, W, H, order)
 
 

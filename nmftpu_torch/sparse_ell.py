@@ -1,5 +1,6 @@
-"""Gather-based ELL sparse engine (port of the MU Frobenius/KL subset of
-``nmftpu/sparse_ell.py``).
+"""Gather-based ELL sparse engine (port of the MU subset of
+``nmftpu/sparse_ell.py``: Frobenius, KL, confidence-weighted and masked
+completion).
 
 * Each row of V is split into SEGMENTS of at most `seg_max` nonzeros, and
   segments are grouped into power-of-two-width BUCKETS, zero-padded to
@@ -288,6 +289,104 @@ def mu_update_kl_ell(pair: EllPair, W, H, eps=1e-9, order="WH"):
         return H * (numer.T / denom)
 
     return _apply_order(upd_w, upd_h, W, H, order)
+
+
+def mu_update_frobenius_weighted_ell(pair: EllPair, W, H, alpha, eps=1e-9,
+                                     order="WH"):
+    """Confidence-weighted MU (c = 1 + alpha·v at the nonzeros, 1
+    elsewhere) on ELL: one gather per half-step serves the numerator
+    (C⊙V)Hᵀ and the alpha part of the denominator, (V⊙WH)_nz Hᵀ; the
+    unit part is the Gram product W (H Hᵀ)."""
+    fns = (
+        lambda v, s: v * (1.0 + alpha * v),   # C⊙V at the nonzeros
+        lambda v, s: v * s,                   # V⊙(WH) at the nonzeros
+    )
+
+    def upd_w(W, H):
+        numer, alpha_part = sampled_rowsums_ell(pair.rows, W, H, fns)
+        denom = W @ (H @ H.T) + alpha * alpha_part + eps
+        return W * (numer / denom)
+
+    def upd_h(W, H):
+        numer, alpha_part = sampled_rowsums_ell(pair.cols, H.T, W.T, fns)
+        denom = (W.T @ W) @ H + alpha * alpha_part.T + eps
+        return H * (numer.T / denom)
+
+    return _apply_order(upd_w, upd_h, W, H, order)
+
+
+# ---------------------------------------------------------------------------
+# Masked completion (mask="observed") on the gather-only layout. The
+# observed set is the stored set, so the 0/1 mask is `vals != 0`, which
+# also drops the pad lanes.
+# ---------------------------------------------------------------------------
+
+
+def mu_update_frobenius_masked_ell(pair: EllPair, W, H, eps=1e-9,
+                                   order="WH"):
+    """Completion MU under Σ_obs (v - wh)² on ELL (the semantics of
+    ``sparse_ops.mu_update_frobenius_masked``):
+
+        W <- W ⊙ (V_obs Hᵀ) / ((WH)_obs Hᵀ + eps)
+
+    one gather per half-step for the numerator, the sample and the
+    masked denominator."""
+    fns = (
+        lambda v, s: v,                                   # V_obs
+        lambda v, s: torch.where(v != 0, s, 0.0),         # (WH)_obs
+    )
+
+    def upd_w(W, H):
+        numer, den = sampled_rowsums_ell(pair.rows, W, H, fns)
+        return W * (numer / (den + eps))
+
+    def upd_h(W, H):
+        numer, den = sampled_rowsums_ell(pair.cols, H.T, W.T, fns)
+        return H * (numer.T / (den.T + eps))
+
+    return _apply_order(upd_w, upd_h, W, H, order)
+
+
+def mu_update_kl_masked_ell(pair: EllPair, W, H, eps=1e-9, order="WH"):
+    """Masked KL MU on ELL: the ratio SpMM over the observed row/column
+    mass of the partner factor (the SpMM of the 0/1 mask), both from one
+    gather."""
+    fns = (
+        lambda v, s: v / (s + eps),                       # ratio
+        lambda v, s: (v != 0).to(s.dtype),                # mask
+    )
+
+    def upd_w(W, H):
+        numer, den = sampled_rowsums_ell(pair.rows, W, H, fns)
+        return W * (numer / (den + eps))
+
+    def upd_h(W, H):
+        numer, den = sampled_rowsums_ell(pair.cols, H.T, W.T, fns)
+        return H * (numer.T / (den.T + eps))
+
+    return _apply_order(upd_w, upd_h, W, H, order)
+
+
+def frobenius_error_masked_ell(pair: EllPair, W, H) -> torch.Tensor:
+    """sqrt(Σ_obs (v - wh)²), as ``sparse_ops.frobenius_error_masked``."""
+    s = sddmm_ell(pair.rows, W, H)
+    total = torch.zeros((), dtype=_acc_dtype(W.dtype), device=W.device)
+    for orig, samp in zip(pair.rows.buckets, s.buckets):
+        resid = torch.where(orig.vals != 0, orig.vals - samp.vals, 0.0)
+        total = total + torch.sum(resid * resid)
+    return torch.sqrt(total)
+
+
+def kl_error_masked_ell(pair: EllPair, W, H, eps=1e-12) -> torch.Tensor:
+    """Σ_obs v log(v/wh) - v + wh over the observed set only."""
+    s = sddmm_ell(pair.rows, W, H)
+    total = torch.zeros((), dtype=_acc_dtype(W.dtype), device=W.device)
+    for orig, samp in zip(pair.rows.buckets, s.buckets):
+        v = orig.vals
+        wh = torch.clamp(samp.vals, min=eps)
+        term = v * torch.log(torch.clamp(v, min=eps) / wh) - v + wh
+        total = total + torch.sum(torch.where(v != 0, term, 0.0))
+    return total
 
 
 def sum_v_sq_ell(ell: EllRows) -> torch.Tensor:

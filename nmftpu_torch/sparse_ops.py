@@ -1,4 +1,4 @@
-"""Sparse NMF on one device (port of the MU Frobenius/KL subset of
+"""Sparse NMF on one device (port of the MU subset of
 ``nmftpu/sparse_ops.py``): the scatter-COO engine, sparse init, and the
 driver that routes sparse V to the scatter, ELL or densified engine.
 
@@ -14,11 +14,14 @@ Primitives (all O(nnz · r)):
   v_ht(coo, H)        -> V Hᵀ   (n, r)     [scatter-add over rows]
   sddmm(coo, W, H)    -> (W H) sampled at the nonzero positions  (N,)
 
-Ported: the MU algorithm under the Frobenius and KL objectives on the
-`scatter`, `ell` (with `use_pallas=True`: the CUDA ELL SpMM kernel) and
-`densified` (bf16 V) engines, and the copy, random and mean_columns
-inits. Everything else raises NotImplementedError naming its part of
-ROADMAP.md.
+Ported: the MU algorithm under the Frobenius and KL objectives, with
+confidence weighting (alpha_confidence > 0, Frobenius) and masked
+completion (mask="observed", Frobenius and KL; `ell` and `scatter`
+only), on the `scatter`, `ell` (with `use_pallas=True`: the CUDA ELL
+SpMM kernel for the unweighted Frobenius SpMMs) and `densified` (bf16 or
+int8 V) engines, and the copy, random and mean_columns inits. Other
+algorithms and the beta divergence raise NotImplementedError naming
+their part of ROADMAP.md.
 """
 
 from __future__ import annotations
@@ -237,6 +240,96 @@ def mu_update_kl_sparse(coo, W, H, eps=1e-9, order="WH"):
     return _apply_order(upd_w, upd_h, W, H, order)
 
 
+def mu_update_frobenius_weighted_sparse(coo, W, H, alpha, eps=1e-9,
+                                        order="WH"):
+    """Confidence-weighted MU, c = 1 + alpha·v at the nonzeros and 1
+    elsewhere (BASELINE config 3). The unit part of C keeps the Gram
+    denominators; the alpha part is an SDDMM and an SpMM:
+
+      W <- W ⊙ ((C⊙V) Hᵀ) / (W (H Hᵀ) + alpha (V⊙WH)_nz Hᵀ + eps)
+      H <- H ⊙ (Wᵀ (C⊙V)) / ((Wᵀ W) H + alpha Wᵀ (V⊙WH)_nz + eps)
+    """
+    cv = coo.with_values(coo.values * (1.0 + alpha * coo.values))
+
+    def upd_w(W, H):
+        swh = coo.with_values(coo.values * sddmm(coo, W, H))
+        denom = W @ (H @ H.T) + alpha * v_ht(swh, H) + eps
+        return W * (v_ht(cv, H) / denom)
+
+    def upd_h(W, H):
+        swh = coo.with_values(coo.values * sddmm(coo, W, H))
+        denom = (W.T @ W) @ H + alpha * wt_v(swh, W) + eps
+        return H * (wt_v(cv, W) / denom)
+
+    return _apply_order(upd_w, upd_h, W, H, order)
+
+
+# ---------------------------------------------------------------------------
+# Masked completion (mask="observed"): the objective runs over the stored
+# set only
+# ---------------------------------------------------------------------------
+
+
+def _obs_mask(coo: DeviceCOO) -> DeviceCOO:
+    """0/1 observation indicator at the stored coordinates. Padding holds
+    value 0, so `values != 0` is exactly the valid-entry mask; a stored
+    zero counts as unobserved (the NmfConfig.mask contract)."""
+    return coo.with_values((coo.values != 0).to(coo.values.dtype))
+
+
+def mu_update_frobenius_masked(coo, W, H, eps=1e-9, order="WH"):
+    """Completion MU under Σ_obs (v - wh)²: the numerator is the observed
+    SpMM, the denominator the SpMM of WH sampled on the observed set,
+
+        W <- W ⊙ (V_obs Hᵀ) / ((WH)_obs Hᵀ + eps)
+
+    so unobserved entries exert no pull toward zero."""
+    mask = _obs_mask(coo)
+
+    def upd_w(W, H):
+        wh = coo.with_values(mask.values * sddmm(coo, W, H))
+        return W * (v_ht(coo, H) / (v_ht(wh, H) + eps))
+
+    def upd_h(W, H):
+        wh = coo.with_values(mask.values * sddmm(coo, W, H))
+        return H * (wt_v(coo, W) / (wt_v(wh, W) + eps))
+
+    return _apply_order(upd_w, upd_h, W, H, order)
+
+
+def mu_update_kl_masked(coo, W, H, eps=1e-9, order="WH"):
+    """Masked KL MU under Σ_obs v log(v/wh) - v + wh: the usual ratio
+    SpMM over the observed row/column mass of the partner factor (the
+    SpMM of the 0/1 mask) instead of the full sums."""
+    mask = _obs_mask(coo)
+
+    def upd_w(W, H):
+        ratio = coo.with_values(coo.values / (sddmm(coo, W, H) + eps))
+        return W * (v_ht(ratio, H) / (v_ht(mask, H) + eps))
+
+    def upd_h(W, H):
+        ratio = coo.with_values(coo.values / (sddmm(coo, W, H) + eps))
+        return H * (wt_v(ratio, W) / (wt_v(mask, W) + eps))
+
+    return _apply_order(upd_w, upd_h, W, H, order)
+
+
+def frobenius_error_masked(coo, W, H) -> torch.Tensor:
+    """sqrt(Σ_obs (v - wh)²): the completion residual, not the
+    full-matrix Frobenius error."""
+    keep = (coo.values != 0).to(torch.float32)
+    resid = keep * (coo.values.to(torch.float32) - sddmm(coo, W, H))
+    return torch.sqrt(torch.sum(resid * resid))
+
+
+def kl_error_masked(coo, W, H, eps=1e-12) -> torch.Tensor:
+    """Σ_obs v log(v/wh) - v + wh over the observed set."""
+    v = coo.values.to(torch.float32)
+    wh = torch.clamp(sddmm(coo, W, H), min=eps)
+    term = v * torch.log(torch.clamp(v, min=eps) / wh) - v + wh
+    return torch.sum(torch.where(coo.values != 0, term, 0.0))
+
+
 def _unported(what: str, where: str):
     raise NotImplementedError(
         f"{what} is not ported to nmftpu_torch yet ({where} in "
@@ -246,30 +339,36 @@ def _unported(what: str, where: str):
 
 def _check_ported(config: NmfConfig) -> None:
     """Raise NotImplementedError for a sparse configuration outside the
-    ported MU Frobenius/KL engines."""
+    ported MU engines (Frobenius, KL, confidence-weighted, masked; bf16
+    and int8 densified storage)."""
     if config.algorithm is not Algorithm.MU:
         _unported(f"algorithm={config.algorithm.value!r} on sparse V",
-                  "slice 4")
-    if config.mask == "observed":
-        _unported("mask='observed' (masked completion)", "slice 3")
-    if config.alpha_confidence > 0.0:
-        _unported("confidence weighting (alpha_confidence > 0)", "slice 3")
+                  "queue 1 item 3, slice 4b")
     if config.objective is Objective.BETA:
-        _unported("objective='beta-divergence' on sparse V", "slice 3")
-    if config.v_storage == "int8":
-        _unported("v_storage='int8' (densify_quantized)",
-                  "slice 3 item 9")
+        _unported("objective='beta-divergence' on sparse V",
+                  "queue 1 item 1, slice 3b")
 
 
 def build_sparse_update(config: NmfConfig):
     """(make_aux, update, effective_h) for the scatter engine: MU under
-    the Frobenius or the KL objective."""
+    the Frobenius or the KL objective, confidence-weighted or masked."""
     _check_ported(config)
     eps = config.eps
     order = config.update_order
-    upd = (mu_update_frobenius_sparse
-           if config.objective is Objective.FROBENIUS
-           else mu_update_kl_sparse)
+    if config.mask == "observed":
+        upd = (mu_update_frobenius_masked
+               if config.objective is Objective.FROBENIUS
+               else mu_update_kl_masked)
+    elif config.alpha_confidence > 0.0:
+        alpha = config.alpha_confidence
+
+        def upd(coo, W, H, eps, order):
+            return mu_update_frobenius_weighted_sparse(
+                coo, W, H, alpha, eps=eps, order=order)
+    elif config.objective is Objective.FROBENIUS:
+        upd = mu_update_frobenius_sparse
+    else:
+        upd = mu_update_kl_sparse
     return (
         lambda coo: (),
         lambda coo, aux, W, H: upd(coo, W, H, eps=eps, order=order),
@@ -337,8 +436,25 @@ def sparse_initialize_factors(coo: DeviceCOO, rank, method: Initialization,
 # ---------------------------------------------------------------------------
 
 
+def _masked_ops(make_aux, update, frobenius, kl, numel) -> LoopOps:
+    """Completion semantics: every reported metric, the RMSD's
+    denominator included, runs over the observed set."""
+    return LoopOps(
+        make_aux=make_aux,
+        update=update,
+        effective_h=lambda aux, H: H,
+        frobenius=lambda V, aux, W, He, svsq: frobenius(V, W, He),
+        kl=lambda V, aux, W, He: kl(V, W, He),
+        sum_v_sq=lambda V: torch.zeros((), dtype=torch.float32),
+        numel=numel,
+    )
+
+
 def _sparse_ops_bundle(config: NmfConfig) -> LoopOps:
     make_aux, update, effective_h = build_sparse_update(config)
+    if config.mask == "observed":
+        return _masked_ops(make_aux, update, frobenius_error_masked,
+                           kl_error_masked, lambda coo: coo.nnz)
     return LoopOps(
         make_aux=make_aux,
         update=update,
@@ -352,20 +468,56 @@ def _sparse_ops_bundle(config: NmfConfig) -> LoopOps:
 
 
 def _densified_ops_bundle(config: NmfConfig, coo: DeviceCOO) -> LoopOps:
+    """MU on the densified operand: bf16 Vd, or the (Vq, scale) pair of
+    `densify_quantized` under v_storage="int8"."""
     from nmftpu_torch import densified as DF
     from nmftpu_torch.linalg import dense as D
 
     _check_ported(config)
     eps = config.eps
     order = config.update_order
-    if config.objective is Objective.FROBENIUS:
+    alpha = config.alpha_confidence
+    kl = config.objective is Objective.KL
+    n, m = coo.shape
+    # the true n·m, not the row-padded shape: pad rows add no error
+    numel = lambda V: n * m  # noqa: E731
+    if config.v_storage == "int8":
+        if kl:
+            def update(V, aux, W, H):
+                return DF.mu_update_kl_densified(V[0], W, H, eps=eps,
+                                                 order=order, scale=V[1])
+        elif alpha > 0.0:
+            def update(V, aux, W, H):
+                return DF.mu_update_frobenius_weighted_densified(
+                    V[0], W, H, alpha, eps=eps, order=order, scale=V[1])
+        else:
+            # the int8 x int8 numerators (#6's one-sided entries on the
+            # card)
+            def update(V, aux, W, H):
+                return D.mu_update_frobenius_int8x8(V[0], V[1], W, H,
+                                                    eps=eps, order=order)
+        return LoopOps(
+            make_aux=lambda V: (),
+            update=update,
+            effective_h=lambda aux, H: H,
+            frobenius=lambda V, aux, W, He, svsq: (
+                DF.frobenius_error_int8_densified(V[0], V[1], W, He, svsq)),
+            kl=lambda V, aux, W, He: DF.kl_error_densified(V[0], W, He,
+                                                           scale=V[1]),
+            sum_v_sq=lambda V: DF.sum_v_sq_int8_densified(V[0], V[1]),
+            numel=numel,
+        )
+    if kl:
+        def update(Vd, aux, W, H):
+            return DF.mu_update_kl_densified(Vd, W, H, eps=eps, order=order)
+    elif alpha > 0.0:
+        def update(Vd, aux, W, H):
+            return DF.mu_update_frobenius_weighted_densified(
+                Vd, W, H, alpha, eps=eps, order=order)
+    else:
         def update(Vd, aux, W, H):
             return D.mu_update_frobenius_bf16v(Vd, W, H, eps=eps,
                                                order=order)
-    else:
-        def update(Vd, aux, W, H):
-            return DF.mu_update_kl_densified(Vd, W, H, eps=eps, order=order)
-    n, m = coo.shape
     return LoopOps(
         make_aux=lambda Vd: (),
         update=update,
@@ -376,8 +528,7 @@ def _densified_ops_bundle(config: NmfConfig, coo: DeviceCOO) -> LoopOps:
         # from the bf16-rounded V, consistent with the bf16 cross term of
         # the Gram-trick error
         sum_v_sq=DF.sum_v_sq_densified,
-        # the true n·m, not the row-padded shape: pad rows add no error
-        numel=lambda Vd: n * m,
+        numel=numel,
     )
 
 
@@ -387,6 +538,15 @@ def _ell_ops_bundle(config: NmfConfig) -> LoopOps:
     _check_ported(config)
     eps = config.eps
     order = config.update_order
+    if config.mask == "observed":
+        upd = (SE.mu_update_frobenius_masked_ell
+               if config.objective is Objective.FROBENIUS
+               else SE.mu_update_kl_masked_ell)
+        return _masked_ops(
+            lambda pair: (),
+            lambda pair, aux, W, H: upd(pair, W, H, eps=eps, order=order),
+            SE.frobenius_error_masked_ell, SE.kl_error_masked_ell,
+            lambda pair: pair.rows.nnz)
     wt_v = SE.wt_v_ell
     if config.use_pallas:
         from nmftpu_torch.kernels import sparse_ell_kernel as SEK
@@ -398,6 +558,14 @@ def _ell_ops_bundle(config: NmfConfig) -> LoopOps:
     if config.objective is Objective.KL:
         def update(pair, aux, W, H):
             return SE.mu_update_kl_ell(pair, W, H, eps=eps, order=order)
+    elif config.alpha_confidence > 0.0:
+        # one gather per half-step, with or without use_pallas (as in
+        # nmftpu)
+        alpha = config.alpha_confidence
+
+        def update(pair, aux, W, H):
+            return SE.mu_update_frobenius_weighted_ell(pair, W, H, alpha,
+                                                       eps=eps, order=order)
     elif config.use_pallas:
         # both SpMM directions on the hand-written CUDA kernel
         def update(pair, aux, W, H):
@@ -519,6 +687,22 @@ class SparsePlan:
                 f"config.dtype {config.dtype} differs from the plan's "
                 f"layout dtype {self.dtype}; re-run prepare_sparse"
             )
+        if self.strategy == "densified" and config.mask == "observed":
+            # nmftpu runs such a config unmasked on the densified plan and
+            # reports its RMSD over the observed count
+            raise ValueError(
+                "mask='observed' cannot run on a densified plan: the "
+                "unobserved entries are zero-valued data there; re-run "
+                "prepare_sparse with strategy='ell' or 'scatter'"
+            )
+        if self.strategy == "densified" and (
+                (config.v_storage == "int8")
+                != (self.config.v_storage == "int8")):
+            raise ValueError(
+                "config.v_storage changes the densified layout "
+                f"({self.config.v_storage!r} at prepare time vs "
+                f"{config.v_storage!r}); re-run prepare_sparse"
+            )
         if self.strategy in ("ell", "scatter") \
                 and config.v_storage != "float32":
             raise ValueError(
@@ -540,7 +724,10 @@ class SparsePlan:
                 W = torch.nn.functional.pad(W, (0, 0, 0, n_pad - n))
             return W, H
 
-        result = execute(self.operand, config, runner, init_fn, numel=n * m)
+        # masked runs report every metric over the observed set
+        result = execute(self.operand, config, runner, init_fn,
+                         numel=(coo.nnz if config.mask == "observed"
+                                else n * m))
         if n_pad != n:
             result.W = result.W[:n]
         return result
@@ -608,8 +795,12 @@ def prepare_sparse(
         from nmftpu_torch import densified as DF
 
         # rows padded to the panel size of the blocked updates
-        operand = DF.densify(coo, row_multiple=4096)
-        n_pad = operand.shape[0]
+        if config.v_storage == "int8":
+            operand = DF.densify_quantized(coo, row_multiple=4096)
+            n_pad = operand[0].shape[0]
+        else:
+            operand = DF.densify(coo, row_multiple=4096)
+            n_pad = operand.shape[0]
     else:
         operand = coo
 
@@ -631,8 +822,9 @@ def compute_sparse(
 
     strategy:
       "scatter"   — chunked COO gather/scatter updates (any size);
-      "densified" — scatter V once into dense bf16 and run dense updates
-                    (blockwise for KL) whenever n·m·2 bytes fit;
+      "densified" — scatter V once into dense bf16 (int8 under
+                    v_storage="int8") and run dense updates (blockwise
+                    for KL and weighting) whenever n·m·2 (n·m) bytes fit;
       "ell"       — gather-only bucketed padded-segment layout; with
                     use_pallas=True the MU-Frobenius SpMMs run the CUDA
                     ELL kernel (kernels/sparse_ell_kernel.py);
