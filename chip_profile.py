@@ -1,7 +1,8 @@
 """Where one MU iteration and one serving batch of the PyTorch/CUDA port
 (nmftpu_torch) spend their time on one NVIDIA GPU.
 
-    python3 chip_profile.py [--out DIR] [--cells dense,serving,sparse,slice8]
+    python3 chip_profile.py [--out DIR]
+                            [--cells dense,serving,sparse,slice8,foldin]
 
 Two shapes -- 4096 x 4096 at rank 256 (bench.py's headline) and the
 ML-20M shape 138,493 x 26,744 at rank 64, with chip_smoke.py's synthetic
@@ -42,7 +43,15 @@ completion (Frobenius, KL) on ELL and scatter, each profiled over a
 5-iteration run; then BASELINE config 3 at full size (chip_smoke.py's
 phase-16 data, rank 128, alpha 40) on the densified bf16 and int8, ELL
 and scatter engines, each profiled over a 2-iteration run; ms per
-iteration by CUDA events as above. --cells picks a subset of the four
+iteration by CUDA events as above. Then cold users (cell "foldin"):
+config 5's two tables (int8 and bf16, chip_smoke.py's phase-8 data),
+512 users outside training with 100 items each (as phase 18 draws them),
+one profiled ``recommend_from_history_batch`` (ALS fold-in, then the
+reservoir scan) and ``prepare_table`` per table, and on the int8 table
+``fold_in_batch`` under MU, KL and HALS (50 iterations): host-clock ms,
+device ms by class (the reservoir, int8 numerator and sweep kernels, the
+Cholesky and triangular solves, GEMMs, gathers, everything else) and the
+idle share. --cells picks a subset of the five
 cells. Every line ends with the card's nvidia-smi name and power limit.
 The profiler traces and summary.json go to --out (default: profile_out/
 beside this script). Exits 1 without a CUDA device.
@@ -68,6 +77,7 @@ from chip_smoke import (
     SEED,
     abba_ms,
     cuda_ms,
+    distinct_items,
     fail,
     nvidia_smi_line,
     SERVE_K,
@@ -104,6 +114,9 @@ def kernel_class(name: str) -> str:
     if "count_tc_kernel" in name or "count_band_kernel" in name:
         return "count_above"
     low = name.lower()
+    # cuSOLVER's Cholesky and cuBLAS's triangular solves (the fold-in)
+    if any(k in low for k in ("potrf", "trsm", "trsv", "chol")):
+        return "solve"
     if "indexselect" in low or "gather" in low:
         return "gather"
     if "indexfunc" in low:
@@ -144,12 +157,12 @@ def device_summary(trace: Path, iters: int) -> dict:
 def main() -> None:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--out", default=str(HERE / "profile_out"))
-    p.add_argument("--cells", default="dense,serving,sparse,slice8",
+    p.add_argument("--cells", default="dense,serving,sparse,slice8,foldin",
                    help="comma-separated subset of dense, serving, sparse, "
-                        "slice8 (default: all)")
+                        "slice8, foldin (default: all)")
     args = p.parse_args()
     cells = set(args.cells.split(","))
-    if not cells <= {"dense", "serving", "sparse", "slice8"}:
+    if not cells <= {"dense", "serving", "sparse", "slice8", "foldin"}:
         fail(f"unknown cells: {sorted(cells)}")
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: no CUDA device")
@@ -249,6 +262,8 @@ def main() -> None:
         serving_cell(nt, dev, card, out, summary)
     if cells & {"sparse", "slice8"}:
         sparse_cells(nt, dev, card, out, summary, cells)
+    if "foldin" in cells:
+        foldin_cell(nt, dev, card, out, summary)
 
     if "jax" in sys.modules:
         fail("jax was imported")
@@ -298,6 +313,59 @@ def serving_cell(nt, dev, card, out, summary) -> None:
 
     del rec, exact, W8, train
     torch.cuda.empty_cache()
+
+
+def foldin_cell(nt, dev, card, out, summary) -> None:
+    """Config 5's tables, 512 cold users: one recommend_from_history_batch
+    per table profiled (after a warm-up call that builds the fold-in's
+    table statistics)."""
+    W8, H8, _ = serving_data(
+        torch.Generator(device=dev).manual_seed(SEED + 8), dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 18)
+    hists = list(distinct_items(512, gen, dev))
+    summary["foldin"] = {}
+    # the profiler's first use starts its tracer, which takes seconds
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CUDA]):
+        torch.zeros(1, device=dev)
+        torch.cuda.synchronize()
+    from nmftpu_torch.foldin import prepare_table
+
+    for td in ("int8", "bfloat16"):
+        rec = nt.Recommender(W8, H8, method="reservoir", table_dtype=td)
+        rec.recommend_from_history_batch(hists, k=SERVE_K)
+        paths = {"recommend_from_history_batch": lambda: (
+            rec.recommend_from_history_batch(hists, k=SERVE_K)),
+            "prepare_table": lambda: prepare_table(rec.H,
+                                                   scale=rec._h_scale)}
+        if td == "int8":
+            for rule, kw in (("MU", {"algorithm": "mu"}),
+                             ("KL", {"algorithm": "mu", "objective": "kl"}),
+                             ("HALS", {"algorithm": "hals"})):
+                paths[f"fold_in_batch {rule}"] = (
+                    lambda kw=kw: rec.fold_in_batch(hists, **kw))
+        for path, fn in paths.items():
+            fn()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with torch.profiler.profile(activities=[
+                    torch.profiler.ProfilerActivity.CPU,
+                    torch.profiler.ProfilerActivity.CUDA]) as prof:
+                fn()
+                torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+            trace = out / f"foldin_{td}_b512_{path.replace(' ', '_')}.json"
+            prof.export_chrome_trace(str(trace))
+            row = {"profiled_call_ms": wall, **device_summary(trace, 1)}
+            summary["foldin"][f"{td}_b512 {path}"] = row
+            say("profile", cell="foldin", table=td, batch=512, path=path,
+                profiled_call_ms=f"{wall:.3f}",
+                device_ms={k: round(v, 3) for k, v in
+                           row["device_ms_per_iter"].items()},
+                idle_share=f"{row['idle_share']:.4f}", card=card)
+        del rec, paths
+        torch.cuda.empty_cache()
+    del W8, H8
 
 
 def profiled(plan, config, W, H, trace: Path, iters: int) -> dict:

@@ -36,6 +36,18 @@ ms per iteration and peak device memory. Phase 17, at config 2's shape,
 runs int8 densified MU (Frobenius through #6's one-sided entries, whose
 launches it counts and holds against the exact product; KL) and masked
 completion (Frobenius and KL) on ELL and scatter, which must agree.
+Phase 18 serves 2,048 cold users (users outside training, 100 items
+each) from phase 8's two tables: prepare_table (the int8 Gram on the
+int8 kernel's one-sided entry, one launch per 131,072-item panel, exact;
+the bf16 Gram against float64), fold_in_batch (ALS, weighted ALS, MU,
+KL, HALS on the sweep kernel, once per iteration) and
+recommend_from_history_batch on the reservoir kernel at b = 512 and 2048;
+each solve is held against float64 within 10 kappa 2^-24, each iterative
+objective must fall, the scan's recall against the exact scan of the same
+embeddings must reach 0.999 with no history item returned; it prints the
+times. Phase 19 runs dense float32 MU under the beta divergence (beta 0,
+0.5, 1.5) at 4096 x 4096 / rank 256 through nmf: D_beta must fall at
+every iteration and one step must match float64.
 Every phase prints its results; any failure exits non-zero, as does a
 kernel timed below its bound. Without a CUDA device it exits 1 and runs
 nothing.
@@ -158,6 +170,31 @@ C3_ENGINES_RTOL = 1e-3
 C3_OBJECTIVE_RTOL = 1e-3
 # phase 17 at config 2's shape, rank 64
 S8_ITERS = 4
+
+# phase 18: cold users at config 5 (users outside training, SERVE_SEEN
+# distinct items each, drawn as serving_data draws them), folded in against
+# phase 8's two tables. The fold-in defaults of recommend_from_history*
+# (ALS, Frobenius, lambda_w 1e-6, 50 iterations for MU and HALS)
+COLD_USERS = 2048
+COLD_ALPHA = 40.0           # the weighted ALS fold-in, values 1 .. 5
+COLD_ITERS = 50
+COLD_LAMBDA, COLD_EPS = 1e-6, 1e-9
+COLD_SAMPLE = 16            # users whose weighted solve is redone in f64
+# a float32 solve of (G + lambda I) w = n is off by about kappa 2^-24
+# relative (kappa the system's condition number, computed and printed);
+# the fold-in's W against a float64 solve of the same equations
+SOLVE_FACTOR = 10
+# the bf16 table's float32 Gram against float64: sums of about 10^6
+# positive products per panel, sqrt(10^6) 2^-24 ~ 6e-5
+GRAM_BF16_RTOL = 1e-4
+
+# phase 19: dense float32 beta MU at 4096^2 / r = 256 through nmf; one
+# step against float64: float32 powers of WH (a sum of 256 positive
+# products, ~1e-6 relative) and sums of 4096 positive terms, ~1e-5
+BETAS = (0.0, 0.5, 1.5)
+BETA_SHAPE = (4096, 4096, 256)
+BETA_ITERS = 10
+BETA_STEP_RTOL = 1e-4
 
 # the card's peaks (NVIDIA's H100 SXM data sheet, dense): float32 on the
 # CUDA cores, bf16 and int8 on the tensor cores, HBM bandwidth
@@ -377,6 +414,21 @@ def synthetic_ratings(n, m, nnz, gen, dev, rows_per_chunk=2048):
     return V
 
 
+def distinct_items(n, gen, dev):
+    """(n, SERVE_SEEN) int32 numpy array of sorted distinct item ids per
+    user, uniform over the catalog: draw a few spare, drop repeats (they
+    sort last as m), keep the first SERVE_SEEN."""
+    m = SERVE_ITEMS
+    items = torch.randint(0, m, (n, SERVE_SEEN + 8), generator=gen,
+                          device=dev)
+    items = torch.sort(items, dim=1).values
+    items[:, 1:].masked_fill_(items[:, 1:] == items[:, :-1], m)
+    items = torch.sort(items, dim=1).values[:, :SERVE_SEEN]
+    if int(items.max()) >= m:
+        raise RuntimeError("too many repeated draws for one user")
+    return items.int().cpu().numpy()
+
+
 def serving_data(gen, dev, chunk=1 << 20):
     """Config-5-shaped factors made on the device: W (n, r) uniform; H
     (r, m) uniform times per-dimension magnitudes from 1 down to 0.01
@@ -391,16 +443,7 @@ def serving_data(gen, dev, chunk=1 << 20):
     for lo in range(0, m, chunk):
         H[:, lo:lo + chunk] = torch.rand(r, min(chunk, m - lo),
                                          generator=gen, device=dev) * mag
-    # distinct items per user: draw a few spare, drop repeats (they sort
-    # last as m), keep the first SERVE_SEEN
-    items = torch.randint(0, m, (n, SERVE_SEEN + 8), generator=gen,
-                          device=dev)
-    items = torch.sort(items, dim=1).values
-    items[:, 1:].masked_fill_(items[:, 1:] == items[:, :-1], m)
-    items = torch.sort(items, dim=1).values[:, :SERVE_SEEN]
-    if int(items.max()) >= m:
-        raise RuntimeError("too many repeated draws for one user")
-    items = items.int().cpu().numpy()
+    items = distinct_items(n, gen, dev)
     indptr = np.arange(0, n * SERVE_SEEN + 1, SERVE_SEEN, dtype=np.int64)
     train = SparseCSR(indptr, items.reshape(-1),
                       np.ones(n * SERVE_SEEN, np.float32), (n, m))
@@ -1627,6 +1670,314 @@ def slice8_phases(nt, card, dev, ratings) -> dict:
     return {"launches": launches, "max_abs_err": diff}
 
 
+def foldin_system64(prep, csr):
+    """The unweighted ALS fold-in's normal equations in float64: A =
+    prepare_table's Gram + (lambda + eps) I, and N = sum v h over each
+    history's rows of the table (its stored values, the scale applied in
+    float64); also the gathered rows, their user rows and values."""
+    dev = prep.G.device
+    b, r = csr.shape[0], prep.G.shape[0]
+    rows = torch.as_tensor(np.repeat(np.arange(b), np.diff(csr.indptr)),
+                           device=dev)
+    cols = torch.as_tensor(csr.indices.astype(np.int64), device=dev)
+    Hc = prep.Ht.T.index_select(1, cols).double().T
+    if prep.scale is not None:
+        Hc = Hc * prep.scale.double()
+    vals = torch.as_tensor(csr.data, dtype=torch.float64, device=dev)
+    N = torch.zeros((b, r), dtype=torch.float64, device=dev).index_add_(
+        0, rows, vals[:, None] * Hc)
+    A = prep.G.double() + (COLD_LAMBDA + COLD_EPS) * torch.eye(
+        r, dtype=torch.float64, device=dev)
+    return A, N, Hc, rows, vals
+
+
+def check_solve(label, W, W64, kappa) -> None:
+    """A fold-in's W (numpy) against the float64 solve of its equations:
+    max|a - b| / max|b| within SOLVE_FACTOR kappa 2^-24."""
+    rel = float(np.abs(W - W64).max() / np.abs(W64).max())
+    limit = SOLVE_FACTOR * kappa * 2.0 ** -24
+    say("18 solve", case=label, kappa=f"{kappa:.4g}", rel_err=f"{rel:.3e}",
+        limit=f"{limit:.3e}")
+    if not rel <= limit:
+        fail(f"{label}: fold-in solve off by {rel:.3e} relative, above "
+             f"{SOLVE_FACTOR} kappa 2^-24 = {limit:.3e}")
+
+
+def cold_user_phase(nt, card, dev, recs, max_abs) -> dict:
+    """Phase 18: cold users at config 5 against phase 8's two tables
+    (`recs`, int8 and bf16, method reservoir): prepare_table (the int8
+    Gram on #6's one-sided entry), fold_in_batch under every rule, and
+    recommend_from_history_batch at b = 512 and 2048 (#8), driven once
+    with every count of the path from 0; then the checks against float64
+    and the exact scan, and the times. Returns the path's launches by
+    kernel; raises max_abs's entries to the errors the checks saw."""
+    from nmftpu_torch import foldin as PF
+    from nmftpu_torch.kernels import dual_numer as DN
+    from nmftpu_torch.kernels import hals_sweep as HS
+    from nmftpu_torch.kernels import mips_reservoir as MR
+    from nmftpu_torch.retrieval.exclusion import build_block_exclusion
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 18)
+    items = distinct_items(COLD_USERS, gen, dev)
+    rng = np.random.default_rng(SEED + 18)
+    weights = rng.integers(1, 6, items.shape).astype(np.float32)
+    hists = {b: list(items[:b]) for b in (1, 512, COLD_USERS)}
+    weighted = [(ids, v) for ids, v in zip(items[:512], weights[:512])]
+
+    # -- the main path, every count from 0 -----------------------------------
+    for counts in (DN.LAUNCHES, HS.LAUNCHES, MR.LAUNCHES):
+        counts.update(dict.fromkeys(counts, 0))
+    gram_launches, served, folded = {}, {}, {}
+    for td, rec in recs.items():
+        rec._prepared = None
+        before = DN.LAUNCHES["vht_int8"]
+        rec._prep()
+        gram_launches[td] = DN.LAUNCHES["vht_int8"] - before
+        for b in (512, COLD_USERS):
+            before = MR.LAUNCHES["reservoir_scan"]
+            served[td, b] = rec.recommend_from_history_batch(hists[b],
+                                                             k=SERVE_K)
+            served[td, b] += (MR.LAUNCHES["reservoir_scan"] - before,)
+        folded[td, "als"] = rec.fold_in_batch(hists[512])
+        folded[td, "weighted"] = rec.fold_in_batch(
+            weighted, alpha_confidence=COLD_ALPHA)
+    rec = recs["int8"]
+    hals_calls = []
+    for rule in ("mu", "kl", "hals"):
+        kw = ({"algorithm": "mu", "objective": "kl"} if rule == "kl"
+              else {"algorithm": rule})
+        before = HS.LAUNCHES["hals_sweep"]
+        folded["int8", rule] = rec.fold_in_batch(
+            hists[512], num_iterations=COLD_ITERS, **kw)
+        hals_calls.append(HS.LAUNCHES["hals_sweep"] - before)
+    torch.cuda.synchronize()
+    launches = {"vht_int8": DN.LAUNCHES["vht_int8"],
+                "hals_sweep": HS.LAUNCHES["hals_sweep"],
+                "reservoir_scan": MR.LAUNCHES["reservoir_scan"]}
+    # the main path ends here; the launches below check or time kernels
+    say("18 launches", **launches, int8_gram=gram_launches["int8"],
+        bf16_gram=gram_launches["bfloat16"], hals_per_call=hals_calls[2],
+        expected_hals=COLD_ITERS)
+    if gram_launches["int8"] < -(-SERVE_ITEMS // PF.GRAM_PANEL_INT8):
+        fail(f"the int8 Gram ran #6 {gram_launches['int8']} times, not "
+             f"once per {PF.GRAM_PANEL_INT8}-item panel")
+    if hals_calls != [0, 0, COLD_ITERS]:
+        fail(f"HALS fold-in launched #7 {hals_calls[2]} times in "
+             f"{COLD_ITERS} iterations (MU, KL: {hals_calls[:2]})")
+    if min(launches.values()) < 1:
+        fail(f"a kernel of the cold-user path never launched: {launches}")
+
+    # -- prepare_table: the int8 Gram exact, the bf16 Gram against float64 --
+    Hq = recs["int8"].H
+    G_int = PF.int8_gram(Hq)
+    G_exact = torch.zeros_like(G_int, dtype=torch.float64)
+    for lo in range(0, SERVE_ITEMS, PF.GRAM_PANEL_INT8):
+        P = Hq[:, lo:lo + PF.GRAM_PANEL_INT8].contiguous()
+        G_exact += DN.vht_exact(P, P)
+    gram_diff = float((G_int.double() - G_exact).abs().max())
+    max_abs["vht_int8"] = max(max_abs["vht_int8"], gram_diff)
+    Hb = recs["bfloat16"].H
+    G64 = torch.zeros_like(G_exact)
+    for lo in range(0, SERVE_ITEMS, PF.GRAM_PANEL_FLOAT):
+        P = Hb[:, lo:lo + PF.GRAM_PANEL_FLOAT].double()
+        G64 += P @ P.T
+    del P
+    bf16_rel = float((recs["bfloat16"]._prep().G.double() - G64).abs().max()
+                     / G64.abs().max())
+    say("18 prepare_table", int8_gram_vs_exact_max_abs=gram_diff,
+        largest_int8_sum=f"{float(G_exact.abs().max()):.6g}",
+        bf16_gram_rel_err=f"{bf16_rel:.3e}", bf16_rtol=GRAM_BF16_RTOL)
+    if gram_diff != 0.0:
+        fail(f"the int8 Gram differs from the exact one by {gram_diff}")
+    if not bf16_rel <= GRAM_BF16_RTOL:
+        fail(f"the bf16 Gram is off by {bf16_rel:.3e} relative")
+    del G_int, G_exact, G64
+
+    # -- the solves against float64 ------------------------------------------
+    csr512 = rec._histories_csr(hists[512])
+    for td, r8 in recs.items():
+        A, N, Hc, rows, vals = foldin_system64(r8._prep(), csr512)
+        W64 = torch.clamp(torch.linalg.solve(A, N.T).T, min=0.0)
+        check_solve(f"ALS b=512 {td}", folded[td, "als"],
+                    W64.cpu().numpy(), float(torch.linalg.cond(A)))
+        # the weighted fold-in, per sampled user: Gram_u = G + sum (c - 1)
+        # h hᵀ and rhs_u = sum c v h, c = 1 + alpha v, with the float32
+        # path's relative ridge
+        wcsr = r8._histories_csr(weighted)
+        _, _, Hc, rows, vals = foldin_system64(r8._prep(), wcsr)
+        G64 = r8._prep().G.double()
+        r = G64.shape[0]
+        for u in rng.choice(512, COLD_SAMPLE, replace=False):
+            sel = rows == int(u)
+            h, v = Hc[sel], vals[sel]
+            Gu = G64 + h.T @ (h * (COLD_ALPHA * v)[:, None])
+            ridge = (COLD_LAMBDA + COLD_EPS + max(COLD_EPS, 100 * 2.0 ** -23)
+                     * float(torch.diagonal(Gu).sum()) / r)
+            Au = Gu + ridge * torch.eye(r, dtype=G64.dtype, device=dev)
+            w64 = torch.clamp(torch.linalg.solve(
+                Au, h.T @ ((1.0 + COLD_ALPHA * v) * v)), min=0.0)
+            check_solve(f"weighted ALS alpha={COLD_ALPHA} user {u} {td}",
+                        folded[td, "weighted"][u], w64.cpu().numpy(),
+                        float(torch.linalg.cond(Au)))
+    del A, N, Hc, rows, vals, G64
+
+    # -- MU, KL and HALS: each objective falls; #7 against its twin ----------
+    prep = rec._prep()
+    for rule, kw in (("mu", {"algorithm": "mu"}),
+                     ("kl", {"algorithm": "mu", "objective": "kl"}),
+                     ("hals", {"algorithm": "hals"})):
+        errs = [PF.transform(csr512, prep, num_iterations=k, **kw).error
+                for k in (0, 1, COLD_ITERS)]
+        say("18 objective", rule=rule, iterations=[0, 1, COLD_ITERS],
+            error=[f"{e:.8g}" for e in errs])
+        if not errs[0] > errs[1] > errs[2]:
+            fail(f"{rule} fold-in: the objective did not fall: {errs}")
+    cols = torch.as_tensor(csr512.indices.astype(np.int64), device=dev)
+    rows = torch.as_tensor(np.repeat(np.arange(512), SERVE_SEEN), device=dev)
+    N = torch.zeros((512, SERVE_RANK), device=dev).index_add_(
+        0, rows, PF._table_rows(prep, cols))
+    Gh = prep.G + COLD_LAMBDA * torch.eye(SERVE_RANK, device=dev)
+    W0 = PF._init_w(512, SERVE_RANK, 0, None, dev)
+    got, want = HS.hals_sweep(N, Gh, W0), HS.hals_sweep_plain(N, Gh, W0)
+    one = PF.transform(csr512, prep, algorithm="hals", num_iterations=1,
+                       lambda_w=COLD_LAMBDA).W
+    exact = HS.hals_sweep_plain(N.double(), Gh.double(), W0.double())
+    torch.cuda.synchronize()
+    # the sweep's rounding is in units of the W it reads: a fold-in's
+    # first sweep shrinks W from its uniform(0.1, 1) start by about 10^3
+    # (N is 100 items' rows, W0 G is all m items'), so phase 13's
+    # max|W| is taken over the sweep's input and output
+    diff = float((got - want).abs().max())
+    top = max(float(want.abs().max()), float(W0.abs().max()))
+    path_diff = float((one - want).abs().max())
+    max_abs["hals_sweep"] = max(max_abs["hals_sweep"], diff)
+    say("18 hals_sweep", case="fold-in b=512 r=256", max_abs=f"{diff:.3e}",
+        rel_to_max=f"{diff / top:.3e}", transform_one_iteration_rel=
+        f"{path_diff / top:.3e}", max_W_out=f"{float(want.abs().max()):.4g}",
+        max_W_in=f"{float(W0.abs().max()):.4g}", bound=HALS_ATOL)
+    if not (diff <= HALS_ATOL * top and path_diff <= HALS_ATOL * top):
+        fail("hals_sweep at the fold-in's shape disagrees with its twin")
+    f64_check("18", "hals_sweep", "fold-in b=512 r=256", got, want, exact,
+              scaled=True)
+    del N, Gh, W0, got, want, one, exact
+
+    # -- recommend_from_history_batch against the exact scan -----------------
+    for (td, b), (s, i, scans) in served.items():
+        r8 = recs[td]
+        csr = r8._histories_csr(hists[b])
+        Wq = r8._fold_in_csr(csr, algorithm="als", objective="frobenius",
+                             num_iterations=COLD_ITERS, alpha_confidence=0.0,
+                             lambda_w=COLD_LAMBDA, seed=0)
+        exact = type(r8).from_table(r8.W, r8.H, h_scale=r8._h_scale,
+                                    method="exact", device=dev)
+        lists = build_block_exclusion(np.arange(b), csr, SERVE_ITEMS,
+                                      exact.block)
+        i_ex = exact._topk(Wq, SERVE_K, lists, None)[1].cpu().numpy()
+        recall = np.mean([len(set(i[row].tolist()) & set(i_ex[row].tolist()))
+                          / SERVE_K for row in range(b)])
+        violations = sum(len(set(i[row].tolist()) & set(items[row].tolist()))
+                         for row in range(b))
+        finite = bool(np.isfinite(s).all())
+        say("18 serve", table=td, batch=b, k=SERVE_K, reservoir_scans=scans,
+            recall_at_100=f"{recall:.6f}", history_violations=violations,
+            finite=finite)
+        if not (scans >= 1 and recall >= RECALL_FLOOR and violations == 0
+                and finite):
+            fail(f"cold users {td} b={b}: {scans} scans, recall "
+                 f"{recall:.6f}, {violations} history items returned")
+        if td == "int8" and b == 512:
+            Wk = (Wq * r8._h_scale).contiguous()
+            a, _, _ = check_reservoir(MR, "cold users b=512 int8", Wk, r8.H,
+                                      SERVE_ITEMS, r8.reservoir_slots)
+            max_abs["reservoir_scan"] = max(max_abs["reservoir_scan"], a)
+        del exact, lists, Wq
+
+    # -- times ----------------------------------------------------------------
+    for td, r8 in recs.items():
+        ms = event_ms(lambda: PF.prepare_table(r8.H, scale=r8._h_scale),
+                      iters=2)
+        say("18 timing", path=f"prepare_table {td}", ms=f"{ms:.3f}",
+            card=card)
+    # one panel of the int8 Gram: #6's one-sided entry, its twin, and
+    # torch._int_mm (cuBLASLt int8, timed only)
+    P = Hq[:, :PF.GRAM_PANEL_INT8].contiguous()
+    g_ms = abba_ms({"kernel": lambda: DN.vht_int8(P, P),
+                    "plain": lambda: DN.vht_int8_plain(P, P),
+                    "library": lambda: torch._int_mm(P, P.t())}, iters=5)
+    b_ms, b_by = bound(2 * SERVE_RANK ** 2 * PF.GRAM_PANEL_INT8,
+                       P.numel() + 4 * SERVE_RANK ** 2, INT8_PEAK)
+    say("18 kernel timing", kernel="vht_int8",
+        shape=f"int8 Gram panel {SERVE_RANK}x{PF.GRAM_PANEL_INT8}",
+        ms=f"{g_ms['kernel']:.4f}", plain_ms=f"{g_ms['plain']:.4f}",
+        library_ms=f"{g_ms['library']:.4f}", bound_ms=f"{b_ms:.4f}",
+        bound_by=b_by, card=card)
+    del P
+    paths = {
+        "ALS b=1": lambda: rec.fold_in_batch(hists[1]),
+        "ALS b=512": lambda: rec.fold_in_batch(hists[512]),
+        "weighted ALS b=512": lambda: rec.fold_in_batch(
+            weighted, alpha_confidence=COLD_ALPHA),
+        "MU b=512": lambda: rec.fold_in_batch(
+            hists[512], algorithm="mu", num_iterations=COLD_ITERS),
+        "MU KL b=512": lambda: rec.fold_in_batch(
+            hists[512], algorithm="mu", objective="kl",
+            num_iterations=COLD_ITERS),
+        "HALS b=512": lambda: rec.fold_in_batch(
+            hists[512], algorithm="hals", num_iterations=COLD_ITERS),
+    }
+    for path, fn in paths.items():
+        say("18 timing", path=f"fold_in_batch {path} int8",
+            ms=f"{event_ms(fn, iters=3):.3f}", card=card)
+    for td, r8 in recs.items():
+        for b in (512, COLD_USERS):
+            ms = event_ms(lambda: r8.recommend_from_history_batch(
+                hists[b], k=SERVE_K), iters=3)
+            say("18 timing", path=f"recommend_from_history_batch {td}",
+                batch=b, ms=f"{ms:.3f}", q_per_s=f"{b / ms * 1e3:.1f}",
+                card=card)
+    return launches
+
+
+def beta_phase(nt, D, card, dev) -> None:
+    """Phase 19: dense float32 MU under the beta divergence at 4096^2 /
+    r = 256 through nmf, one iteration a call from the previous call's
+    factors: D_beta (the result's kl_error) falls at each step, the first
+    step matches a float64 recomputation, and ms per iteration."""
+    n, m, r = BETA_SHAPE
+    gen = torch.Generator(device=dev).manual_seed(SEED + 19)
+    V = synthetic_lowrank(n, m, r, gen, dev)
+    W0 = torch.rand(n, r, generator=gen, device=dev) + 0.01
+    H0 = torch.rand(r, m, generator=gen, device=dev) + 0.01
+    for beta in BETAS:
+        W, H = W0, H0
+        divs = [float(D.beta_divergence(V, W, H, beta))]
+        for it in range(BETA_ITERS):
+            res = nt.nmf(V, r, objective="beta-divergence", beta=beta,
+                         init="copy", W0=W, H0=H, num_iterations=1,
+                         device=dev)
+            if it == 0:
+                W64, H64 = D.mu_update_beta(V.double(), W0.double(),
+                                            H0.double(), beta)
+                dw = float((res.W.double() - W64).abs().max()
+                           / W64.abs().max())
+                dh = float((res.H.double() - H64).abs().max()
+                           / H64.abs().max())
+                del W64, H64
+            W, H = res.W, res.H
+            divs.append(res.kl_error)
+        ms = cuda_ms(lambda: D.mu_update_beta(V, W, H, beta), iters=10)
+        falls = all(b < a for a, b in zip(divs[:-1], divs[1:]))
+        say("19 beta MU", beta=beta, shape=f"{n}x{m}", rank=r,
+            divergence=[f"{d:.8g}" for d in divs], falls=falls,
+            step_W_rel=f"{dw:.3e}", step_H_rel=f"{dh:.3e}",
+            rtol=BETA_STEP_RTOL, ms_per_iter=f"{ms:.4f}", card=card)
+        if not falls:
+            fail(f"beta={beta}: D_beta did not fall every iteration: {divs}")
+        if not (dw <= BETA_STEP_RTOL and dh <= BETA_STEP_RTOL):
+            fail(f"beta={beta}: one step differs from float64 (W {dw:.3e}, "
+                 f"H {dh:.3e})")
+
+
 def main() -> None:
     if not (HERE / "nmftpu_torch").is_dir():
         fail(f"no nmftpu_torch package beside {__file__}")
@@ -1989,7 +2340,7 @@ def main() -> None:
 
     # -- 9. serving kernel timing at the phase-8 shape (int8, b = 512) ------
     Hq, hs = recs["int8"].H, recs["int8"]._h_scale
-    del recs, rec, H8
+    del rec, H8
     torch.cuda.empty_cache()
     Wq = W8[torch.as_tensor(batches[512], device=dev)]
     Wk = (Wq * hs).contiguous()
@@ -2034,6 +2385,14 @@ def main() -> None:
     del Hq, hs, Wq, Wk, cand, theta, W8, train
     torch.cuda.empty_cache()
 
+    # -- 18. cold users at config 5 (the tables of phase 8) ------------------
+    cold_launches = cold_user_phase(nt, card, dev, recs, max_abs)
+    del recs
+    torch.cuda.empty_cache()
+
+    # -- 19. dense float32 beta MU at 4096^2, r = 256 -------------------------
+    beta_phase(nt, D, card, dev)
+
     # -- 10-12. sparse V at config 2's full width (ELL, densified) ----------
     ell = sparse_phases(nt, ratings, card, dev)
     max_abs["ell_rowsums"] = ell["max_abs_err"]
@@ -2044,8 +2403,8 @@ def main() -> None:
     # -- 13-15. slice 4a: HALS, Jacobi and int8 x int8 MU ---------------------
     new = slice4a_phases(nt, card, dev, V, W0, H0, Vq, scale, plain_ms)
     for name, f in new.items():
-        max_abs[name], k_ms[name], p_ms[name] = (f["max_abs_err"], f["ms"],
-                                                 f["plain_ms"])
+        max_abs[name] = max(max_abs[name], f["max_abs_err"])
+        k_ms[name], p_ms[name] = f["ms"], f["plain_ms"]
         bounds[name] = (f["bound_ms"], f["bound_by"])
         library_ms[name] = f["library_ms"]
 
@@ -2069,6 +2428,9 @@ def main() -> None:
     launches = {**main_path_launches, **serve_launches,
                 "ell_rowsums": ell["launches"],
                 **{name: f["launches"] for name, f in new.items()}}
+    # #6's one-sided entry, #7 and #8 on the cold-user path (phase 18)
+    for name, count in cold_launches.items():
+        launches[name] += count
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": SOURCES[name],
          "replaces": REPLACES[name], "launches": launches[name],

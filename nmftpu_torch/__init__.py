@@ -23,7 +23,13 @@ imports). It mirrors ``nmftpu``'s module names and public surface:
   reservoir scans, certified top-k with an exact fallback, save/load),
   with the reservoir scan and the certificate's count pass as CUDA
   kernels (``kernels/mips_reservoir.py``, ``kernels/count_above.py``);
-  ``recall_at_k`` on held-out interactions.
+  ``recall_at_k`` on held-out interactions;
+* cold users: ``transform`` (``foldin.py``: MU, ALS and HALS fold-in
+  against a frozen item table, dense or sparse rows, float32, bf16 or
+  int8 tables, the int8 table's Gram on the int8 kernel) and the
+  Recommender's ``fold_in*`` / ``recommend_from_history*``;
+* dense float32 MU under the generalized beta divergence
+  (``objective="beta-divergence"``).
 
 Configurations not ported yet raise NotImplementedError naming their
 slice in ROADMAP.md.
@@ -39,6 +45,7 @@ from nmftpu_torch.config import (
     ThresholdType,
 )
 from nmftpu_torch.driver import compute
+from nmftpu_torch.foldin import TransformResult, prepare_table, transform
 from nmftpu_torch.loop import NmfResult, RunStats
 from nmftpu_torch.retrieval import recall_at_k
 from nmftpu_torch.serving import Recommender
@@ -56,10 +63,13 @@ __all__ = [
     "Recommender",
     "RunStats",
     "ThresholdType",
+    "TransformResult",
     "compute",
     "compute_sparse",
     "nmf",
     "prepare_sparse",
+    "prepare_table",
     "recall_at_k",
+    "transform",
     "__version__",
 ]

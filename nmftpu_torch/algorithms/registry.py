@@ -1,5 +1,6 @@
 """Dispatch an NmfConfig to concrete update-step callables (port of the
-MU (Frobenius, KL) and HALS branches of ``nmftpu/algorithms/registry.py``).
+MU (Frobenius, KL, float32 beta divergence) and HALS branches of
+``nmftpu/algorithms/registry.py``).
 
 `build_dense_update(config)` returns a triple:
 
@@ -27,6 +28,7 @@ mu_style="jacobi", else update_order):
   KL, v_storage="int8" or "bfloat16"   -> densified.mu_update_kl_densified
                                           (int8: with the scale)
   KL                                   -> linalg.dense.mu_update_kl
+  beta divergence, v_storage="float32" -> linalg.dense.mu_update_beta
 
 Confidence weighting (alpha_confidence > 0, MU under Frobenius) comes
 first: float32 V -> linalg.dense.mu_update_frobenius_weighted with
@@ -99,9 +101,19 @@ def build_dense_update(config: NmfConfig):
         return (lambda V: ()), update, effective_h
     if config.algorithm is not Algorithm.MU:
         _unported(f"algorithm={config.algorithm.value!r}", "slice 4b")
-    if config.objective is Objective.BETA:
-        _unported("objective='beta-divergence'", "slice 4b")
     order = _jacobi_order(config)
+    if config.objective is Objective.BETA:
+        # config validation keeps beta to MU, without jacobi or weighting
+        if config.v_storage != "float32":
+            _unported("objective='beta-divergence' with "
+                      f"v_storage={config.v_storage!r}",
+                      "queue 1 item 1, slice 3b")
+        beta = config.beta
+
+        def update(V, aux, W, H):
+            return D.mu_update_beta(V, W, H, beta, eps=eps, order=order)
+
+        return (lambda V: ()), update, effective_h
     kl = config.objective is Objective.KL
 
     if config.alpha_confidence > 0.0 and config.v_storage == "float32":

@@ -1,6 +1,6 @@
-"""Carry configurations, factors, quantized V and serving tables between
-``nmftpu`` and ``nmftpu_torch``. Nothing here imports jax: the ``nmftpu``
-side arrives as objects or numpy arrays."""
+"""Carry configurations, factors, quantized V, serving tables and fold-in
+tables between ``nmftpu`` and ``nmftpu_torch``. Nothing here imports jax:
+the ``nmftpu`` side arrives as objects or numpy arrays."""
 
 from __future__ import annotations
 
@@ -123,4 +123,32 @@ def recommender_from_nmftpu(rec, *, device):
         h_scale=None if rec._h_scale is None else np.asarray(rec._h_scale),
         train=train, block=rec.block, method=rec.method,
         reservoir_slots=rec.reservoir_slots, device=device,
+    )
+
+
+def prepared_table_from_nmftpu(prep, *, device):
+    """The port's ``foldin.PreparedTable`` with the arrays of an
+    ``nmftpu.foldin.PreparedTable`` (as numpy): its table in its own dtype
+    (float32, bfloat16 or int8), stored (r, m) as the port stores a table,
+    its float32 Gram and row sums, and its int8 scale."""
+    from nmftpu_torch.foldin import PreparedTable
+
+    H = np.ascontiguousarray(np.asarray(prep.Ht).T)
+    if H.dtype.name == "bfloat16":
+        # ml_dtypes' bfloat16 has no torch counterpart in numpy: go
+        # through float32, which holds every bf16 value exactly
+        table = torch.tensor(H.astype(np.float32),
+                             device=device).to(torch.bfloat16)
+    elif H.dtype in (np.float32, np.int8):
+        table = torch.tensor(H, device=device)
+    else:
+        raise TypeError(f"table dtype {H.dtype} is not one of float32, "
+                        "bfloat16, int8")
+    return PreparedTable(
+        Ht=table.T,
+        G=torch.tensor(np.asarray(prep.G, np.float32), device=device),
+        h_sum=torch.tensor(np.asarray(prep.h_sum, np.float32),
+                           device=device),
+        scale=None if prep.scale is None else torch.tensor(
+            np.asarray(prep.scale, np.float32), device=device),
     )

@@ -9,7 +9,7 @@ import numpy as np
 import torch
 
 from nmftpu_torch.algorithms import build_dense_update
-from nmftpu_torch.config import NmfConfig, resolve_dtype
+from nmftpu_torch.config import NmfConfig, Objective, resolve_dtype
 from nmftpu_torch.init import initialize_factors, run_generator
 from nmftpu_torch.linalg import dense as D
 from nmftpu_torch.loop import (
@@ -25,6 +25,14 @@ __all__ = ["compute", "NmfResult", "RunStats"]
 
 def _dense_ops(config: NmfConfig) -> LoopOps:
     make_aux, update, effective_h = build_dense_update(config)
+    if config.objective is Objective.BETA:
+        beta = config.beta
+
+        def divergence(V, aux, W, He):
+            return D.beta_divergence(V, W, He, beta)
+    else:
+        def divergence(V, aux, W, He):
+            return D.kl_error(V, W, He)
     return LoopOps(
         make_aux=make_aux,
         update=update,
@@ -32,7 +40,7 @@ def _dense_ops(config: NmfConfig) -> LoopOps:
         frobenius=lambda V, aux, W, He, svsq: D.frobenius_error(
             V, W, He, svsq
         ),
-        kl=lambda V, aux, W, He: D.kl_error(V, W, He),
+        kl=divergence,
         sum_v_sq=lambda V: torch.sum(V * V),
         numel=lambda V: V.shape[0] * V.shape[1],
     )

@@ -1,7 +1,7 @@
-"""Dense update rules and error metrics, plain torch (port of the MU
-(Frobenius and KL, Gauss–Seidel and Jacobi, float32 / bf16 / int8 V;
-confidence-weighted Frobenius) and HALS subset of
-``nmftpu/linalg/dense.py``).
+"""Dense update rules, solvers and error metrics, plain torch (port of the
+MU (Frobenius, KL and the generalized beta divergence; Gauss–Seidel and
+Jacobi; float32 / bf16 / int8 V; confidence-weighted Frobenius), HALS and
+least-squares solver subset of ``nmftpu/linalg/dense.py``).
 
 Conventions
 -----------
@@ -130,6 +130,117 @@ def mu_update_kl(V, W, H, eps=1e-9, order="WH"):
     return _apply_order(
         lambda W, H: mu_update_w_kl(V, W, H, eps),
         lambda W, H: mu_update_h_kl(V, W, H, eps),
+        W, H, order,
+    )
+
+
+# ---------------------------------------------------------------------------
+# Generalized beta divergence (sklearn's solver='mu' with a float beta_loss)
+# ---------------------------------------------------------------------------
+
+
+def beta_gamma(beta: float) -> float:
+    """sklearn's MU exponent for the generalized beta divergence (Févotte
+    & Idier 2011): the raw multiplicative ratio is raised to gamma to
+    keep the update a descent step outside beta in [1, 2]."""
+    if beta < 1.0:
+        return 1.0 / (2.0 - beta)
+    if beta > 2.0:
+        return 1.0 / (beta - 1.0)
+    return 1.0
+
+
+# sklearn zeroes factor entries below float64 machine eps after each
+# beta < 1 half-step ("necessary for stability"); the same constant, so
+# that the parity tests agree on the support pattern
+_STAB_EPS = 2.220446049250313e-16
+# sklearn's EPSILON = np.finfo(np.float32).eps: every beta-MU guard clamps
+# entries below it up to it (not just exact zeros), whatever the dtype
+EPSILON = 1.1920929e-07
+
+
+def _beta_powers(WH, beta):
+    """sklearn's guarded power pair for one beta-MU half-step: WH^(beta-2)
+    for the numerator and WH^(beta-1) for the denominator. Two separate
+    guards, as in _multiplicative_update_w/_h: the numerator's clamps
+    WH < EPSILON when beta < 2, the denominator's only when beta < 1."""
+    WH_n = torch.clamp(WH, min=EPSILON) if beta < 2.0 else WH
+    if beta == 1.0:
+        pwr_n = 1.0 / WH_n
+    elif beta == 0.0:
+        pwr_n = 1.0 / (WH_n * WH_n)
+    else:
+        pwr_n = WH_n ** (beta - 2.0)
+    WH_d = torch.clamp(WH, min=EPSILON) if beta < 1.0 else WH
+    return pwr_n, WH_d ** (beta - 1.0)
+
+
+def _beta_ratio(numer, denom, l1, l2, X, gamma):
+    """(numer / denom)^gamma with sklearn's regularization on the
+    denominator and its zero-denominator replacement."""
+    if l1 > 0.0:
+        denom = denom + l1
+    if l2 > 0.0:
+        denom = denom + l2 * X
+    d = numer / torch.where(denom == 0.0, EPSILON, denom)
+    return d ** gamma if gamma != 1.0 else d
+
+
+def beta_w_step(V, W, H, beta, l1_w=0.0, l2_w=0.0, gamma=1.0):
+    """One multiplicative W update under the generalized beta divergence:
+    sklearn's _multiplicative_update_w dense branch, guard for guard."""
+    if beta == 2.0:
+        numer = V @ H.T
+        denom = W @ (H @ H.T)
+    else:
+        pwr_n, pwr_d = _beta_powers(W @ H, beta)
+        numer = (pwr_n * V) @ H.T
+        if beta == 1.0:
+            denom = torch.sum(H, dim=1)[None, :].expand_as(W)
+        else:
+            denom = pwr_d @ H.T
+    return W * _beta_ratio(numer, denom, l1_w, l2_w, W, gamma)
+
+
+def beta_h_terms(V, W, H, beta):
+    """(numerator, denominator) of the beta-MU H update before
+    regularization."""
+    if beta == 2.0:
+        return W.T @ V, (W.T @ W) @ H
+    pwr_n, pwr_d = _beta_powers(W @ H, beta)
+    numer = W.T @ (pwr_n * V)
+    if beta == 1.0:
+        W_sum = torch.sum(W, dim=0)
+        W_sum = torch.where(W_sum == 0.0, 1.0, W_sum)
+        return numer, W_sum[:, None].expand_as(H)
+    return numer, W.T @ pwr_d
+
+
+def beta_h_step(V, W, H, beta, l1_h=0.0, l2_h=0.0, gamma=1.0):
+    """One multiplicative H update (sklearn's _multiplicative_update_h,
+    dense branch, without the online accumulators)."""
+    numer, denom = beta_h_terms(V, W, H, beta)
+    return H * _beta_ratio(numer, denom, l1_h, l2_h, H, gamma)
+
+
+def mu_update_beta(V, W, H, beta, eps=1e-9, order="WH"):
+    """One MU iteration under the generalized beta divergence:
+
+        W <- W * ( ((WH)^(b-2) . V) H^T / ((WH)^(b-1) H^T) )^gamma
+
+    and symmetrically for H; beta < 1 zeroes entries below float64's
+    machine eps after each half-step. `eps` is accepted for the update
+    signature and unused: the guards are sklearn's EPSILON clamps, so a
+    float64 run matches sklearn's _multiplicative_update_w/_h to
+    roundoff. One full (n, m) WH per half-step."""
+    gamma = beta_gamma(beta)
+
+    def stabilize(X):
+        return torch.where(X < _STAB_EPS, 0.0, X) if beta < 1.0 else X
+
+    return _apply_order(
+        lambda W, H: stabilize(beta_w_step(V, W, H, beta, gamma=gamma)),
+        lambda W, H: stabilize(beta_h_step(V, W, H, beta, gamma=gamma)),
         W, H, order,
     )
 
@@ -291,6 +402,99 @@ def mu_update_frobenius_weighted(V, C, W, H, eps=1e-9, order="WH"):
         return H * ((W.T @ CV) / (W.T @ CWH + eps))
 
     return _apply_order(upd_w, upd_h, W, H, order)
+
+
+# ---------------------------------------------------------------------------
+# Least-squares solvers (normal equations of the ALS family and fold-in)
+# ---------------------------------------------------------------------------
+
+
+def spd_solve(A, rhs):
+    """Solve A X = rhs for symmetric positive definite A (r, r), or a
+    batch (b, r, r) with rhs (b, r, k): Cholesky once, a triangular solve
+    against the r-wide identity only, then A^-1 = L^-T L^-1 applied to
+    the wide rhs as one product, as ``nmftpu`` does. A matrix whose
+    factorization fails gives NaN, as XLA's Cholesky does; the
+    factorization's status is never read on the host, so nothing here
+    waits for the device."""
+    L, info = torch.linalg.cholesky_ex(A)
+    L = torch.where((info == 0)[..., None, None], L, float("nan"))
+    eye = torch.eye(A.shape[-1], dtype=A.dtype, device=A.device)
+    Linv = torch.linalg.solve_triangular(L, eye, upper=False)
+    return (Linv.mT @ Linv) @ rhs
+
+
+def solve_clamped(gram, rhs, shift, off, eps):
+    """ALS-family normal-equation solve: the Gram plus a diagonal shift
+    (and an optional AHCLS shift off · 11ᵀ), spd_solve, clamp at 0."""
+    r = gram.shape[0]
+    A = gram + (shift + eps) * torch.eye(r, gram.shape[1], dtype=gram.dtype,
+                                         device=gram.device)
+    if off:
+        A = A + off
+    return torch.clamp(spd_solve(A, rhs), min=0.0)
+
+
+def _solve_h(gram, rhs, eps):
+    """Solve (gram + eps I) H = rhs for H (r, m)."""
+    r = gram.shape[0]
+    return spd_solve(
+        gram + eps * torch.eye(r, dtype=gram.dtype, device=gram.device), rhs)
+
+
+def _ridged(Gb, shift, eps):
+    """The per-row systems of the batched solves, Gb (b, r, r) plus a
+    scale-aware ridge: shift + eps + max(eps, 100 machine eps) times each
+    row's mean diagonal. Weighted Grams can be large and numerically
+    singular (a constant init makes H C Hᵀ rank 1); an absolute 1e-9
+    shift sits below float32 Cholesky's cancellation noise there and
+    turns the factors NaN."""
+    r = Gb.shape[-1]
+    diag_mean = torch.diagonal(Gb, dim1=-2, dim2=-1).sum(-1)[:, None, None] / r
+    rel_floor = 100.0 * torch.finfo(Gb.dtype).eps
+    ridge = shift + eps + max(eps, rel_floor) * diag_mean
+    return Gb + ridge * torch.eye(r, dtype=Gb.dtype, device=Gb.device)
+
+
+def _batched_solve_clamped(Gb, rhs, shift, eps):
+    """Per-row solves (b, r, r) x (b, r) -> clamp(>= 0) (b, r), on the
+    ridged systems of `_ridged`: one batched Cholesky."""
+    sol = spd_solve(_ridged(Gb, shift, eps), rhs[..., None])[..., 0]
+    return torch.clamp(sol, min=0.0)
+
+
+def _batched_solve_clamped_cg(Gb, rhs, shift, eps, x0, steps=3):
+    """Warm-started Jacobi-preconditioned conjugate gradients for the
+    per-row normal equations of weighted/masked ALS, then clamp(>= 0):
+    `steps` batched matvecs instead of a batched Cholesky (Takács &
+    Pilászy 2011); the outer ALS loop is itself iterative, so a warm start
+    from the previous factors makes a few inner steps enough. A row whose
+    search direction has no curvature (converged) freezes."""
+    A = _ridged(Gb, shift, eps)
+    dinv = 1.0 / torch.clamp(torch.diagonal(A, dim1=-2, dim2=-1),
+                             min=torch.finfo(A.dtype).tiny)
+
+    def matvec(p):
+        return torch.einsum("nij,nj->ni", A, p)
+
+    x = x0.to(A.dtype)
+    res = rhs - matvec(x)
+    z = dinv * res
+    p = z
+    rz = torch.sum(res * z, dim=1, keepdim=True)
+    for _ in range(steps):
+        Ap = matvec(p)
+        denom = torch.sum(p * Ap, dim=1, keepdim=True)
+        ok = denom > 0
+        alpha = torch.where(ok, rz / torch.where(ok, denom, 1.0), 0.0)
+        x = x + alpha * p
+        res = res - alpha * Ap
+        z = dinv * res
+        rz2 = torch.sum(res * z, dim=1, keepdim=True)
+        pos = rz > 0
+        p = z + torch.where(pos, rz2 / torch.where(pos, rz, 1.0), 0.0) * p
+        rz = rz2
+    return torch.clamp(x, min=0.0)
 
 
 # ---------------------------------------------------------------------------
@@ -458,3 +662,27 @@ def kl_error(V, W, H, eps=1e-12):
         0.0,
     )
     return torch.sum(ratio_term - V + WH)
+
+
+def beta_divergence(V, W, H, beta, eps=1e-12):
+    """Generalized beta divergence D_beta(V || WH), sklearn's
+    _beta_divergence general and Itakura–Saito branches (without the
+    square root):
+
+      beta = 0:   sum V/WH - log(V/WH) - 1
+      otherwise:  sum (V^b + (b-1) WH^b - b V WH^(b-1)) / (b (b-1))
+
+    WH is eps-guarded; for beta <= 0 zero entries of V are too (the IS
+    divergence is +inf at V = 0, where sklearn reports inf; the finite
+    eps proxy keeps best-of-N comparable). beta = 1 and 2 use kl_error /
+    frobenius_error."""
+    WH = torch.clamp(W @ H, min=eps)
+    if beta == 0.0:
+        div = torch.clamp(V, min=eps) / WH
+        return torch.sum(div - torch.log(div) - 1.0)
+    if beta <= 0.0:
+        Vb = torch.clamp(V, min=eps) ** beta
+    else:
+        Vb = torch.where(V > 0, torch.where(V > 0, V, 1.0) ** beta, 0.0)
+    term = Vb + (beta - 1.0) * WH ** beta - beta * V * WH ** (beta - 1.0)
+    return torch.sum(term) / (beta * (beta - 1.0))

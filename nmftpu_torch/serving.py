@@ -15,11 +15,12 @@ Differences from ``nmftpu``, none of which changes a result:
   the 4x-slot reservoir scan of ``recommend_certified``'s optional
   escalation, which then leaves its rows to the exact scan;
 * the exact re-scan of uncertified rows runs on just those rows (no
-  power-of-two batch padding, which only served JAX's compile cache).
+  power-of-two batch padding, which only served JAX's compile cache);
+* cold users (``fold_in*``, ``recommend_from_history*``) fold in against
+  the table as it is, with no padding columns to drop first.
 
-Not ported yet: ``mesh=`` (multi-GPU, slice 6) and fold-in
-(``fold_in``, ``fold_in_batch``, ``recommend_from_history*``, which need
-``foldin.py`` and slice 4's solvers); both raise NotImplementedError.
+Not ported yet: ``mesh=`` (multi-GPU, slice 6), which raises
+NotImplementedError.
 """
 
 from __future__ import annotations
@@ -54,12 +55,6 @@ _QUANT_CHUNK = 1 << 20
 
 TABLE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
                 "int8": torch.int8}
-
-_FOLD_IN = (
-    "fold-in (fold_in, fold_in_batch, recommend_from_history*) needs "
-    "foldin.py and the solvers of the other algorithms, not ported yet "
-    "(ROADMAP queue 1, slice 4)"
-)
 
 
 def _resolve_device(device) -> torch.device:
@@ -162,6 +157,16 @@ class Recommender:
         self.method = method
         self.reservoir_slots = int(reservoir_slots)
         self._train_csr = train.to_csr() if train is not None else None
+        self._prepared = None  # fold-in table invariants, built lazily
+
+    def _prep(self):
+        """Fold-in table invariants (``foldin.prepare_table``), built once
+        per Recommender: the O(r²m) Gram is not rebuilt per request."""
+        if self._prepared is None:
+            from nmftpu_torch.foldin import prepare_table
+
+            self._prepared = prepare_table(self.H, scale=self._h_scale)
+        return self._prepared
 
     def _queries(self, user_ids):
         return self.W[_tensor(user_ids, self.device, torch.int64)]
@@ -428,19 +433,123 @@ class Recommender:
 
     # -- cold users: fold-in against the frozen item table -----------------
 
-    def fold_in(self, item_ids, values=None, **kwargs):
-        raise NotImplementedError(_FOLD_IN)
+    def fold_in(self, item_ids, values=None, *, algorithm: str = "als",
+                objective: str = "frobenius", num_iterations: int = 50,
+                alpha_confidence: float = 0.0, lambda_w: float = 1e-6,
+                seed: int = 0) -> np.ndarray:
+        """Embed a user not present at training time from their
+        interaction history (``foldin.transform`` with this recommender's
+        table frozen). Returns the (rank,) nonnegative embedding.
+        ``values`` defaults to the implicit 1.0 per item;
+        ``algorithm="als"`` is a one-shot solve (the serving default),
+        ``"mu"`` and ``"hals"`` iterate ``num_iterations`` times."""
+        W = self.fold_in_batch([(item_ids, values)], algorithm=algorithm,
+                               objective=objective,
+                               num_iterations=num_iterations,
+                               alpha_confidence=alpha_confidence,
+                               lambda_w=lambda_w, seed=seed)
+        return W[0]
 
-    def fold_in_batch(self, histories, **kwargs):
-        raise NotImplementedError(_FOLD_IN)
+    def fold_in_batch(self, histories, *, algorithm: str = "als",
+                      objective: str = "frobenius",
+                      num_iterations: int = 50,
+                      alpha_confidence: float = 0.0,
+                      lambda_w: float = 1e-6, seed: int = 0) -> np.ndarray:
+        """Embed many cold users in one batched fold-in (one gathered-rows
+        product, one solve for the whole batch). ``histories``: an
+        iterable of ``item_ids`` arrays or ``(item_ids, values)`` pairs
+        (array-like ids). Returns (b, rank)."""
+        return self._fold_in_csr(
+            self._histories_csr(histories), algorithm=algorithm,
+            objective=objective, num_iterations=num_iterations,
+            alpha_confidence=alpha_confidence, lambda_w=lambda_w,
+            seed=seed,
+        ).cpu().numpy()
+
+    def _fold_in_csr(self, csr, **fold_in_kwargs) -> torch.Tensor:
+        """The fold-in of a (b, n_items) history CSR, (b, rank) on the
+        device."""
+        from nmftpu_torch.foldin import transform
+
+        return transform(csr, self._prep(), **fold_in_kwargs).W
+
+    def _histories_csr(self, histories) -> SparseCSR:
+        """Per-user histories as a (b, n_items) SparseCSR, each row's
+        items sorted."""
+        ids_list, val_list = [], []
+        for h in histories:
+            if isinstance(h, tuple):
+                # a tuple is the (item_ids, values) pair form: its ids must
+                # be array-like, so that a plain tuple of item ids cannot
+                # be misread as one weighted item
+                if len(h) != 2 or np.isscalar(h[0]) \
+                        or isinstance(h[0], (int, np.integer)):
+                    raise ValueError(
+                        "a tuple history must be (item_ids, values) "
+                        "with array-like item_ids; pass bare ids as a "
+                        "list/array, not a tuple"
+                    )
+                ids, vals = h
+            else:
+                ids, vals = h, None
+            ids = np.atleast_1d(np.asarray(ids, dtype=np.int64))
+            if vals is None:
+                vals = np.ones(len(ids), dtype=np.float32)
+            vals = np.atleast_1d(np.asarray(vals, dtype=np.float32))
+            if vals.shape != ids.shape:
+                raise ValueError("values must match item_ids in length")
+            o = np.argsort(ids, kind="stable")
+            ids_list.append(ids[o])
+            val_list.append(vals[o])
+        counts = np.array([len(x) for x in ids_list], dtype=np.int64)
+        indptr = np.concatenate([[0], np.cumsum(counts)])
+        indices = (np.concatenate(ids_list) if ids_list
+                   else np.zeros(0, np.int64))
+        data = (np.concatenate(val_list) if val_list
+                else np.zeros(0, np.float32))
+        return SparseCSR(indptr, indices, data,
+                         (len(ids_list), self.n_items))
 
     def recommend_from_history(self, item_ids, values=None, k: int = 100,
-                               **kwargs):
-        raise NotImplementedError(_FOLD_IN)
+                               exclude_history: bool = True,
+                               candidate_k: int | None = None,
+                               **fold_in_kwargs):
+        """Top-k items for a user described only by their history: the
+        fold-in embedding, then the scan of `recommend`. Returns (scores,
+        item_ids), both (k,)."""
+        s, i = self.recommend_from_history_batch(
+            [(item_ids, values)], k=k, exclude_history=exclude_history,
+            candidate_k=candidate_k, **fold_in_kwargs,
+        )
+        return s[0], i[0]
 
     def recommend_from_history_batch(self, histories, k: int = 100,
-                                     **kwargs):
-        raise NotImplementedError(_FOLD_IN)
+                                     exclude_history: bool = True,
+                                     candidate_k: int | None = None,
+                                     **fold_in_kwargs):
+        """Batched cold-user serving: one fold-in for the whole batch and
+        one top-k scan (the reservoir kernel for method="reservoir"), each
+        user's history excluded. Fold-in defaults: ALS, Frobenius,
+        lambda_w = 1e-6. Returns (scores, item_ids), both (b, k)."""
+        # materialized once: `histories` may be a generator, and both the
+        # fold-in and the exclusion read the same CSR
+        csr = self._histories_csr(histories)
+        kw = {"algorithm": "als", "objective": "frobenius",
+              "num_iterations": 50, "alpha_confidence": 0.0,
+              "lambda_w": 1e-6, "seed": 0}
+        kw.update(fold_in_kwargs)
+        Wq = self._fold_in_csr(csr, **kw)
+        seen = lists = None
+        if exclude_history:
+            all_rows = np.arange(csr.shape[0], dtype=np.int64)
+            # exact scans prefer scatter lists (see recommend())
+            if self.method != "exact":
+                seen = self._seen_padded(csr, all_rows, k)
+            if seen is None:
+                lists = build_block_exclusion(all_rows, csr, self.n_items,
+                                              self.block)
+        s, i = self._topk(Wq, k, lists, candidate_k, seen=seen)
+        return s.cpu().numpy(), i.cpu().numpy()
 
     def score(self, user_id: int, item_ids) -> np.ndarray:
         """Predicted affinities for specific (user, items) pairs. Gathers

@@ -387,16 +387,18 @@ def test_jacobi_with_an_explicit_hw_order_is_refused():
 
 @pytest.mark.parametrize("knobs,where", [
     # int8 KL (both couplings) is ported in slice 8 and held against
-    # nmftpu in test_torch_int8_densified.py; these ids now hold what
-    # still raises
+    # nmftpu in test_torch_int8_densified.py, float32 beta in slice 9
+    # (test_torch_beta.py); these ids now hold what still raises
     pytest.param({"objective": "beta-divergence", "beta": 0.5,
-                  "v_storage": "int8"}, "slice 4b",
+                  "v_storage": "int8"}, "slice 3b",
                  id="knobs0-slice 3 item 9"),
     pytest.param({"algorithm": "acls"}, "slice 4b",
                  id="knobs1-slice 3 item 9"),
     ({"algorithm": "gdcls"}, "slice 4b"),
     ({"algorithm": "nsnmf", "objective": KL}, "slice 4b"),
-    ({"objective": "beta-divergence", "beta": 1.5}, "slice 4b"),
+    pytest.param({"objective": "beta-divergence", "beta": 1.5,
+                  "v_storage": "bfloat16"}, "slice 3b",
+                 id="knobs4-slice 4b"),
 ])
 def test_what_still_raises(knobs, where):
     with pytest.raises(NotImplementedError, match=where):

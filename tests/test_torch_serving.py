@@ -393,17 +393,24 @@ def test_recall_at_k_matches_nmftpu():
         nt.recall_at_k(W, H, test_pairs, mesh=object())
 
 
-def test_unported_surfaces_raise():
+def test_unported_surfaces_raise(tmp_path):
+    """Fold-in is ported (slice 9, held against nmftpu in
+    test_torch_foldin.py): its four entry points now serve. mesh= still
+    raises, at construction and at load."""
     W, H = _factors(17)
     rec = nt.Recommender(W, H, device="cpu")
-    for call in (lambda: rec.fold_in([1, 2]),
-                 lambda: rec.fold_in_batch([[1, 2]]),
-                 lambda: rec.recommend_from_history([1, 2]),
-                 lambda: rec.recommend_from_history_batch([[1, 2]])):
-        with pytest.raises(NotImplementedError, match="slice 4"):
-            call()
+    assert rec.fold_in([1, 2]).shape == (8,)
+    assert rec.fold_in_batch([[1, 2]]).shape == (1, 8)
+    s, i = rec.recommend_from_history([1, 2], k=5)
+    assert s.shape == i.shape == (5,) and not {1, 2} & set(i.tolist())
+    s, i = rec.recommend_from_history_batch([[1, 2]], k=5)
+    assert s.shape == i.shape == (1, 5)
     with pytest.raises(NotImplementedError, match="slice 6"):
         nt.Recommender(W, H, mesh=object(), device="cpu")
+    rec.save(str(tmp_path / "r"))
+    with pytest.raises(NotImplementedError, match="slice 6"):
+        nt.Recommender.load(str(tmp_path / "r"), mesh=object(),
+                            device="cpu")
 
 
 def test_bad_settings_raise():
