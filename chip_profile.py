@@ -2,7 +2,7 @@
 (nmftpu_torch) spend their time on one NVIDIA GPU.
 
     python3 chip_profile.py [--out DIR]
-                            [--cells dense,serving,sparse,slice8,foldin]
+                            [--cells dense,serving,sparse,slice8,foldin,beta]
 
 Two shapes -- 4096 x 4096 at rank 256 (bench.py's headline) and the
 ML-20M shape 138,493 x 26,744 at rank 64, with chip_smoke.py's synthetic
@@ -51,8 +51,12 @@ reservoir scan) and ``prepare_table`` per table, and on the int8 table
 ``fold_in_batch`` under MU, KL and HALS (50 iterations): host-clock ms,
 device ms by class (the reservoir, int8 numerator and sweep kernels, the
 Cholesky and triangular solves, GEMMs, gathers, everything else) and the
-idle share. --cells picks a subset of the five
-cells. Every line ends with the card's nvidia-smi name and power limit.
+idle share. Then the beta divergence at config 2's full width (cell
+"beta", chip_smoke.py's phase-20 paths): beta = 0.5 and 1.5 on the
+densified bf16 and int8, ELL and scatter engines, each profiled over a
+2-iteration run with a check at its end; ms per iteration by CUDA
+events. --cells picks a subset of the six cells. Every line ends with
+the card's nvidia-smi name and power limit.
 The profiler traces and summary.json go to --out (default: profile_out/
 beside this script). Exits 1 without a CUDA device.
 """
@@ -70,6 +74,7 @@ import numpy as np
 import torch
 
 from chip_smoke import (
+    C2_BETAS,
     C3_ALPHA,
     C3_RANK,
     CONFIG3,
@@ -94,6 +99,9 @@ CHECK_INTERVAL = 10
 # slice 8's paths are 10-400 ms an iteration: fewer iterations profiled
 S8_PROFILE_ITERS = 5
 C3_PROFILE_ITERS = 2
+# the beta cell's paths are 100-500 ms an iteration
+BETA_PROFILE_ITERS = 2
+CELLS = ("dense", "serving", "sparse", "slice8", "foldin", "beta")
 
 
 def kernel_class(name: str) -> str:
@@ -157,12 +165,12 @@ def device_summary(trace: Path, iters: int) -> dict:
 def main() -> None:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--out", default=str(HERE / "profile_out"))
-    p.add_argument("--cells", default="dense,serving,sparse,slice8,foldin",
-                   help="comma-separated subset of dense, serving, sparse, "
-                        "slice8, foldin (default: all)")
+    p.add_argument("--cells", default=",".join(CELLS),
+                   help="comma-separated subset of " + ", ".join(CELLS)
+                        + " (default: all)")
     args = p.parse_args()
     cells = set(args.cells.split(","))
-    if not cells <= {"dense", "serving", "sparse", "slice8", "foldin"}:
+    if not cells <= set(CELLS):
         fail(f"unknown cells: {sorted(cells)}")
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: no CUDA device")
@@ -260,7 +268,7 @@ def main() -> None:
 
     if "serving" in cells:
         serving_cell(nt, dev, card, out, summary)
-    if cells & {"sparse", "slice8"}:
+    if cells & {"sparse", "slice8", "beta"}:
         sparse_cells(nt, dev, card, out, summary, cells)
     if "foldin" in cells:
         foldin_cell(nt, dev, card, out, summary)
@@ -384,8 +392,9 @@ def profiled(plan, config, W, H, trace: Path, iters: int) -> dict:
 
 def sparse_cells(nt, dev, card, out, summary, cells) -> None:
     """Config 2 at full width (ELL with and without the kernel, densified
-    bf16; Frobenius and KL), then slice 8's paths: config 3 on its four
-    engines, int8 densified and masked completion at config 2's shape."""
+    bf16; Frobenius and KL), the beta divergence at config 2 on four
+    engines, then slice 8's paths: config 3 on its four engines, int8
+    densified and masked completion at config 2's shape."""
     from nmftpu_torch import densified as DF
     from nmftpu_torch import sparse_ell as SE
     from nmftpu_torch import sparse_ops as TS
@@ -469,6 +478,25 @@ def sparse_cells(nt, dev, card, out, summary, cells) -> None:
                PROFILE_ITERS, it_ms)
         del ell, dense, pair, Vd, Wp, paths
         torch.cuda.empty_cache()
+    if "beta" in cells:
+        iters = BETA_PROFILE_ITERS
+        for beta in C2_BETAS:
+            for label, strategy, knobs in (
+                    ("densified_bf16", "densified", {}),
+                    ("densified_int8", "densified", {"v_storage": "int8"}),
+                    ("ell", "ell", {}), ("scatter", "scatter", {})):
+                cfg = config(Objective.BETA, iters, iters, beta=beta,
+                             **knobs)
+                plan = nt.prepare_sparse(ratings, cfg, strategy=strategy,
+                                         device=dev)
+                op, update = plan.operand, plan._bundle(cfg).update
+                Wp = torch.nn.functional.pad(W, (0, 0, 0, plan.n_pad - n))
+                path = f"{label}_beta{beta}"
+                it_ms = abba_ms({path: lambda: update(op, (), Wp, H)}, 1)
+                report("beta_ml20m_r64", {path: (plan, cfg, W, H)}, iters,
+                       it_ms)
+                del plan, op, update, Wp
+                torch.cuda.empty_cache()
     if "slice8" not in cells:
         return
 

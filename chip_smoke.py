@@ -45,9 +45,24 @@ recommend_from_history_batch on the reservoir kernel at b = 512 and 2048;
 each solve is held against float64 within 10 kappa 2^-24, each iterative
 objective must fall, the scan's recall against the exact scan of the same
 embeddings must reach 0.999 with no history item returned; it prints the
-times. Phase 19 runs dense float32 MU under the beta divergence (beta 0,
-0.5, 1.5) at 4096 x 4096 / rank 256 through nmf: D_beta must fall at
-every iteration and one step must match float64.
+times. Phase 19 runs dense MU under the beta divergence (beta 0, 0.5,
+1.5) at 4096 x 4096 / rank 256 through nmf, V stored as float32, bfloat16
+and int8: D_beta must fall at every iteration, one float32 step must
+match float64, and the bf16 and int8 runs must end within a limit
+derived from V's storage rounding of the float32 run's D_beta. The
+native host library (native/build/libnmftpu_io.so, built with make in
+phase 2 beside the kernels) builds every CSR and ELL layout from phase 10
+on; phase 20 holds its CSR and ELL builds equal to numpy's at config 3
+(in phase 16, whose ELL build must count two native calls) and config 2,
+prints both paths' host seconds, and parses both MovieLens fixtures with
+the native and the numpy parser. It then runs beta MU (beta 0.5, 1.5) at
+config 2's full width on the densified bf16 (auto's choice), densified
+int8, ELL and scatter engines, and ELL on the int8-dequantized ratings,
+4 iterations each: D_beta must fall at every iteration, one step must
+match a float64 recomputation on 64 rows and 64 columns (ELL, scatter
+1e-4; densified within its derived bf16 bound), ELL and scatter must
+agree, and the densified runs' D_beta must agree with ELL's; it prints
+ms per iteration and peak memory, and checks auto's engine under beta.
 Every phase prints its results; any failure exits non-zero, as does a
 kernel timed below its bound. Without a CUDA device it exits 1 and runs
 nothing.
@@ -65,6 +80,7 @@ import subprocess
 import sys
 import time
 import warnings
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -195,6 +211,30 @@ BETAS = (0.0, 0.5, 1.5)
 BETA_SHAPE = (4096, 4096, 256)
 BETA_ITERS = 10
 BETA_STEP_RTOL = 1e-4
+# phase 19, bf16 and int8 V: the final D_beta against the float32 run's.
+# The stored V' differs from V by up to 2^-9 |v| (bf16) or scale / 2
+# (int8); at fixed factors that moves D_beta by at most
+# sum |d d_beta / dv| |v' - v|, d d_beta / dv = (v^(b-1) - wh^(b-1)) / (b-1)
+# (1/wh - 1/v at b = 0), computed in float64 at the float32 run's final
+# factors; the densified update's bf16 roundings of W and H (in WH, raised
+# to b - 2 and b - 1), of (WH)^(b-2) V and (WH)^(b-1), and of the partner
+# factor move one step's ratio by at most (2|b - 2| + 2|b - 1| + 4) 2^-9.
+# The limit is the sum of the two, relative to D_beta, printed beside it.
+
+# phase 20: beta MU at BASELINE config 2's full width (the ratings of
+# phases 10-12, rank 64) on four engines, 4 iterations each
+C2_BETAS = (0.5, 1.5)
+C2_BETA_ITERS = 4
+# one step against a float64 recomputation on 64 rows and 64 columns (the
+# most popular user and item included), largest relative error of an
+# entry. ELL and scatter: float32 sums in another order and float32
+# powers (|b - 2| ulps of WH's rounding), ~1e-6; 1e-4 leaves 100x.
+# Densified: its bound is C2_BF16_STEP(beta), derived in the function
+C2_STEP_RTOL = 1e-4
+# after C2_BETA_ITERS: ELL against scatter (W, H); densified bf16 against
+# ELL and densified int8 against ELL on the dequantized ratings (D_beta):
+# as phase 16's C3_ENGINES_RTOL and C3_OBJECTIVE_RTOL
+C2_ENGINES_RTOL = 1e-3
 
 # the card's peaks (NVIDIA's H100 SXM data sheet, dense): float32 on the
 # CUDA cores, bf16 and int8 on the tensor cores, HBM bandwidth
@@ -1089,10 +1129,16 @@ def slice4a_phases(nt, card, dev, V, W0, H0, Vq, scale, plain_ms) -> dict:
         check_int8(DN, label, Vqc, D.quantize_sym_t(Wc)[1],
                    D.quantize_sym(Hc)[1])
     # #6 at the ML-20M shape, where reading V (3.70 GB) once pays: the
-    # kernels, the float64 twins, and torch._int_mm for V Hqᵀ (Wqᵀ V's
-    # contraction, n = 138,493, is not a multiple of 8, which _int_mm needs)
+    # kernels, the float64 twins, and torch._int_mm (timed only) for V Hqᵀ
+    # and for Wqᵀ V, whose contraction n = 138,493 is not a multiple of 8,
+    # which _int_mm needs: there V and Wqᵀ get zero rows (columns) up to
+    # n = 138,496, the copies made outside the timing, and _int_mm takes
+    # Vᵀ (m, n) row-major and Wq (n, r) column-major, as at 4096^2
     WqT5, Hq5 = D.quantize_sym_t(W5)[1], D.quantize_sym(H5)[1]
     del W5, H5, ragged
+    pad8 = -n5 % 8
+    VqT5p = torch.nn.functional.pad(Vq5, (0, 0, 0, pad8)).T.contiguous()
+    WqT5p = torch.nn.functional.pad(WqT5, (0, pad8))
     ml_ms = abba_ms({
         "dual_numerators_int8": lambda: DN.dual_int8(Vq5, WqT5, Hq5),
         "dual_numerators_int8_plain": lambda: DN.dual_int8_plain(
@@ -1102,7 +1148,11 @@ def slice4a_phases(nt, card, dev, V, W0, H0, Vq, scale, plain_ms) -> dict:
         "vht_int8_library": lambda: torch._int_mm(Vq5, Hq5.t()),
         "wtv_int8": lambda: DN.wtv_int8(Vq5, WqT5),
         "wtv_int8_plain": lambda: DN.wtv_int8_plain(Vq5, WqT5),
+        "wtv_int8_library": lambda: torch._int_mm(VqT5p, WqT5p.t()),
     }, iters=3)
+    del VqT5p, WqT5p
+    ml_ms["dual_numerators_int8_library"] = (ml_ms["vht_int8_library"]
+                                             + ml_ms["wtv_int8_library"])
     ml_bounds = {
         "dual_numerators_int8": bound(4 * n5 * m5 * r5,
                                       n5 * m5 + 5 * r5 * (n5 + m5),
@@ -1115,8 +1165,9 @@ def slice4a_phases(nt, card, dev, V, W0, H0, Vq, scale, plain_ms) -> dict:
     for name, (b_ms, b_by) in ml_bounds.items():
         say("13 kernel timing", kernel=name, shape=f"{n5}x{m5} r={r5}",
             ms=f"{ml_ms[name]:.4f}", plain_ms=f"{ml_ms[name + '_plain']:.4f}",
-            library_ms=(f"{ml_ms['vht_int8_library']:.4f}"
-                        if name == "vht_int8" else None),
+            library_ms=f"{ml_ms[name + '_library']:.4f}",
+            **({"library": f"_int_mm, n padded to {n5 + pad8}"}
+               if name != "vht_int8" else {}),
             bound_ms=f"{b_ms:.4f}", bound_by=b_by, card=card)
     del WqT5, Hq5
     for label, shape in (("4096x4096", (4096, 4096)),
@@ -1415,6 +1466,7 @@ def slice8_phases(nt, card, dev, ratings) -> dict:
     Returns phase 17's launches of the one-sided entries and their
     largest difference from the exact product."""
     from nmftpu_torch import densified as DF
+    from nmftpu_torch import native_loader as NL
     from nmftpu_torch import sparse_ell as SE
     from nmftpu_torch import sparse_ops as TS
     from nmftpu_torch.config import Initialization, NmfConfig, Objective
@@ -1426,14 +1478,15 @@ def slice8_phases(nt, card, dev, ratings) -> dict:
     t0 = time.perf_counter()
     sp3 = synthetic_powerlaw_sparse(rank=16, **CONFIG3)
     sp3.data[:] = 1.0
-    csr = sp3.to_csr()
+    make_s = time.perf_counter() - t0
+    # phase 20 (a) at config 3: native CSR and ELL against numpy's
+    csr = native_build_check("config 3", sp3, card)
     csc = sp3.T.to_csr()
     del sp3
     n, m = csr.shape
     nnz, r, alpha = csr.nnz, C3_RANK, C3_ALPHA
     say("16 data", shape=f"{n}x{m}", requested_nnz=CONFIG3["nnz"], nnz=nnz,
-        rank=r, alpha_confidence=alpha,
-        make_s=f"{time.perf_counter() - t0:.2f}")
+        rank=r, alpha_confidence=alpha, make_s=f"{make_s:.2f}")
     gen = torch.Generator(device=dev).manual_seed(SEED + 16)
     # W0/H0 drawn as the random init draws them: (u + 1e-4) sqrt(mean V / r)
     scale = (nnz / (n * m) / r) ** 0.5
@@ -1466,6 +1519,7 @@ def slice8_phases(nt, card, dev, ratings) -> dict:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         base = torch.cuda.memory_allocated()
+        ell_builds = NL.CALLS["ell_build"]
         t0 = time.perf_counter()
         plan = nt.prepare_sparse(csr, cfg(1, **knobs), strategy=strategy,
                                  device=dev)
@@ -1474,6 +1528,10 @@ def slice8_phases(nt, card, dev, ratings) -> dict:
         if strategy == "auto" and plan.strategy != "densified":
             fail(f"config 3: strategy='auto' resolved to {plan.strategy!r}, "
                  "not 'densified'")
+        native_ell = NL.CALLS["ell_build"] - ell_builds
+        if strategy == "ell" and native_ell != 2:
+            fail(f"config 3: the ELL build made {native_ell} native "
+                 "ell_build calls, not 2 (V and its transpose)")
         one = plan.run(cfg(1, **knobs), W0=W0, H0=H0)
         step = weighted_step_error(Vr, Vc, rows, cols, W0, H0, one.W, one.H,
                                    alpha)
@@ -1497,8 +1555,8 @@ def slice8_phases(nt, card, dev, ratings) -> dict:
         say("16 config 3", engine=label, strategy=plan.strategy,
             iterations=C3_ITERS, ms_per_iter=f"{it_ms:.3f}",
             loop_ms_per_iter_with_checks=f"{loop_ms:.3f}",
-            prepare_s=f"{prep_s:.2f}", peak_GiB=f"{peak:.2f}",
-            nm_float32_GiB=f"{4 * n * m / 2**30:.2f}",
+            prepare_s=f"{prep_s:.2f}", native_ell_builds=native_ell,
+            peak_GiB=f"{peak:.2f}", nm_float32_GiB=f"{4 * n * m / 2**30:.2f}",
             objective=[f"{obj0:.9g}", f"{obj1:.9g}", f"{objn:.9g}"],
             one_step_vs_float64=f"{step:.3e}", rtol=C3_STEP_RTOL[kind],
             finite=finite, card=card)
@@ -1938,44 +1996,336 @@ def cold_user_phase(nt, card, dev, recs, max_abs) -> dict:
     return launches
 
 
+def beta_storage_limit(D, V, Vs, W, H, beta) -> float:
+    """The limit on |D_beta(bf16 or int8 run) / D_beta(float32 run) - 1|
+    (see BETA_STEP_RTOL's note): sum |d d_beta / dv| |v' - v| / D_beta at
+    the float32 run's final factors (W, H), in float64, for the stored V'
+    (Vs, dequantized), plus one step's ratio rounding."""
+    V64 = V.double()
+    WH = (W.double() @ H.double()).clamp_min(1e-12)
+    if beta == 0.0:
+        grad = 1.0 / WH - 1.0 / V64
+    else:
+        grad = (V64 ** (beta - 1.0) - WH ** (beta - 1.0)) / (beta - 1.0)
+    first = float((grad.abs() * (Vs.double() - V64).abs()).sum())
+    del grad, WH
+    div = float(D.beta_divergence(V64, W.double(), H.double(), beta))
+    return (first / div
+            + (2 * abs(beta - 2) + 2 * abs(beta - 1) + 4) * 2.0 ** -9)
+
+
 def beta_phase(nt, D, card, dev) -> None:
-    """Phase 19: dense float32 MU under the beta divergence at 4096^2 /
-    r = 256 through nmf, one iteration a call from the previous call's
-    factors: D_beta (the result's kl_error) falls at each step, the first
-    step matches a float64 recomputation, and ms per iteration."""
+    """Phase 19: dense MU under the beta divergence at 4096^2 / r = 256
+    through nmf, V stored as float32, bfloat16 and int8 (the densified
+    row-panel update), one iteration a call from the previous call's
+    factors: D_beta (the result's kl_error, on the float32 V) falls at
+    each step, the first float32 step matches a float64 recomputation,
+    the bf16 and int8 runs end within their derived limit of the float32
+    run's D_beta; ms per iteration."""
+    from nmftpu_torch import densified as DF
+    from nmftpu_torch.kernels import quantized as Q
+
     n, m, r = BETA_SHAPE
     gen = torch.Generator(device=dev).manual_seed(SEED + 19)
     V = synthetic_lowrank(n, m, r, gen, dev)
     W0 = torch.rand(n, r, generator=gen, device=dev) + 0.01
     H0 = torch.rand(r, m, generator=gen, device=dev) + 0.01
+    Vb = V.to(torch.bfloat16)
+    Vq, vscale = Q.quantize_v(V)
+    stored = {"bfloat16": Vb.float(), "int8": Vq.float() * vscale}
+    updates = {
+        "float32": lambda W, H, b: D.mu_update_beta(V, W, H, b),
+        "bfloat16": lambda W, H, b: DF.mu_update_beta_densified(Vb, W, H, b),
+        "int8": lambda W, H, b: DF.mu_update_beta_densified(
+            Vq, W, H, b, scale=vscale)}
     for beta in BETAS:
-        W, H = W0, H0
-        divs = [float(D.beta_divergence(V, W, H, beta))]
-        for it in range(BETA_ITERS):
-            res = nt.nmf(V, r, objective="beta-divergence", beta=beta,
-                         init="copy", W0=W, H0=H, num_iterations=1,
-                         device=dev)
-            if it == 0:
-                W64, H64 = D.mu_update_beta(V.double(), W0.double(),
-                                            H0.double(), beta)
-                dw = float((res.W.double() - W64).abs().max()
-                           / W64.abs().max())
-                dh = float((res.H.double() - H64).abs().max()
-                           / H64.abs().max())
-                del W64, H64
-            W, H = res.W, res.H
-            divs.append(res.kl_error)
-        ms = cuda_ms(lambda: D.mu_update_beta(V, W, H, beta), iters=10)
-        falls = all(b < a for a, b in zip(divs[:-1], divs[1:]))
-        say("19 beta MU", beta=beta, shape=f"{n}x{m}", rank=r,
-            divergence=[f"{d:.8g}" for d in divs], falls=falls,
-            step_W_rel=f"{dw:.3e}", step_H_rel=f"{dh:.3e}",
-            rtol=BETA_STEP_RTOL, ms_per_iter=f"{ms:.4f}", card=card)
-        if not falls:
-            fail(f"beta={beta}: D_beta did not fall every iteration: {divs}")
-        if not (dw <= BETA_STEP_RTOL and dh <= BETA_STEP_RTOL):
-            fail(f"beta={beta}: one step differs from float64 (W {dw:.3e}, "
-                 f"H {dh:.3e})")
+        final = {}
+        for storage, update in updates.items():
+            W, H = W0, H0
+            divs = [float(D.beta_divergence(V, W, H, beta))]
+            for it in range(BETA_ITERS):
+                res = nt.nmf(V, r, objective="beta-divergence", beta=beta,
+                             v_storage=storage, init="copy", W0=W, H0=H,
+                             num_iterations=1, device=dev)
+                if it == 0 and storage == "float32":
+                    W64, H64 = D.mu_update_beta(V.double(), W0.double(),
+                                                H0.double(), beta)
+                    dw = float((res.W.double() - W64).abs().max()
+                               / W64.abs().max())
+                    dh = float((res.H.double() - H64).abs().max()
+                               / H64.abs().max())
+                    del W64, H64
+                W, H = res.W, res.H
+                divs.append(res.kl_error)
+            ms = cuda_ms(lambda: update(W, H, beta), iters=10)
+            falls = all(b < a for a, b in zip(divs[:-1], divs[1:]))
+            final[storage] = (divs[-1], W, H)
+            if storage == "float32":
+                checks = dict(step_W_rel=f"{dw:.3e}", step_H_rel=f"{dh:.3e}",
+                              rtol=BETA_STEP_RTOL)
+            else:
+                d32, W32, H32 = final["float32"]
+                diff = abs(divs[-1] / d32 - 1)
+                limit = beta_storage_limit(D, V, stored[storage], W32, H32,
+                                           beta)
+                checks = dict(vs_float32=f"{diff:.3e}", limit=f"{limit:.3e}")
+            say("19 beta MU", beta=beta, v_storage=storage, shape=f"{n}x{m}",
+                rank=r, divergence=[f"{d:.8g}" for d in divs], falls=falls,
+                **checks, ms_per_iter=f"{ms:.4f}", card=card)
+            if not falls:
+                fail(f"beta={beta} {storage}: D_beta did not fall every "
+                     f"iteration: {divs}")
+            if storage == "float32" and not (dw <= BETA_STEP_RTOL
+                                             and dh <= BETA_STEP_RTOL):
+                fail(f"beta={beta}: one step differs from float64 (W "
+                     f"{dw:.3e}, H {dh:.3e})")
+            if storage != "float32" and not diff <= limit:
+                fail(f"beta={beta} {storage}: D_beta {divs[-1]} is "
+                     f"{diff:.3e} from the float32 run's (> {limit:.3e})")
+    del V, Vb, Vq, stored, updates, final
+    torch.cuda.empty_cache()
+
+
+def native_build_check(label, coo, card):
+    """Phase 20 (a) on one matrix: its CSR (from the COO `coo`) and its
+    ELL pair, each built by the native library and by numpy, must be
+    equal array for array; host seconds of both. Returns the native
+    CSR."""
+    import os
+
+    from nmftpu_torch import native_loader as NL
+    from nmftpu_torch import sparse_ell as SE
+
+    def timed(fn, native):
+        if native:
+            os.environ.pop("NMFTPU_NATIVE_CSR", None)
+        else:
+            os.environ["NMFTPU_NATIVE_CSR"] = "0"
+        try:
+            t0 = time.perf_counter()
+            return fn(), time.perf_counter() - t0
+        finally:
+            os.environ.pop("NMFTPU_NATIVE_CSR", None)
+
+    calls = dict(NL.CALLS)
+    csr, csr_native_s = timed(coo.to_csr, True)
+    ref, csr_numpy_s = timed(coo.to_csr, False)
+    if NL.CALLS["csr_build"] != calls["csr_build"] + 1:
+        fail(f"{label}: the CSR build did not take the native path")
+    for f in ("indptr", "indices", "data"):
+        if not np.array_equal(getattr(csr, f), getattr(ref, f)):
+            fail(f"{label}: native and numpy CSR differ in {f}")
+    del ref
+    calls = dict(NL.CALLS)
+    pair, ell_native_s = timed(lambda: SE.build_ell_pair(csr, device="cpu"),
+                               True)
+    ref, ell_numpy_s = timed(lambda: SE.build_ell_pair(csr, device="cpu"),
+                             False)
+    if NL.CALLS["ell_build"] != calls["ell_build"] + 2:
+        fail(f"{label}: the ELL build did not take the native path")
+    buckets = 0
+    for a, b in ((pair.rows, ref.rows), (pair.cols, ref.cols)):
+        if len(a.buckets) != len(b.buckets):
+            fail(f"{label}: native and numpy ELL differ in bucket count")
+        for x, y in zip(a.buckets, b.buckets):
+            buckets += 1
+            if x.width != y.width or not all(
+                    torch.equal(getattr(x, f), getattr(y, f))
+                    for f in ("vals", "cols", "out_row")):
+                fail(f"{label}: native and numpy ELL differ (bucket of "
+                     f"width {y.width})")
+    say("20 native", data=label, shape=f"{csr.shape[0]}x{csr.shape[1]}",
+        nnz=csr.nnz, equal=True, ell_buckets=buckets,
+        csr_native_s=f"{csr_native_s:.3f}", csr_numpy_s=f"{csr_numpy_s:.3f}",
+        ell_pair_native_s=f"{ell_native_s:.3f}",
+        ell_pair_numpy_s=f"{ell_numpy_s:.3f}", card=card)
+    return csr
+
+
+def native_parse_check(card) -> None:
+    """Phase 20 (a): both MovieLens fixtures through the native and the
+    numpy parser: equal matrices and id maps."""
+    from nmftpu_torch.data import load_movielens
+
+    for name in ("ml100k_u.data", "ml20m_ratings.csv"):
+        path = str(HERE / "tests" / "fixtures" / name)
+        nat = load_movielens(path, use_native=True)
+        py = load_movielens(path, use_native=False)
+        same = (nat.matrix.shape == py.matrix.shape
+                and np.array_equal(nat.matrix.todense(), py.matrix.todense())
+                and np.array_equal(nat.user_ids, py.user_ids)
+                and np.array_equal(nat.item_ids, py.item_ids))
+        say("20 native", fixture=name, shape=nat.matrix.shape,
+            nnz=nat.matrix.nnz, native_equals_numpy=same, card=card)
+        if not same:
+            fail(f"{name}: the native and numpy parsers differ")
+
+
+def beta_step_error(D, Vr, Vc, rows, cols, W0, H0, W1, H1, beta) -> float:
+    """One beta MU step ("WH" order) recomputed in float64: the W
+    half-step on rows `rows` (dense Vr) from (W0, H0), which needs only
+    W_R H; the H half-step on columns `cols` (dense Vc, n x len(cols))
+    from the engine's (W1, H0), which needs only W1 H_C. Returns the
+    largest relative error of an entry of the two samples."""
+    gamma = D.beta_gamma(beta)
+
+    def stab(X):
+        return torch.where(X < D._STAB_EPS, 0.0, X) if beta < 1.0 else X
+
+    want_w = stab(D.beta_w_step(Vr, W0[rows].double(), H0.double(), beta,
+                                gamma=gamma))
+    want_h = stab(D.beta_h_step(Vc, W1.double(), H0[:, cols].double(), beta,
+                                gamma=gamma))
+    return max(rel_err(W1[rows], want_w)[1], rel_err(H1[:, cols], want_h)[1])
+
+
+def beta_engines_phase(nt, card, dev, ratings) -> None:
+    """Phase 20: the native host layer at config 2 (config 3's is checked
+    in phase 16) and the fixtures; beta MU at config 2's full width on the
+    densified bf16 (auto), densified int8, ELL and scatter engines, and
+    ELL on the int8-dequantized ratings, 4 iterations each: D_beta (each
+    engine's own) falls, one step matches float64 on a row and a column
+    sample, the engines agree; ms per iteration and peak memory; auto's
+    choice of engine under beta."""
+    from nmftpu_torch import sparse as host_sparse
+    from nmftpu_torch import sparse_ops as TS
+    from nmftpu_torch.config import Initialization, NmfConfig, Objective
+    from nmftpu_torch.linalg import dense as D
+
+    # -- (a) the native layer at config 2, the fixtures ----------------------
+    native_build_check("config 2", ratings.to_coo(), card)
+    native_parse_check(card)
+
+    # -- (d) auto's engine under beta -----------------------------------------
+    n, m = ratings.shape
+    r = SPARSE_RANK
+
+    def cfg(beta, iters=1, **knobs):
+        return NmfConfig(rank=r, objective=Objective.BETA, beta=beta,
+                         init_method=Initialization.COPY_EXISTING,
+                         num_iterations=iters, check_interval=iters,
+                         **knobs)
+
+    resolved = {
+        "float64": TS._resolve_strategy(None, cfg(0.5, dtype="float64"),
+                                        "auto", n, m),
+        "config 2 float32": TS._resolve_strategy(None, cfg(0.5), "auto", n,
+                                                 m),
+        "10^6 x 10^6": TS._resolve_strategy(None, cfg(0.5), "auto", 10**6,
+                                            10**6)}
+    say("20 auto", resolved=resolved)
+    if resolved != {"float64": "scatter", "config 2 float32": "densified",
+                    "10^6 x 10^6": "ell"}:
+        fail(f"auto under beta resolved {resolved}")
+
+    # -- (c) config 2 on four engines ----------------------------------------
+    gen = torch.Generator(device=dev).manual_seed(SEED + 20)
+    scale = (float(ratings.data.sum(dtype=np.float64)) / (n * m) / r) ** 0.5
+    W0 = (torch.rand(n, r, generator=gen, device=dev) + 1e-4) * scale
+    H0 = (torch.rand(r, m, generator=gen, device=dev) + 1e-4) * scale
+    csc = ratings.T.to_csr()
+    rng = np.random.default_rng(SEED + 20)
+    top_user = int(np.argmax(np.diff(ratings.indptr)))
+    top_item = int(np.argmax(np.diff(csc.indptr)))
+    rows = np.concatenate([[top_user], rng.choice(
+        np.setdiff1d(np.arange(n), [top_user]), 63, replace=False)])
+    cols = np.concatenate([[top_item], rng.choice(
+        np.setdiff1d(np.arange(m), [top_item]), 63, replace=False)])
+    lines = (dense_lines(ratings, rows, dev), dense_lines(csc, cols, dev).T)
+    del csc
+
+    for beta in C2_BETAS:
+        gamma = D.beta_gamma(beta)
+        # densified: bf16 rounds W and H inside WH (2^-8 on the sum of
+        # positive products, raised to b - 2 and b - 1), then (WH)^(b-2) V
+        # and (WH)^(b-1), then the partner factor: the numerator's and
+        # the denominator's sums of positive terms are off by at most
+        # (2|b - 2| + 2) 2^-9 and (2|b - 1| + 2) 2^-9, the ratio by their
+        # sum, raised to gamma
+        bf16_step = gamma * (2 * abs(beta - 2) + 2 * abs(beta - 1)
+                             + 4) * 2.0 ** -9
+        runs = {"densified bf16 (auto)": (ratings, "auto", {}, bf16_step),
+                "densified int8": (ratings, "densified",
+                                   {"v_storage": "int8"}, bf16_step),
+                "ell": (ratings, "ell", {}, C2_STEP_RTOL),
+                "scatter": (ratings, "scatter", {}, C2_STEP_RTOL)}
+        final = {}
+        for label in list(runs) + ["ell dequantized"]:
+            if label == "ell dequantized":
+                # the int8 run's ratings, scale * round(v / scale) in
+                # float32 as densify_quantized rounds them
+                s32 = np.float32(float(vscale))
+                deq = (np.clip(np.round(ratings.data / s32), -127, 127)
+                       * s32).astype(np.float32)
+                runs[label] = (host_sparse.SparseCSR(
+                    ratings.indptr, ratings.indices, deq, ratings.shape),
+                    "ell", {}, C2_STEP_RTOL)
+            src, strategy, knobs, step_rtol = runs[label]
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            t0 = time.perf_counter()
+            plan = nt.prepare_sparse(src, cfg(beta, **knobs),
+                                     strategy=strategy, device=dev)
+            torch.cuda.synchronize()
+            prep_s = time.perf_counter() - t0
+            if strategy == "auto" and plan.strategy != "densified":
+                fail(f"config 2 beta: strategy='auto' resolved to "
+                     f"{plan.strategy!r}, not 'densified'")
+            op, bundle = plan.operand, plan._bundle(cfg(beta, **knobs))
+            Wp = torch.nn.functional.pad(W0, (0, 0, 0, plan.n_pad - n))
+            Vr, Vc = lines
+            if label in ("densified int8", "ell dequantized"):
+                if label == "densified int8":
+                    vscale = op[1]
+                Vr, Vc = ((torch.round(x.float() / vscale).clamp(-127, 127)
+                           * vscale).double() for x in lines)
+            divs = [float(bundle.kl(op, (), Wp, H0))]
+            W, H = W0, H0
+            for it in range(C2_BETA_ITERS):
+                res = plan.run(cfg(beta, **knobs), W0=W, H0=H)
+                if it == 0:
+                    step = beta_step_error(D, Vr, Vc, rows, cols, W0, H0,
+                                           res.W, res.H, beta)
+                W, H = res.W, res.H
+                divs.append(res.kl_error)
+            ms = event_ms(lambda: bundle.update(op, (), Wp, H0), 1)
+            peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+            falls = all(b < a for a, b in zip(divs[:-1], divs[1:]))
+            finite = bool(torch.isfinite(W).all() and torch.isfinite(H).all())
+            say("20 config 2 beta", beta=beta, engine=label,
+                strategy=plan.strategy, iterations=C2_BETA_ITERS,
+                divergence=[f"{d:.9g}" for d in divs], falls=falls,
+                one_step_vs_float64=f"{step:.3e}", rtol=f"{step_rtol:.3e}",
+                ms_per_iter=f"{ms:.3f}", prepare_s=f"{prep_s:.2f}",
+                peak_GiB=f"{peak:.2f}", finite=finite, card=card)
+            if not (finite and falls):
+                fail(f"config 2 beta={beta} {label}: D_beta did not fall at "
+                     f"every iteration, or the factors are not finite: "
+                     f"{divs}")
+            if not step <= step_rtol:
+                fail(f"config 2 beta={beta} {label}: one step is "
+                     f"{step:.3e} from float64 (> {step_rtol:.3e})")
+            final[label] = (W, H, divs[-1])
+            del plan, op, bundle, Wp, res
+            torch.cuda.empty_cache()
+        (We, He, d_ell), (Ws, Hs, _) = final["ell"], final["scatter"]
+        dw = float((We - Ws).abs().max() / Ws.abs().max())
+        dh = float((He - Hs).abs().max() / Hs.abs().max())
+        d_bf16 = abs(final["densified bf16 (auto)"][2] / d_ell - 1)
+        d_int8 = abs(final["densified int8"][2]
+                     / final["ell dequantized"][2] - 1)
+        say("20 checks", beta=beta, ell_vs_scatter_W=f"{dw:.3e}",
+            ell_vs_scatter_H=f"{dh:.3e}",
+            densified_bf16_vs_ell_divergence=f"{d_bf16:.3e}",
+            densified_int8_vs_ell_dequantized_divergence=f"{d_int8:.3e}",
+            rtol=C2_ENGINES_RTOL)
+        if not max(dw, dh, d_bf16, d_int8) <= C2_ENGINES_RTOL:
+            fail(f"config 2 beta={beta}: the engines differ (W {dw:.3e}, H "
+                 f"{dh:.3e}, bf16 {d_bf16:.3e}, int8 {d_int8:.3e})")
+        del final, We, He, Ws, Hs
+    del lines, W0, H0
+    torch.cuda.empty_cache()
 
 
 def main() -> None:
@@ -1986,6 +2336,7 @@ def main() -> None:
     sys.path.insert(0, str(HERE))
 
     import nmftpu_torch as nt
+    from nmftpu_torch import native_loader as NL
     from nmftpu_torch.kernels import _build
     from nmftpu_torch.kernels import count_above as CA
     from nmftpu_torch.kernels import dense_mu as K
@@ -2009,14 +2360,22 @@ def main() -> None:
         cudnn_allow_tf32=torch.backends.cudnn.allow_tf32)
 
     # -- 2. build ----------------------------------------------------------
+    # the kernels (nvcc) and, beside them, the native host library (g++),
+    # which the sparse phases' CSR and ELL builds then go through
     t0 = time.perf_counter()
-    lib_path = _build.build()
+    with ThreadPoolExecutor(1) as pool:
+        native = pool.submit(NL.build)
+        lib_path = _build.build()
+        if not (native.result() and NL.has_csr_build()
+                and NL.has_ell_build()):
+            fail(f"{NL.library_path()} did not build or load (make -C "
+                 "native build/libnmftpu_io.so CXX=g++)")
     secs = time.perf_counter() - t0
     _build.load()
     ptxas = [ln.strip() for ln in lib_path.with_suffix(".so.log")
              .read_text().splitlines() if "registers" in ln]
     say("2 build", library=lib_path.name, seconds=f"{secs:.2f}",
-        ptxas=" | ".join(ptxas))
+        native_library=NL.library_path(), ptxas=" | ".join(ptxas))
     check_tensor_cores(lib_path)
 
     # -- 3. each kernel against its plain twin -------------------------------
@@ -2390,7 +2749,7 @@ def main() -> None:
     del recs
     torch.cuda.empty_cache()
 
-    # -- 19. dense float32 beta MU at 4096^2, r = 256 -------------------------
+    # -- 19. dense beta MU at 4096^2, r = 256 (float32, bf16, int8 V) ---------
     beta_phase(nt, D, card, dev)
 
     # -- 10-12. sparse V at config 2's full width (ELL, densified) ----------
@@ -2411,6 +2770,10 @@ def main() -> None:
     # -- 16-17. slice 8: config 3 on every engine, int8 densified, masked ---
     torch.cuda.empty_cache()
     s8 = slice8_phases(nt, card, dev, ratings)
+
+    # -- 20. the native host layer; beta MU at config 2 on every engine -----
+    torch.cuda.empty_cache()
+    beta_engines_phase(nt, card, dev, ratings)
     del ratings
     # #6's one-sided entries: phase 15's launches and phase 17's
     for name, count in s8["launches"].items():

@@ -1,5 +1,5 @@
 """Dispatch an NmfConfig to concrete update-step callables (port of the
-MU (Frobenius, KL, float32 beta divergence) and HALS branches of
+MU (Frobenius, KL, beta divergence) and HALS branches of
 ``nmftpu/algorithms/registry.py``).
 
 `build_dense_update(config)` returns a triple:
@@ -29,6 +29,9 @@ mu_style="jacobi", else update_order):
                                           (int8: with the scale)
   KL                                   -> linalg.dense.mu_update_kl
   beta divergence, v_storage="float32" -> linalg.dense.mu_update_beta
+  beta divergence, "int8" or "bfloat16"
+                                       -> densified.mu_update_beta_densified
+                                          (int8: with the scale)
 
 Confidence weighting (alpha_confidence > 0, MU under Frobenius) comes
 first: float32 V -> linalg.dense.mu_update_frobenius_weighted with
@@ -104,16 +107,21 @@ def build_dense_update(config: NmfConfig):
     order = _jacobi_order(config)
     if config.objective is Objective.BETA:
         # config validation keeps beta to MU, without jacobi or weighting
-        if config.v_storage != "float32":
-            _unported("objective='beta-divergence' with "
-                      f"v_storage={config.v_storage!r}",
-                      "queue 1 item 1, slice 3b")
         beta = config.beta
+        if config.v_storage == "float32":
+            def update(V, aux, W, H):
+                return D.mu_update_beta(V, W, H, beta, eps=eps, order=order)
+
+            return (lambda V: ()), update, effective_h
+        # bf16 or int8 V: the densified row-panel update; int8's scale
+        # folds into the numerators after the contraction
+        from nmftpu_torch import densified as DF
 
         def update(V, aux, W, H):
-            return D.mu_update_beta(V, W, H, beta, eps=eps, order=order)
+            return DF.mu_update_beta_densified(aux[0], W, H, beta, eps=eps,
+                                               order=order, scale=aux[1])
 
-        return (lambda V: ()), update, effective_h
+        return _low_precision_v(config.v_storage), update, effective_h
     kl = config.objective is Objective.KL
 
     if config.alpha_confidence > 0.0 and config.v_storage == "float32":

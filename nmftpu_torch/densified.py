@@ -1,5 +1,6 @@
-"""Densified sparse strategy (port of the MU Frobenius/KL and weighted
-subset of ``nmftpu/densified.py``, bf16 and int8 storage).
+"""Densified sparse strategy (port of the MU Frobenius, KL, weighted and
+beta-divergence subset of ``nmftpu/densified.py``, bf16 and int8
+storage).
 
 Whenever the interaction matrix fits device memory as bfloat16 (ML-20M
 is 7.4 GB) or int8, the nonzeros are scattered into a dense V ONCE and
@@ -16,7 +17,8 @@ the rounded operands are upcast and multiplied in float32, where each
 product of two bf16 values is exact (``linalg.dense._bf16_dot``).
 
 int8 storage (`densify_quantized`): V ~= scale · Vq with one symmetric
-scale. The KL numerators fold the scale in after the contraction; the
+scale. The KL and beta numerators fold the scale in after the
+contraction; the
 weighted update applies it per panel before the confidence; the
 Frobenius MU runs on ``linalg.dense.mu_update_frobenius_int8x8`` (the
 int8 kernels' one-sided entries on the card).
@@ -29,9 +31,11 @@ import torch
 from nmftpu_torch.linalg.dense import (
     _apply_order,
     _bf16_dot,
+    _beta_powers,
     _jacobi_kl_scale,
+    beta_gamma,
 )
-from nmftpu_torch.sparse_ops import DeviceCOO, _chunks
+from nmftpu_torch.sparse_ops import DeviceCOO, _beta_apply, _chunks, _panels
 
 
 def densify(coo: DeviceCOO, dtype=torch.bfloat16,
@@ -72,11 +76,6 @@ def densify_quantized(coo: DeviceCOO, row_multiple: int = 1,
                         clip).to(torch.int8)
         flat.index_add_(0, rr.long() * m + cc, q)
     return acc, scale
-
-
-def _panels(n: int, block_rows: int):
-    """(start, stop) of the row panels, the last one possibly shorter."""
-    return ((s, min(s + block_rows, n)) for s in range(0, n, block_rows))
 
 
 def _kl_numer_w_blocked(Vd, Q, P, eps, block_rows, scale=None):
@@ -140,6 +139,95 @@ def mu_update_kl_densified(Vd, W, H, eps=1e-9, order="WH", block_rows=4096,
         return (W * (numer_w / h_sum[None, :]) * inv_a,
                 H * (numer_h / w_sum[:, None]) * inv_a)
     return _apply_order(upd_w, upd_h, W, H, order)
+
+
+def _beta_terms_w_blocked(Vd, W, H, beta, eps, block_rows, scale=None):
+    """Blockwise numer = ((WH)^(β-2) ⊙ V) Hᵀ and denom = (WH)^(β-1) Hᵀ,
+    both (n, r), for the beta-MU W half-step: one pass over V, WH = W_blk
+    H (bf16 operands, float32 sums) and its powers at panel size only;
+    the two weighted panels round to bf16 in their contractions, as in
+    ``nmftpu``. `scale` (int8 storage, V = scale · Vd): the power
+    multiplies the stored int8 value and the scalar multiplies the
+    numerator after the contraction (V enters it linearly). `eps` is
+    unused (the guards are `_beta_powers`' EPSILON clamps)."""
+    n = Vd.shape[0]
+    Ht = H.T.to(torch.bfloat16)
+    numer = torch.empty((n, W.shape[1]), dtype=torch.float32,
+                        device=Vd.device)
+    denom = torch.empty_like(numer)
+    for s, e in _panels(n, block_rows):
+        pwr_n, pwr_d = _beta_powers(_bf16_dot(W[s:e], H), beta)
+        pwr_n *= Vd[s:e]
+        numer[s:e] = _bf16_dot(pwr_n, Ht)
+        del pwr_n
+        denom[s:e] = _bf16_dot(pwr_d, Ht)
+    return (numer if scale is None else numer * scale), denom
+
+
+def _beta_terms_h_blocked(Vd, W, H, beta, eps, block_rows, scale=None):
+    """Blockwise numer = Wᵀ ((WH)^(β-2) ⊙ V) and denom = Wᵀ (WH)^(β-1),
+    both (r, m), accumulated over row panels; the rest as
+    `_beta_terms_w_blocked`."""
+    Hb = H.to(torch.bfloat16)
+    numer = torch.zeros((W.shape[1], H.shape[1]), dtype=torch.float32,
+                        device=Vd.device)
+    denom = torch.zeros_like(numer)
+    for s, e in _panels(Vd.shape[0], block_rows):
+        Wt = W[s:e].T
+        pwr_n, pwr_d = _beta_powers(_bf16_dot(W[s:e], Hb), beta)
+        pwr_n *= Vd[s:e]
+        numer += _bf16_dot(Wt, pwr_n)
+        del pwr_n
+        denom += _bf16_dot(Wt, pwr_d)
+    return (numer if scale is None else numer * scale), denom
+
+
+def mu_update_beta_densified(Vd, W, H, beta, eps=1e-9, order="WH",
+                             block_rows=4096, scale=None):
+    """Generalized beta-divergence MU against a dense bf16 or int8 V,
+    over row panels (the dense twin is ``linalg.dense.mu_update_beta``):
+    sklearn's float beta_loss semantics, i.e. the EPSILON power guards
+    of `_beta_powers`, a zero denominator replaced by EPSILON, the gamma
+    exponent, and entries below float64's machine eps zeroed after each
+    half-step when β < 1. `eps` is accepted for the update signature and
+    unused. Orders "WH" and "HW"."""
+    gamma = beta_gamma(beta)
+
+    def upd_w(W, H):
+        return _beta_apply(W, *_beta_terms_w_blocked(
+            Vd, W, H, beta, eps, block_rows, scale), beta, gamma)
+
+    def upd_h(W, H):
+        return _beta_apply(H, *_beta_terms_h_blocked(
+            Vd, W, H, beta, eps, block_rows, scale), beta, gamma)
+
+    return _apply_order(upd_w, upd_h, W, H, order)
+
+
+def beta_divergence_densified(Vd, W, H, beta, eps=1e-12, block_rows=4096,
+                              scale=None):
+    """D_β(V || WH) over row panels, with the zero-entry conventions of
+    ``linalg.dense.beta_divergence`` (WH clamped to `eps`; for β ≤ 0 V
+    too); int8 V is dequantized per panel. β = 0 is the Itakura–Saito
+    sum Σ V/WH − log(V/WH) − 1."""
+    total = torch.zeros((), dtype=torch.float32, device=Vd.device)
+    for s, e in _panels(Vd.shape[0], block_rows):
+        V32 = Vd[s:e].float()
+        if scale is not None:
+            V32 = V32 * scale
+        WH = torch.clamp(_bf16_dot(W[s:e], H), min=eps)
+        if beta == 0.0:
+            div = torch.clamp(V32, min=eps) / WH
+            total += torch.sum(div - torch.log(div) - 1.0)
+            continue
+        if beta <= 0.0:
+            Vb = torch.clamp(V32, min=eps) ** beta
+        else:
+            Vb = torch.where(V32 > 0,
+                             torch.where(V32 > 0, V32, 1.0) ** beta, 0.0)
+        total += torch.sum(Vb + (beta - 1.0) * WH ** beta
+                           - beta * V32 * WH ** (beta - 1.0))
+    return total if beta == 0.0 else total / (beta * (beta - 1.0))
 
 
 def mu_update_frobenius_weighted_densified(Vd, W, H, alpha, eps=1e-9,

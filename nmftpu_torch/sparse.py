@@ -4,9 +4,11 @@
 Plain numpy storage and format conversions, field for field as in
 ``nmftpu``. The port carries its own copy because ``nmftpu.sparse`` cannot
 be imported without jax (its native CSR build reaches
-``nmftpu.native_loader`` through the package's ``__init__``). Only the
-numpy conversion path is here; the native CSR build comes with the sparse
-engines.
+``nmftpu.native_loader`` through the package's ``__init__``). A COO's
+`to_csr` / `to_csc` take the native CSR build
+(``nmftpu_torch.native_loader.csr_build``) for float32 data of at least
+``NATIVE_MIN_NNZ`` nonzeros when the library is built and
+``NMFTPU_NATIVE_CSR`` is not "0"; otherwise numpy's sort.
 
 No scipy dependency is required; `from_scipy` accepts scipy.sparse
 objects when scipy is installed.
@@ -17,6 +19,18 @@ from __future__ import annotations
 import dataclasses
 
 import numpy as np
+
+
+def _native_csr(major, minor, data, n_major):
+    """The native fused CSR build of (major, minor, data) -> (indptr,
+    indices, data), or None where it does not apply
+    (`native_loader.applies`) or the library is not built. An error of
+    the loaded library raises."""
+    from nmftpu_torch import native_loader
+
+    if not (native_loader.applies(data) and native_loader.has_csr_build()):
+        return None
+    return native_loader.csr_build(major, minor, data, n_major)
 
 
 def _two_key_order(major, minor, minor_extent):
@@ -98,6 +112,10 @@ class SparseCOO(SparseMatrix):
 
     def to_csr(self) -> "SparseCSR":
         n, m = self.shape
+        nat = _native_csr(self.row, self.col, self.data, n)
+        if nat is not None:
+            return SparseCSR(indptr=nat[0], indices=nat[1], data=nat[2],
+                             shape=self.shape)
         order = _two_key_order(self.row, self.col, m)
         indptr = np.zeros(n + 1, dtype=np.int64)
         np.cumsum(np.bincount(self.row, minlength=n), out=indptr[1:])
@@ -110,6 +128,10 @@ class SparseCOO(SparseMatrix):
 
     def to_csc(self) -> "SparseCSC":
         n, m = self.shape
+        nat = _native_csr(self.col, self.row, self.data, m)
+        if nat is not None:
+            return SparseCSC(indptr=nat[0], indices=nat[1], data=nat[2],
+                             shape=self.shape)
         order = _two_key_order(self.col, self.row, n)
         indptr = np.zeros(m + 1, dtype=np.int64)
         np.cumsum(np.bincount(self.col, minlength=m), out=indptr[1:])

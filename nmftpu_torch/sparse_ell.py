@@ -1,6 +1,6 @@
 """Gather-based ELL sparse engine (port of the MU subset of
-``nmftpu/sparse_ell.py``: Frobenius, KL, confidence-weighted and masked
-completion).
+``nmftpu/sparse_ell.py``: Frobenius, KL, beta divergence,
+confidence-weighted and masked completion).
 
 * Each row of V is split into SEGMENTS of at most `seg_max` nonzeros, and
   segments are grouped into power-of-two-width BUCKETS, zero-padded to
@@ -12,9 +12,11 @@ completion).
 * The row-major container computes V Hᵀ; its twin built on Vᵀ computes
   (Wᵀ V)ᵀ. The SDDMM gathers both factor slices per nonzero.
 
-The builder is the vectorised numpy path of ``nmftpu`` (the native
-``ell_build`` fast path is not ported), so the buckets equal
-``nmftpu``'s array for array. The containers hold tensors on one device.
+The builder is ``nmftpu``'s: the native fill
+(``native_loader.ell_build``) for float32 where ``native_loader.applies``
+and the library is built, else the vectorised numpy path; both give
+``nmftpu``'s buckets array for array. The containers hold tensors on one
+device.
 `_bucket_rowsums` here is plain torch; ``kernels/sparse_ell_kernel.py``
 holds the hand-written CUDA kernel for the same per-segment sums.
 """
@@ -26,6 +28,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from nmftpu_torch import native_loader
 from nmftpu_torch import sparse as host_sparse
 from nmftpu_torch.driver import _resolve_device
 from nmftpu_torch.linalg.dense import _apply_order
@@ -85,11 +88,12 @@ def build_ell_rows(
     chunk_segments: int = 2048,
     device=None,
 ) -> EllRows:
-    """Host-side builder: CSR -> bucketed padded segments (O(nnz) numpy,
-    no per-row Python loop), then one copy of each bucket to `device`
-    (default "cuda"; raises without one). Columns within a segment are
-    ascending; pad lanes are (col 0, val 0); the pad segments' out_row
-    repeats the bucket's last row, so out_row stays non-decreasing."""
+    """Host-side builder: CSR -> bucketed padded segments (one native pass,
+    or O(nnz) numpy with no per-row Python loop), then one copy of each
+    bucket to `device` (default "cuda"; raises without one). Columns
+    within a segment are ascending; pad lanes are (col 0, val 0); the pad
+    segments' out_row repeats the bucket's last row, so out_row stays
+    non-decreasing."""
     device = _resolve_device(None, device)
     np_dtype = _NUMPY_DTYPES[dtype]
     csr = mat.to_csr()
@@ -100,6 +104,21 @@ def build_ell_rows(
     if csr.nnz and not (0 <= int(csr.indices.min())
                         and int(csr.indices.max()) < m):
         raise ValueError(f"column indices must lie in [0, {m})")
+
+    def bucket(vals, cols, rows, width):
+        return EllBucket(vals=torch.from_numpy(vals).to(device),
+                         cols=torch.from_numpy(cols).to(device),
+                         out_row=torch.from_numpy(rows).to(device),
+                         width=int(width))
+
+    if (dtype == torch.float32 and native_loader.applies(csr.data)
+            and native_loader.has_ell_build()):
+        nat = native_loader.ell_build(
+            csr.indptr, csr.indices, csr.data, seg_max, buckets,
+            pad_segments=lambda ns: _pad_segments(ns, chunk_segments))
+        return EllRows(buckets=tuple(bucket(v, c, r, w)
+                                     for v, c, r, _, w in nat),
+                       shape=(n, m), nnz=csr.nnz)
 
     indptr = np.asarray(csr.indptr, dtype=np.int64)
     lens = np.diff(indptr)
@@ -135,12 +154,7 @@ def build_ell_rows(
             cols[:nseg] = np.where(valid, csr.indices[pos], 0)
         rows[:nseg] = seg_row[sel]
         rows[nseg:] = rows[nseg - 1]
-        out.append(EllBucket(
-            vals=torch.from_numpy(vals).to(device),
-            cols=torch.from_numpy(cols).to(device),
-            out_row=torch.from_numpy(rows).to(device),
-            width=int(width),
-        ))
+        out.append(bucket(vals, cols, rows, width))
     return EllRows(buckets=tuple(out), shape=(n, m), nnz=csr.nnz)
 
 
@@ -289,6 +303,84 @@ def mu_update_kl_ell(pair: EllPair, W, H, eps=1e-9, order="WH"):
         return H * (numer.T / denom)
 
     return _apply_order(upd_w, upd_h, W, H, order)
+
+
+def mu_update_beta_ell(pair: EllPair, W, H, beta, eps=1e-9, order="WH",
+                       block=2048):
+    """Generalized beta-divergence MU on the gather-only layout: the
+    numerator is one fused gather-once pass per half-step
+    (`sampled_rowsums_ell` with the coefficient v·(WH)^(β-2)), the
+    dense-in-FLOPs denominator streams panels
+    (``sparse_ops.beta_denom_w_blocked`` / ``_h_blocked``). Guards, γ and
+    the β < 1 stabilization are sklearn's. The coefficient keeps
+    ``nmftpu``'s forms: β = 0 divides by s·s with s clamped up to
+    EPSILON; β < 2 clamps s up to EPSILON, which keeps the pad lanes'
+    sampled products finite (their v = 0, so they add exact zeros).
+    `eps` is accepted for the update signature and unused."""
+    from nmftpu_torch.linalg.dense import EPSILON, beta_gamma
+    from nmftpu_torch.sparse_ops import (
+        _beta_apply,
+        beta_denom_h_blocked,
+        beta_denom_w_blocked,
+    )
+
+    gamma = beta_gamma(beta)
+    if beta == 0.0:
+        def cf(v, s):
+            sc = torch.clamp(s, min=EPSILON)
+            return v / (sc * sc)
+    elif beta < 2.0:
+        def cf(v, s):
+            return v * torch.clamp(s, min=EPSILON) ** (beta - 2.0)
+    else:
+        def cf(v, s):
+            return v * s ** (beta - 2.0)
+
+    def upd_w(W, H):
+        numer, = sampled_rowsums_ell(pair.rows, W, H, (cf,))
+        return _beta_apply(W, numer, beta_denom_w_blocked(W, H, beta, block),
+                           beta, gamma)
+
+    def upd_h(W, H):
+        numer, = sampled_rowsums_ell(pair.cols, H.T, W.T, (cf,))
+        return _beta_apply(H, numer.T,
+                           beta_denom_h_blocked(W, H, beta, block), beta,
+                           gamma)
+
+    return _apply_order(upd_w, upd_h, W, H, order)
+
+
+def beta_divergence_ell(pair: EllPair, W, H, beta, block=2048):
+    """D_β(V || WH) with sklearn's sparse-X semantics on ELL (the twin of
+    ``sparse_ops.beta_divergence_sparse``; pad lanes carry v = 0 and the
+    v > EPSILON filter drops them)."""
+    from nmftpu_torch.linalg.dense import EPSILON
+    from nmftpu_torch.sparse_ops import beta_sum_wh_blocked
+
+    s = sddmm_ell(pair.rows, W, H)
+    acc_dt = _acc_dtype(W.dtype)
+    n, m = pair.shape
+    # β = 0: Σ v/wh and Σ log(v/wh); otherwise Σ v^β and Σ v·wh^(β-1)
+    sum_a = sum_b = torch.zeros((), dtype=acc_dt, device=W.device)
+    for orig, samp in zip(pair.rows.buckets, s.buckets):
+        v = orig.vals
+        keep = v > EPSILON
+        wh_c = torch.clamp(samp.vals, min=EPSILON)
+        if beta == 0.0:
+            div = (v / wh_c).to(acc_dt)
+            sum_a = sum_a + torch.sum(torch.where(keep, div, 0.0))
+            sum_b = sum_b + torch.sum(torch.where(
+                keep, torch.log(torch.where(keep, div, 1.0)), 0.0))
+        else:
+            sum_a = sum_a + torch.sum(torch.where(
+                keep, (v ** beta).to(acc_dt), 0.0))
+            sum_b = sum_b + torch.sum(torch.where(
+                keep, (v * wh_c ** (beta - 1.0)).to(acc_dt), 0.0))
+    if beta == 0.0:
+        return sum_a - float(n) * float(m) - sum_b
+    res = (sum_a - beta * sum_b
+           + (beta - 1.0) * beta_sum_wh_blocked(W, H, beta, block))
+    return res / (beta * (beta - 1.0))
 
 
 def mu_update_frobenius_weighted_ell(pair: EllPair, W, H, alpha, eps=1e-9,

@@ -14,14 +14,14 @@ Primitives (all O(nnz · r)):
   v_ht(coo, H)        -> V Hᵀ   (n, r)     [scatter-add over rows]
   sddmm(coo, W, H)    -> (W H) sampled at the nonzero positions  (N,)
 
-Ported: the MU algorithm under the Frobenius and KL objectives, with
-confidence weighting (alpha_confidence > 0, Frobenius) and masked
-completion (mask="observed", Frobenius and KL; `ell` and `scatter`
-only), on the `scatter`, `ell` (with `use_pallas=True`: the CUDA ELL
-SpMM kernel for the unweighted Frobenius SpMMs) and `densified` (bf16 or
-int8 V) engines, and the copy, random and mean_columns inits. Other
-algorithms and the beta divergence raise NotImplementedError naming
-their part of ROADMAP.md.
+Ported: the MU algorithm under the Frobenius, KL and generalized beta
+objectives, with confidence weighting (alpha_confidence > 0, Frobenius)
+and masked completion (mask="observed", Frobenius and KL; `ell` and
+`scatter` only), on the `scatter`, `ell` (with `use_pallas=True`: the
+CUDA ELL SpMM kernel for the unweighted Frobenius SpMMs) and `densified`
+(bf16 or int8 V) engines, and the copy, random and mean_columns inits.
+Other algorithms raise NotImplementedError naming their part of
+ROADMAP.md.
 """
 
 from __future__ import annotations
@@ -43,7 +43,12 @@ from nmftpu_torch.config import (
 )
 from nmftpu_torch.driver import _resolve_device
 from nmftpu_torch.init import run_generator
-from nmftpu_torch.linalg.dense import _apply_order
+from nmftpu_torch.linalg.dense import (
+    EPSILON,
+    _STAB_EPS,
+    _apply_order,
+    beta_gamma,
+)
 from nmftpu_torch.loop import LoopOps, NmfResult, build_runner, execute
 
 DEFAULT_CHUNK = 131072
@@ -111,6 +116,12 @@ def _chunks(coo: DeviceCOO):
     for s in range(0, coo.values.shape[0], coo.chunk):
         e = s + coo.chunk
         yield coo.values[s:e], coo.rows[s:e], coo.cols[s:e]
+
+
+def _panels(n: int, block: int):
+    """(start, stop) of the panels of `block` rows (or columns) over n,
+    the last one possibly narrower: no panel has a pad row."""
+    return ((s, min(s + block, n)) for s in range(0, n, block))
 
 
 def _scatter_acc_dtype(dtype):
@@ -240,6 +251,122 @@ def mu_update_kl_sparse(coo, W, H, eps=1e-9, order="WH"):
     return _apply_order(upd_w, upd_h, W, H, order)
 
 
+def _beta_pwr_d(WH, beta):
+    """The denominator's power (WH)^(β-1) of one beta-MU half-step, with
+    sklearn's guard: WH clamped up to EPSILON only when β < 1 (the
+    numerator's separate guard is in `_beta_numer_values`)."""
+    WH_d = torch.clamp(WH, min=EPSILON) if beta < 1.0 else WH
+    return WH_d ** (beta - 1.0)
+
+
+def beta_denom_w_blocked(W, H, beta, block=2048):
+    """(WH)^(β-1) Hᵀ -> (n, r) over column panels of H. The beta-MU
+    denominator is dense whatever V's sparsity (the power does not
+    factor as β = 2's W (H Hᵀ) or β = 1's row sums do), but it needs
+    only one (n, block) panel of WH at a time."""
+    out = torch.zeros((W.shape[0], H.shape[0]), dtype=W.dtype,
+                      device=W.device)
+    for s, e in _panels(H.shape[1], block):
+        Hb = H[:, s:e]
+        out += _beta_pwr_d(W @ Hb, beta) @ Hb.T
+    return out
+
+
+def beta_denom_h_blocked(W, H, beta, block=2048):
+    """Wᵀ (WH)^(β-1) -> (r, m) over row panels of W (the twin of
+    `beta_denom_w_blocked`)."""
+    out = torch.zeros((W.shape[1], H.shape[1]), dtype=H.dtype,
+                      device=H.device)
+    for s, e in _panels(W.shape[0], block):
+        Wb = W[s:e]
+        out += Wb.T @ _beta_pwr_d(Wb @ H, beta)
+    return out
+
+
+def beta_sum_wh_blocked(W, H, beta, block=2048):
+    """Σ over ALL n·m entries of (WH)^β, over column panels: the one term
+    of the sparse beta divergence that touches the zero positions. The
+    last panel is narrower, so no pad column's 0^β (+inf for β < 0)
+    enters; ``nmftpu`` pads and masks the same columns out."""
+    acc_dt = _scatter_acc_dtype(W.dtype)
+    total = torch.zeros((), dtype=acc_dt, device=W.device)
+    for s, e in _panels(H.shape[1], block):
+        total += torch.sum((W @ H[:, s:e]).to(acc_dt) ** beta)
+    return total
+
+
+def _beta_numer_values(coo, W, H, beta):
+    """V ⊙ (WH)^(β-2) at the nonzeros, the whole beta-MU numerator
+    weight, as a COO of the same structure (sklearn's numerator guard:
+    WH clamped up to EPSILON when β < 2). Pad entries carry 0."""
+    wh_nz = sddmm(coo, W, H)
+    wh_n = torch.clamp(wh_nz, min=EPSILON) if beta < 2.0 else wh_nz
+    if beta == 0.0:
+        pwr = 1.0 / (wh_n * wh_n)
+    else:
+        pwr = wh_n ** (beta - 2.0)
+    return coo.with_values(coo.values * pwr)
+
+
+def _beta_apply(F, numer, denom, beta, gamma):
+    """F ⊙ (numer / denom)^γ with sklearn's zero-denominator replacement,
+    then β < 1's stabilization (entries below float64's machine eps
+    zeroed)."""
+    d = numer / torch.where(denom == 0.0, EPSILON, denom)
+    if gamma != 1.0:
+        d = d ** gamma
+    F = F * d
+    return torch.where(F < _STAB_EPS, 0.0, F) if beta < 1.0 else F
+
+
+def mu_update_beta_sparse(coo, W, H, beta, eps=1e-9, order="WH",
+                          block=2048):
+    """Generalized beta-divergence MU on the scatter engine. Numerator:
+    (WH)^(β-2) ⊙ V is nonzero only at V's stored set, so it is one SDDMM
+    and one scatter SpMM per half-step, as KL's. Denominator:
+    (WH)^(β-1) Hᵀ, dense in FLOPs (O(n·m·r)) and streamed through panels
+    of `block` columns or rows. Guards, γ and the β < 1 stabilization are
+    sklearn's (``linalg.dense.mu_update_beta`` is the dense oracle);
+    `eps` is accepted for the update signature and unused."""
+    gamma = beta_gamma(beta)
+
+    def upd_w(W, H):
+        numer = v_ht(_beta_numer_values(coo, W, H, beta), H)
+        return _beta_apply(W, numer, beta_denom_w_blocked(W, H, beta, block),
+                           beta, gamma)
+
+    def upd_h(W, H):
+        numer = wt_v(_beta_numer_values(coo, W, H, beta), W)
+        return _beta_apply(H, numer, beta_denom_h_blocked(W, H, beta, block),
+                           beta, gamma)
+
+    return _apply_order(upd_w, upd_h, W, H, order)
+
+
+def beta_divergence_sparse(coo, W, H, beta, block=2048):
+    """D_β(V || WH) with the semantics of sklearn's _beta_divergence on a
+    sparse X: stored values filtered to v > EPSILON, the sampled WH
+    clamped up to EPSILON, and Σ (WH)^β over all n·m entries computed in
+    column panels (β = 0's counterpart of that term is the constant
+    n·m)."""
+    wh_c = torch.clamp(sddmm(coo, W, H), min=EPSILON)
+    v = coo.values
+    keep = v > EPSILON
+    acc_dt = _scatter_acc_dtype(W.dtype)
+    n, m = coo.shape
+    if beta == 0.0:
+        div = (v / wh_c).to(acc_dt)
+        return (torch.sum(torch.where(keep, div, 0.0)) - float(n) * float(m)
+                - torch.sum(torch.where(
+                    keep, torch.log(torch.where(keep, div, 1.0)), 0.0)))
+    sum_wh_beta = beta_sum_wh_blocked(W, H, beta, block)
+    sum_x_wh = torch.sum(torch.where(
+        keep, (v * wh_c ** (beta - 1.0)).to(acc_dt), 0.0))
+    sum_x_beta = torch.sum(torch.where(keep, (v ** beta).to(acc_dt), 0.0))
+    res = sum_x_beta - beta * sum_x_wh + (beta - 1.0) * sum_wh_beta
+    return res / (beta * (beta - 1.0))
+
+
 def mu_update_frobenius_weighted_sparse(coo, W, H, alpha, eps=1e-9,
                                         order="WH"):
     """Confidence-weighted MU, c = 1 + alpha·v at the nonzeros and 1
@@ -339,19 +466,16 @@ def _unported(what: str, where: str):
 
 def _check_ported(config: NmfConfig) -> None:
     """Raise NotImplementedError for a sparse configuration outside the
-    ported MU engines (Frobenius, KL, confidence-weighted, masked; bf16
-    and int8 densified storage)."""
+    ported MU engines (Frobenius, KL, beta, confidence-weighted, masked;
+    bf16 and int8 densified storage)."""
     if config.algorithm is not Algorithm.MU:
         _unported(f"algorithm={config.algorithm.value!r} on sparse V",
-                  "queue 1 item 3, slice 4b")
-    if config.objective is Objective.BETA:
-        _unported("objective='beta-divergence' on sparse V",
-                  "queue 1 item 1, slice 3b")
+                  "queue 1 item 2, slice 4b")
 
 
 def build_sparse_update(config: NmfConfig):
     """(make_aux, update, effective_h) for the scatter engine: MU under
-    the Frobenius or the KL objective, confidence-weighted or masked."""
+    the Frobenius, KL or beta objective, confidence-weighted or masked."""
     _check_ported(config)
     eps = config.eps
     order = config.update_order
@@ -367,6 +491,12 @@ def build_sparse_update(config: NmfConfig):
                 coo, W, H, alpha, eps=eps, order=order)
     elif config.objective is Objective.FROBENIUS:
         upd = mu_update_frobenius_sparse
+    elif config.objective is Objective.BETA:
+        beta = config.beta
+
+        def upd(coo, W, H, eps, order):
+            return mu_update_beta_sparse(coo, W, H, beta, eps=eps,
+                                         order=order)
     else:
         upd = mu_update_kl_sparse
     return (
@@ -455,13 +585,18 @@ def _sparse_ops_bundle(config: NmfConfig) -> LoopOps:
     if config.mask == "observed":
         return _masked_ops(make_aux, update, frobenius_error_masked,
                            kl_error_masked, lambda coo: coo.nnz)
+    def divergence(coo, aux, W, He):
+        if config.objective is Objective.BETA:
+            return beta_divergence_sparse(coo, W, He, config.beta)
+        return kl_error(coo, W, He)
+
     return LoopOps(
         make_aux=make_aux,
         update=update,
         effective_h=effective_h,
         frobenius=lambda coo, aux, W, He, svsq: frobenius_error(
             coo, W, He, svsq),
-        kl=lambda coo, aux, W, He: kl_error(coo, W, He),
+        kl=divergence,
         sum_v_sq=_sum_v_sq,
         numel=lambda coo: coo.shape[0] * coo.shape[1],
     )
@@ -478,14 +613,26 @@ def _densified_ops_bundle(config: NmfConfig, coo: DeviceCOO) -> LoopOps:
     order = config.update_order
     alpha = config.alpha_confidence
     kl = config.objective is Objective.KL
+    beta = config.beta if config.objective is Objective.BETA else None
     n, m = coo.shape
     # the true n·m, not the row-padded shape: pad rows add no error
     numel = lambda V: n * m  # noqa: E731
+
+    def divergence(Vd, W, H, scale=None):
+        """D_KL, or D_β under the beta objective (int8: with the scale)."""
+        if beta is None:
+            return DF.kl_error_densified(Vd, W, H, scale=scale)
+        return DF.beta_divergence_densified(Vd, W, H, beta, scale=scale)
+
     if config.v_storage == "int8":
         if kl:
             def update(V, aux, W, H):
                 return DF.mu_update_kl_densified(V[0], W, H, eps=eps,
                                                  order=order, scale=V[1])
+        elif beta is not None:
+            def update(V, aux, W, H):
+                return DF.mu_update_beta_densified(V[0], W, H, beta, eps=eps,
+                                                   order=order, scale=V[1])
         elif alpha > 0.0:
             def update(V, aux, W, H):
                 return DF.mu_update_frobenius_weighted_densified(
@@ -502,14 +649,17 @@ def _densified_ops_bundle(config: NmfConfig, coo: DeviceCOO) -> LoopOps:
             effective_h=lambda aux, H: H,
             frobenius=lambda V, aux, W, He, svsq: (
                 DF.frobenius_error_int8_densified(V[0], V[1], W, He, svsq)),
-            kl=lambda V, aux, W, He: DF.kl_error_densified(V[0], W, He,
-                                                           scale=V[1]),
+            kl=lambda V, aux, W, He: divergence(V[0], W, He, scale=V[1]),
             sum_v_sq=lambda V: DF.sum_v_sq_int8_densified(V[0], V[1]),
             numel=numel,
         )
     if kl:
         def update(Vd, aux, W, H):
             return DF.mu_update_kl_densified(Vd, W, H, eps=eps, order=order)
+    elif beta is not None:
+        def update(Vd, aux, W, H):
+            return DF.mu_update_beta_densified(Vd, W, H, beta, eps=eps,
+                                               order=order)
     elif alpha > 0.0:
         def update(Vd, aux, W, H):
             return DF.mu_update_frobenius_weighted_densified(
@@ -524,7 +674,7 @@ def _densified_ops_bundle(config: NmfConfig, coo: DeviceCOO) -> LoopOps:
         effective_h=lambda aux, H: H,
         frobenius=lambda Vd, aux, W, He, svsq: DF.frobenius_error_densified(
             Vd, W, He, svsq),
-        kl=lambda Vd, aux, W, He: DF.kl_error_densified(Vd, W, He),
+        kl=lambda Vd, aux, W, He: divergence(Vd, W, He),
         # from the bf16-rounded V, consistent with the bf16 cross term of
         # the Gram-trick error
         sum_v_sq=DF.sum_v_sq_densified,
@@ -555,9 +705,16 @@ def _ell_ops_bundle(config: NmfConfig) -> LoopOps:
         # XLA's gather): at ML-20M scale the plain one costs ten kernel
         # iterations
         wt_v = SEK.wt_v_ell_pallas
+    beta = config.beta if config.objective is Objective.BETA else None
     if config.objective is Objective.KL:
         def update(pair, aux, W, H):
             return SE.mu_update_kl_ell(pair, W, H, eps=eps, order=order)
+    elif beta is not None:
+        # the fused gather-once numerator, the dense denominator in
+        # panels (config validation keeps use_pallas off under beta)
+        def update(pair, aux, W, H):
+            return SE.mu_update_beta_ell(pair, W, H, beta, eps=eps,
+                                         order=order)
     elif config.alpha_confidence > 0.0:
         # one gather per half-step, with or without use_pallas (as in
         # nmftpu)
@@ -575,13 +732,19 @@ def _ell_ops_bundle(config: NmfConfig) -> LoopOps:
         def update(pair, aux, W, H):
             return SE.mu_update_frobenius_ell(pair, W, H, eps=eps,
                                               order=order)
+
+    def divergence(pair, aux, W, He):
+        if beta is None:
+            return SE.kl_error_ell(pair, W, He)
+        return SE.beta_divergence_ell(pair, W, He, beta)
+
     return LoopOps(
         make_aux=lambda pair: (),
         update=update,
         effective_h=lambda aux, H: H,
         frobenius=lambda pair, aux, W, He, svsq: SE.frobenius_error_ell(
             pair, W, He, svsq, wt_v=wt_v),
-        kl=lambda pair, aux, W, He: SE.kl_error_ell(pair, W, He),
+        kl=divergence,
         sum_v_sq=lambda pair: SE.sum_v_sq_ell(pair.rows),
         numel=lambda pair: pair.shape[0] * pair.shape[1],
     )

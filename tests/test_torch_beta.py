@@ -190,17 +190,37 @@ def test_registry_routes_float32_beta(monkeypatch):
 @pytest.mark.parametrize("v_storage", ["bfloat16", "int8"])
 @pytest.mark.parametrize("beta", [0.5, 1.5])
 def test_low_precision_beta_still_raises(beta, v_storage):
-    with pytest.raises(NotImplementedError, match="slice 3b"):
-        build_dense_update(nt.NmfConfig(
-            rank=2, objective="beta-divergence", beta=beta,
-            v_storage=v_storage))
+    """bf16 and int8 V run beta MU (tests/test_torch_beta_engines.py holds
+    them against nmftpu); what still raises there is nmftpu's refusal of
+    use_pallas and of the jacobi coupling under beta."""
+    make_aux, update, _ = build_dense_update(nt.NmfConfig(
+        rank=2, objective="beta-divergence", beta=beta,
+        v_storage=v_storage))
+    V, W, H = _t(*_problem(np.float32, r=2))
+    W1, H1 = update(V, make_aux(V), W, H)
+    assert torch.isfinite(W1).all() and torch.isfinite(H1).all()
+    for knobs, match in (({"use_pallas": True}, "use_pallas"),
+                         ({"mu_style": "jacobi"}, "jacobi")):
+        with pytest.raises(ValueError, match=match):
+            nt.NmfConfig(rank=2, objective="beta-divergence", beta=beta,
+                         v_storage=v_storage, **knobs)
 
 
 def test_sparse_beta_still_raises():
+    """Sparse V runs beta MU on every engine (tests/test_torch_beta_
+    engines.py); masked completion and the jacobi coupling still raise
+    under beta, as in nmftpu."""
     V, _, _ = _problem(np.float32)
-    with pytest.raises(NotImplementedError, match="slice 3b"):
-        nt.nmf(nt.sparse.from_dense(V), 3, objective="beta-divergence",
-               beta=0.5, num_iterations=1, device="cpu")
+    sp = nt.sparse.from_dense(V)
+    res = nt.nmf(sp, 3, objective="beta-divergence", beta=0.5,
+                 num_iterations=1, device="cpu")
+    assert np.isfinite(res.kl_error)
+    with pytest.raises(ValueError, match="mask='observed'"):
+        nt.nmf(sp, 3, objective="beta-divergence", beta=0.5,
+               mask="observed", num_iterations=1, device="cpu")
+    with pytest.raises(ValueError, match="jacobi"):
+        nt.nmf(sp, 3, objective="beta-divergence", beta=0.5,
+               mu_style="jacobi", num_iterations=1, device="cpu")
 
 
 @pytest.mark.parametrize("dtype", ["float32", "float64"])

@@ -315,19 +315,20 @@ def test_registry_routes(monkeypatch, knobs, route):
     # HALS, dense KL, jacobi and int8 without use_pallas are ported (slice
     # 4a), dense int8 KL and confidence weighting (slice 8, held against
     # nmftpu in test_torch_int8_densified.py and test_torch_weighted.py),
-    # dense float32 beta MU (slice 9, test_torch_beta.py); these cases
-    # keep their ids and now hold what still raises
+    # dense float32 beta MU (slice 9, test_torch_beta.py), bf16 and int8
+    # beta MU (slice 10, test_torch_beta_engines.py); these cases keep
+    # their ids and now hold what still raises
     pytest.param({"algorithm": "acls"}, "slice 4b", id="knobs0-slice 4"),
     ({"algorithm": "als"}, "slice 4"),
-    pytest.param({"objective": "beta", "beta": 1.5, "v_storage": "int8"},
-                 "slice 3b", id="knobs2-slice 1"),
+    pytest.param({"objective": "beta", "beta": 1.5, "v_storage": "int8",
+                  "init": "nndsvd"}, "slice 4", id="knobs2-slice 1"),
     pytest.param({"objective": "beta", "beta": 0.5, "mesh": object()},
                  "slice 6", id="knobs3-slice 4"),
     pytest.param({"algorithm": "gdcls"}, "slice 4b", id="knobs4-slice 4"),
     pytest.param({"algorithm": "nsnmf"}, "slice 4b", id="knobs5-slice 3"),
     pytest.param({"objective": "beta", "beta": 0.5,
-                  "v_storage": "bfloat16"}, "slice 3b",
-                 id="knobs6-int8 tensor-core"),
+                  "v_storage": "bfloat16", "init": "kmeans_random"},
+                 "slice 4", id="knobs6-int8 tensor-core"),
     ({"vectorize_runs": True, "num_runs": 2}, "slice 5"),
 ])
 def test_unported_configurations_raise(knobs, where):

@@ -354,15 +354,18 @@ def test_densify_budget_reads_the_environment():
 @pytest.mark.parametrize("knobs,match", [
     # confidence weighting, masked completion and int8 densified storage
     # are ported in slice 8 (test_torch_weighted.py, test_torch_masked.py,
-    # test_torch_int8_densified.py); these ids now hold what still raises
-    # with each of them
+    # test_torch_int8_densified.py), the beta divergence on every engine
+    # in slice 10 (test_torch_beta_engines.py); these ids now hold what
+    # still raises with each of them
     pytest.param(dict(algorithm="als", alpha_confidence=2.0), "als",
                  id="knobs0-confidence weighting"),
     pytest.param(dict(algorithm="als", mask="observed"), "als",
                  id="knobs1-masked completion"),
-    (dict(objective="beta", beta=0.5), "beta-divergence"),
-    pytest.param(dict(v_storage="int8", objective="beta", beta=0.5),
-                 "beta-divergence", id="knobs3-int8"),
+    pytest.param(dict(objective="beta", beta=0.5, init="nndsvd"), "nndsvd",
+                 id="knobs2-beta-divergence"),
+    pytest.param(dict(v_storage="int8", objective="beta", beta=0.5,
+                      init="kmeans_random"), "kmeans",
+                 id="knobs3-int8"),
     (dict(algorithm="hals"), "hals"),
     (dict(algorithm="als"), "als"),
     (dict(algorithm="nsnmf"), "nsnmf"),
