@@ -2,7 +2,8 @@
 (nmftpu_torch) spend their time on one NVIDIA GPU.
 
     python3 chip_profile.py [--out DIR]
-                            [--cells dense,serving,sparse,slice8,foldin,beta]
+                            [--cells dense,serving,sparse,slice8,foldin,beta,
+                                     algorithms]
 
 Two shapes -- 4096 x 4096 at rank 256 (bench.py's headline) and the
 ML-20M shape 138,493 x 26,744 at rank 64, with chip_smoke.py's synthetic
@@ -55,8 +56,15 @@ idle share. Then the beta divergence at config 2's full width (cell
 "beta", chip_smoke.py's phase-20 paths): beta = 0.5 and 1.5 on the
 densified bf16 and int8, ELL and scatter engines, each profiled over a
 2-iteration run with a check at its end; ms per iteration by CUDA
-events. --cells picks a subset of the six cells. Every line ends with
-the card's nvidia-smi name and power limit.
+events. Then the dense ALS family, GDCLS and nsNMF (cell "algorithms",
+chip_smoke.py's phase-21 paths): each of ALS, ACLS, AHCLS, GDCLS, nsNMF
+and nsNMF-KL on float32, bf16 and int8 V at 4096 x 4096 / rank 256
+(profiled over 10 iterations), and int8 ALS, GDCLS and nsNMF at the ML-20M
+shape (dense, rank 64, 3 iterations), each with one check at its end: ms
+per iteration by CUDA events, device ms per iteration by class (GEMMs,
+the Cholesky and triangular solves, #6's int8 entries, everything else)
+and the idle share. --cells picks a subset of the seven cells. Every line
+ends with the card's nvidia-smi name and power limit.
 The profiler traces and summary.json go to --out (default: profile_out/
 beside this script). Exits 1 without a CUDA device.
 """
@@ -78,7 +86,9 @@ from chip_smoke import (
     C3_ALPHA,
     C3_RANK,
     CONFIG3,
+    FAMILY,
     HERE,
+    ML20M,
     SEED,
     abba_ms,
     cuda_ms,
@@ -101,7 +111,11 @@ S8_PROFILE_ITERS = 5
 C3_PROFILE_ITERS = 2
 # the beta cell's paths are 100-500 ms an iteration
 BETA_PROFILE_ITERS = 2
-CELLS = ("dense", "serving", "sparse", "slice8", "foldin", "beta")
+# the dense ALS family: iterations profiled at 4096^2 and at the ML-20M
+# shape
+FAMILY_PROFILE_ITERS = 10
+CELLS = ("dense", "serving", "sparse", "slice8", "foldin", "beta",
+         "algorithms")
 
 
 def kernel_class(name: str) -> str:
@@ -272,6 +286,8 @@ def main() -> None:
         sparse_cells(nt, dev, card, out, summary, cells)
     if "foldin" in cells:
         foldin_cell(nt, dev, card, out, summary)
+    if "algorithms" in cells:
+        algorithms_cell(nt, dev, card, out, summary)
 
     if "jax" in sys.modules:
         fail("jax was imported")
@@ -374,6 +390,62 @@ def foldin_cell(nt, dev, card, out, summary) -> None:
         del rec, paths
         torch.cuda.empty_cache()
     del W8, H8
+
+
+def algorithms_cell(nt, dev, card, out, summary) -> None:
+    """The dense ALS family, GDCLS and nsNMF: every algorithm on float32,
+    bf16 and int8 V at 4096^2 / r = 256, and the int8 family at the ML-20M
+    shape. The profiled window holds the iterations alone: `iters` chained
+    calls of the update that nmf runs, after V's stored copy is made (the
+    set-up) and one warm-up call, and without an error check."""
+    from nmftpu_torch.algorithms import build_dense_update
+
+    summary["algorithms"] = {}
+    cells = [("4096^2_r256", (4096, 4096, 256), FAMILY,
+              ("float32", "bfloat16", "int8")),
+             ("ml20m_shape_r64", ML20M[:3],
+              [f for f in FAMILY if f[0] in ("als", "gdcls")
+               or f[:2] == ("nsnmf", "frobenius")], ("int8",))]
+    iters = FAMILY_PROFILE_ITERS
+    for cell, (n, m, r), algs, storages in cells:
+        gen = torch.Generator(device=dev).manual_seed(SEED + n)
+        if n == m:
+            V = synthetic_lowrank(n, m, r, gen, dev)
+        else:
+            V = synthetic_ratings(n, m, ML20M[3], gen, dev)
+        W = torch.rand(n, r, generator=gen, device=dev) + 0.01
+        H = torch.rand(r, m, generator=gen, device=dev) + 0.01
+        for alg, obj, kn in algs:
+            for storage in storages:
+                path = (f"{alg}{'_kl' if obj == 'kullback-leibler' else ''}"
+                        f"_{storage}")
+                knobs = dict(algorithm=alg, objective=obj,
+                             v_storage=storage, **kn)
+                make_aux, update, _ = build_dense_update(
+                    nt.NmfConfig(rank=r, **knobs))
+                aux = make_aux(V)
+                it_ms = abba_ms({path: lambda: update(V, aux, W, H)},
+                                3 if n == m else 1)[path]
+                torch.cuda.synchronize()
+                with torch.profiler.profile(activities=[
+                        torch.profiler.ProfilerActivity.CPU,
+                        torch.profiler.ProfilerActivity.CUDA]) as prof:
+                    Wi, Hi = W, H
+                    for _ in range(iters):
+                        Wi, Hi = update(V, aux, Wi, Hi)
+                    torch.cuda.synchronize()
+                del aux, Wi, Hi
+                trace = out / f"algorithms_{cell}_{path}.json"
+                prof.export_chrome_trace(str(trace))
+                row = {"ms_per_iter": it_ms, **device_summary(trace, iters)}
+                summary["algorithms"][f"{cell} {path}"] = row
+                say("profile", cell=f"algorithms {cell}", path=path,
+                    ms_per_iter=f"{it_ms:.4f}",
+                    device_ms_per_iter={k: round(v, 4) for k, v in
+                                        row["device_ms_per_iter"].items()},
+                    idle_share=f"{row['idle_share']:.4f}", card=card)
+        del V, W, H
+        torch.cuda.empty_cache()
 
 
 def profiled(plan, config, W, H, trace: Path, iters: int) -> dict:

@@ -63,6 +63,22 @@ match a float64 recomputation on 64 rows and 64 columns (ELL, scatter
 1e-4; densified within its derived bf16 bound), ELL and scatter must
 agree, and the densified runs' D_beta must agree with ELL's; it prints
 ms per iteration and peak memory, and checks auto's engine under beta.
+Phase 21 runs the dense ALS family (ALS, ACLS, AHCLS), GDCLS and nsNMF
+(Frobenius and KL) through nmf on float32, bf16 and int8 V: at 4096 x
+4096 / rank 256 for 50 iterations each (the error must fall; one step,
+each half-step from the same inputs, against a float64 recomputation:
+solves within 10 sqrt(r) kappa 2^-24 of the float64 solve of their own
+Gram and right-hand side, MU-type steps 1e-4, bf16 ones 5 * 2^-9; the
+int8 right-hand sides equal to the exact product; #6's one-sided entries
+launched once per int8 half-step), and int8 and bf16 ALS, GDCLS and nsNMF
+at the ML-20M shape for 10 (bf16's final error within 1e-3 of float32's,
+int8's after one iteration, on the same stored values); then the k-means
+init (the within-cluster sum must not rise) and the k-means and NNDSVD
+inits at 4096^2 (host seconds, the NNDSVD variants from one shared SVD;
+nndsvd and nndsvdar start below the random init's error), and every
+algorithm from every init on BASELINE
+config 1 (the ML-100K fixture, and 943 x 1682 / 100,000 ratings at rank
+32), printing the final RMSD.
 Every phase prints its results; any failure exits non-zero, as does a
 kernel timed below its bound. Without a CUDA device it exits 1 and runs
 nothing.
@@ -235,6 +251,66 @@ C2_STEP_RTOL = 1e-4
 # ELL and densified int8 against ELL on the dequantized ratings (D_beta):
 # as phase 16's C3_ENGINES_RTOL and C3_OBJECTIVE_RTOL
 C2_ENGINES_RTOL = 1e-3
+
+# phase 21: the dense ALS family, GDCLS and nsNMF (Frobenius, KL) through
+# nmf on float32, bf16 and int8 V: phase 4's 4096^2 / r = 256 problem for
+# FAMILY_ITERS iterations, and int8 and bf16 ALS, GDCLS and nsNMF at the
+# ML-20M shape (phase 5's ratings, dense, r = 64) for FAMILY_ML_ITERS
+FAMILY = (("als", "frobenius", {}),
+          ("acls", "frobenius", {"lambda_w": 0.1, "lambda_h": 0.1}),
+          ("ahcls", "frobenius", {"lambda_w": 0.1, "lambda_h": 0.1,
+                                  "alpha_w": 0.5, "alpha_h": 0.5}),
+          ("gdcls", "frobenius", {"lambda_tik": 0.1}),
+          ("nsnmf", "frobenius", {"theta": 0.5}),
+          ("nsnmf", "kullback-leibler", {"theta": 0.5}))
+FAMILY_ITERS = 50
+FAMILY_ML_ITERS = 10
+# one step against a float64 recomputation of the same equations, max|a -
+# b| / max|b|, each half-step from the same inputs. A solve (ALS, ACLS,
+# AHCLS, the GDCLS H step), as phase 18 holds one: the float64 solve of the
+# card's own Gram and right-hand side, within SOLVE_FACTOR sqrt(r) kappa
+# 2^-24 (kappa of the solved matrix): a Cholesky or LU solve's backward
+# error grows with the order r (~sqrt(r) 2^-24 typical, r 2^-24 at worst),
+# and at r = 256 every float32 solver lands at 5-22 kappa 2^-24 on these
+# systems (the explicit inverse, cholesky_solve and LU, on the card and the
+# host; the first system prints them); the Gram and the right-hand side
+# themselves against
+# float64 products of the operands the step rounds (V as stored; the
+# partner in bf16, or quantized and dequantized for int8) at
+# FAMILY_MU_RTOL. An MU-type half-step (the GDCLS W step, nsNMF) on float32
+# V, or on int8 V under Frobenius (dequantized operands): float32 sums of
+# 4096 positive terms in another order, ~1e-6; 1e-4 leaves 100x
+FAMILY_MU_RTOL = 1e-4
+# an MU-type half-step on bf16 V, or nsNMF-KL on int8 V (its contractions
+# are bf16), against float64 on the unrounded factors: each product term
+# carries at most three bf16 roundings (W and H inside WH, the ratio, the
+# partner), so phase 16's 5 * 2^-9 bounds the ratio of two positive sums
+FAMILY_BF16_RTOL = 5 * 2**-9
+# ML-20M shape: the error of a bf16 run after FAMILY_ML_ITERS against the
+# float32 run on the ratings (half stars are exact in bf16; rounding the
+# factors is the difference); of an int8 run after its first iteration
+# against the float32 run, both on the dequantized ratings (one step's
+# requantization is the difference). Later int8 iterations compound the
+# coarseness of one scale over W's 138,493 rows, which no limit here
+# derives; their distance from float32 is printed. nmftpu's int8 GDCLS
+# leaves float32 the same way, step for step with the port, at all
+# 138,493 rows and 8192 columns (tests/test_torch_int8_scale_witness.py)
+FAMILY_STORAGE_RTOL = 1e-3
+# the inits at 4096^2 / r = 256: Lloyd's within-cluster sum of squares
+# cannot rise in exact arithmetic; a float32 argmin can move a column whose
+# two distances tie within their rounding (~2^-24 (|v|^2 + |c|^2) each),
+# far below 1e-6 of the sum
+KMEANS_ITERS = 25
+KMEANS_RISE_RTOL = 1e-6
+# BASELINE config 1 ("MovieLens-100K dense NMF, rank 32"): every
+# algorithm from every init, on the repo's ML-100K fixture (302 ratings of
+# 30 users and 40 items, so rank 8, as the CPU tests take it) and at
+# config 1's full width, 943 x 1682 with ML-100K's 100,000 ratings
+# (synthetic: distinct cells drawn uniformly, 1 to 5 stars) at rank 32
+CONFIG1 = (943, 1682, 100_000)
+CONFIG1_RANK = 32
+CONFIG1_FIXTURE_RANK = 8
+CONFIG1_ITERS = 100
 
 # the card's peaks (NVIDIA's H100 SXM data sheet, dense): float32 on the
 # CUDA cores, bf16 and int8 on the tensor cores, HBM bandwidth
@@ -2328,6 +2404,476 @@ def beta_engines_phase(nt, card, dev, ratings) -> None:
     torch.cuda.empty_cache()
 
 
+def family_operand(X, storage):
+    """The factor operand as a step of `storage` feeds it to the large
+    product, in float64: rounded to bf16, quantized and dequantized
+    (int8), or as it is."""
+    from nmftpu_torch.linalg import dense as D
+
+    if storage == "bfloat16":
+        return X.to(torch.bfloat16).double()
+    if storage == "int8":
+        s, Xq = D.quantize_sym(X)
+        return Xq.double() * s.double()
+    return X.double()
+
+
+def family_mu64(alg, kl, side, Vx, W, H, S, storage, eps=1e-9):
+    """One MU-type half-step (`side` "w" or "h": the GDCLS W step, nsNMF
+    under Frobenius or KL) recomputed in float64 from the card's float32
+    W and H; Vx is V as the step stores it, in float64, and the large
+    product's factor operand is rounded as `storage` says ("float32":
+    unrounded)."""
+    W64, H64, S64 = W.double(), H.double(), S.double()
+    if side == "w":
+        P64 = H64 if alg == "gdcls" else S64 @ H64
+        if kl:
+            ratio = Vx / (W64 @ P64 + eps)
+            return (W64 * (ratio @ P64.T)
+                    / torch.clamp(P64.sum(dim=1), min=eps)[None, :])
+        Pop = family_operand(H if alg == "gdcls" else S @ H, storage)
+        return W64 * (Vx @ Pop.T) / (W64 @ (P64 @ P64.T) + eps)
+    Q64 = W64 @ S64
+    if kl:
+        ratio = Vx / (Q64 @ H64 + eps)
+        return (H64 * (Q64.T @ ratio)
+                / torch.clamp(Q64.sum(dim=0), min=eps)[:, None])
+    Pop = family_operand(W @ S, storage)
+    return H64 * (Pop.T @ Vx) / ((Q64.T @ Q64) @ H64 + eps)
+
+
+def family_ls_terms(storage, side, aux, V, W, H):
+    """The Gram and the right-hand side of a solve half-step as the route
+    of `storage` forms them on the card (float32), and both in float64
+    from the same rounded operands."""
+    from nmftpu_torch import densified as DF
+    from nmftpu_torch.linalg import dense as D
+
+    if storage == "int8":
+        fn = D._ls_terms_w_int8 if side == "w" else D._ls_terms_h_int8
+        gram, rhs = fn(aux[0], aux[1], H if side == "w" else W)
+        Vx = aux[0].double() * aux[1].double()
+    elif storage == "bfloat16":
+        Vb = aux[0]
+        P = H if side == "w" else W
+        gram = P @ P.T if side == "w" else P.T @ P
+        rhs = DF._big_vht(Vb, H).T if side == "w" else DF._big_wtv(W, Vb)
+        Vx = Vb.double()
+    else:
+        gram = H @ H.T if side == "w" else W.T @ W
+        rhs = H @ V.T if side == "w" else W.T @ V
+        Vx = V.double()
+    Pop = family_operand(H if side == "w" else W, storage)
+    P64 = Pop if storage == "int8" else (H if side == "w" else W).double()
+    if side == "w":
+        return gram, rhs, P64 @ P64.T, Pop @ Vx.T
+    return gram, rhs, P64.T @ P64, Pop.T @ Vx
+
+
+def solver_spread(D, label, A, rhs) -> None:
+    """Print how far float32 solvers of A X = rhs land from the float64
+    solve, in units of kappa 2^-24, on the card and on the host: the
+    port's explicit-inverse Cholesky solve (linalg.dense.spd_solve),
+    cholesky_solve (two triangular solves) and LU."""
+    want = torch.linalg.solve(A.double(), rhs.double())
+    unit = float(torch.linalg.cond(A.double())) * 2.0 ** -24
+    for Ax, bx in ((A, rhs), (A.cpu(), rhs.cpu())):
+        got = {"spd_solve": D.spd_solve(Ax, bx),
+               "cholesky_solve": torch.cholesky_solve(
+                   bx, torch.linalg.cholesky(Ax)),
+               "lu": torch.linalg.solve(Ax, bx)}
+        errs = {f"{k}_in_kappa_u":
+                float((x.to(want).double() - want).abs().max()
+                      / want.abs().max()) / unit for k, x in got.items()}
+        say("21 float32 solvers", system=label, device=Ax.device.type,
+            r=A.shape[0], kappa=f"{unit * 2**24:.4g}",
+            **{k: f"{v:.2f}" for k, v in errs.items()})
+
+
+def family_solve_check(label, side, got, gram, rhs, shift, off,
+                       eps=1e-9) -> tuple:
+    """A solve half-step's result against the float64 solve of the same
+    equations (the card's Gram and right-hand side, as phase 18 takes
+    them), clamped at 0: (max|a - b| / max|b|, kappa of the matrix)."""
+    r = gram.shape[0]
+    A = gram.double() + (shift + eps) * torch.eye(
+        r, dtype=torch.float64, device=gram.device) + off
+    want = torch.clamp(torch.linalg.solve(A, rhs.double()), min=0.0)
+    if side == "w":
+        want = want.T
+    rel = float((got.double() - want).abs().max() / want.abs().max())
+    return rel, float(torch.linalg.cond(A))
+
+
+def family_shifts(alg, kn, storage, r):
+    """(shift_w, shift_h, off_w, off_h) the route of `alg` on `storage`
+    solves with: the float64 Hoyer shifts of the int8 and bf16 routes
+    (sparse_ops._als_family_shifts), the dense float32 AHCLS shift in
+    float32 (linalg.dense._ahcls_shift), the penalties, or the GDCLS
+    Tikhonov term (H side)."""
+    import nmftpu_torch as nt
+    from nmftpu_torch import sparse_ops as TS
+    from nmftpu_torch.linalg import dense as D
+
+    if alg == "gdcls":
+        return 0.0, kn["lambda_tik"], 0.0, 0.0
+    if storage != "float32" or alg != "ahcls":
+        return TS._als_family_shifts(nt.NmfConfig(rank=r, algorithm=alg,
+                                                  **kn))
+    (dw, ow), (dh, oh) = (
+        D._ahcls_shift(kn[f"lambda_{s}"], kn[f"alpha_{s}"], r, torch.float32)
+        for s in "wh")
+    return float(dw), float(dh), float(ow), float(oh)
+
+
+def family_run(nt, DN, label, V_in, rank, W0, H0, iters, **kw):
+    """One nmf run from (W0, H0), checked every iteration, with #6's
+    one-sided counts from 0 just before it; returns (result, launches,
+    peak GiB, seconds)."""
+    DN.LAUNCHES.update(vht_int8=0, wtv_int8=0)
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = nt.nmf(V_in, rank, init="copy", W0=W0, H0=H0, num_iterations=iters,
+                 check_interval=1, device=V_in.device, **kw)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launched = {k: DN.LAUNCHES[k] for k in ("vht_int8", "wtv_int8")}
+    finite = bool(torch.isfinite(res.W).all() and torch.isfinite(res.H).all())
+    if not finite or not np.isfinite(res.stats.errors).all():
+        fail(f"{label}: non-finite factors or errors "
+             f"{res.stats.errors.tolist()}")
+    return res, launched, torch.cuda.max_memory_allocated() / 2**30, secs
+
+
+def check_int8_rhs(DN, D, label, Vq, pw, ph) -> None:
+    """#6's one-sided entries on the operands an int8 step quantized (pw
+    for the W side, ph for the H side) against the exact float64 product
+    (atol 0)."""
+    Hq = D.quantize_sym(pw)[1]
+    WqT = D.quantize_sym_t(ph)[1]
+    dv = float((DN.vht_int8(Vq, Hq).double() - DN.vht_exact(Vq, Hq))
+               .abs().max())
+    dw = float((DN.wtv_int8(Vq, WqT).double() - DN.wtv_exact(Vq, WqT))
+               .abs().max())
+    say("21 int8 rhs", run=label, vht_vs_exact_max_abs=dv,
+        wtv_vs_exact_max_abs=dw)
+    if dv or dw:
+        fail(f"{label}: the int8 right-hand sides differ from the exact "
+             f"product (vht {dv}, wtv {dw})")
+
+
+def family_phase(nt, card, dev, V, W0, H0) -> dict:
+    """Phase 21: the dense ALS family, GDCLS and nsNMF (slice 4b-i). (a)
+    every algorithm on float32, bf16 and int8 V at 4096^2 / r = 256 (V,
+    W0, H0 are phase 4's) through nmf, each step held against float64;
+    (b) int8 and bf16 ALS, GDCLS and nsNMF at the ML-20M shape against
+    float32; (c) the k-means and NNDSVD inits at 4096^2; (d) every
+    algorithm from every init on BASELINE config 1. Returns the launches
+    of #6's one-sided entries on these paths."""
+    from nmftpu_torch.algorithms import build_dense_update
+    from nmftpu_torch.kernels import dual_numer as DN
+    from nmftpu_torch.kernels import quantized as Q
+    from nmftpu_torch.linalg import dense as D
+
+    r = W0.shape[1]
+    total = {"vht_int8": 0, "wtv_int8": 0}
+    Vq, scale = Q.quantize_v(V)
+    stored = {"float32": V.double(), "bfloat16": V.to(torch.bfloat16).double(),
+              "int8": Vq.double() * scale.double()}
+    S = D.nsnmf_smoothing_matrix(r, 0.5, device=dev)
+    # -- 21 (a): 4096^2 / r = 256, 50 iterations each -----------------------
+    for alg, obj, kn in FAMILY:
+        kl = obj == "kullback-leibler"
+        for storage in ("float32", "bfloat16", "int8"):
+            label = f"{alg}{' kl' if kl else ''} {storage}"
+            knobs = dict(algorithm=alg, objective=obj, v_storage=storage,
+                         **kn)
+            make_aux, update, eff = build_dense_update(
+                nt.NmfConfig(rank=r, **knobs))
+            aux = make_aux(V)
+            e0 = float(D.frobenius_error(V, W0, eff(aux, H0)))
+            res, launched, peak, secs = family_run(
+                nt, DN, label, V, r, W0, H0, FAMILY_ITERS, **knobs)
+            for k in total:
+                total[k] += launched[k]
+            int8_entries = storage == "int8" and not kl
+            want = FAMILY_ITERS if int8_entries else 0
+            ms = cuda_ms(lambda: update(V, aux, W0, H0), iters=5)
+            errs = res.stats.errors
+            # one step, each half from the same inputs, against float64
+            W1, H1 = update(V, aux, W0, H0)
+            shifts = family_shifts(alg, kn, storage, r)
+            checks = {}
+            for side, got, Wi in (("w", W1, W0), ("h", H1, W1)):
+                if alg in ("als", "acls", "ahcls") or (alg == "gdcls"
+                                                       and side == "h"):
+                    sh, off = ((shifts[0], shifts[2]) if side == "w"
+                               else (shifts[1], shifts[3]))
+                    gram, rhs, gram64, rhs64 = family_ls_terms(
+                        storage, side, aux, V, Wi, H0)
+                    rel, kappa = family_solve_check(label, side, got, gram,
+                                                    rhs, sh, off)
+                    products = max(
+                        float((x.double() - x64).abs().max()
+                              / x64.abs().max())
+                        for x, x64 in ((gram, gram64), (rhs, rhs64)))
+                    checks[side] = (rel, SOLVE_FACTOR * r ** 0.5 * kappa
+                                    * 2.0 ** -24, kappa, products)
+                    if storage == "float32" and (alg, side) in (
+                            ("als", "w"), ("acls", "h")):
+                        solver_spread(D, f"{alg} {side}", gram + (
+                            sh + 1e-9) * torch.eye(r, device=dev) + off,
+                            rhs)
+                    continue
+                # bf16 MU-type steps (and int8 KL's bf16 panels) are held
+                # on the unrounded factors
+                mu_bf16 = storage == "bfloat16" or (storage == "int8"
+                                                    and kl)
+                want64 = family_mu64(alg, kl, side, stored[storage], Wi, H0,
+                                     S, "float32" if mu_bf16 else storage)
+                rel = float((got.double() - want64).abs().max()
+                            / want64.abs().max())
+                checks[side] = (rel, FAMILY_BF16_RTOL if mu_bf16
+                                else FAMILY_MU_RTOL, None, None)
+            say("21 family 4096^2 r=256", run=label,
+                errors_0_1_50=[f"{e0:.6g}", f"{errs[0]:.6g}",
+                               f"{errs[-1]:.6g}"],
+                kl_error=res.kl_error, ms_per_iter=f"{ms:.4f}",
+                peak_GiB=f"{peak:.2f}", seconds=f"{secs:.3f}",
+                launches=launched, expected_each=want, card=card)
+            for side, (rel, limit, kappa, products) in checks.items():
+                extra = {} if kappa is None else {
+                    "kappa": f"{kappa:.4g}",
+                    "gram_rhs_vs_float64": f"{products:.3e}",
+                    "products_limit": FAMILY_MU_RTOL}
+                say("21 step vs float64", run=label, half=side,
+                    rel_err=f"{rel:.3e}", limit=f"{limit:.3e}", **extra)
+                if not rel <= limit:
+                    fail(f"{label}: the {side} half-step is off by {rel:.3e} "
+                         f"against float64, above {limit:.3e}")
+                if products is not None and not products <= FAMILY_MU_RTOL:
+                    fail(f"{label}: the {side} half-step's Gram or "
+                         f"right-hand side is off by {products:.3e} "
+                         "against float64")
+            if not errs[-1] < e0:
+                fail(f"{label}: the error did not fall from iteration 0 to "
+                     f"{FAMILY_ITERS}: {e0} -> {errs[-1]}")
+            if launched != {"vht_int8": want, "wtv_int8": want}:
+                fail(f"{label}: #6's one-sided entries launched {launched}, "
+                     f"not {want} each")
+            if int8_entries:
+                check_int8_rhs(DN, D, label, Vq,
+                               H0 if alg != "nsnmf" else S @ H0,
+                               W1 if alg != "nsnmf" else W1 @ S)
+            del res, aux, W1, H1
+    del stored
+    torch.cuda.empty_cache()
+
+    # -- 21 (b): the ML-20M shape, dense, r = 64, 10 iterations -------------
+    n5, m5, r5, nnz = ML20M
+    t0 = time.perf_counter()
+    R = synthetic_ratings(n5, m5, nnz, torch.Generator(device=dev)
+                          .manual_seed(SEED + 5), dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 21)
+    W5 = torch.rand(n5, r5, generator=gen, device=dev) + 0.01
+    H5 = torch.rand(r5, m5, generator=gen, device=dev) + 0.01
+    Vq5, scale5 = Q.quantize_v(R)
+    # the int8 runs and their float32 twins take the dequantized ratings,
+    # whose quantization gives the ratings' integers back, so that both
+    # report their error against the same V
+    R_dq = Vq5.float() * scale5
+    if not torch.equal(Q.quantize_v(R_dq)[0], Vq5):
+        fail("the dequantized ratings do not quantize to the same integers")
+    del Vq5
+    torch.cuda.synchronize()
+    say("21 ML-20M data", shape=f"{n5}x{m5}", rank=r5,
+        seconds=f"{time.perf_counter() - t0:.2f}")
+    S5 = D.nsnmf_smoothing_matrix(r5, 0.5, device=dev)
+    for alg, obj, kn in FAMILY:
+        if alg not in ("als", "gdcls") and not (alg == "nsnmf"
+                                                and obj == "frobenius"):
+            continue
+        for storage, source in (("int8", R_dq), ("bfloat16", R)):
+            label = f"{alg} {storage}"
+            knobs = dict(algorithm=alg, objective=obj, **kn)
+            res, launched, peak, secs = family_run(
+                nt, DN, f"ML-20M {label}", source, r5, W5, H5,
+                FAMILY_ML_ITERS, v_storage=storage, **knobs)
+            for k in total:
+                total[k] += launched[k]
+            want = FAMILY_ML_ITERS if storage == "int8" else 0
+            ref, _, _, _ = family_run(nt, DN, f"ML-20M {alg} float32", source,
+                                      r5, W5, H5, FAMILY_ML_ITERS, **knobs)
+            make_aux, update, eff = build_dense_update(
+                nt.NmfConfig(rank=r5, v_storage=storage, **knobs))
+            aux = make_aux(source)
+            e0 = float(D.frobenius_error(source, W5, eff(aux, H5)))
+            ms = cuda_ms(lambda: update(source, aux, W5, H5), iters=3)
+            errs, ref_errs = res.stats.errors, ref.stats.errors
+            rel1 = abs(errs[0] / ref_errs[0] - 1)
+            rel = abs(errs[-1] / ref_errs[-1] - 1)
+            quant = {}
+            if storage == "int8":
+                # no int32 sum wrapped (n = 138,493 > 133,144) on the first
+                # step's operands nor the last's; how coarse one scale
+                # makes W's int8 copy at the end
+                W1 = update(source, aux, W5, H5)[0]
+                for tag, Wx, Hx in (("first", W1, H5),
+                                    ("last", res.W, res.H)):
+                    if alg == "nsnmf":
+                        Wx, Hx = Wx @ S5, S5 @ Hx
+                    check_int8_rhs(DN, D, f"ML-20M {label} {tag} step",
+                                   aux[0], Hx, Wx)
+                s_w, Wq = D.quantize_sym(res.W)
+                w_err = torch.linalg.norm(res.W - Wq.float() * s_w)
+                quant = {
+                    "W_int8_rel_err":
+                        f"{float(w_err / torch.linalg.norm(res.W)):.3e}",
+                    "W_entries_at_0":
+                        f"{float((Wq == 0).float().mean()):.3f}"}
+            say("21 family ML-20M shape", run=label,
+                errors_0_to_10=[f"{e:.7g}" for e in (e0, *errs)],
+                float32_1_to_10=[f"{e:.7g}" for e in ref_errs],
+                float32_on="dequantized ratings" if storage == "int8"
+                else "ratings", rel_to_float32_1=f"{rel1:.3e}",
+                rel_to_float32_10=f"{rel:.3e}", rtol=FAMILY_STORAGE_RTOL,
+                held_at="1" if storage == "int8" else "10",
+                ms_per_iter=f"{ms:.3f}", peak_GiB=f"{peak:.2f}",
+                seconds=f"{secs:.3f}", launches=launched,
+                expected_each=want, **quant, card=card)
+            if not errs[-1] < e0:
+                fail(f"ML-20M {label}: the error did not fall: {e0} -> "
+                     f"{errs[-1]}")
+            held = rel1 if storage == "int8" else rel
+            if not held <= FAMILY_STORAGE_RTOL:
+                fail(f"ML-20M {label}: the error is {held:.3e} from "
+                     f"float32's (errors {errs.tolist()} against "
+                     f"{ref_errs.tolist()})")
+            if launched != {"vht_int8": want, "wtv_int8": want}:
+                fail(f"ML-20M {label}: #6's one-sided entries launched "
+                     f"{launched}, not {want} each")
+            del res, ref, aux
+    del R, R_dq, W5, H5, S5
+    torch.cuda.empty_cache()
+
+    # -- 21 (c): the k-means and NNDSVD inits at 4096^2 / r = 256 -----------
+    from nmftpu_torch.init import kmeans as KM
+
+    n, m = V.shape
+    gen = torch.Generator(device=dev).manual_seed(SEED + 22)
+    km_ms = cuda_ms(lambda: KM.kmeans_columns(V, r, gen, KMEANS_ITERS), 1)
+    cols = torch.randperm(m, generator=gen, device=dev)[:r]
+    c = V[:, cols]
+    Vd = V.double()
+    wcss = []
+    for _ in range(KMEANS_ITERS):
+        c, a = KM._lloyd(V, c, 1)
+        wcss.append(float(((Vd - c.double()[:, a]) ** 2).sum()))
+    rise = max([(b - a) / a for a, b in zip(wcss, wcss[1:])] + [0.0])
+    say("21 kmeans", shape=f"{n}x{m}", rank=r, iterations=KMEANS_ITERS,
+        ms=f"{km_ms:.3f}", wcss_first_last=[f"{wcss[0]:.6g}",
+                                             f"{wcss[-1]:.6g}"],
+        largest_relative_rise=f"{rise:.3e}", limit=KMEANS_RISE_RTOL,
+        card=card)
+    if not rise <= KMEANS_RISE_RTOL:
+        fail(f"k-means: the within-cluster sum rose by {rise:.3e}")
+    del Vd, c
+    # the random and k-means inits through nmf; the NNDSVD variants from
+    # one host SVD of V that they share (through nmf, a variant costs that
+    # SVD plus its own host seconds printed here)
+    from nmftpu_torch.init import nndsvd as ND
+
+    inits = {}
+    for init in ("random", "kmeans_random", "kmeans_nonnegative_wtv",
+                 "kmeans_absolute_wtv"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = nt.nmf(V, r, init=init, num_iterations=0, device=dev)
+        torch.cuda.synchronize()
+        inits[init] = (res.W, res.H, res.error, time.perf_counter() - t0)
+    Vh = V.cpu().numpy()
+    t0 = time.perf_counter()
+    svd = ND._truncated_svd(Vh, r)
+    say("21 init", init="the NNDSVD variants' SVD", shape=f"{n}x{m}",
+        rank=r, host_seconds=f"{time.perf_counter() - t0:.3f}")
+    for init in ("nndsvd", "nndsvda", "nndsvdar"):
+        t0 = time.perf_counter()
+        Wn, Hn = (torch.as_tensor(x, dtype=V.dtype, device=dev) for x in
+                  ND._nndsvd_from_svd(Vh, *svd, variant=init, eps=1e-6,
+                                      seed=SEED))
+        torch.cuda.synchronize()
+        inits[init] = (Wn, Hn, float(D.frobenius_error(V, Wn, Hn)),
+                       time.perf_counter() - t0)
+    del Vh, svd
+    for init, (Wi, Hi, err, secs) in inits.items():
+        nonneg = bool((Wi >= 0).all() and (Hi >= 0).all())
+        say("21 init", init=init, shape=f"{n}x{m}", rank=r,
+            host_seconds=f"{secs:.3f}", error=f"{err:.6g}",
+            nonnegative=nonneg)
+        if not nonneg or not np.isfinite(err):
+            fail(f"init {init}: negative or non-finite factors")
+    e_rand = inits["random"][2]
+    for init in ("nndsvd", "nndsvdar"):
+        if not inits[init][2] < e_rand:
+            fail(f"init {init}: initial error {inits[init][2]} is not "
+                 f"below all_random_values' {e_rand}")
+    # nndsvda fills nndsvd's zeros with mean(V), which puts its start above
+    # the random one: it is held to that construction instead
+    mean_v = float(np.mean(V.cpu().numpy()))
+    for core, filled in zip(inits["nndsvd"][:2], inits["nndsvda"][:2]):
+        want = torch.where(core > 0, core, torch.tensor(mean_v, device=dev))
+        if not torch.equal(filled, want):
+            fail("init nndsvda is not nndsvd with its zeros at mean(V)")
+    say("21 init checks", random_error=f"{e_rand:.6g}",
+        nndsvd_below_random=True, nndsvdar_below_random=True,
+        nndsvda_is_nndsvd_filled_with_mean=True,
+        nndsvda_error=f"{inits['nndsvda'][2]:.6g}")
+    del inits, res
+
+    # -- 21 (d): BASELINE config 1, every algorithm from every init ---------
+    from nmftpu_torch.data import load_movielens
+
+    fixture = load_movielens(str(HERE / "tests" / "fixtures" /
+                                 "ml100k_u.data")).matrix.todense()
+    n1, m1, nnz1 = CONFIG1
+    rng = np.random.default_rng(SEED + 23)
+    config1 = np.zeros(n1 * m1, np.float32)
+    config1[rng.choice(n1 * m1, nnz1, replace=False)] = rng.integers(
+        1, 6, nnz1)
+    config1 = config1.reshape(n1, m1)
+    algs = (("mu", "frobenius", {}), ("hals", "frobenius", {})) + FAMILY
+    for data, X, rank in (("fixture", fixture, CONFIG1_FIXTURE_RANK),
+                          ("config 1 shape", config1, CONFIG1_RANK)):
+        X = X.astype(np.float32)
+        rmsd_zero = float(np.sqrt(np.mean(X.astype(np.float64) ** 2)))
+        rng = np.random.default_rng(SEED)
+        copy_from = {"W0": rng.uniform(0.1, 1.0, (X.shape[0], rank)),
+                     "H0": rng.uniform(0.1, 1.0, (rank, X.shape[1]))}
+        t0 = time.perf_counter()
+        for alg, obj, kn in algs:
+            name = f"{alg}{'-kl' if obj == 'kullback-leibler' else ''}"
+            row = {}
+            for init in ("copy", "random", "mean_columns", "kmeans_random",
+                         "kmeans_nonnegative_wtv", "kmeans_absolute_wtv",
+                         "nndsvd", "nndsvda", "nndsvdar"):
+                res = nt.nmf(X, rank, algorithm=alg, objective=obj,
+                             init=init, num_iterations=CONFIG1_ITERS,
+                             seed=1, device=dev, **kn,
+                             **(copy_from if init == "copy" else {}))
+                if not (np.isfinite(res.rmsd) and res.rmsd < rmsd_zero):
+                    fail(f"{data} {name} from {init}: RMSD {res.rmsd} (the "
+                         f"zero model's is {rmsd_zero})")
+                row[init] = f"{res.rmsd:.5f}"
+            say("21 config 1", data=data, algorithm=name, rank=rank,
+                iterations=CONFIG1_ITERS, final_rmsd=row)
+        say("21 config 1", data=data, shape=f"{X.shape[0]}x{X.shape[1]}",
+            nonzeros=int(np.count_nonzero(X)),
+            zero_model_rmsd=f"{rmsd_zero:.5f}",
+            seconds=f"{time.perf_counter() - t0:.2f}")
+    return total
+
+
 def main() -> None:
     if not (HERE / "nmftpu_torch").is_dir():
         fail(f"no nmftpu_torch package beside {__file__}")
@@ -2775,6 +3321,10 @@ def main() -> None:
     torch.cuda.empty_cache()
     beta_engines_phase(nt, card, dev, ratings)
     del ratings
+
+    # -- 21. slice 4b-i: the dense ALS family, GDCLS, nsNMF; the inits ------
+    torch.cuda.empty_cache()
+    family_launches = family_phase(nt, card, dev, V, W0, H0)
     # #6's one-sided entries: phase 15's launches and phase 17's
     for name, count in s8["launches"].items():
         new[name]["launches"] += count
@@ -2791,8 +3341,11 @@ def main() -> None:
     launches = {**main_path_launches, **serve_launches,
                 "ell_rowsums": ell["launches"],
                 **{name: f["launches"] for name, f in new.items()}}
-    # #6's one-sided entry, #7 and #8 on the cold-user path (phase 18)
+    # #6's one-sided entry, #7 and #8 on the cold-user path (phase 18); the
+    # one-sided entries on the int8 ALS family, GDCLS and nsNMF (phase 21)
     for name, count in cold_launches.items():
+        launches[name] += count
+    for name, count in family_launches.items():
         launches[name] += count
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": SOURCES[name],

@@ -1,47 +1,66 @@
-"""Dispatch an NmfConfig to concrete update-step callables (port of the
-MU (Frobenius, KL, beta divergence) and HALS branches of
+"""Dispatch an NmfConfig to concrete update-step callables (port of
 ``nmftpu/algorithms/registry.py``).
 
 `build_dense_update(config)` returns a triple:
 
   make_aux(V)            -> tuple of per-problem constants computed once
                             outside the iteration loop (the int8 or bf16
-                            copy of V, or ());
+                            copy of V, the nsNMF smoothing matrix S, the
+                            confidence C = 1 + alpha·V, or ());
   update(V, aux, W, H)   -> (W, H) one full iteration, as new tensors;
-  effective_h(aux, H)    -> the H used in error metrics (H itself here).
+  effective_h(aux, H)    -> the H used in error metrics: S @ H for nsNMF,
+                            H itself otherwise.
 
 Routes, in ``nmftpu``'s order of precedence (`order` is "jacobi" under
 mu_style="jacobi", else update_order):
 
-  HALS                                 -> linalg.dense.hals_update
-                                          (CUDA sweep kernel on the card)
-  Frobenius, v_storage="int8":
-    use_pallas and not jacobi          -> kernels.quantized (CUDA kernels)
-    otherwise                          -> linalg.dense.
+  not MU, Frobenius, v_storage="int8"  -> linalg.dense:
+    ALS, ACLS, AHCLS                        als_family_update_int8x8
+    GDCLS                                   gdcls_update_int8x8
+    nsNMF                                   nsnmf_update_frobenius_int8x8
+                                          (the right-hand sides on #6's
+                                          one-sided int8 CUDA entries)
+  not MU, Frobenius, v_storage="bfloat16" -> densified:
+    ALS, ACLS, AHCLS                        als_family_update_densified
+    GDCLS                                   gdcls_update_densified
+    nsNMF                                   nsnmf_update_densified
+  MU:
+    alpha_confidence > 0, float32 V    -> linalg.dense.
+                                          mu_update_frobenius_weighted
+    alpha_confidence > 0, bf16/int8 V  -> densified.
+                                          mu_update_frobenius_weighted_
+                                          densified (int8: with the scale)
+    Frobenius, v_storage="int8":
+      use_pallas and not jacobi        -> kernels.quantized (CUDA kernels)
+      otherwise                        -> linalg.dense.
                                           mu_update_frobenius_int8x8
                                           (int8 CUDA kernels; jacobi with
                                           use_pallas: the dual kernel)
-  Frobenius, v_storage="bfloat16"      -> linalg.dense.
+    Frobenius, v_storage="bfloat16"    -> linalg.dense.
                                           mu_update_frobenius_bf16v
-  Frobenius, use_pallas=True           -> kernels.dense_mu (CUDA kernels)
-  Frobenius                            -> linalg.dense.mu_update_frobenius
-  KL, v_storage="int8" or "bfloat16"   -> densified.mu_update_kl_densified
+    Frobenius, use_pallas=True         -> kernels.dense_mu (CUDA kernels)
+    Frobenius                          -> linalg.dense.mu_update_frobenius
+    KL, v_storage="int8" or "bfloat16" -> densified.mu_update_kl_densified
                                           (int8: with the scale)
-  KL                                   -> linalg.dense.mu_update_kl
-  beta divergence, v_storage="float32" -> linalg.dense.mu_update_beta
-  beta divergence, "int8" or "bfloat16"
-                                       -> densified.mu_update_beta_densified
-                                          (int8: with the scale)
+    KL                                 -> linalg.dense.mu_update_kl
+    beta divergence, float32 V         -> linalg.dense.mu_update_beta
+    beta divergence, bf16/int8 V       -> densified.mu_update_beta_densified
+  ALS (float32 V)                      -> linalg.dense.als_update
+  HALS                                 -> linalg.dense.hals_update
+                                          (CUDA sweep kernel on the card)
+  ACLS, AHCLS, GDCLS (float32 V)       -> linalg.dense.acls_update,
+                                          ahcls_update, gdcls_update
+  nsNMF, KL, bf16 or int8 V            -> densified.nsnmf_update_kl_
+                                          densified (int8: with the scale)
+  nsNMF, float32 V (Frobenius or KL)   -> linalg.dense.nsnmf_update
 
-Confidence weighting (alpha_confidence > 0, MU under Frobenius) comes
-first: float32 V -> linalg.dense.mu_update_frobenius_weighted with
-C = 1 + alpha·V as the aux; bfloat16 and int8 V ->
-densified.mu_update_frobenius_weighted_densified (int8 with the scale).
-
-On the CPU, ``nmftpu`` runs int8 V as a bf16-dequantized contraction;
-the port takes the int8 x int8 route on every device. Every other
-configuration raises NotImplementedError naming the part of the port
-(ROADMAP.md, queue 1) that brings it.
+The ALS family on int8 and bf16 V takes its shifts from
+``sparse_ops._als_family_shifts`` (float64); dense float32 AHCLS takes
+``linalg.dense._ahcls_shift`` (in V's dtype), as ``nmftpu`` does.
+On the CPU, ``nmftpu`` runs int8 MU as a bf16-dequantized contraction;
+the port takes the int8 x int8 route on every device. iALS (ALS with
+alpha_confidence > 0) raises NotImplementedError naming its part of the
+port (ROADMAP.md, queue 1, slice 4c).
 """
 
 from __future__ import annotations
@@ -85,12 +104,140 @@ def _jacobi_order(config: NmfConfig) -> str:
     return "jacobi"
 
 
+def _smoothing(config: NmfConfig, V, dtype=torch.float32):
+    """nsNMF's S in `dtype`, then in V's (the factors') dtype: the
+    low-precision routes build S in float32, as ``nmftpu`` does, and a
+    float64 run multiplies it as float64, as XLA promotes it."""
+    return D.nsnmf_smoothing_matrix(config.rank, config.theta, dtype=dtype,
+                                    device=V.device).to(V.dtype)
+
+
+def _identity_h(aux, H):
+    """The effective H of every algorithm but nsNMF: H itself."""
+    return H
+
+
+def _smoothed_h(aux, H):
+    """nsNMF's effective H, S @ H (S last in the aux)."""
+    return aux[-1] @ H
+
+
+def _low_precision_family(config: NmfConfig):
+    """The ALS family, GDCLS and nsNMF on int8 V (Frobenius: the
+    right-hand sides on #6's one-sided int8 entries) or bf16 V (bf16
+    contractions into float32), and nsNMF under KL over row panels of
+    either; aux = (V int8 or bf16, scale or None) and, for nsNMF, S."""
+    eps, order, alg = config.eps, config.update_order, config.algorithm
+    int8 = config.v_storage == "int8"
+    make_v = _low_precision_v(config.v_storage)
+    from nmftpu_torch import densified as DF
+
+    if alg in (Algorithm.ALS, Algorithm.ACLS, Algorithm.AHCLS):
+        from nmftpu_torch.sparse_ops import _als_family_shifts
+
+        shifts = dict(zip(("shift_w", "shift_h", "off_w", "off_h"),
+                          _als_family_shifts(config)))
+        if int8:
+            def update(V, aux, W, H):
+                return D.als_family_update_int8x8(
+                    aux[0], aux[1], W, H, **shifts, eps=eps, order=order)
+        else:
+            def update(V, aux, W, H):
+                return DF.als_family_update_densified(
+                    aux[0], W, H, **shifts, eps=eps, order=order)
+
+        return make_v, update, _identity_h
+    if alg is Algorithm.GDCLS:
+        lt = config.lambda_tik
+        if int8:
+            def update(V, aux, W, H):
+                return D.gdcls_update_int8x8(aux[0], aux[1], W, H,
+                                             lambda_tik=lt, eps=eps,
+                                             order=order)
+        else:
+            def update(V, aux, W, H):
+                return DF.gdcls_update_densified(aux[0], W, H, lambda_tik=lt,
+                                                 eps=eps, order=order)
+
+        return make_v, update, _identity_h
+    if alg is not Algorithm.NSNMF:
+        raise ValueError(f"unknown algorithm: {alg}")
+
+    def make_aux(V):
+        return (*make_v(V), _smoothing(config, V))
+
+    if config.objective is Objective.KL:
+        def update(V, aux, W, H):
+            return DF.nsnmf_update_kl_densified(aux[0], W, H, aux[2],
+                                                eps=eps, order=order,
+                                                scale=aux[1])
+    elif int8:
+        def update(V, aux, W, H):
+            return D.nsnmf_update_frobenius_int8x8(aux[0], aux[1], W, H,
+                                                   aux[2], eps=eps,
+                                                   order=order)
+    else:
+        def update(V, aux, W, H):
+            return DF.nsnmf_update_densified(aux[0], W, H, aux[2], eps=eps,
+                                             order=order)
+
+    return make_aux, update, _smoothed_h
+
+
+def _float32_v_family(config: NmfConfig):
+    """ALS, ACLS, AHCLS, GDCLS and nsNMF (Frobenius or KL) on float32
+    V."""
+    eps, order, alg = config.eps, config.update_order, config.algorithm
+    lw, lh = config.lambda_w, config.lambda_h
+
+    if alg is Algorithm.ALS:
+        if config.alpha_confidence > 0.0:
+            _unported("algorithm='als' with alpha_confidence > 0 (iALS)",
+                      "slice 4c")
+
+        def update(V, aux, W, H):
+            return D.als_update(V, W, H, eps=eps, order=order)
+    elif alg is Algorithm.ACLS:
+        def update(V, aux, W, H):
+            return D.acls_update(V, W, H, lambda_w=lw, lambda_h=lh, eps=eps,
+                                 order=order)
+    elif alg is Algorithm.AHCLS:
+        aw, ah = config.alpha_w, config.alpha_h
+
+        def update(V, aux, W, H):
+            return D.ahcls_update(V, W, H, lambda_w=lw, lambda_h=lh,
+                                  alpha_w=aw, alpha_h=ah, eps=eps,
+                                  order=order)
+    elif alg is Algorithm.GDCLS:
+        lt = config.lambda_tik
+
+        def update(V, aux, W, H):
+            return D.gdcls_update(V, W, H, lambda_tik=lt, eps=eps,
+                                  order=order)
+    elif alg is Algorithm.NSNMF:
+        obj = "frobenius" if config.objective is Objective.FROBENIUS else "kl"
+
+        def make_aux(V):
+            return (_smoothing(config, V, V.dtype),)
+
+        def update(V, aux, W, H):
+            return D.nsnmf_update(V, W, H, aux[0], eps=eps, objective=obj,
+                                  order=order)
+
+        return make_aux, update, _smoothed_h
+    else:
+        raise ValueError(f"unknown algorithm: {alg}")
+    return (lambda V: ()), update, _identity_h
+
+
 def build_dense_update(config: NmfConfig):
     eps = config.eps
 
-    def effective_h(aux, H):
-        return H
-
+    if (config.algorithm not in (Algorithm.MU, Algorithm.HALS)
+            and config.v_storage != "float32"):
+        # config validation keeps confidence weighting away from here, and
+        # KL to nsNMF
+        return _low_precision_family(config)
     if config.algorithm is Algorithm.HALS:
         # config validation keeps HALS to float32-stored V, Frobenius
         lw, lh = config.lambda_w, config.lambda_h
@@ -101,9 +248,9 @@ def build_dense_update(config: NmfConfig):
             return D.hals_update(V, W, H, eps=eps, order=hals_order,
                                  l2_w=lw, l2_h=lh, l1_w=l1w, l1_h=l1h)
 
-        return (lambda V: ()), update, effective_h
+        return (lambda V: ()), update, _identity_h
     if config.algorithm is not Algorithm.MU:
-        _unported(f"algorithm={config.algorithm.value!r}", "slice 4b")
+        return _float32_v_family(config)
     order = _jacobi_order(config)
     if config.objective is Objective.BETA:
         # config validation keeps beta to MU, without jacobi or weighting
@@ -112,7 +259,7 @@ def build_dense_update(config: NmfConfig):
             def update(V, aux, W, H):
                 return D.mu_update_beta(V, W, H, beta, eps=eps, order=order)
 
-            return (lambda V: ()), update, effective_h
+            return (lambda V: ()), update, _identity_h
         # bf16 or int8 V: the densified row-panel update; int8's scale
         # folds into the numerators after the contraction
         from nmftpu_torch import densified as DF
@@ -121,7 +268,7 @@ def build_dense_update(config: NmfConfig):
             return DF.mu_update_beta_densified(aux[0], W, H, beta, eps=eps,
                                                order=order, scale=aux[1])
 
-        return _low_precision_v(config.v_storage), update, effective_h
+        return _low_precision_v(config.v_storage), update, _identity_h
     kl = config.objective is Objective.KL
 
     if config.alpha_confidence > 0.0 and config.v_storage == "float32":
@@ -208,4 +355,4 @@ def build_dense_update(config: NmfConfig):
         def update(V, aux, W, H):
             return D.mu_update_frobenius(V, W, H, eps=eps, order=order)
 
-    return make_aux, update, effective_h
+    return make_aux, update, _identity_h

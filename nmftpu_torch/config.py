@@ -132,8 +132,9 @@ class NmfConfig:
     #   float32  — exact storage (default);
     #   bfloat16 — halves V traffic;
     #   int8     — quarter traffic via per-matrix-scale quantization
-    #              (in this port: with use_pallas=True, the fused CUDA
-    #              half-steps upcast it in the kernel).
+    #              (in this port: int8 x int8 products on the int8 CUDA
+    #              kernels, or with use_pallas=True the fused half-steps,
+    #              which read V as int8).
     # Factors W/H always stay in `dtype`; error checks read the original V.
     eps: float = 1e-9
     dtype: str = "float32"

@@ -1,6 +1,7 @@
 """Densified sparse strategy (port of the MU Frobenius, KL, weighted and
 beta-divergence subset of ``nmftpu/densified.py``, bf16 and int8
-storage).
+storage, and of its ALS-family, GDCLS and nsNMF updates, which the
+dense registry runs on bf16 V and, for nsNMF under KL, on int8 V).
 
 Whenever the interaction matrix fits device memory as bfloat16 (ML-20M
 is 7.4 GB) or int8, the nonzeros are scattered into a dense V ONCE and
@@ -34,6 +35,7 @@ from nmftpu_torch.linalg.dense import (
     _beta_powers,
     _jacobi_kl_scale,
     beta_gamma,
+    solve_clamped,
 )
 from nmftpu_torch.sparse_ops import DeviceCOO, _beta_apply, _chunks, _panels
 
@@ -138,6 +140,85 @@ def mu_update_kl_densified(Vd, W, H, eps=1e-9, order="WH", block_rows=4096,
         inv_a = _jacobi_kl_scale(sum_v, w_sum, h_sum, eps)
         return (W * (numer_w / h_sum[None, :]) * inv_a,
                 H * (numer_h / w_sum[:, None]) * inv_a)
+    return _apply_order(upd_w, upd_h, W, H, order)
+
+
+def nsnmf_update_kl_densified(Vd, W, H, S, eps=1e-9, order="WH",
+                              block_rows=4096, scale=None):
+    """nsNMF under KL against a dense bf16 or int8 V: KL MU half-steps
+    over row panels with the smoothed partners (S H stands in for H in
+    the W step, W S for W in the H step). `scale` as in
+    `mu_update_kl_densified` (int8-stored V = scale · Vd)."""
+
+    def upd_w(W, H):
+        SH = S @ H
+        numer = _kl_numer_w_blocked(Vd, W, SH, eps, block_rows, scale)
+        s_sum = torch.clamp(torch.sum(SH, dim=1), min=eps)[None, :]
+        return W * (numer / s_sum)
+
+    def upd_h(W, H):
+        WS = W @ S
+        numer = _kl_numer_h_blocked(Vd, WS, H, eps, block_rows, scale)
+        s_sum = torch.clamp(torch.sum(WS, dim=0), min=eps)[:, None]
+        return H * (numer / s_sum)
+
+    return _apply_order(upd_w, upd_h, W, H, order)
+
+
+def _big_vht(Vd, H):
+    """V·Hᵀ (n, r) in float32 from bf16-rounded V and H (`_bf16_dot`)."""
+    return _bf16_dot(Vd, H.T)
+
+
+def _big_wtv(W, Vd):
+    """Wᵀ·V (r, m) in float32 from bf16-rounded W and V."""
+    return _bf16_dot(W.T, Vd)
+
+
+def als_family_update_densified(Vd, W, H, shift_w=0.0, shift_h=0.0,
+                                off_w=0.0, off_h=0.0, eps=1e-9, order="WH"):
+    """ALS / ACLS / AHCLS (the shifts of ``sparse_ops._als_family_shifts``)
+    against a dense bf16 V: the O(nmr) right-hand sides contract bf16
+    operands into float32 (`_big_vht`, `_big_wtv`); the r x r solves run
+    in the factors' dtype (``linalg.dense.solve_clamped``)."""
+
+    def upd_w(W, H):
+        rhs = _big_vht(Vd, H).T.to(H.dtype)               # (r, n)
+        return solve_clamped(H @ H.T, rhs, shift_w, off_w, eps).T
+
+    def upd_h(W, H):
+        rhs = _big_wtv(W, Vd).to(W.dtype)                 # (r, m)
+        return solve_clamped(W.T @ W, rhs, shift_h, off_h, eps)
+
+    return _apply_order(upd_w, upd_h, W, H, order)
+
+
+def gdcls_update_densified(Vd, W, H, lambda_tik=0.0, eps=1e-9, order="WH"):
+    """GDCLS against a dense bf16 V: the MU W step and the Tikhonov H
+    solve, both right-hand sides bf16 contractions."""
+
+    def upd_w(W, H):
+        return W * (_big_vht(Vd, H) / (W @ (H @ H.T) + eps))
+
+    def upd_h(W, H):
+        return solve_clamped(W.T @ W, _big_wtv(W, Vd).to(W.dtype),
+                             lambda_tik, 0.0, eps)
+
+    return _apply_order(upd_w, upd_h, W, H, order)
+
+
+def nsnmf_update_densified(Vd, W, H, S, eps=1e-9, order="WH"):
+    """nsNMF (Frobenius) against a dense bf16 V: MU against the smoothed
+    partners, the numerators bf16 contractions."""
+
+    def upd_w(W, H):
+        SH = S @ H
+        return W * (_big_vht(Vd, SH) / (W @ (SH @ SH.T) + eps))
+
+    def upd_h(W, H):
+        WS = W @ S
+        return H * (_big_wtv(WS, Vd) / ((WS.T @ WS) @ H + eps))
+
     return _apply_order(upd_w, upd_h, W, H, order)
 
 

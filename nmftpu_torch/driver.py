@@ -111,6 +111,7 @@ def compute(
         return initialize_factors(
             V, config.rank, config.init_method,
             run_generator(config.seed, run_idx, device), W0=W0, H0=H0,
+            kmeans_max_iter=config.kmeans_max_iter,
         )
 
     return execute(V, config, runner, init_fn, numel=n * m)

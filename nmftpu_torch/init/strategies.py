@@ -1,6 +1,7 @@
 """Initialization strategies (port of ``nmftpu/init/strategies.py``):
-CopyExisting, AllRandomValues and MeanColumns. The k-means and NNDSVD
-strategies raise until their slice of the port (ROADMAP.md, slice 4).
+the reference's six (CopyExisting, AllRandomValues, MeanColumns and the
+three k-means-seeded ones, `init.kmeans`) and the NNDSVD family
+(nndsvd, nndsvda, nndsvdar; `init.nndsvd`, on the host).
 
 Random magnitudes follow the sklearn 'random' convention — uniform scaled
 by sqrt(mean(V) / rank) — as in ``nmftpu``. The draws come from a
@@ -14,6 +15,7 @@ from __future__ import annotations
 import torch
 
 from nmftpu_torch.config import Initialization
+from nmftpu_torch.init.kmeans import kmeans_columns
 
 
 def run_generator(seed: int, run_idx: int, device) -> torch.Generator:
@@ -33,7 +35,7 @@ def _random_uniform(gen, shape, scale, dtype, device):
 
 
 def initialize_factors(V, rank: int, method: Initialization, gen,
-                       W0=None, H0=None):
+                       W0=None, H0=None, kmeans_max_iter: int = 25):
     """Produce initial (W, H) on V's device in V's dtype; `gen` is the
     run's torch.Generator (on V's device)."""
     n, m = V.shape
@@ -65,7 +67,30 @@ def initialize_factors(V, rank: int, method: Initialization, gen,
         H = _random_uniform(gen, (rank, m), scale, dtype, device)
         return W, H
 
-    raise NotImplementedError(
-        f"init {method.value!r} is not ported to nmftpu_torch yet "
-        "(ROADMAP.md slice 4); use 'copy', 'random' or 'mean_columns'"
-    )
+    if method in (Initialization.NNDSVD, Initialization.NNDSVDA,
+                  Initialization.NNDSVDAR):
+        from nmftpu_torch.init.nndsvd import nndsvd_init
+
+        # host-side one-time SVD seeding (deterministic; the 'ar'
+        # variant's fill noise is seeded from the run's generator)
+        seed = int(torch.randint(0, 2**31 - 1, (), generator=gen,
+                                 device=device))
+        W, H = nndsvd_init(V.cpu().numpy(), rank, variant=method.value,
+                           seed=seed)
+        return (torch.as_tensor(W, dtype=dtype, device=device),
+                torch.as_tensor(H, dtype=dtype, device=device))
+
+    if method in (Initialization.K_MEANS_AND_RANDOM_VALUES,
+                  Initialization.K_MEANS_AND_NON_NEGATIVE_WTV,
+                  Initialization.K_MEANS_AND_ABSOLUTE_WTV):
+        centroids, _ = kmeans_columns(V, rank, gen, max_iter=kmeans_max_iter)
+        W = torch.clamp(centroids, min=0.0) + 1e-6
+        if method is Initialization.K_MEANS_AND_RANDOM_VALUES:
+            H = _random_uniform(gen, (rank, m), scale, dtype, device)
+        elif method is Initialization.K_MEANS_AND_NON_NEGATIVE_WTV:
+            H = torch.clamp(W.T @ V, min=0.0) + 1e-6
+        else:  # K_MEANS_AND_ABSOLUTE_WTV
+            H = torch.abs(W.T @ V) + 1e-6
+        return W, H
+
+    raise ValueError(f"unknown initialization method: {method}")

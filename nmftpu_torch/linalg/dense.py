@@ -1,7 +1,9 @@
-"""Dense update rules, solvers and error metrics, plain torch (port of the
-MU (Frobenius, KL and the generalized beta divergence; Gauss–Seidel and
-Jacobi; float32 / bf16 / int8 V; confidence-weighted Frobenius), HALS and
-least-squares solver subset of ``nmftpu/linalg/dense.py``).
+"""Dense update rules, solvers and error metrics, plain torch (port of
+``nmftpu/linalg/dense.py`` but for iALS, ``als_update_weighted``): MU
+(Frobenius, KL and the generalized beta divergence; Gauss–Seidel and
+Jacobi; float32 / bf16 / int8 V; confidence-weighted Frobenius), HALS,
+the ALS family (ALS, ACLS, AHCLS), GDCLS and nsNMF on float32 and int8 V,
+and the least-squares solvers.
 
 Conventions
 -----------
@@ -12,8 +14,9 @@ H : (r, m)  right factor (item embeddings)
 Every update returns new tensors. The large products are ``torch.matmul``
 (on the card: cuBLAS, full float32 while TF32 is off), as ``nmftpu``
 leaves them to XLA. The epsilon guard is added to the denominators.
-Three functions reach hand-written CUDA kernels for CUDA tensors: the
-int8 x int8 numerators (``kernels.dual_numer``) and the HALS half-sweep
+Hand-written CUDA kernels run for CUDA tensors in two places: the int8 x
+int8 products (``kernels.dual_numer``: the MU numerators and the int8
+family's right-hand sides) and the HALS half-sweep
 (``kernels.hals_sweep``); on CPU tensors those wrappers run their plain
 torch twins.
 """
@@ -495,6 +498,198 @@ def _batched_solve_clamped_cg(Gb, rhs, shift, eps, x0, steps=3):
         p = z + torch.where(pos, rz2 / torch.where(pos, rz, 1.0), 0.0) * p
         rz = rz2
     return torch.clamp(x, min=0.0)
+
+
+# ---------------------------------------------------------------------------
+# The ALS family (ALS, ACLS, AHCLS), GDCLS and nsNMF; float32 V
+# ---------------------------------------------------------------------------
+
+
+def als_update(V, W, H, eps=1e-9, order="WH"):
+    """ALS iteration: exact least squares through the normal equations,
+    then clamp at 0:
+
+        H = max(0, (WᵀW + eps I)⁻¹ WᵀV),  W likewise from (HHᵀ + eps I).
+
+    The solves are r x r (`spd_solve`); the right-hand sides WᵀV and HVᵀ
+    are the O(nmr) products. ACLS without penalties."""
+    return acls_update(V, W, H, 0.0, 0.0, eps, order)
+
+
+def acls_update(V, W, H, lambda_w=0.0, lambda_h=0.0, eps=1e-9, order="WH"):
+    """ACLS (Langville et al.): ALS with the sparsity penalties on the
+    diagonal, (WᵀW + lambda_h I) H = WᵀV and the dual for W, then clamp."""
+
+    def upd_w(W, H):
+        return torch.clamp(_solve_h(H @ H.T, H @ V.T, lambda_w + eps).T,
+                           min=0.0)
+
+    def upd_h(W, H):
+        return torch.clamp(_solve_h(W.T @ W, W.T @ V, lambda_h + eps),
+                           min=0.0)
+
+    return _apply_order(upd_w, upd_h, W, H, order)
+
+
+def _ahcls_shift(lam, alpha, r, dtype):
+    """AHCLS diagonal and off-diagonal shifts from a Hoyer-sparseness
+    target alpha in [0, 1] (Langville et al.): the normal-equation matrix
+    becomes G + lam·beta·I + lam·(1 - beta)·11ᵀ with
+    beta = ((1 - alpha)·√r + alpha)² / r. The square root is taken in
+    `dtype` (V's), as ``nmftpu``'s dense AHCLS does; the int8 and bf16
+    routes take their shifts from ``sparse_ops._als_family_shifts``
+    (float64) instead. Returns 0-dim CPU tensors of `dtype`, which enter
+    device arithmetic as scalars."""
+    sr = torch.sqrt(torch.tensor(float(r), dtype=dtype))
+    beta = ((1.0 - alpha) * sr + alpha) ** 2 / r
+    return lam * beta, lam * (1.0 - beta)
+
+
+def ahcls_update(V, W, H, lambda_w=0.0, lambda_h=0.0, alpha_w=0.5,
+                 alpha_h=0.5, eps=1e-9, order="WH"):
+    """AHCLS: ACLS plus the Hoyer-sparseness targets alpha_w / alpha_h
+    (`_ahcls_shift`), solved with `spd_solve` and clamped at 0."""
+    r = W.shape[1]
+    dt = V.dtype
+    eye = torch.eye(r, dtype=dt, device=V.device)
+    ones = torch.ones((r, r), dtype=dt, device=V.device)
+    (diag_w, off_w), (diag_h, off_h) = (_ahcls_shift(lambda_w, alpha_w, r, dt),
+                                        _ahcls_shift(lambda_h, alpha_h, r, dt))
+
+    def upd_w(W, H):
+        A = H @ H.T + (diag_w + eps) * eye + off_w * ones
+        return torch.clamp(spd_solve(A, H @ V.T).T, min=0.0)
+
+    def upd_h(W, H):
+        A = W.T @ W + (diag_h + eps) * eye + off_h * ones
+        return torch.clamp(spd_solve(A, W.T @ V), min=0.0)
+
+    return _apply_order(upd_w, upd_h, W, H, order)
+
+
+def gdcls_update(V, W, H, lambda_tik=0.0, eps=1e-9, order="WH"):
+    """GDCLS: a Frobenius MU step for W, a Tikhonov-regularized least
+    squares solve (WᵀW + lambda_tik I) H = WᵀV for H, clamped at 0."""
+
+    def upd_w(W, H):
+        return mu_update_w_frobenius(V, W, H, eps)
+
+    def upd_h(W, H):
+        return torch.clamp(_solve_h(W.T @ W, W.T @ V, lambda_tik + eps),
+                           min=0.0)
+
+    return _apply_order(upd_w, upd_h, W, H, order)
+
+
+def nsnmf_smoothing_matrix(rank, theta, dtype=torch.float32, device=None):
+    """S = (1 - theta) I + (theta / r) 11ᵀ, the nsNMF smoothing matrix."""
+    eye = torch.eye(rank, dtype=dtype, device=device)
+    ones = torch.ones((rank, rank), dtype=dtype, device=device)
+    return (1.0 - theta) * eye + (theta / rank) * ones
+
+
+def nsnmf_update(V, W, H, S, eps=1e-9, objective="frobenius", order="WH"):
+    """One nsNMF iteration (Pascual-Montano 2006), V ≈ W S H: MU
+    half-steps against the smoothed partners, S H standing in for H in
+    the W step and W S for W in the H step; `objective` "frobenius" or
+    "kl"."""
+    if objective == "frobenius":
+        upd_w, upd_h = mu_update_w_frobenius, mu_update_h_frobenius
+    else:
+        upd_w, upd_h = mu_update_w_kl, mu_update_h_kl
+    return _apply_order(lambda W, H: upd_w(V, W, S @ H, eps),
+                        lambda W, H: upd_h(V, W @ S, H, eps), W, H, order)
+
+
+# ---------------------------------------------------------------------------
+# The ALS family, GDCLS and nsNMF on int8 V: the O(nmr) right-hand sides
+# on #6's one-sided int8 entries, the r x r solves in float32
+# ---------------------------------------------------------------------------
+
+
+def _ls_terms_w_int8(Vq, scale_v, H):
+    """(gram, rhs) of the W-side normal equations with H quantized once:
+    gram = H̃H̃ᵀ (r, r) and rhs = H̃Ṽᵀ (r, n), both from the same
+    dequantized H̃ = Hq·s_h. Consistency matters: an exact float32 Gram
+    beside a quantized rhs perturbs the solve by cond(G) ≈ cond(H)²,
+    while the consistent pair is the exact solution of the quantized
+    least-squares problem. The rhs is the transpose of
+    ``kernels.dual_numer.vht_int8``'s Vq Hqᵀ (the same integers)."""
+    from nmftpu_torch.kernels import dual_numer as DN
+
+    s_h, Hq = quantize_sym(H)
+    Hd = Hq.to(torch.float32) * s_h
+    rhs = DN.vht_int8(Vq, Hq).T.to(torch.float32) * (scale_v * s_h)
+    return Hd @ Hd.T, rhs
+
+
+def _ls_terms_h_int8(Vq, scale_v, W):
+    """(gram, rhs) of the H-side normal equations with W quantized once:
+    gram = W̃ᵀW̃ (r, r), rhs = W̃ᵀṼ (r, m) from
+    ``kernels.dual_numer.wtv_int8`` (W̃ᵀ comes transposed from
+    `quantize_sym_t`). See `_ls_terms_w_int8`."""
+    from nmftpu_torch.kernels import dual_numer as DN
+
+    s_w, WqT = quantize_sym_t(W)
+    WdT = WqT.to(torch.float32) * s_w
+    rhs = DN.wtv_int8(Vq, WqT).to(torch.float32) * (scale_v * s_w)
+    return WdT @ WdT.T, rhs
+
+
+def als_family_update_int8x8(Vq, scale_v, W, H, shift_w=0.0, shift_h=0.0,
+                             off_w=0.0, off_h=0.0, eps=1e-9, order="WH"):
+    """ALS / ACLS / AHCLS (the shifts of ``sparse_ops._als_family_shifts``)
+    with V stored int8 (V ≈ scale_v·Vq): each half-step quantizes its
+    factor operand once and builds both the Gram and the rhs from it
+    (`_ls_terms_*_int8`), so the float32 r x r solve is the exact solution
+    of the quantized least-squares problem. The factors keep their dtype
+    (a float64 factor holds the float32 solve's values)."""
+
+    def upd_w(W, H):
+        gram, rhs = _ls_terms_w_int8(Vq, scale_v, H)
+        return solve_clamped(gram, rhs, shift_w, off_w, eps).T.to(W.dtype)
+
+    def upd_h(W, H):
+        gram, rhs = _ls_terms_h_int8(Vq, scale_v, W)
+        return solve_clamped(gram, rhs, shift_h, off_h, eps).to(H.dtype)
+
+    return _apply_order(upd_w, upd_h, W, H, order)
+
+
+def gdcls_update_int8x8(Vq, scale_v, W, H, lambda_tik=0.0, eps=1e-9,
+                        order="WH"):
+    """GDCLS with int8-stored V: the MU W step and the Tikhonov H solve,
+    both right-hand sides on the int8 entries; the H solve takes the
+    consistent quantized Gram (see `als_family_update_int8x8`)."""
+
+    def upd_w(W, H):
+        numer = _rhs_vht_int8(Vq, scale_v, H)
+        return W * (numer / (W @ (H @ H.T) + eps))
+
+    def upd_h(W, H):
+        gram, rhs = _ls_terms_h_int8(Vq, scale_v, W)
+        return solve_clamped(gram, rhs, lambda_tik, 0.0, eps).to(H.dtype)
+
+    return _apply_order(upd_w, upd_h, W, H, order)
+
+
+def nsnmf_update_frobenius_int8x8(Vq, scale_v, W, H, S, eps=1e-9,
+                                  order="WH"):
+    """nsNMF (Frobenius) with int8-stored V: MU against the smoothed
+    partners (S H for the W step, W S for the H step), the numerators on
+    the int8 entries."""
+
+    def upd_w(W, H):
+        SH = S @ H
+        numer = _rhs_vht_int8(Vq, scale_v, SH)
+        return W * (numer / (W @ (SH @ SH.T) + eps))
+
+    def upd_h(W, H):
+        WS = W @ S
+        numer = _rhs_wtv_int8(Vq, scale_v, WS)
+        return H * (numer / ((WS.T @ WS) @ H + eps))
+
+    return _apply_order(upd_w, upd_h, W, H, order)
 
 
 # ---------------------------------------------------------------------------

@@ -470,7 +470,31 @@ def _check_ported(config: NmfConfig) -> None:
     bf16 and int8 densified storage)."""
     if config.algorithm is not Algorithm.MU:
         _unported(f"algorithm={config.algorithm.value!r} on sparse V",
-                  "queue 1 item 2, slice 4b")
+                  "queue 1 item 3, slice 4b-ii")
+
+
+def _als_family_shifts(config: NmfConfig):
+    """(shift_w, shift_h, off_w, off_h) for the generic ALS-family solve
+    (``linalg.dense.solve_clamped``): ALS = the plain normal equations,
+    ACLS = the diagonal sparsity penalties, AHCLS = the Hoyer-target
+    diagonal and off-diagonal shifts (Langville et al.), computed in
+    float64 on the host. The dense float32 AHCLS takes its shift from
+    ``linalg.dense._ahcls_shift`` (in V's dtype) instead, as in
+    ``nmftpu``."""
+    if config.algorithm is Algorithm.ALS:
+        return 0.0, 0.0, 0.0, 0.0
+    if config.algorithm is Algorithm.ACLS:
+        return config.lambda_w, config.lambda_h, 0.0, 0.0
+    r = config.rank
+
+    def hoyer(lam, a):
+        sr = float(np.sqrt(r))
+        beta = ((1.0 - a) * sr + a) ** 2 / r
+        return lam * beta, lam * (1.0 - beta)
+
+    sw, ow = hoyer(config.lambda_w, config.alpha_w)
+    sh, oh = hoyer(config.lambda_h, config.alpha_h)
+    return sw, sh, ow, oh
 
 
 def build_sparse_update(config: NmfConfig):
@@ -557,7 +581,8 @@ def sparse_initialize_factors(coo: DeviceCOO, rank, method: Initialization,
 
     raise NotImplementedError(
         f"init {method.value!r} is not ported to nmftpu_torch yet "
-        "(ROADMAP.md slice 4); use 'copy', 'random' or 'mean_columns'"
+        "on sparse V (ROADMAP.md queue 1 item 3, slice 4b-ii); use "
+        "'copy', 'random' or 'mean_columns'"
     )
 
 

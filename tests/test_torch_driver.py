@@ -256,9 +256,11 @@ def test_numpy_input_without_a_device_needs_cuda(monkeypatch):
     ({"rank": 100}, ValueError),
     ({"data": np.ones(5, np.float32)}, ValueError),
     ({"mesh": object()}, NotImplementedError),
-    ({"init": "kmeans"}, NotImplementedError),
-    ({"init": "nndsvd"}, NotImplementedError),
-    ({"init": "copy"}, ValueError),
+    # the k-means and NNDSVD inits are ported in slice 4b-i
+    # (test_torch_init.py); this id now holds what still raises with them
+    pytest.param({"init": "kmeans", "vectorize_runs": True, "num_runs": 2},
+                 NotImplementedError, id="bad3-NotImplementedError"),
+    pytest.param({"init": "copy"}, ValueError, id="bad5-ValueError"),
 ])
 def test_driver_rejects(bad, error):
     kw = {"data": V_FIX, "rank": RANK, "num_iterations": 1, "device": "cpu",
@@ -316,20 +318,20 @@ def test_registry_routes(monkeypatch, knobs, route):
     # 4a), dense int8 KL and confidence weighting (slice 8, held against
     # nmftpu in test_torch_int8_densified.py and test_torch_weighted.py),
     # dense float32 beta MU (slice 9, test_torch_beta.py), bf16 and int8
-    # beta MU (slice 10, test_torch_beta_engines.py); these cases keep
+    # beta MU (slice 10, test_torch_beta_engines.py), the dense ALS
+    # family, GDCLS, nsNMF and the k-means and NNDSVD inits (slice 4b-i,
+    # test_torch_als_family.py, test_torch_init.py; iALS's refusal is
+    # test_torch_als_family.py::test_ials_still_raises); these cases keep
     # their ids and now hold what still raises
-    pytest.param({"algorithm": "acls"}, "slice 4b", id="knobs0-slice 4"),
-    ({"algorithm": "als"}, "slice 4"),
-    pytest.param({"objective": "beta", "beta": 1.5, "v_storage": "int8",
-                  "init": "nndsvd"}, "slice 4", id="knobs2-slice 1"),
     pytest.param({"objective": "beta", "beta": 0.5, "mesh": object()},
                  "slice 6", id="knobs3-slice 4"),
-    pytest.param({"algorithm": "gdcls"}, "slice 4b", id="knobs4-slice 4"),
-    pytest.param({"algorithm": "nsnmf"}, "slice 4b", id="knobs5-slice 3"),
-    pytest.param({"objective": "beta", "beta": 0.5,
-                  "v_storage": "bfloat16", "init": "kmeans_random"},
-                 "slice 4", id="knobs6-int8 tensor-core"),
-    ({"vectorize_runs": True, "num_runs": 2}, "slice 5"),
+    pytest.param({"algorithm": "gdcls", "v_storage": "int8",
+                  "vectorize_runs": True, "num_runs": 2}, "slice 5",
+                 id="knobs4-slice 4"),
+    pytest.param({"algorithm": "nsnmf", "mesh": object()}, "slice 6",
+                 id="knobs5-slice 3"),
+    pytest.param({"vectorize_runs": True, "num_runs": 2}, "slice 5",
+                 id="knobs7-slice 5"),
 ])
 def test_unported_configurations_raise(knobs, where):
     with pytest.raises(NotImplementedError, match=where):

@@ -385,25 +385,6 @@ def test_jacobi_with_an_explicit_hw_order_is_refused():
                device="cpu")
 
 
-@pytest.mark.parametrize("knobs,where", [
-    # int8 KL (both couplings) is ported in slice 8 and held against
-    # nmftpu in test_torch_int8_densified.py, float32 beta in slice 9
-    # (test_torch_beta.py), bf16 and int8 beta in slice 10
-    # (test_torch_beta_engines.py); these ids now hold what still raises
-    pytest.param({"algorithm": "als", "v_storage": "int8"}, "slice 4b",
-                 id="knobs0-slice 3 item 9"),
-    pytest.param({"algorithm": "acls"}, "slice 4b",
-                 id="knobs1-slice 3 item 9"),
-    ({"algorithm": "gdcls"}, "slice 4b"),
-    ({"algorithm": "nsnmf", "objective": KL}, "slice 4b"),
-    pytest.param({"algorithm": "ahcls", "v_storage": "bfloat16"},
-                 "slice 4b", id="knobs4-slice 4b"),
-])
-def test_what_still_raises(knobs, where):
-    with pytest.raises(NotImplementedError, match=where):
-        build_dense_update(nt.NmfConfig(rank=2, **knobs))
-
-
 # ---------------------------------------------------------------------------
 # the slice through nmf
 # ---------------------------------------------------------------------------
