@@ -3,7 +3,7 @@
 
     python3 chip_profile.py [--out DIR]
                             [--cells dense,serving,sparse,slice8,foldin,beta,
-                                     algorithms]
+                                     algorithms,sparse_algorithms]
 
 Two shapes -- 4096 x 4096 at rank 256 (bench.py's headline) and the
 ML-20M shape 138,493 x 26,744 at rank 64, with chip_smoke.py's synthetic
@@ -63,8 +63,17 @@ and nsNMF-KL on float32, bf16 and int8 V at 4096 x 4096 / rank 256
 shape (dense, rank 64, 3 iterations), each with one check at its end: ms
 per iteration by CUDA events, device ms per iteration by class (GEMMs,
 the Cholesky and triangular solves, #6's int8 entries, everything else)
-and the idle share. --cells picks a subset of the seven cells. Every line
-ends with the card's nvidia-smi name and power limit.
+and the idle share. Then the ALS family and HALS on sparse V (cell
+"sparse_algorithms", chip_smoke.py's phase-22 paths): ALS at config 2's
+full width (rank 64) on ELL, scatter and densified bf16 and HALS on
+scatter, each profiled over a 2-iteration run with a check at its end,
+and iALS at config 3's full size (rank 128, alpha 40) on ELL, profiled
+over one iteration (the Gram budget raised to 16 GiB for it): ms per
+iteration by CUDA events, device ms per iteration by class (gathers,
+index_add_ scatters, GEMMs, the Cholesky and triangular solves, #6's int8
+entries, #7's sweep, everything else) and the idle share. --cells picks a
+subset of the eight cells. Every line ends with the card's nvidia-smi
+name and power limit.
 The profiler traces and summary.json go to --out (default: profile_out/
 beside this script). Exits 1 without a CUDA device.
 """
@@ -93,6 +102,7 @@ from chip_smoke import (
     abba_ms,
     cuda_ms,
     distinct_items,
+    event_ms,
     fail,
     nvidia_smi_line,
     SERVE_K,
@@ -115,7 +125,11 @@ BETA_PROFILE_ITERS = 2
 # shape
 FAMILY_PROFILE_ITERS = 10
 CELLS = ("dense", "serving", "sparse", "slice8", "foldin", "beta",
-         "algorithms")
+         "algorithms", "sparse_algorithms")
+# the sparse algorithms: iterations profiled at config 2 and for config 3's
+# iALS
+S12_PROFILE_ITERS = 2
+IALS_PROFILE_ITERS = 1
 
 
 def kernel_class(name: str) -> str:
@@ -288,6 +302,8 @@ def main() -> None:
         foldin_cell(nt, dev, card, out, summary)
     if "algorithms" in cells:
         algorithms_cell(nt, dev, card, out, summary)
+    if "sparse_algorithms" in cells:
+        sparse_algorithms_cell(nt, dev, card, out, summary)
 
     if "jax" in sys.modules:
         fail("jax was imported")
@@ -639,6 +655,79 @@ def sparse_cells(nt, dev, card, out, summary, cells) -> None:
                it_ms)
         del plan, op, update, Wp
         torch.cuda.empty_cache()
+
+
+def sparse_algorithms_cell(nt, dev, card, out, summary) -> None:
+    """ALS on config 2's ELL, scatter and densified bf16 engines and HALS
+    on scatter; iALS at config 3's full size on ELL."""
+    import os
+
+    from nmftpu_torch.config import Initialization, NmfConfig
+    from nmftpu_torch.data.synthetic import synthetic_powerlaw_sparse
+
+    cell = "sparse_algorithms"
+    summary[cell] = {}
+
+    def report(path, plan, cfg, W, H, iters, ms):
+        row = {"ms_per_iter": ms,
+               **profiled(plan, cfg, W, H, out / f"{cell}_{path}.json",
+                          iters)}
+        summary[cell][path] = row
+        say("profile", cell=cell, path=path, ms_per_iter=f"{ms:.4f}",
+            device_ms_per_iter={k: round(v, 4) for k, v in
+                                row["device_ms_per_iter"].items()},
+            idle_share=f"{row['idle_share']:.4f}", card=card)
+
+    n, m, r = 138_493, 26_744, 64
+    gen = torch.Generator(device=dev).manual_seed(SEED + 5)
+    R = synthetic_ratings(n, m, 20_000_263, gen, dev)
+    ratings = ratings_csr(R)
+    del R
+    torch.cuda.empty_cache()
+    scale = (float(ratings.data.sum(dtype=np.float64)) / (n * m) / r) ** 0.5
+    W = (torch.rand(n, r, generator=gen, device=dev) + 1e-4) * scale
+    H = (torch.rand(r, m, generator=gen, device=dev) + 1e-4) * scale
+    iters = S12_PROFILE_ITERS
+    for path, alg, strategy in (("als_ell", "als", "ell"),
+                                ("als_scatter", "als", "scatter"),
+                                ("als_densified_bf16", "als", "auto"),
+                                ("hals_scatter", "hals", "auto")):
+        cfg = NmfConfig(rank=r, algorithm=alg,
+                        init_method=Initialization.COPY_EXISTING,
+                        num_iterations=iters, check_interval=iters)
+        plan = nt.prepare_sparse(ratings, cfg, strategy=strategy, device=dev)
+        op, update = plan.operand, plan._bundle(cfg).update
+        Wp = torch.nn.functional.pad(W, (0, 0, 0, plan.n_pad - n))
+        ms = abba_ms({path: lambda: update(op, (), Wp, H)}, 1)[path]
+        report(path, plan, cfg, W, H, iters, ms)
+        del plan, op, update, Wp
+        torch.cuda.empty_cache()
+    del ratings, W, H
+
+    sp3 = synthetic_powerlaw_sparse(rank=16, **CONFIG3)
+    sp3.data[:] = 1.0
+    csr = sp3.to_csr()
+    del sp3
+    n, m = csr.shape
+    r3 = C3_RANK
+    g3 = torch.Generator(device=dev).manual_seed(SEED + 16)
+    s3 = (csr.nnz / (n * m) / r3) ** 0.5
+    W3 = (torch.rand(n, r3, generator=g3, device=dev) + 1e-4) * s3
+    H3 = (torch.rand(r3, m, generator=g3, device=dev) + 1e-4) * s3
+    os.environ["NMFTPU_WEIGHTED_GRAM_BUDGET_BYTES"] = str(16 * 2**30)
+    cfg = NmfConfig(rank=r3, algorithm="als", alpha_confidence=C3_ALPHA,
+                    init_method=Initialization.COPY_EXISTING,
+                    num_iterations=IALS_PROFILE_ITERS,
+                    check_interval=IALS_PROFILE_ITERS)
+    plan = nt.prepare_sparse(csr, cfg, strategy="auto", device=dev)
+    if plan.strategy != "ell":
+        fail(f"config 3 iALS: auto resolved to {plan.strategy!r}")
+    update = plan._bundle(cfg).update
+    ms = event_ms(lambda: update(plan.operand, (), W3, H3), 1)
+    report("ials_config3_ell", plan, cfg, W3, H3, IALS_PROFILE_ITERS, ms)
+    os.environ.pop("NMFTPU_WEIGHTED_GRAM_BUDGET_BYTES")
+    del plan, update, W3, H3
+    torch.cuda.empty_cache()
 
 
 if __name__ == "__main__":

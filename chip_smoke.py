@@ -79,6 +79,35 @@ nndsvd and nndsvdar start below the random init's error), and every
 algorithm from every init on BASELINE
 config 1 (the ML-100K fixture, and 943 x 1682 / 100,000 ratings at rank
 32), printing the final RMSD.
+Phase 22 runs the ALS family (ALS, ACLS, AHCLS), GDCLS and nsNMF
+(Frobenius and KL) on sparse V at config 2's full width (phase 10's
+ratings, rank 64) on ELL, scatter, densified bf16 (auto's choice) and
+int8 (the Frobenius family, its right-hand sides on #6's one-sided
+entries, launched once each an iteration), and HALS on scatter (auto's
+choice; its sweeps on #7, two launches an iteration, #7 held against its
+twin on the run's operands and timed at 138,493 x 64 beside its bound),
+4 iterations each from one W0/H0: the objective falls at every iteration
+for nsNMF and HALS (the clamped solves of the ALS family and GDCLS need
+not descend; theirs is printed), one step on 64 rows and 64 columns
+matches float64
+(solves within 10 sqrt(r) kappa 2^-24 of the float64 solve of the card's
+own Gram and right-hand side, those within 1e-4, bf16 MU-type halves 5 *
+2^-9, int8 right-hand sides exact), ELL and scatter agree after one
+iteration, densified bf16 ends within 1e-3 of ELL. It runs iALS at config
+3's full size (phase 16's matrix and start, rank 128, alpha 40; the Gram
+budget raised to 16 GiB for these runs, its default refusal checked) on
+ELL (auto's choice; exact and cg) and scatter: the float64 weighted
+objective after 0, 1 and 4 iterations beside weighted MU's of phase 16,
+cg's final error beside exact's, one step per row against float64 normal
+equations from the triplets (LU; for cg the same CG steps), ELL against
+scatter; masked
+ALS at config 2 on ELL and scatter; dense iALS at 4096^2 / rank 256; and
+the sparse inits: k-means at config 2's full width (the within-cluster sum
+never rises), and at config 1's shape (943 x 1682, 100,000 power-law
+ratings, rank 32) sparse k-means against the dense Lloyd (float64) and
+NNDSVD from a host svds (nndsvd and nndsvdar below the random start,
+nndsvda the nndsvd start filled with the mean, within 1e-3 of the dense
+nndsvd start). It prints ms per iteration, peak memory and its seconds.
 Every phase prints its results; any failure exits non-zero, as does a
 kernel timed below its bound. Without a CUDA device it exits 1 and runs
 nothing.
@@ -311,6 +340,40 @@ CONFIG1 = (943, 1682, 100_000)
 CONFIG1_RANK = 32
 CONFIG1_FIXTURE_RANK = 8
 CONFIG1_ITERS = 100
+
+# phase 22: the ALS family, GDCLS, nsNMF (FAMILY) and HALS on sparse V at
+# config 2's full width (phase 10's ratings, r = 64) on ELL, scatter and
+# densified bf16 and int8, S12_ITERS iterations each from one W0/H0; iALS
+# at config 3's full size (phase 16's matrix and W0/H0, r = 128, alpha 40)
+# on ELL (exact and cg) and scatter; masked ALS at config 2; dense iALS at
+# 4096^2 / r = 256 (phase 4's V, W0, H0); the sparse inits
+S12_ITERS = 4
+# one step against float64 on 64 rows and 64 columns (the most popular
+# user and item included), each half from its own inputs: a solve at
+# SOLVE_FACTOR sqrt(r) kappa 2^-24 of the float64 solve of the card's own
+# Gram and right-hand side (phase 21's limit); the Gram and the right-hand
+# side, float32 SpMMs of at most a row's or a column's nonzeros, at phase
+# 20's 1e-4; an MU-type half at 1e-4 (bf16: FAMILY_BF16_RTOL); HALS against
+# the sequential float64 sweep at HALS_STEP_RTOL (phase 14's one-iteration
+# limit)
+S12_MU_RTOL = 1e-4
+# each rule's final objective on densified bf16 against ELL's after
+# S12_ITERS: phase 16's C3_OBJECTIVE_RTOL
+S12_ENGINES_RTOL = 1e-3
+# config 3 iALS: one step per row against float64 normal equations built
+# from the triplets, solved by LU, at SOLVE_FACTOR sqrt(r) kappa 2^-24,
+# kappa the row's own (cg: its solver run to r steps on the same rows);
+# the weighted objective after 0, 1 and S12_ITERS iterations is printed
+# beside weighted MU's from the same W0/H0 (phase 16's ELL run): clamped
+# iALS from a random start need not descend (tests/test_torch_ials.py's
+# witness). The cg run's final Frobenius error at most IALS_CG_FACTOR x
+# the exact run's (nmftpu's test_ials_cg_solver_tracks_exact)
+IALS_CG_FACTOR = 1.02
+# (n + m) r^2 4 bytes = 10.07 GiB of per-row Grams at config 3: over the
+# default 8 GiB of NMFTPU_WEIGHTED_GRAM_BUDGET_BYTES, which phase 22 raises
+# to this for its own config 3 runs only
+IALS_BUDGET = 16 * 2**30
+DENSE_IALS_ITERS = 2
 
 # the card's peaks (NVIDIA's H100 SXM data sheet, dense): float32 on the
 # CUDA cores, bf16 and int8 on the tensor cores, HBM bandwidth
@@ -1540,7 +1603,9 @@ def slice8_phases(nt, card, dev, ratings) -> dict:
     densified MU (Frobenius through #6's one-sided entries, and KL) and
     masked completion on ELL and scatter at config 2's shape (`ratings`).
     Returns phase 17's launches of the one-sided entries and their
-    largest difference from the exact product."""
+    largest difference from the exact product, and config 3's CSR, W0,
+    H0 and the weighted objective of its ELL run after 0, 1 and C3_ITERS
+    iterations (for phase 22)."""
     from nmftpu_torch import densified as DF
     from nmftpu_torch import native_loader as NL
     from nmftpu_torch import sparse_ell as SE
@@ -1648,6 +1713,8 @@ def slice8_phases(nt, card, dev, ratings) -> dict:
             fail(f"config 3 {label}: peak {peak:.2f} GiB reaches an n*m "
                  "float32 array")
         final[label] = (res.W, res.H, objn)
+        if label == "ell":
+            mu_objective = (obj0, obj1, objn)
         del plan, op, update, one, res, Wp
         torch.cuda.empty_cache()
     (We, He, obj_e), (Ws, Hs, _) = final["ell"], final["scatter"]
@@ -1663,6 +1730,8 @@ def slice8_phases(nt, card, dev, ratings) -> dict:
         fail(f"config 3: ELL and scatter differ (W {dw:.3e}, H {dh:.3e})")
     if not max(d_obj.values()) <= C3_OBJECTIVE_RTOL:
         fail(f"config 3: densified and ELL objectives differ: {d_obj}")
+    # phase 22 runs iALS on the same matrix from the same W0/H0
+    config3 = {"csr": csr, "W0": W0, "H0": H0, "mu_objective": mu_objective}
     del final, We, He, Ws, Hs, trip, Vr, Vc, W0, H0, csr, csc
     torch.cuda.empty_cache()
 
@@ -1801,7 +1870,7 @@ def slice8_phases(nt, card, dev, ratings) -> dict:
                  f"H {dh:.3e})")
     del masked
     torch.cuda.empty_cache()
-    return {"launches": launches, "max_abs_err": diff}
+    return {"launches": launches, "max_abs_err": diff, "config3": config3}
 
 
 def foldin_system64(prep, csr):
@@ -2874,6 +2943,810 @@ def family_phase(nt, card, dev, V, W0, H0) -> dict:
     return total
 
 
+def refusal(fn, *args) -> str:
+    """The message of the ValueError that fn(*args) raises, '' if none."""
+    try:
+        fn(*args)
+    except ValueError as e:
+        return str(e)
+    return ""
+
+
+def sparse_shifts(alg, kn, r):
+    """(shift_w, shift_h, off_w, off_h) of a solve on a sparse engine: the
+    float64 shifts of sparse_ops._als_family_shifts, or GDCLS's Tikhonov
+    term on the H side."""
+    import nmftpu_torch as nt
+    from nmftpu_torch import sparse_ops as TS
+
+    if alg == "gdcls":
+        return 0.0, kn["lambda_tik"], 0.0, 0.0
+    return TS._als_family_shifts(nt.NmfConfig(rank=r, algorithm=alg, **kn))
+
+
+def engine_ls_terms(strategy, op, side, W, H):
+    """The Gram and the right-hand side (r, n_pad or m) of a solve
+    half-step as the engine forms them on the card: the ELL or scatter
+    SpMM, the densified bf16 contraction, or the int8 entries."""
+    from nmftpu_torch import densified as DF
+    from nmftpu_torch import sparse_ell as SE
+    from nmftpu_torch import sparse_ops as TS
+    from nmftpu_torch.linalg import dense as D
+
+    if strategy == "int8":
+        fn = D._ls_terms_w_int8 if side == "w" else D._ls_terms_h_int8
+        return fn(op[0], op[1], H if side == "w" else W)
+    gram = H @ H.T if side == "w" else W.T @ W
+    if strategy == "ell":
+        rhs = (SE.v_ht_ell(op.rows, H).T if side == "w"
+               else SE.wt_v_ell(op, W))
+    elif strategy == "scatter":
+        rhs = TS.v_ht(op, H).T if side == "w" else TS.wt_v(op, W)
+    else:
+        rhs = DF._big_vht(op, H).T if side == "w" else DF._big_wtv(W, op)
+    return gram, rhs
+
+
+def engine_step_checks(label, strategy, op, n_pad, alg, kl, kn, S, lines,
+                       rows, cols, W0, H0, W1, H1) -> list:
+    """One step of a rule (order "WH", each half from the inputs it
+    used: W from (W0, H0), H from (W1, H0)) on 64 rows and 64 columns
+    against float64: a solve against the float64 solve of the card's
+    own Gram and right-hand side at SOLVE_FACTOR sqrt(r) kappa 2^-24,
+    the Gram and the right-hand side against float64 products of the
+    operands the step rounds at S12_MU_RTOL; an MU-type half against
+    a float64 recomputation at S12_MU_RTOL (bf16: FAMILY_BF16_RTOL).
+    `lines` holds V's stored rows and columns in float64. Returns
+    (half, rel, limit, kappa or None, products or None) per half."""
+    r = W0.shape[1]
+    n = W1.shape[0]
+    storage = {"int8": "int8", "densified bf16": "bfloat16"}.get(
+        strategy, "float32")
+    engine = {"int8": "int8", "densified bf16": "bf16"}.get(strategy,
+                                                            strategy)
+    Vr, Vc = lines
+    sw, sh, ow, oh = (sparse_shifts(alg, kn, r) if alg != "nsnmf"
+                      else (0.0,) * 4)
+    solves = {"w": alg in ("als", "acls", "ahcls"),
+              "h": alg in ("als", "acls", "ahcls", "gdcls")}
+    out = []
+    for side, got, Wi in (("w", W1[rows], W0), ("h", H1[:, cols], W1)):
+        if solves[side]:
+            Wp = torch.nn.functional.pad(Wi, (0, 0, 0, n_pad - n))
+            gram, rhs = engine_ls_terms(engine, op, side, Wp, H0)
+            rhs = rhs[:, rows] if side == "w" else rhs[:, cols]
+            sh_, off = (sw, ow) if side == "w" else (sh, oh)
+            rel, kappa = family_solve_check(label, side, got, gram, rhs,
+                                            sh_, off)
+            Pop = family_operand(H0 if side == "w" else Wi, storage)
+            P64 = Pop if storage == "int8" else (
+                H0 if side == "w" else Wi).double()
+            if side == "w":
+                gram64, rhs64 = P64 @ P64.T, Pop @ Vr.T
+            else:
+                gram64, rhs64 = P64.T @ P64, Pop.T @ Vc
+            products = max(float((x.double() - x64).abs().max()
+                                 / x64.abs().max())
+                           for x, x64 in ((gram, gram64), (rhs, rhs64)))
+            out.append((side, rel, SOLVE_FACTOR * r ** 0.5 * kappa
+                        * 2.0 ** -24, kappa, products))
+            continue
+        mu_bf16 = storage == "bfloat16" or (storage == "int8" and kl)
+        if side == "w":
+            want = family_mu64(alg, kl, "w", Vr, W0[rows], H0, S,
+                               "float32" if mu_bf16 else storage)
+        else:
+            want = family_mu64(alg, kl, "h", Vc, Wi, H0[:, cols], S,
+                               "float32" if mu_bf16 else storage)
+        rel = float((got.double() - want).abs().max() / want.abs().max())
+        out.append((side, rel, FAMILY_BF16_RTOL if mu_bf16 else S12_MU_RTOL,
+                    None, None))
+    return out
+
+
+def hals_step_error(D, lines, rows, cols, W0, H0, W1, H1) -> float:
+    """One HALS step (order "WH") on 64 rows and 64 columns against the
+    strictly sequential sweep in float64 (rows of W, and of Hᵀ, sweep
+    independently): max|a - b| / max|b| of the two samples."""
+    Vr, Vc = lines
+    H64, W164 = H0.double(), W1.double()
+    want_w = D._hals_half_sweep(Vr @ H64.T, H64 @ H64.T, W0[rows].double())
+    want_h = D._hals_half_sweep(Vc.T @ W164, W164.T @ W164,
+                                H0[:, cols].T.double())
+    return max(float((W1[rows].double() - want_w).abs().max()
+                     / want_w.abs().max()),
+               float((H1[:, cols].T.double() - want_h).abs().max()
+                     / want_h.abs().max()))
+
+
+def row_systems64(csr, idx, P, alpha, lam, masked, eps=1e-9, x0=None,
+                  cg_steps=None):
+    """The per-row normal equations of iALS (c = 1 + alpha v) or masked
+    ALS (0/1 weight, no base Gram) for rows `idx` of a host CSR, in
+    float64 from its triplets (P the (m, r) table of the partner), with
+    the float32 path's ridge (shift + eps + max(eps, 100 2^-23) mean
+    diagonal), solved by LU, or by `cg_steps` steps of the port's
+    Jacobi-preconditioned CG from the rows x0, and clamped: (solutions
+    (k, r), kappas (k,))."""
+    P64 = P.double()
+    r = P.shape[1]
+    base = None if masked else P64.T @ P64
+    eye = torch.eye(r, dtype=torch.float64, device=P.device)
+    As, rhss = [], []
+    for u in idx:
+        a, b = csr.indptr[u], csr.indptr[u + 1]
+        T = P64[torch.as_tensor(csr.indices[a:b].astype(np.int64),
+                                device=P.device)]
+        v = torch.as_tensor(csr.data[a:b].astype(np.float64), device=P.device)
+        w = (v != 0).double() if masked else alpha * v
+        A = (T.T * w) @ T
+        if base is not None:
+            A = A + base
+        rhs = T.T @ (v if masked else v * (1.0 + alpha * v))
+        ridge = lam + eps + max(eps, 100 * 2.0 ** -23) * float(
+            torch.trace(A)) / r
+        As.append(A + ridge * eye)
+        rhss.append(rhs)
+    A, rhs = torch.stack(As), torch.stack(rhss)
+    if cg_steps is None:
+        x = torch.linalg.solve(A, rhs[..., None])[..., 0]
+    else:
+        dinv = 1.0 / torch.diagonal(A, dim1=1, dim2=2)
+        x = x0.double()
+        res = rhs - torch.einsum("nij,nj->ni", A, x)
+        z = dinv * res
+        p = z
+        rz = torch.sum(res * z, dim=1, keepdim=True)
+        for _ in range(cg_steps):
+            Ap = torch.einsum("nij,nj->ni", A, p)
+            den = torch.sum(p * Ap, dim=1, keepdim=True)
+            step = torch.where(den > 0, rz / torch.where(den > 0, den, 1.0),
+                               0.0)
+            x = x + step * p
+            res = res - step * Ap
+            z = dinv * res
+            rz2 = torch.sum(res * z, dim=1, keepdim=True)
+            p = z + torch.where(rz > 0, rz2 / torch.where(rz > 0, rz, 1.0),
+                                0.0) * p
+            rz = rz2
+    return torch.clamp(x, min=0.0), torch.linalg.cond(A)
+
+
+def per_row_check(got, want, kappas, r, extra=None) -> tuple:
+    """Each row's max|a - b| / max|b| (0 where both are 0) against its
+    own SOLVE_FACTOR sqrt(r) kappa 2^-24 (+ `extra` kappa, the
+    propagated difference of an input): (worst ratio, worst rel, its
+    kappa)."""
+    diff = (got.double() - want).abs().amax(dim=1)
+    top = torch.maximum(want.abs().amax(dim=1), got.double().abs().amax(
+        dim=1)).clamp_min(torch.finfo(torch.float64).tiny)
+    rel = diff / top
+    limit = SOLVE_FACTOR * r ** 0.5 * kappas * 2.0 ** -24
+    if extra is not None:
+        limit = limit + kappas * extra
+    k = int(torch.argmax(rel / limit))
+    return float((rel / limit)[k]), float(rel[k]), float(kappas[k])
+
+
+def sparse_algorithms_phase(nt, card, dev, ratings, c3, V, W0d, H0d) -> dict:
+    """Phase 22 (slices 4b-ii and 4c): the ALS family, GDCLS, nsNMF and
+    HALS on sparse V at config 2's full width on every engine (a);
+    iALS at config 3's full size on ELL and scatter (b); masked ALS at
+    config 2 on ELL and scatter (c); dense iALS at 4096^2 / r = 256
+    (phase 4's V, W0d, H0d) (d); the sparse k-means and NNDSVD inits
+    (e). Returns the launches of #6's one-sided entries and #7 on these
+    paths, #7's largest difference from its twin, its ms and bound at
+    138,493 x 64."""
+    import os
+
+    from nmftpu_torch import sparse_ell as SE
+    from nmftpu_torch import sparse_ops as TS
+    from nmftpu_torch.algorithms import build_dense_update
+    from nmftpu_torch.config import Initialization, NmfConfig
+    from nmftpu_torch.init import kmeans as KM
+    from nmftpu_torch.init import nndsvd as ND
+    from nmftpu_torch.kernels import dual_numer as DN
+    from nmftpu_torch.kernels import hals_sweep as HS
+    from nmftpu_torch.linalg import dense as D
+
+    t_phase = time.perf_counter()
+    # -- 22 (a): config 2, r = 64, every rule on every engine ---------------
+    n, m = ratings.shape
+    r = SPARSE_RANK
+    gen = torch.Generator(device=dev).manual_seed(SEED + 22)
+    scale = (float(ratings.data.sum(dtype=np.float64)) / (n * m) / r) ** 0.5
+    W0 = (torch.rand(n, r, generator=gen, device=dev) + 1e-4) * scale
+    H0 = (torch.rand(r, m, generator=gen, device=dev) + 1e-4) * scale
+    csc = ratings.T.to_csr()
+    rng = np.random.default_rng(SEED + 22)
+    top_user = int(np.argmax(np.diff(ratings.indptr)))
+    top_item = int(np.argmax(np.diff(csc.indptr)))
+    rows = np.concatenate([[top_user], rng.choice(
+        np.setdiff1d(np.arange(n), [top_user]), 63, replace=False)])
+    cols = np.concatenate([[top_item], rng.choice(
+        np.setdiff1d(np.arange(m), [top_item]), 63, replace=False)])
+    lines = (dense_lines(ratings, rows, dev), dense_lines(csc, cols, dev).T)
+    S = D.nsnmf_smoothing_matrix(r, 0.5, device=dev)
+
+    def cfg(alg, obj, kn, iters=1, **knobs):
+        return NmfConfig(rank=r, algorithm=alg, objective=obj,
+                         init_method=Initialization.COPY_EXISTING,
+                         num_iterations=iters, check_interval=1, **kn,
+                         **knobs)
+
+    t0 = time.perf_counter()
+    plans = {"ell": nt.prepare_sparse(ratings, NmfConfig(rank=r),
+                                      strategy="ell", device=dev),
+             "scatter": nt.prepare_sparse(ratings, NmfConfig(rank=r),
+                                          strategy="scatter", device=dev)}
+    torch.cuda.synchronize()
+    say("22 plans", engines="ell, scatter", shape=f"{n}x{m}",
+        nnz=ratings.nnz, rank=r, prepare_s=f"{time.perf_counter() - t0:.2f}")
+    resolved = {
+        "als": TS._resolve_strategy(ratings, cfg("als", "frobenius", {}),
+                                    "auto", n, m),
+        "hals": TS._resolve_strategy(ratings, cfg("hals", "frobenius", {}),
+                                     "auto", n, m)}
+    say("22 auto", resolved=resolved)
+    if resolved != {"als": "densified", "hals": "scatter"}:
+        fail(f"config 2: auto resolved {resolved}, not densified for the "
+             "ALS family and scatter for HALS")
+
+    finals, halves, it_ms = {}, {}, {}
+    int8_launches = {"vht_int8": 0, "wtv_int8": 0}
+    hals = {}
+
+    def run_rule(label, engine, plan, alg, obj, kn, storage):
+        """Four chained one-iteration runs from (W0, H0) (each reads its
+        objective), the step checks, one iteration's ms; returns (W1, H1,
+        objectives)."""
+        kl = obj == "kullback-leibler"
+        knobs = {"v_storage": "int8"} if storage == "int8" else {}
+        config = cfg(alg, obj, kn, **knobs)
+        bundle = plan._bundle(config)
+        op = plan.operand
+        aux = bundle.make_aux(op)
+        Wp = torch.nn.functional.pad(W0, (0, 0, 0, plan.n_pad - n))
+        He = bundle.effective_h(aux, H0)
+        objs = [float(bundle.kl(op, aux, Wp, He) if kl else bundle.frobenius(
+            op, aux, Wp, He, bundle.sum_v_sq(op)))]
+        DN.LAUNCHES.update(vht_int8=0, wtv_int8=0)
+        HS.LAUNCHES["hals_sweep"] = 0
+        W, H = W0, H0
+        for it in range(S12_ITERS):
+            res = plan.run(config, W0=W, H0=H)
+            if it == 0:
+                W1, H1 = res.W, res.H
+            W, H = res.W, res.H
+            objs.append(res.kl_error if kl else res.frobenius_error)
+        launched = {k: DN.LAUNCHES[k] for k in int8_launches}
+        hals_launched = HS.LAUNCHES["hals_sweep"]
+        ms = event_ms(lambda: bundle.update(op, aux, Wp, H0), 1)
+        it_ms[f"{engine} {label}"] = ms
+        finite = bool(torch.isfinite(W).all() and torch.isfinite(H).all())
+        falls = all(b < a for a, b in zip(objs[:-1], objs[1:]))
+        say("22 config 2", run=label, engine=engine, strategy=plan.strategy,
+            iterations=S12_ITERS, objective="kl" if kl else "frobenius",
+            values=[f"{x:.9g}" for x in objs], falls_each=falls,
+            ms_per_iter=f"{ms:.3f}", launches_6=launched,
+            launches_7=hals_launched, finite=finite, card=card)
+        if not (finite and np.isfinite(objs).all()):
+            fail(f"config 2 {label} {engine}: non-finite factors or "
+                 f"objective {objs}")
+        # nsNMF's MU and HALS's coordinate steps descend; the clamped
+        # solves of the ALS family and GDCLS's H step need not (nmftpu's
+        # trajectory too: test_clamped_als_family_need_not_descend), so
+        # theirs is printed and their steps are held against float64
+        if alg in ("nsnmf", "hals") and not falls:
+            fail(f"config 2 {label} {engine}: the objective did not fall "
+                 f"at every iteration: {objs}")
+        if alg == "hals":
+            checks = [("w+h", hals_step_error(D, lines, rows, cols, W0, H0,
+                                              W1, H1), HALS_STEP_RTOL,
+                       None, None)]
+            hals.update(launches=hals_launched, W1=W1)
+        else:
+            strategy = {"densified": "densified bf16"}.get(plan.strategy,
+                                                           plan.strategy)
+            if storage == "int8":
+                strategy = "int8"
+            lines_x = lines
+            if storage == "int8":
+                s = op[1]
+                lines_x = tuple((torch.round(x.float() / s).clamp(-127, 127)
+                                 * s).double() for x in lines)
+            checks = engine_step_checks(label, strategy, op, plan.n_pad, alg,
+                                        kl, kn, S, lines_x, rows, cols, W0,
+                                        H0, W1, H1)
+        for side, rel, limit, kappa, products in checks:
+            extra = {} if kappa is None else {
+                "kappa": f"{kappa:.4g}",
+                "gram_rhs_vs_float64": f"{products:.3e}",
+                "products_limit": S12_MU_RTOL}
+            say("22 step vs float64", run=label, engine=engine, half=side,
+                rel_err=f"{rel:.3e}", limit=f"{limit:.3e}", **extra)
+            if not rel <= limit:
+                fail(f"config 2 {label} {engine}: the {side} half-step is "
+                     f"off by {rel:.3e} against float64 (> {limit:.3e})")
+            if products is not None and not products <= S12_MU_RTOL:
+                fail(f"config 2 {label} {engine}: the {side} Gram or "
+                     f"right-hand side is off by {products:.3e}")
+        if storage == "int8":
+            if launched != {"vht_int8": S12_ITERS, "wtv_int8": S12_ITERS}:
+                fail(f"config 2 {label} int8: #6's one-sided entries "
+                     f"launched {launched}, not {S12_ITERS} each")
+            for k in int8_launches:
+                int8_launches[k] += launched[k]
+            Vq = op[0]
+            W1p = torch.nn.functional.pad(W1, (0, 0, 0, plan.n_pad - n))
+            check_int8_rhs(DN, D, f"22 {label}", Vq,
+                           H0 if alg != "nsnmf" else S @ H0,
+                           W1p if alg != "nsnmf" else W1p @ S)
+        elif alg != "hals" and launched != {"vht_int8": 0, "wtv_int8": 0}:
+            fail(f"config 2 {label} {engine}: #6 launched {launched}")
+        return W1, H1, objs
+
+    rules = [(alg, obj, kn) for alg, obj, kn in FAMILY]
+    for engine in ("ell", "scatter", "densified bf16", "densified int8"):
+        if engine.startswith("densified"):
+            storage = "int8" if engine.endswith("int8") else "bfloat16"
+            knobs = {"v_storage": "int8"} if storage == "int8" else {}
+            t0 = time.perf_counter()
+            plan = nt.prepare_sparse(
+                ratings, cfg("als", "frobenius", {}, **knobs),
+                strategy="auto" if storage == "bfloat16" else "densified",
+                device=dev)
+            torch.cuda.synchronize()
+            if plan.strategy != "densified":
+                fail(f"config 2 {engine}: the plan is {plan.strategy!r}")
+            say("22 plans", engine=engine, prepare_s=
+                f"{time.perf_counter() - t0:.2f}")
+        else:
+            plan, storage = plans[engine], "float32"
+        for alg, obj, kn in rules:
+            kl = obj == "kullback-leibler"
+            if storage == "int8" and kl:
+                continue  # the Frobenius family on int8
+            label = f"{alg}{' kl' if kl else ''}"
+            W1, H1, objs = run_rule(label, engine, plan, alg, obj, kn,
+                                    storage)
+            finals[engine, label] = objs[-1]
+            if engine in ("ell", "scatter"):
+                # the H half from (W0, H0): order "HW", one iteration
+                hw = plan.run(cfg(alg, obj, kn, update_order="HW"), W0=W0,
+                              H0=H0)
+                halves[engine, label] = (W1, hw.H)
+        if engine == "scatter":
+            label = "hals"
+            run_rule(label, engine, plan, "hals", "frobenius", {}, storage)
+        if engine.startswith("densified"):
+            del plan
+            torch.cuda.empty_cache()
+    # ELL against scatter after one iteration, each half from (W0, H0): a
+    # solve's difference is its own error (SOLVE_FACTOR sqrt(r) kappa
+    # 2^-24) plus its right-hand sides' measured difference amplified by
+    # kappa, times sqrt(r) from the 2-norm of a perturbation bound to the
+    # largest entry (an item's column sums up to ~10^5 ratings in another
+    # order: ~1e-5 apart)
+    pair, coo = plans["ell"].operand, plans["scatter"].operand
+    d_rhs = {"w": float((SE.v_ht_ell(pair.rows, H0) - TS.v_ht(coo, H0))
+                        .abs().max() / TS.v_ht(coo, H0).abs().max()),
+             "h": float((SE.wt_v_ell(pair, W0) - TS.wt_v(coo, W0)).abs()
+                        .max() / TS.wt_v(coo, W0).abs().max())}
+    for alg, obj, kn in rules:
+        kl = obj == "kullback-leibler"
+        label = f"{alg}{' kl' if kl else ''}"
+        (We, He), (Ws, Hs) = halves["ell", label], halves["scatter", label]
+        dw = float((We - Ws).abs().max() / Ws.abs().max())
+        dh = float((He - Hs).abs().max() / Hs.abs().max())
+        sw, sh, ow, oh = (sparse_shifts(alg, kn, r) if alg != "nsnmf"
+                          else (0.0,) * 4)
+        eye = torch.eye(r, dtype=torch.float64, device=dev)
+        kw_ = float(torch.linalg.cond(H0.double() @ H0.double().T
+                                      + (sw + 1e-9) * eye + ow))
+        kh_ = float(torch.linalg.cond(W0.double().T @ W0.double()
+                                      + (sh + 1e-9) * eye + oh))
+        unit = SOLVE_FACTOR * r ** 0.5 * 2.0 ** -24
+        lw = (kw_ * (unit + r ** 0.5 * d_rhs["w"])
+              if alg in ("als", "acls", "ahcls") else S12_MU_RTOL)
+        lh = (kh_ * (unit + r ** 0.5 * d_rhs["h"])
+              if alg in ("als", "acls", "ahcls", "gdcls") else S12_MU_RTOL)
+        d_bf16 = abs(finals["densified bf16", label] / finals["ell", label]
+                     - 1)
+        say("22 checks", run=label, ell_vs_scatter_W=f"{dw:.3e}",
+            limit_W=f"{lw:.3e}", ell_vs_scatter_H=f"{dh:.3e}",
+            limit_H=f"{lh:.3e}", kappa_W=f"{kw_:.4g}", kappa_H=f"{kh_:.4g}",
+            rhs_ell_vs_scatter={k: f"{v:.3e}" for k, v in d_rhs.items()},
+            densified_bf16_vs_ell_final=f"{d_bf16:.3e}",
+            rtol=S12_ENGINES_RTOL)
+        if not (dw <= lw and dh <= lh):
+            fail(f"config 2 {label}: ELL and scatter differ after one "
+                 f"iteration (W {dw:.3e} > {lw:.3e} or H {dh:.3e} > "
+                 f"{lh:.3e})")
+        if not d_bf16 <= S12_ENGINES_RTOL:
+            fail(f"config 2 {label}: densified bf16's final objective is "
+                 f"{d_bf16:.3e} from ELL's")
+    del halves, pair
+    # #7 on the HALS run's own operands against its blocked plain twin, and
+    # its time at 138,493 x 64 beside the bound
+    XHt, G = TS.v_ht(coo, H0), H0 @ H0.T
+    got, want = HS.hals_sweep(XHt, G, W0), HS.hals_sweep_plain(XHt, G, W0)
+    exact = HS.hals_sweep_plain(XHt.double(), G.double(), W0.double())
+    torch.cuda.synchronize()
+    hals_diff = float((got - want).abs().max())
+    top = float(want.abs().max())
+    f64_check("22", "hals_sweep", f"{n}x{r}", got, want, exact, scaled=True)
+    t_ms = abba_ms({"kernel": lambda: HS.hals_sweep(XHt, G, W0),
+                    "plain": lambda: HS.hals_sweep_plain(XHt, G, W0)},
+                   iters=20)
+    hals_bound = bound(2 * n * r * r, 3 * n * r * 4, F32_PEAK)
+    say("22 hals_sweep", shape=f"{n}x{r}", max_abs=f"{hals_diff:.3e}",
+        rel_to_max=f"{hals_diff / top:.3e}", bound=HALS_ATOL,
+        launches=hals["launches"], expected=2 * S12_ITERS,
+        ms=f"{t_ms['kernel']:.4f}", plain_ms=f"{t_ms['plain']:.4f}",
+        bound_ms=f"{hals_bound[0]:.4f}", bound_by=hals_bound[1], card=card)
+    if not hals_diff <= HALS_ATOL * top:
+        fail("hals_sweep: the kernel disagrees with its twin on the sparse "
+             "HALS run's operands")
+    if hals["launches"] != 2 * S12_ITERS:
+        fail(f"sparse HALS launched #7 {hals['launches']} times in "
+             f"{S12_ITERS} iterations, not {2 * S12_ITERS}")
+    del got, want, exact, XHt, G
+    say("22 (a) ms per iteration", **{k: f"{v:.3f}" for k, v in
+                                      it_ms.items()}, card=card)
+
+    # -- 22 (c): masked ALS at config 2 on ELL and scatter -------------------
+    masked = {}
+    for engine in ("ell", "scatter"):
+        plan = plans[engine]
+        config = NmfConfig(rank=r, algorithm="als", mask="observed",
+                           init_method=Initialization.COPY_EXISTING,
+                           num_iterations=1, check_interval=1)
+        bundle = plan._bundle(config)
+        op = plan.operand
+        start = float(bundle.frobenius(op, (), W0, H0, None)) / ratings.nnz \
+            ** 0.5
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        t_start = torch.cuda.Event(enable_timing=True)
+        t_end = torch.cuda.Event(enable_timing=True)
+        t_start.record()
+        one = plan.run(config, W0=W0, H0=H0)
+        t_end.record()
+        t_end.synchronize()
+        ms = t_start.elapsed_time(t_end)
+        rmsd = [start, one.rmsd]
+        W, H = one.W, one.H
+        for _ in range(S12_ITERS - 1):
+            res = plan.run(config, W0=W, H0=H)
+            W, H = res.W, res.H
+            rmsd.append(res.rmsd)
+        peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+        want_w, kap_w = row_systems64(ratings, rows, H0.T, 0.0, 0.0, True)
+        want_h, kap_h = row_systems64(csc, cols, one.W, 0.0, 0.0, True)
+        cw = per_row_check(one.W[rows], want_w, kap_w, r)
+        ch = per_row_check(one.H[:, cols].T, want_h, kap_h, r)
+        say("22 masked als", engine=engine, rmsd=[f"{x:.7g}" for x in rmsd],
+            ms_first_iter=f"{ms:.3f}", peak_GiB=f"{peak:.2f}",
+            step_W_worst_ratio_to_limit=f"{cw[0]:.3e}",
+            step_W_rel=f"{cw[1]:.3e}", step_W_kappa=f"{cw[2]:.4g}",
+            step_H_worst_ratio_to_limit=f"{ch[0]:.3e}",
+            step_H_rel=f"{ch[1]:.3e}", step_H_kappa=f"{ch[2]:.4g}",
+            card=card)
+        # the clamped completion solves need not lower the observed RMSD
+        # from a random start (nmftpu's too: test_masked_als_need_not_
+        # descend_from_a_random_start); the steps are held
+        if not (np.isfinite(rmsd).all() and torch.isfinite(W).all()):
+            fail(f"masked ALS {engine}: non-finite factors or RMSD {rmsd}")
+        if not (cw[0] <= 1.0 and ch[0] <= 1.0):
+            fail(f"masked ALS {engine}: one step is off from float64 beyond "
+                 f"{SOLVE_FACTOR} sqrt(r) kappa 2^-24 (W {cw}, H {ch})")
+        masked[engine] = (one.W, one.H, want_w, kap_w, want_h, kap_h)
+    (We, He, *_), (Ws, Hs, _, kap_w, _, kap_h) = (masked["ell"],
+                                                  masked["scatter"])
+    dW = float((We - Ws).abs().max() / Ws.abs().max())
+    cw = per_row_check(We[rows], Ws[rows].double(), kap_w, r)
+    ch = per_row_check(He[:, cols].T, Hs[:, cols].T.double(), kap_h, r,
+                       extra=dW)
+    say("22 masked als", ell_vs_scatter_W_rows_worst_ratio=f"{cw[0]:.3e}",
+        ell_vs_scatter_H_cols_worst_ratio=f"{ch[0]:.3e}",
+        W_rel_whole=f"{dW:.3e}")
+    if not (cw[0] <= 1.0 and ch[0] <= 1.0):
+        fail(f"masked ALS: ELL and scatter differ beyond the limit (W {cw}, "
+             f"H {ch})")
+    del masked, We, He, Ws, Hs, plans, coo
+    torch.cuda.empty_cache()
+
+    # -- 22 (e), config 2: k-means on the full width -------------------------
+    coo = TS.device_put_sparse(ratings, device=dev)
+    coo64 = TS.device_put_sparse(ratings, dtype=torch.float64, device=dev)
+    col_sq = float(TS.col_sums(coo64.with_values(coo64.values ** 2)).sum())
+    gk = torch.Generator(device=dev).manual_seed(SEED + 22)
+    km_ms = event_ms(lambda: TS.kmeans_columns_sparse(coo, r, gk,
+                                                      KMEANS_ITERS), 1)
+    c = TS.extract_columns(coo, torch.randperm(m, generator=gk,
+                                               device=dev)[:r])
+    wcss = []
+    idx = torch.arange(m, device=dev)
+    for _ in range(KMEANS_ITERS):
+        c, a = TS._lloyd_sparse(coo, c, 1)
+        c64 = c.double()
+        cross = TS.wt_v(coo64, c64)[a, idx].sum()
+        wcss.append(col_sq - 2.0 * float(cross)
+                    + float((c64 * c64).sum(0)[a].sum()))
+    rise = max([(b - a) / a for a, b in zip(wcss, wcss[1:])] + [0.0])
+    say("22 sparse kmeans", shape=f"{n}x{m}", rank=r, rounds=KMEANS_ITERS,
+        ms=f"{km_ms:.3f}", wcss_first_last=[f"{wcss[0]:.9g}",
+                                             f"{wcss[-1]:.9g}"],
+        largest_relative_rise=f"{rise:.3e}", limit=KMEANS_RISE_RTOL,
+        card=card)
+    if not rise <= KMEANS_RISE_RTOL:
+        fail(f"sparse k-means: the within-cluster sum rose by {rise:.3e}")
+    del coo, coo64, c, c64
+    del lines, csc, W0, H0
+    torch.cuda.empty_cache()
+
+    # -- 22 (b): iALS at config 3's full size --------------------------------
+    csr3, W3, H3 = c3["csr"], c3["W0"], c3["H0"]
+    n3, m3 = csr3.shape
+    r3, alpha = C3_RANK, C3_ALPHA
+    csc3 = csr3.T.to_csr()
+    trip = device_triplets(csr3, dev)
+    need = (n3 + m3) * r3 * r3 * 4
+    refused = refusal(TS._check_weighted_gram_budget, n3, m3, r3)
+    want_msg = (f"weighted ALS per-row Grams need ~{need / 2**30:.1f} GiB "
+                "((n+m)·r² f32) — over the 8.0 GiB budget")
+    say("22 config 3 budget", need_GiB=f"{need / 2**30:.4f}",
+        default_budget_GiB=8, refusal=refused[:80])
+    if not refused.startswith(want_msg):
+        fail(f"config 3 iALS: the default budget does not refuse it with "
+             f"the reference's message: {refused!r}")
+    rng3 = np.random.default_rng(SEED + 222)
+    u_top = int(np.argmax(np.diff(csr3.indptr)))
+    i_top = int(np.argmax(np.diff(csc3.indptr)))
+    rows3 = np.concatenate([[u_top], rng3.choice(
+        np.setdiff1d(np.arange(n3), [u_top]), 63, replace=False)])
+    cols3 = np.concatenate([[i_top], rng3.choice(
+        np.setdiff1d(np.arange(m3), [i_top]), 63, replace=False)])
+    obj0, mu1, mu4 = c3["mu_objective"]
+    os.environ["NMFTPU_WEIGHTED_GRAM_BUDGET_BYTES"] = str(IALS_BUDGET)
+
+    def cfg3(iters, **knobs):
+        return NmfConfig(rank=r3, algorithm="als", alpha_confidence=alpha,
+                         init_method=Initialization.COPY_EXISTING,
+                         num_iterations=iters, check_interval=iters,
+                         **knobs)
+
+    ials = {}
+    plan = None
+    for engine, strategy, solver in (("ell", "auto", "exact"),
+                                     ("ell", "auto", "cg"),
+                                     ("scatter", "scatter", "exact")):
+        knobs = {"als_solver": solver} if solver == "cg" else {}
+        if plan is None or plan.strategy != engine:
+            del plan
+            torch.cuda.empty_cache()
+            t0 = time.perf_counter()
+            plan = nt.prepare_sparse(csr3, cfg3(1), strategy=strategy,
+                                     device=dev)
+            torch.cuda.synchronize()
+            prep_s = time.perf_counter() - t0
+            if plan.strategy != engine:
+                fail(f"config 3 iALS: strategy={strategy!r} resolved to "
+                     f"{plan.strategy!r}, not {engine!r}")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        t_start = torch.cuda.Event(enable_timing=True)
+        t_end = torch.cuda.Event(enable_timing=True)
+        t_start.record()
+        one = plan.run(cfg3(1, **knobs), W0=W3, H0=H3)
+        t_end.record()
+        t_end.synchronize()
+        ms1 = t_start.elapsed_time(t_end)
+        obj1 = weighted_objective(trip, one.W, one.H, alpha)
+        objs = [obj0, obj1]
+        if engine == "ell":
+            res = plan.run(cfg3(S12_ITERS - 1, **knobs), W0=one.W, H0=one.H)
+            objs.append(weighted_objective(trip, res.W, res.H, alpha))
+            ials[engine, solver] = res.frobenius_error
+            del res
+        peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+        # one step per row against float64 normal equations solved by LU;
+        # cg's 3 float32 steps leave their exact-arithmetic iterates by up
+        # to ~10% on rows of kappa ~10^3 (the residual loses its digits
+        # once the large eigen-direction is gone: nmftpu's float32 CG as
+        # the port's), so cg is held run to r steps on the same rows' own
+        # systems (the card's Gram, Gram delta and right-hand side)
+        want_w, kap_w = row_systems64(csr3, rows3, H3.T, alpha, 0.0, False)
+        if solver == "exact":
+            want_h, kap_h = row_systems64(csc3, cols3, one.W, alpha, 0.0,
+                                          False)
+            checks = {"W": per_row_check(one.W[rows3], want_w, kap_w, r3),
+                      "H": per_row_check(one.H[:, cols3].T, want_h, kap_h,
+                                         r3)}
+            ials[engine, "one"] = (one.W, one.H, kap_w, kap_h)
+        else:
+            dG, rhs = SE.grams_and_rhs_ell(
+                plan.operand.rows, H3.T, lambda v: alpha * v,
+                lambda v: v * (1.0 + alpha * v))
+            idx = torch.as_tensor(rows3, device=dev)
+            Gb = (H3 @ H3.T)[None] + dG[idx]
+            x = D._batched_solve_clamped_cg(Gb, rhs[idx], 0.0, 1e-9,
+                                            W3[idx], steps=r3)
+            checks = {f"W_cg_{r3}_steps": per_row_check(x, want_w, kap_w,
+                                                         r3)}
+            del dG, rhs, Gb, x
+        say("22 config 3 ials", engine=engine, solver=solver,
+            strategy=plan.strategy, weighted_objective=[f"{x:.9g}"
+                                                        for x in objs],
+            weighted_mu_objective_1_4=[f"{mu1:.9g}", f"{mu4:.9g}"],
+            over_weighted_mu=[f"{o / mu:.4f}" for o, mu in zip(
+                objs[1:], (mu1, mu4))],
+            ms_first_iter_with_check=f"{ms1:.3f}", peak_GiB=f"{peak:.2f}",
+            gram_need_GiB=f"{need / 2**30:.4f}", prepare_s=f"{prep_s:.2f}",
+            **{f"step_{k}_worst_ratio_to_limit": f"{v[0]:.3e}"
+               for k, v in checks.items()},
+            **{f"step_{k}_rel_kappa": f"{v[1]:.3e}/{v[2]:.4g}"
+               for k, v in checks.items()}, card=card)
+        # clamped iALS from a random start need not descend, nor stay
+        # below weighted MU (nmftpu's trajectory too: ROADMAP queue 3), so
+        # the objectives are printed beside MU's; the steps are held
+        if not (np.isfinite(objs).all() and torch.isfinite(one.W).all()):
+            fail(f"config 3 iALS {engine} {solver}: non-finite factors or "
+                 f"objective {objs}")
+        if any(v[0] > 1.0 for v in checks.values()):
+            fail(f"config 3 iALS {engine} {solver}: one step is off from "
+                 f"float64 beyond {SOLVE_FACTOR} sqrt(r) kappa 2^-24: "
+                 f"{checks}")
+        del one
+    del plan
+    os.environ.pop("NMFTPU_WEIGHTED_GRAM_BUDGET_BYTES")
+    cg, ex = ials["ell", "cg"], ials["ell", "exact"]
+    (We, He, kap_w, kap_h), (Ws, Hs, _, _) = (ials["ell", "one"],
+                                              ials["scatter", "one"])
+    dW = float((We - Ws).abs().max() / Ws.abs().max())
+    cw = per_row_check(We[rows3], Ws[rows3].double(), kap_w, r3)
+    ch = per_row_check(He[:, cols3].T, Hs[:, cols3].T.double(), kap_h, r3,
+                       extra=dW)
+    say("22 config 3 ials checks", cg_final_frobenius=f"{cg:.9g}",
+        exact_final_frobenius=f"{ex:.9g}", cg_over_exact=f"{cg / ex:.4f}",
+        cg_limit=IALS_CG_FACTOR,
+        ell_vs_scatter_W_rows_worst_ratio=f"{cw[0]:.3e}",
+        ell_vs_scatter_H_cols_worst_ratio=f"{ch[0]:.3e}",
+        W_rel_whole=f"{dW:.3e}")
+    if not cg <= IALS_CG_FACTOR * ex:
+        fail(f"config 3 iALS: the cg run's error {cg} exceeds "
+             f"{IALS_CG_FACTOR} x the exact run's {ex}")
+    if not (cw[0] <= 1.0 and ch[0] <= 1.0):
+        fail(f"config 3 iALS: ELL and scatter differ beyond the limit (W "
+             f"{cw}, H {ch})")
+    del ials, We, He, Ws, Hs, trip
+    torch.cuda.empty_cache()
+
+    # -- 22 (d): dense iALS at 4096^2 / r = 256 ------------------------------
+    rd = W0d.shape[1]
+    Vd = V.double()
+
+    def dense_objective(W, H):
+        R = Vd - W.double() @ H.double()
+        return float(torch.sum((1.0 + C3_ALPHA * Vd) * R * R))
+
+    kwd = dict(algorithm="als", alpha_confidence=C3_ALPHA, init="copy",
+               num_iterations=1, check_interval=1, device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    objs = [dense_objective(W0d, H0d)]
+    W, H = W0d, H0d
+    for it in range(DENSE_IALS_ITERS):
+        res = nt.nmf(V, rd, W0=W, H0=H, **kwd)
+        if it == 0:
+            W1d = res.W
+        W, H = res.W, res.H
+        objs.append(dense_objective(W, H))
+    peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+    _, update, _ = build_dense_update(NmfConfig(
+        rank=rd, algorithm="als", alpha_confidence=C3_ALPHA))
+    ms = cuda_ms(lambda: update(V, (), W0d, H0d), iters=1)
+    rows_d = np.random.default_rng(SEED + 221).choice(V.shape[0], 64,
+                                                      replace=False)
+    H64 = H0d.double()
+    C = 1.0 + C3_ALPHA * Vd[rows_d]
+    A = torch.einsum("rm,um,sm->urs", H64, C, H64)
+    rhs = (C * Vd[rows_d]) @ H64.T
+    ridge = 1e-9 + max(1e-9, 100 * 2.0 ** -23) * torch.diagonal(
+        A, dim1=1, dim2=2).sum(1)[:, None, None] / rd
+    A = A + ridge * torch.eye(rd, dtype=torch.float64, device=dev)
+    want = torch.clamp(torch.linalg.solve(A, rhs[..., None])[..., 0], min=0.0)
+    cd = per_row_check(W1d[rows_d], want, torch.linalg.cond(A), rd)
+    say("22 dense ials", shape=f"{V.shape[0]}x{V.shape[1]}", rank=rd,
+        alpha=C3_ALPHA, weighted_objective=[f"{x:.9g}" for x in objs],
+        ms_per_iter=f"{ms:.3f}", peak_GiB=f"{peak:.2f}",
+        step_W_worst_ratio_to_limit=f"{cd[0]:.3e}",
+        step_W_rel=f"{cd[1]:.3e}", step_W_kappa=f"{cd[2]:.4g}", card=card)
+    if not all(b < a for a, b in zip(objs[:-1], objs[1:])):
+        fail(f"dense iALS: the weighted objective did not fall: {objs}")
+    if not cd[0] <= 1.0:
+        fail(f"dense iALS: one step is off from float64: {cd}")
+    del Vd, A, C, want, W1d, res
+    torch.cuda.empty_cache()
+
+    # -- 22 (e), config 1: sparse k-means and NNDSVD -------------------------
+    from nmftpu_torch import sparse as host_sparse
+    from nmftpu_torch.data.synthetic import synthetic_powerlaw_sparse
+
+    n1, m1, nnz1 = CONFIG1
+    sp = synthetic_powerlaw_sparse(n1, m1, 3 * nnz1, alpha_user=0.9,
+                                   alpha_item=0.9, seed=SEED % 1000)
+    if sp.nnz < nnz1:
+        fail(f"config 1 power-law draw has {sp.nnz} distinct ratings")
+    keep = np.sort(np.random.default_rng(SEED).choice(sp.nnz, nnz1,
+                                                      replace=False))
+    sp1 = host_sparse.SparseCOO(sp.row[keep], sp.col[keep], sp.data[keep],
+                                sp.shape)
+    dense1 = torch.zeros(sp1.shape, dtype=torch.float64, device=dev)
+    dense1[torch.as_tensor(sp1.row.astype(np.int64), device=dev),
+           torch.as_tensor(sp1.col.astype(np.int64), device=dev)] = \
+        torch.as_tensor(sp1.data.astype(np.float64), device=dev)
+    r1 = CONFIG1_RANK
+    cols1 = torch.randperm(m1, generator=torch.Generator(device=dev)
+                           .manual_seed(SEED + 223), device=dev)[:r1]
+    agree = {}
+    for dtype in (torch.float64, torch.float32):
+        coo1 = TS.device_put_sparse(sp1, dtype=dtype, device=dev)
+        Vx = dense1.to(dtype)
+        cs, as_ = TS._lloyd_sparse(coo1, TS.extract_columns(coo1, cols1),
+                                   KMEANS_ITERS)
+        cdn, ad = KM._lloyd(Vx, Vx[:, cols1], KMEANS_ITERS)
+        agree[str(dtype)] = (bool(torch.equal(as_, ad)),
+                             float((cs - cdn).abs().max() / cdn.abs().max()))
+    say("22 config 1 kmeans", shape=f"{n1}x{m1}", ratings=nnz1, rank=r1,
+        rounds=KMEANS_ITERS, sparse_vs_dense_same_assign_and_rel=agree,
+        held="float64", rtol=1e-5)
+    if not (agree["torch.float64"][0]
+            and agree["torch.float64"][1] <= 1e-5):
+        fail(f"config 1: sparse k-means differs from the dense Lloyd: "
+             f"{agree}")
+    csr1 = TS.host_csr(TS.device_put_sparse(sp1, device=dev))
+    t0 = time.perf_counter()
+    ND._truncated_svd(csr1, r1)
+    svds_s = time.perf_counter() - t0
+    starts = {}
+    for init in ("random", "nndsvd", "nndsvda", "nndsvdar"):
+        res = nt.nmf(sp1, r1, init=init, num_iterations=0,
+                     strategy="scatter", device=dev)
+        starts[init] = (res.W, res.H, res.error)
+    dense_nndsvd = nt.nmf(dense1.float(), r1, init="nndsvd",
+                          num_iterations=0, device=dev).error
+    # the fill as init.nndsvd takes it: the stored values' sum over n m
+    mean_v = ND._mean(csr1)
+    filled = all(torch.equal(f, torch.where(c_ > 0, c_, torch.tensor(
+        mean_v, dtype=c_.dtype, device=dev)))
+        for c_, f in zip(starts["nndsvd"][:2], starts["nndsvda"][:2]))
+    d_dense = abs(starts["nndsvd"][2] / dense_nndsvd - 1)
+    say("22 config 1 nndsvd", svds_host_seconds=f"{svds_s:.3f}",
+        start_errors={k: f"{v[2]:.7g}" for k, v in starts.items()},
+        dense_nndsvd_error=f"{dense_nndsvd:.7g}",
+        sparse_vs_dense_nndsvd=f"{d_dense:.3e}", rtol=1e-3,
+        nndsvda_is_nndsvd_filled_with_mean=filled)
+    for init in ("nndsvd", "nndsvdar"):
+        if not starts[init][2] < starts["random"][2]:
+            fail(f"config 1: {init}'s start {starts[init][2]} is not below "
+                 f"the random init's {starts['random'][2]}")
+    if not filled:
+        fail("config 1: nndsvda is not nndsvd with its zeros at mean(V)")
+    if not d_dense <= 1e-3:
+        fail(f"config 1: sparse nndsvd starts {d_dense:.3e} from the dense")
+    del dense1, starts, sp, sp1
+    torch.cuda.empty_cache()
+    say("22 seconds", seconds=f"{time.perf_counter() - t_phase:.1f}")
+    return {"launches": {"hals_sweep": hals["launches"], **int8_launches},
+            "hals_max_abs": hals_diff, "hals_ms": t_ms["kernel"],
+            "hals_plain_ms": t_ms["plain"], "hals_bound": hals_bound}
+
+
 def main() -> None:
     if not (HERE / "nmftpu_torch").is_dir():
         fail(f"no nmftpu_torch package beside {__file__}")
@@ -3320,7 +4193,6 @@ def main() -> None:
     # -- 20. the native host layer; beta MU at config 2 on every engine -----
     torch.cuda.empty_cache()
     beta_engines_phase(nt, card, dev, ratings)
-    del ratings
 
     # -- 21. slice 4b-i: the dense ALS family, GDCLS, nsNMF; the inits ------
     torch.cuda.empty_cache()
@@ -3329,6 +4201,13 @@ def main() -> None:
     for name, count in s8["launches"].items():
         new[name]["launches"] += count
         max_abs[name] = max(max_abs[name], s8["max_abs_err"])
+
+    # -- 22. slices 4b-ii and 4c: every algorithm on sparse V, the inits ----
+    torch.cuda.empty_cache()
+    s12 = sparse_algorithms_phase(nt, card, dev, ratings, s8.pop("config3"),
+                                  V, W0, H0)
+    del ratings
+    max_abs["hals_sweep"] = max(max_abs["hals_sweep"], s12["hals_max_abs"])
 
     if "jax" in sys.modules:
         fail("jax was imported")
@@ -3346,6 +4225,10 @@ def main() -> None:
     for name, count in cold_launches.items():
         launches[name] += count
     for name, count in family_launches.items():
+        launches[name] += count
+    # #7 on sparse HALS, the one-sided entries on the int8 densified family
+    # (phase 22)
+    for name, count in s12["launches"].items():
         launches[name] += count
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": SOURCES[name],

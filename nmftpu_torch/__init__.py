@@ -15,10 +15,11 @@ imports). It mirrors ``nmftpu``'s module names and public surface:
 * init strategies copy / random / mean_columns, the convergence loop
   with threshold, stats and best-of-N restarts;
 * sparse V (``nmftpu_torch.sparse`` containers) through ``nmf`` /
-  ``compute_sparse`` / ``prepare_sparse``: MU under the Frobenius and KL
-  objectives on the ``scatter``, ``ell`` and ``densified`` (bf16 V)
-  engines; on ``ell``, ``use_pallas=True`` runs the SpMMs on the CUDA
-  ELL segment kernel (``kernels/sparse_ell_kernel.py``);
+  ``compute_sparse`` / ``prepare_sparse``: every algorithm of ``nmftpu``
+  (MU, the ALS family, GDCLS, nsNMF, HALS, iALS and masked completion)
+  and every init on the ``scatter``, ``ell`` and ``densified`` (bf16 or
+  int8 V) engines; on ``ell``, ``use_pallas=True`` runs the MU SpMMs on
+  the CUDA ELL segment kernel (``kernels/sparse_ell_kernel.py``);
 * ``Recommender``: top-k serving from the factors (exact, approx and
   reservoir scans, certified top-k with an exact fallback, save/load),
   with the reservoir scan and the certificate's count pass as CUDA
@@ -29,10 +30,11 @@ imports). It mirrors ``nmftpu``'s module names and public surface:
   int8 tables, the int8 table's Gram on the int8 kernel) and the
   Recommender's ``fold_in*`` / ``recommend_from_history*``;
 * dense float32 MU under the generalized beta divergence
-  (``objective="beta-divergence"``).
+  (``objective="beta-divergence"``); the dense ALS family, GDCLS, nsNMF
+  and iALS; the k-means and NNDSVD inits.
 
-Configurations not ported yet raise NotImplementedError naming their
-slice in ROADMAP.md.
+``vectorize_runs=True`` and ``mesh=`` raise NotImplementedError naming
+their slice in ROADMAP.md (5 and 6).
 """
 
 from nmftpu_torch.api import nmf

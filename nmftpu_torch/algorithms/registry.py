@@ -45,6 +45,7 @@ mu_style="jacobi", else update_order):
     KL                                 -> linalg.dense.mu_update_kl
     beta divergence, float32 V         -> linalg.dense.mu_update_beta
     beta divergence, bf16/int8 V       -> densified.mu_update_beta_densified
+  ALS, alpha_confidence > 0 (iALS)     -> linalg.dense.als_update_weighted
   ALS (float32 V)                      -> linalg.dense.als_update
   HALS                                 -> linalg.dense.hals_update
                                           (CUDA sweep kernel on the card)
@@ -58,9 +59,8 @@ The ALS family on int8 and bf16 V takes its shifts from
 ``sparse_ops._als_family_shifts`` (float64); dense float32 AHCLS takes
 ``linalg.dense._ahcls_shift`` (in V's dtype), as ``nmftpu`` does.
 On the CPU, ``nmftpu`` runs int8 MU as a bf16-dequantized contraction;
-the port takes the int8 x int8 route on every device. iALS (ALS with
-alpha_confidence > 0) raises NotImplementedError naming its part of the
-port (ROADMAP.md, queue 1, slice 4c).
+the port takes the int8 x int8 route on every device. Dense iALS solves
+each row exactly whatever `als_solver` says, as ``nmftpu``'s does.
 """
 
 from __future__ import annotations
@@ -69,13 +69,6 @@ import torch
 
 from nmftpu_torch.config import Algorithm, NmfConfig, Objective
 from nmftpu_torch.linalg import dense as D
-
-
-def _unported(what: str, where: str):
-    raise NotImplementedError(
-        f"{what} is not ported to nmftpu_torch yet ({where} in "
-        "ROADMAP.md); run it with nmftpu"
-    )
 
 
 def _low_precision_v(v_storage: str):
@@ -192,11 +185,18 @@ def _float32_v_family(config: NmfConfig):
 
     if alg is Algorithm.ALS:
         if config.alpha_confidence > 0.0:
-            _unported("algorithm='als' with alpha_confidence > 0 (iALS)",
-                      "slice 4c")
+            # iALS: every row's weighted normal equations, solved exactly
+            # (config validation keeps V float32 here; the dense path
+            # solves exactly whatever als_solver says, as nmftpu's)
+            alpha = config.alpha_confidence
 
-        def update(V, aux, W, H):
-            return D.als_update(V, W, H, eps=eps, order=order)
+            def update(V, aux, W, H):
+                return D.als_update_weighted(V, W, H, alpha, lambda_w=lw,
+                                             lambda_h=lh, eps=eps,
+                                             order=order)
+        else:
+            def update(V, aux, W, H):
+                return D.als_update(V, W, H, eps=eps, order=order)
     elif alg is Algorithm.ACLS:
         def update(V, aux, W, H):
             return D.acls_update(V, W, H, lambda_w=lw, lambda_h=lh, eps=eps,

@@ -5,9 +5,10 @@ copy of ``nmftpu/init/nndsvd.py``, operation for operation).
 sklearn's default init (`_initialize_nmf`, init=None -> 'nndsvda').
 Deterministic: the SVD is exact, and NNDSVD's per-component choice of
 the positive or the negative part makes the result invariant to the
-SVD's sign ambiguity. It runs once on the host before the device loop,
-through LAPACK (sparse V refuses NNDSVD until the sparse engines take
-the ALS family and these inits).
+SVD's sign ambiguity. It runs once on the host before the device loop:
+a dense V through LAPACK, a sparse one (scipy sparse, or one of the
+port's containers) through scipy's `svds`, never densified unless every
+start vector fails and the matrix holds at most 50M cells.
 """
 
 from __future__ import annotations
@@ -17,11 +18,66 @@ import numpy as np
 _VARIANTS = ("nndsvd", "nndsvda", "nndsvdar")
 
 
+# a sparse V whose svds fails from every start vector is densified for
+# LAPACK only up to this many cells
+DENSIFY_MAX_CELLS = 50_000_000
+
+
 def _truncated_svd(X, rank: int):
-    """(U[:, :r], S[:r], Vt[:r]) of a dense ndarray, through LAPACK."""
+    """(U[:, :r], S[:r], Vt[:r]) of a dense ndarray through LAPACK, or of
+    a sparse V (scipy sparse or a port container) through `svds`, from
+    three start vectors in turn: ones, then two seeded normal draws (a
+    constant v0 can stall ARPACK). Only ARPACK's own failures move on to
+    the next start (``nmftpu`` catches every Exception there); when all
+    fail, V is densified if it has at most DENSIFY_MAX_CELLS cells, else
+    RuntimeError. rank = min(V.shape) is out of `svds`' reach and goes
+    dense."""
+    from nmftpu_torch.sparse import SparseMatrix
+
+    if isinstance(X, SparseMatrix):
+        import scipy.sparse as sps
+
+        csr = X.to_csr()
+        X = sps.csr_matrix((csr.data, csr.indices, csr.indptr),
+                           shape=csr.shape)
+    if hasattr(X, "tocsr") and hasattr(X, "nnz"):  # scipy.sparse
+        from scipy.sparse import linalg as spla
+
+        if rank < min(X.shape):
+            if not np.issubdtype(X.dtype, np.floating):
+                X = X.astype(np.float64)
+            k = min(X.shape)
+            starts = [np.ones(k, dtype=np.float64)] + [
+                np.random.default_rng(s).standard_normal(k) for s in (0, 1)]
+            err = None
+            for v0 in starts:
+                try:
+                    U, S, Vt = spla.svds(X, k=rank, v0=v0)
+                except (spla.ArpackNoConvergence, spla.ArpackError) as e:
+                    err = e
+                    continue
+                if np.all(np.isfinite(S)) and np.all(S >= 0):
+                    order = np.argsort(S)[::-1]  # svds returns ascending
+                    return U[:, order], S[order], Vt[order]
+            if X.shape[0] * X.shape[1] > DENSIFY_MAX_CELLS:
+                raise RuntimeError(
+                    "nndsvd: truncated svds failed to converge on all "
+                    "start vectors and the matrix is too large to "
+                    "densify; use init_method='kmeans*' or 'random' "
+                    f"instead (last error: {err})")
+        X = np.asarray(X.todense())
     X = np.asarray(X)
     U, S, Vt = np.linalg.svd(X, full_matrices=False)
     return U[:, :rank], S[:rank], Vt[:rank]
+
+
+def _mean(X) -> float:
+    """mean(V) for the nndsvda/ar fill: Σ stored values / (n m) for a
+    sparse V, as ``nmftpu`` takes it, np.mean for a dense one."""
+    if hasattr(X, "nnz"):
+        data = X.data if hasattr(X, "data") else X.to_csr().data
+        return float(np.sum(data)) / (X.shape[0] * X.shape[1])
+    return float(np.mean(np.asarray(X)))
 
 
 def nndsvd_init(X, rank: int, variant: str = "nndsvda", eps: float = 1e-6,
@@ -82,7 +138,7 @@ def _nndsvd_from_svd(X, U, S, Vt, variant: str, eps: float, seed: int):
     H[H < eps] = 0.0
 
     if variant != "nndsvd":
-        avg = float(np.mean(np.asarray(X)))
+        avg = _mean(X)
     if variant == "nndsvda":
         W[W == 0.0] = avg
         H[H == 0.0] = avg

@@ -500,6 +500,63 @@ def _batched_solve_clamped_cg(Gb, rhs, shift, eps, x0, steps=3):
     return torch.clamp(x, min=0.0)
 
 
+# The dense iALS builds each panel's (rows, r, r) Grams from sub-panels
+# whose (rows, r, m) intermediate (the partner scaled by each row's
+# confidences) takes at most about this many bytes
+WEIGHTED_GRAM_SUBPANEL_BYTES = 1 << 30
+
+
+def als_update_weighted(V, W, H, alpha, lambda_w=0.0, lambda_h=0.0,
+                        eps=1e-9, order="WH", block=1024):
+    """Confidence-weighted ALS (iALS, Hu-Koren-Volinsky) on dense V with
+    C = 1 + alpha·V: each half-step solves every row's weighted normal
+    equations
+
+        (H C_u Hᵀ + (λ + eps) I) w_u = H (c_u ⊙ v_u)
+
+    (the column dual for H) and clamps at 0; the objective of
+    `mu_update_frobenius_weighted`, minimized exactly per row. Panels of
+    `block` rows (columns) each take one batched solve
+    (`_batched_solve_clamped`); a panel's Grams are built in sub-panels of
+    rows whose (rows, r, m) scaled partner stays within
+    WEIGHTED_GRAM_SUBPANEL_BYTES (a single (1024, r, m) product is 28 GB
+    at the ML-20M width, r = 64). O(n m r²) a half-step: sparse V takes
+    ``sparse_ops.als_update_weighted_sparse``, which pays O(nnz r²)."""
+    from nmftpu_torch.sparse_ops import _panels
+
+    n, m = V.shape
+    r = W.shape[1]
+
+    def grams(P, Cp):
+        """Σ_k c[u, k] p_k p_kᵀ for each row u of Cp (rows, K), P (r, K)."""
+        sub = max(1, WEIGHTED_GRAM_SUBPANEL_BYTES
+                  // (r * P.shape[1] * P.element_size()))
+        return torch.cat([(P[None] * Cp[a:b, None, :]) @ P.T
+                          for a, b in _panels(Cp.shape[0], sub)])
+
+    def upd_w(W, H):
+        out = torch.empty((n, r), dtype=V.dtype, device=V.device)
+        for s, e in _panels(n, block):
+            Vp = V[s:e]
+            Cp = 1.0 + alpha * Vp
+            out[s:e] = _batched_solve_clamped(grams(H, Cp), (Cp * Vp) @ H.T,
+                                              lambda_w, eps)
+        return out
+
+    def upd_h(W, H):
+        out = torch.empty((r, m), dtype=V.dtype, device=V.device)
+        Wt = W.T
+        for s, e in _panels(m, block):
+            Vp = V[:, s:e]
+            Cp = (1.0 + alpha * Vp).T                     # (cols, n)
+            rhs = (Cp * Vp.T) @ W                         # (cols, r)
+            out[:, s:e] = _batched_solve_clamped(grams(Wt, Cp), rhs,
+                                                 lambda_h, eps).T
+        return out
+
+    return _apply_order(upd_w, upd_h, W, H, order)
+
+
 # ---------------------------------------------------------------------------
 # The ALS family (ALS, ACLS, AHCLS), GDCLS and nsNMF; float32 V
 # ---------------------------------------------------------------------------

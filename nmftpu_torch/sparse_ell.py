@@ -1,6 +1,7 @@
-"""Gather-based ELL sparse engine (port of the MU subset of
-``nmftpu/sparse_ell.py``: Frobenius, KL, beta divergence,
-confidence-weighted and masked completion).
+"""Gather-based ELL sparse engine (port of ``nmftpu/sparse_ell.py``:
+MU under Frobenius, KL and the beta divergence, confidence-weighted and
+masked; the ALS family, GDCLS and nsNMF; iALS and masked completion ALS
+on per-row Grams built bucket by bucket).
 
 * Each row of V is split into SEGMENTS of at most `seg_max` nonzeros, and
   segments are grouped into power-of-two-width BUCKETS, zero-padded to
@@ -18,7 +19,8 @@ and the library is built, else the vectorised numpy path; both give
 ``nmftpu``'s buckets array for array. The containers hold tensors on one
 device.
 `_bucket_rowsums` here is plain torch; ``kernels/sparse_ell_kernel.py``
-holds the hand-written CUDA kernel for the same per-segment sums.
+holds the hand-written CUDA kernel for the same per-segment sums, which
+``nmftpu`` reaches only from MU-Frobenius with use_pallas.
 """
 
 from __future__ import annotations
@@ -31,7 +33,7 @@ import torch
 from nmftpu_torch import native_loader
 from nmftpu_torch import sparse as host_sparse
 from nmftpu_torch.driver import _resolve_device
-from nmftpu_torch.linalg.dense import _apply_order
+from nmftpu_torch.linalg.dense import _apply_order, solve_clamped
 
 DEFAULT_BUCKETS = (8, 16, 32, 64, 128, 256, 512)
 
@@ -408,6 +410,77 @@ def mu_update_frobenius_weighted_ell(pair: EllPair, W, H, alpha, eps=1e-9,
 
 
 # ---------------------------------------------------------------------------
+# The ALS family, GDCLS and nsNMF on the gather-only layout (``nmftpu``
+# runs them on its gathers, not on the ELL kernel)
+# ---------------------------------------------------------------------------
+
+
+def als_family_update_ell(pair: EllPair, W, H, shift_w=0.0, shift_h=0.0,
+                          off_w=0.0, off_h=0.0, eps=1e-9, order="WH"):
+    """ALS / ACLS / AHCLS on the gather-only layout: the right-hand sides
+    are the two ELL SpMMs, the r x r solves exact
+    (``linalg.dense.solve_clamped``)."""
+
+    def upd_w(W, H):
+        rhs = v_ht_ell(pair.rows, H).T                    # (r, n)
+        return solve_clamped(H @ H.T, rhs, shift_w, off_w, eps).T
+
+    def upd_h(W, H):
+        return solve_clamped(W.T @ W, wt_v_ell(pair, W), shift_h, off_h, eps)
+
+    return _apply_order(upd_w, upd_h, W, H, order)
+
+
+def gdcls_update_ell(pair: EllPair, W, H, lambda_tik=0.0, eps=1e-9,
+                     order="WH"):
+    """GDCLS on ELL: the Frobenius MU step for W, the Tikhonov solve for
+    H."""
+
+    def upd_w(W, H):
+        return W * (v_ht_ell(pair.rows, H) / (W @ (H @ H.T) + eps))
+
+    def upd_h(W, H):
+        return solve_clamped(W.T @ W, wt_v_ell(pair, W), lambda_tik, 0.0, eps)
+
+    return _apply_order(upd_w, upd_h, W, H, order)
+
+
+def nsnmf_update_kl_ell(pair: EllPair, W, H, S, eps=1e-9, order="WH"):
+    """nsNMF under KL on ELL: fused gather-once ratio + SpMM half-steps
+    (`sampled_rowsums_ell`) against the smoothed partners (S H stands in
+    for H, W S for W)."""
+    ratio = (lambda v, s: v / (s + eps),)
+
+    def upd_w(W, H):
+        SH = S @ H
+        numer, = sampled_rowsums_ell(pair.rows, W, SH, ratio)
+        denom = torch.clamp(torch.sum(SH, dim=1), min=eps)[None, :]
+        return W * (numer / denom)
+
+    def upd_h(W, H):
+        WS = W @ S
+        numer, = sampled_rowsums_ell(pair.cols, H.T, WS.T, ratio)
+        denom = torch.clamp(torch.sum(WS, dim=0), min=eps)[:, None]
+        return H * (numer.T / denom)
+
+    return _apply_order(upd_w, upd_h, W, H, order)
+
+
+def nsnmf_update_ell(pair: EllPair, W, H, S, eps=1e-9, order="WH"):
+    """nsNMF (Frobenius) on ELL: MU against the smoothed partners."""
+
+    def upd_w(W, H):
+        SH = S @ H
+        return W * (v_ht_ell(pair.rows, SH) / (W @ (SH @ SH.T) + eps))
+
+    def upd_h(W, H):
+        WS = W @ S
+        return H * (wt_v_ell(pair, WS) / ((WS.T @ WS) @ H + eps))
+
+    return _apply_order(upd_w, upd_h, W, H, order)
+
+
+# ---------------------------------------------------------------------------
 # Masked completion (mask="observed") on the gather-only layout. The
 # observed set is the stored set, so the 0/1 mask is `vals != 0`, which
 # also drops the pad lanes.
@@ -511,3 +584,113 @@ def kl_error_ell(pair: EllPair, W, H, eps=1e-12) -> torch.Tensor:
         )
         total = total + torch.sum(term) - torch.sum(v)
     return total + torch.sum(W, dim=0) @ torch.sum(H, dim=1)
+
+
+# ---------------------------------------------------------------------------
+# Per-row weighted Grams on ELL: the iALS / masked-ALS hot path. Each
+# bucket's Gram contributions are one batched product over the gathered
+# rows, (block, r, w) x (block, w, r), and only the (block, r, r) segment
+# results are scatter-added into rows (about n + nnz/seg_max of them)
+# instead of one (r, r) outer product per nonzero.
+# ---------------------------------------------------------------------------
+
+
+def _bucket_grams_rhs(bucket: EllBucket, Ht, weight_fn, value_fn, chunk):
+    """Per block of at most `chunk` segments: (first, last, Σ_k wgt_k
+    t_k t_kᵀ (block, r, r), Σ_k val_k t_k (block, r)), both from ONE
+    gather of the table rows t = Ht[cols]."""
+    nseg, width = bucket.vals.shape
+    r = Ht.shape[1]
+    acc = _acc_dtype(Ht.dtype)
+    for s, e in _segment_blocks(nseg, chunk):
+        g3 = Ht.index_select(0, bucket.cols[s:e].reshape(-1)).to(acc) \
+            .reshape(e - s, width, r)
+        v = bucket.vals[s:e]
+        wgt = weight_fn(v).to(acc)                        # (block, w)
+        gram = torch.bmm((g3 * wgt[:, :, None]).transpose(1, 2), g3)
+        rhs = torch.bmm(value_fn(v).to(acc)[:, None, :], g3)[:, 0]
+        yield s, e, gram, rhs
+
+
+def grams_and_rhs_ell(ell: EllRows, Ht, weight_fn, value_fn,
+                      chunk: int = 1024):
+    """((n, r, r), (n, r)) float32: per row Σ weight(v) · t tᵀ and
+    Σ value(v) · t over the stored set. Ht is the (m, r) row-major table
+    (Hᵀ for the W half, W for the H half on the transposed container).
+    Pad lanes hold v = 0, so a weight and a value with f(0) = 0 drop
+    them. Each block's segment results go to their rows by `index_add_`
+    as they are made, so no bucket-sized (nseg, r, r) array exists."""
+    Ht = Ht.contiguous()
+    n, r = ell.shape[0], Ht.shape[1]
+    acc = _acc_dtype(Ht.dtype)
+    grams = torch.zeros((n, r, r), dtype=acc, device=Ht.device)
+    rhs = torch.zeros((n, r), dtype=acc, device=Ht.device)
+    for bucket in ell.buckets:
+        for s, e, gseg, rseg in _bucket_grams_rhs(bucket, Ht, weight_fn,
+                                                  value_fn, chunk):
+            grams.index_add_(0, bucket.out_row[s:e], gseg)
+            rhs.index_add_(0, bucket.out_row[s:e], rseg)
+    return grams.to(torch.float32), rhs.to(torch.float32)
+
+
+def als_update_weighted_ell_exact(pair: EllPair, W, H, alpha, lambda_w=0.0,
+                                  lambda_h=0.0, eps=1e-9, order="WH",
+                                  solver="exact", cg_steps=3):
+    """iALS on the gather-only layout, the math of
+    ``sparse_ops.als_update_weighted_sparse`` (the scatter engine): per
+    row the weighted normal equations
+
+        (H Hᵀ + Σ_{i∈u} αv_ui h_i h_iᵀ + (λ + eps) I) w_u = H (c_u ⊙ v_u)
+
+    with the Gram deltas AND the right-hand sides built bucket-wise from
+    one gather (`grams_and_rhs_ell`), solved in float32 by
+    ``sparse_ops._row_solver``."""
+    from nmftpu_torch.sparse_ops import _row_solver
+
+    solve = _row_solver(solver, cg_steps)
+
+    def w_fn(v):
+        return alpha * v
+
+    def cv_fn(v):
+        return v * (1.0 + alpha * v)
+
+    def upd_w(W, H):
+        G = (H @ H.T).to(torch.float32)
+        dG, rhs = grams_and_rhs_ell(pair.rows, H.T, w_fn, cv_fn)
+        return solve(G, dG, rhs, lambda_w, eps, W).to(W.dtype)
+
+    def upd_h(W, H):
+        G = (W.T @ W).to(torch.float32)
+        dG, rhs = grams_and_rhs_ell(pair.cols, W, w_fn, cv_fn)
+        return solve(G, dG, rhs, lambda_h, eps, H.T).T.contiguous().to(
+            H.dtype)
+
+    return _apply_order(upd_w, upd_h, W, H, order)
+
+
+def als_update_masked_ell(pair: EllPair, W, H, lambda_w=0.0, lambda_h=0.0,
+                          eps=1e-9, order="WH", solver="exact", cg_steps=3):
+    """Completion ALS on ELL: the observed-only normal equations per row
+    (0/1 weight, no base Gram), the semantics of
+    ``sparse_ops.als_update_masked_sparse``."""
+    from nmftpu_torch.sparse_ops import _row_solver
+
+    solve = _row_solver(solver, cg_steps)
+
+    def ind(v):
+        return v != 0
+
+    def val(v):
+        return v
+
+    def upd_w(W, H):
+        dG, rhs = grams_and_rhs_ell(pair.rows, H.T, ind, val)
+        return solve(None, dG, rhs, lambda_w, eps, W).to(W.dtype)
+
+    def upd_h(W, H):
+        dG, rhs = grams_and_rhs_ell(pair.cols, W, ind, val)
+        return solve(None, dG, rhs, lambda_h, eps, H.T).T.contiguous().to(
+            H.dtype)
+
+    return _apply_order(upd_w, upd_h, W, H, order)

@@ -1,6 +1,6 @@
-"""Sparse NMF on one device (port of the MU subset of
-``nmftpu/sparse_ops.py``): the scatter-COO engine, sparse init, and the
-driver that routes sparse V to the scatter, ELL or densified engine.
+"""Sparse NMF on one device (port of ``nmftpu/sparse_ops.py``): the
+scatter-COO engine, sparse init, and the driver that routes sparse V to
+the scatter, ELL or densified engine.
 
 Nonzeros live in a zero-padded, row-sorted COO layout (`DeviceCOO`),
 processed in chunks of `chunk` nonzeros (`index_select` gathers and
@@ -14,14 +14,17 @@ Primitives (all O(nnz · r)):
   v_ht(coo, H)        -> V Hᵀ   (n, r)     [scatter-add over rows]
   sddmm(coo, W, H)    -> (W H) sampled at the nonzero positions  (N,)
 
-Ported: the MU algorithm under the Frobenius, KL and generalized beta
-objectives, with confidence weighting (alpha_confidence > 0, Frobenius)
-and masked completion (mask="observed", Frobenius and KL; `ell` and
-`scatter` only), on the `scatter`, `ell` (with `use_pallas=True`: the
-CUDA ELL SpMM kernel for the unweighted Frobenius SpMMs) and `densified`
-(bf16 or int8 V) engines, and the copy, random and mean_columns inits.
-Other algorithms raise NotImplementedError naming their part of
-ROADMAP.md.
+Every algorithm of ``nmftpu`` runs here: MU under the Frobenius, KL and
+generalized beta objectives, confidence-weighted (alpha_confidence > 0)
+and masked (mask="observed"); the ALS family (ALS, ACLS, AHCLS), GDCLS,
+nsNMF (Frobenius, KL) and HALS (scatter only; its sweeps on the CUDA
+HALS kernel for float32 on the card); iALS and masked completion ALS
+(per-row normal equations, `ell` and `scatter`). The engines are
+`scatter`, `ell` and `densified` (bf16 or int8 V; the int8 ALS family,
+GDCLS and nsNMF-Frobenius take their right-hand sides from the int8
+kernel's one-sided entries). The inits are all of ``nmftpu``'s: copy,
+random, mean_columns, the three k-means ones (Lloyd over the sparse
+columns) and the NNDSVD variants (a host `svds`, V never densified).
 """
 
 from __future__ import annotations
@@ -34,6 +37,7 @@ import numpy as np
 import torch
 
 from nmftpu_torch import sparse as host_sparse
+from nmftpu_torch.algorithms.registry import _identity_h, _smoothed_h
 from nmftpu_torch.config import (
     Algorithm,
     Initialization,
@@ -457,22 +461,6 @@ def kl_error_masked(coo, W, H, eps=1e-12) -> torch.Tensor:
     return torch.sum(torch.where(coo.values != 0, term, 0.0))
 
 
-def _unported(what: str, where: str):
-    raise NotImplementedError(
-        f"{what} is not ported to nmftpu_torch yet ({where} in "
-        "ROADMAP.md); run it with nmftpu"
-    )
-
-
-def _check_ported(config: NmfConfig) -> None:
-    """Raise NotImplementedError for a sparse configuration outside the
-    ported MU engines (Frobenius, KL, beta, confidence-weighted, masked;
-    bf16 and int8 densified storage)."""
-    if config.algorithm is not Algorithm.MU:
-        _unported(f"algorithm={config.algorithm.value!r} on sparse V",
-                  "queue 1 item 3, slice 4b-ii")
-
-
 def _als_family_shifts(config: NmfConfig):
     """(shift_w, shift_h, off_w, off_h) for the generic ALS-family solve
     (``linalg.dense.solve_clamped``): ALS = the plain normal equations,
@@ -497,37 +485,304 @@ def _als_family_shifts(config: NmfConfig):
     return sw, sh, ow, oh
 
 
+# ---------------------------------------------------------------------------
+# The ALS family, HALS, GDCLS and nsNMF on the scatter engine: the O(nnz·r)
+# right-hand sides are the SpMMs, the r x r work is dense
+# ---------------------------------------------------------------------------
+
+
+def als_family_update_sparse(coo, W, H, shift_w=0.0, shift_h=0.0, off_w=0.0,
+                             off_h=0.0, eps=1e-9, order="WH"):
+    """ALS / ACLS / AHCLS on sparse V: the normal equations with the
+    sparse right-hand sides V Hᵀ and Wᵀ V, the diagonal (and AHCLS
+    off-diagonal) shifts, then clamp (``linalg.dense.solve_clamped``)."""
+    from nmftpu_torch.linalg.dense import solve_clamped
+
+    def upd_w(W, H):
+        return solve_clamped(H @ H.T, v_ht(coo, H).T, shift_w, off_w, eps).T
+
+    def upd_h(W, H):
+        return solve_clamped(W.T @ W, wt_v(coo, W), shift_h, off_h, eps)
+
+    return _apply_order(upd_w, upd_h, W, H, order)
+
+
+def hals_update_sparse(coo, W, H, eps=1e-9, order="WH", l2_w=0.0, l2_h=0.0,
+                       l1_w=0.0, l1_h=0.0):
+    """HALS on sparse V: the numerators are the SpMMs (V stays sparse),
+    the cyclic column sweeps are the dense path's
+    (``linalg.dense.hals_half_sweep``: the CUDA sweep kernel for float32
+    on the card at r >= 16), which never touch V. `eps` is unused (the
+    sweep guards its division)."""
+    from nmftpu_torch.linalg.dense import hals_half_sweep
+
+    eye = torch.eye(W.shape[1], dtype=W.dtype, device=W.device)
+
+    def sweep_w(W, H):
+        return hals_half_sweep(v_ht(coo, H) - l1_w, H @ H.T + l2_w * eye, W)
+
+    def sweep_h(W, H):
+        return hals_half_sweep(wt_v(coo, W).T - l1_h, W.T @ W + l2_h * eye,
+                               H.T).T.contiguous()
+
+    return _apply_order(sweep_w, sweep_h, W, H, order)
+
+
+def gdcls_update_sparse(coo, W, H, lambda_tik=0.0, eps=1e-9, order="WH"):
+    """GDCLS on sparse V: the Frobenius MU step for W, the Tikhonov least
+    squares (WᵀW + lambda_tik I) H = Wᵀ V for H, clamped."""
+    from nmftpu_torch.linalg.dense import solve_clamped
+
+    def upd_w(W, H):
+        return W * (v_ht(coo, H) / (W @ (H @ H.T) + eps))
+
+    def upd_h(W, H):
+        return solve_clamped(W.T @ W, wt_v(coo, W), lambda_tik, 0.0, eps)
+
+    return _apply_order(upd_w, upd_h, W, H, order)
+
+
+def nsnmf_update_sparse(coo, W, H, S, eps=1e-9, objective="frobenius",
+                        order="WH"):
+    """nsNMF on sparse V: MU against the smoothed partners (S H stands in
+    for H in the W step, W S for W in the H step), under the Frobenius
+    objective (SpMM numerators) or KL (an SDDMM ratio and an SpMM)."""
+    if objective == "frobenius":
+        def upd_w(W, H):
+            SH = S @ H
+            return W * (v_ht(coo, SH) / (W @ (SH @ SH.T) + eps))
+
+        def upd_h(W, H):
+            WS = W @ S
+            return H * (wt_v(coo, WS) / ((WS.T @ WS) @ H + eps))
+    else:
+        def upd_w(W, H):
+            SH = S @ H
+            ratio = coo.with_values(coo.values / (sddmm(coo, W, SH) + eps))
+            denom = torch.clamp(torch.sum(SH, dim=1), min=eps)[None, :]
+            return W * (v_ht(ratio, SH) / denom)
+
+        def upd_h(W, H):
+            WS = W @ S
+            ratio = coo.with_values(coo.values / (sddmm(coo, WS, H) + eps))
+            denom = torch.clamp(torch.sum(WS, dim=0), min=eps)[:, None]
+            return H * (wt_v(ratio, WS) / denom)
+
+    return _apply_order(upd_w, upd_h, W, H, order)
+
+
+# ---------------------------------------------------------------------------
+# iALS and masked completion ALS: per-row normal equations
+# ---------------------------------------------------------------------------
+
+# The per-row solves run over panels of rows whose (rows, r, r) systems
+# take about this many bytes each: the Cholesky factor, its inverse and
+# their product are each one such array, never one of all n rows
+ROW_SOLVE_PANEL_BYTES = 1 << 30
+
+
+def _weighted_row_grams(coo, T, alpha, n_rows, by_cols=False, sub=4096,
+                        weight_fn=None):
+    """(n_rows, r, r) float32: per row Σ_nz w(v) · t_c t_cᵀ over the
+    row's nonzeros, t_c the gathered row of the (·, r) table T (Hᵀ for
+    the W half, W for the H half with `by_cols`). The sparse-aware iALS
+    Gram delta: only the observed entries carry c - 1 = αv, so the cost
+    is O(nnz · r²). The outer products run in slices of `sub` nonzeros
+    (the tail slice of a chunk included), so a (sub, r, r) intermediate
+    is the largest; each slice goes to its rows by one `index_add_`.
+    weight_fn replaces the weight αv (masked ALS passes the indicator
+    v != 0); padding holds v = 0, which both forms weigh 0."""
+    if weight_fn is None:
+        def weight_fn(v):
+            return alpha * v
+    r = T.shape[1]
+    acc = torch.zeros((n_rows, r, r), dtype=torch.float32, device=T.device)
+    T = T.to(torch.float32).contiguous()
+    sub = min(sub, coo.chunk)
+    for v, rr, cc in _chunks(coo):
+        idx, tbl = (cc, rr) if by_cols else (rr, cc)
+        for s in range(0, v.shape[0], sub):
+            t = T.index_select(0, tbl[s:s + sub])
+            w = weight_fn(v[s:s + sub]).to(torch.float32)
+            outer = (w[:, None, None] * t[:, :, None]) * t[:, None, :]
+            acc.index_add_(0, idx[s:s + sub], outer)
+    return acc
+
+
+def _row_solver(solver, cg_steps):
+    """solve(G, dG, rhs, shift, eps, x0) -> (rows, r), clamped at 0: the
+    per-row systems G + dG[i] (G the shared (r, r) base Gram, or None)
+    solved exactly (one batched Cholesky) or by `cg_steps` warm-started
+    Jacobi-preconditioned CG steps from x0
+    (``linalg.dense._batched_solve_clamped`` / ``_cg``), over panels of
+    rows (`ROW_SOLVE_PANEL_BYTES`); each row's solve is independent of
+    the panel it falls in."""
+    from nmftpu_torch.linalg import dense as D
+
+    def solve(G, dG, rhs, shift, eps, x0):
+        rows, r = rhs.shape
+        panel = max(1, ROW_SOLVE_PANEL_BYTES // (r * r * dG.element_size()))
+        out = torch.empty_like(rhs)
+        for s, e in _panels(rows, panel):
+            Gb = dG[s:e] if G is None else G[None] + dG[s:e]
+            if solver == "cg":
+                out[s:e] = D._batched_solve_clamped_cg(
+                    Gb, rhs[s:e], shift, eps, x0[s:e], steps=cg_steps)
+            else:
+                out[s:e] = D._batched_solve_clamped(Gb, rhs[s:e], shift, eps)
+        return out
+
+    return solve
+
+
+def als_update_weighted_sparse(coo, W, H, alpha, lambda_w=0.0, lambda_h=0.0,
+                               eps=1e-9, order="WH", solver="exact",
+                               cg_steps=3):
+    """Sparse-aware confidence-weighted ALS (iALS, Hu-Koren-Volinsky):
+    minimizes ||√C ⊙ (V - WH)||² + λ||·||² with C = 1 + αV; each
+    half-step solves every row's weighted normal equations
+
+        (H Hᵀ + Σ_{i∈u} αv_ui h_i h_iᵀ + (λ + eps) I) w_u = H (c_u ⊙ v_u)
+
+    in float32 (as ``nmftpu``, whatever the factors' dtype). Unobserved
+    entries have c = 1 and enter only through the shared Gram:
+    O(nnz · r²) for the Gram deltas, O((n + m) · r³) for the solves,
+    and (n + m) · r² · 4 bytes of Grams (`_check_weighted_gram_budget`).
+    """
+    solve = _row_solver(solver, cg_steps)
+    cv = coo.with_values(coo.values * (1.0 + alpha * coo.values))
+    n, m = coo.shape
+
+    def upd_w(W, H):
+        G = (H @ H.T).to(torch.float32)
+        dG = _weighted_row_grams(coo, H.T, alpha, n)
+        rhs = v_ht(cv, H).to(torch.float32)
+        return solve(G, dG, rhs, lambda_w, eps, W).to(W.dtype)
+
+    def upd_h(W, H):
+        G = (W.T @ W).to(torch.float32)
+        dG = _weighted_row_grams(coo, W, alpha, m, by_cols=True)
+        rhs = wt_v(cv, W).T.to(torch.float32)
+        return solve(G, dG, rhs, lambda_h, eps, H.T).T.contiguous().to(
+            H.dtype)
+
+    return _apply_order(upd_w, upd_h, W, H, order)
+
+
+def als_update_masked_sparse(coo, W, H, lambda_w=0.0, lambda_h=0.0,
+                             eps=1e-9, order="WH", solver="exact",
+                             cg_steps=3):
+    """Matrix-completion ALS: minimizes Σ_obs (v - wh)² + λ||·||² by
+    solving, per row u, the observed-only normal equations
+
+        (Σ_{i∈obs(u)} h_i h_iᵀ + (λ + eps) I) w_u = Σ_{i∈obs(u)} v_ui h_i
+
+    (the iALS machinery with a 0/1 weight and no shared base Gram:
+    unobserved entries weigh nothing). A row with no observations solves
+    to 0 under the ridge; clamped at 0 as the ALS family is."""
+    solve = _row_solver(solver, cg_steps)
+    n, m = coo.shape
+
+    def indicator(v):
+        return v != 0
+
+    def upd_w(W, H):
+        dG = _weighted_row_grams(coo, H.T, 0.0, n, weight_fn=indicator)
+        rhs = v_ht(coo, H).to(torch.float32)
+        return solve(None, dG, rhs, lambda_w, eps, W).to(W.dtype)
+
+    def upd_h(W, H):
+        dG = _weighted_row_grams(coo, W, 0.0, m, by_cols=True,
+                                 weight_fn=indicator)
+        rhs = wt_v(coo, W).T.to(torch.float32)
+        return solve(None, dG, rhs, lambda_h, eps, H.T).T.contiguous().to(
+            H.dtype)
+
+    return _apply_order(upd_w, upd_h, W, H, order)
+
+
+def _smoothing_aux(config: NmfConfig, dtype=None):
+    """make_aux of nsNMF on a sparse engine: (S,) on the operand's device.
+    S is built in `dtype` (scatter: V's) or, by default, in float32 and
+    then cast to the factors' dtype, as ``nmftpu``'s densified and ELL
+    engines build it and XLA promotes it."""
+    from nmftpu_torch.linalg.dense import nsnmf_smoothing_matrix
+
+    factors = resolve_dtype(config.dtype)
+
+    def make_aux(op):
+        S = nsnmf_smoothing_matrix(config.rank, config.theta,
+                                   dtype=dtype or torch.float32,
+                                   device=_operand_device(op))
+        return (S.to(factors),)
+
+    return make_aux
+
+
+def _operand_device(op):
+    """The device of a plan's operand: a DeviceCOO, a dense V, the
+    (Vq, scale) pair or an EllPair."""
+    if isinstance(op, DeviceCOO):
+        return op.values.device
+    if isinstance(op, tuple):
+        op = op[0]
+    if isinstance(op, torch.Tensor):
+        return op.device
+    return op.rows.buckets[0].vals.device
+
+
 def build_sparse_update(config: NmfConfig):
-    """(make_aux, update, effective_h) for the scatter engine: MU under
-    the Frobenius, KL or beta objective, confidence-weighted or masked."""
-    _check_ported(config)
+    """(make_aux, update, effective_h) for the scatter engine, as
+    ``nmftpu``'s: MU (Frobenius, KL or beta; confidence-weighted or
+    masked), masked completion ALS, iALS, the ALS family, HALS, GDCLS and
+    nsNMF."""
     eps = config.eps
     order = config.update_order
-    if config.mask == "observed":
-        upd = (mu_update_frobenius_masked
-               if config.objective is Objective.FROBENIUS
-               else mu_update_kl_masked)
-    elif config.alpha_confidence > 0.0:
-        alpha = config.alpha_confidence
+    alg = config.algorithm
+    no_aux = lambda coo: ()  # noqa: E731
 
-        def upd(coo, W, H, eps, order):
-            return mu_update_frobenius_weighted_sparse(
-                coo, W, H, alpha, eps=eps, order=order)
-    elif config.objective is Objective.FROBENIUS:
-        upd = mu_update_frobenius_sparse
-    elif config.objective is Objective.BETA:
-        beta = config.beta
+    def run(fn, **kw):
+        return (no_aux,
+                lambda coo, aux, W, H: fn(coo, W, H, eps=eps, order=order,
+                                          **kw),
+                _identity_h)
 
-        def upd(coo, W, H, eps, order):
-            return mu_update_beta_sparse(coo, W, H, beta, eps=eps,
-                                         order=order)
-    else:
-        upd = mu_update_kl_sparse
-    return (
-        lambda coo: (),
-        lambda coo, aux, W, H: upd(coo, W, H, eps=eps, order=order),
-        lambda aux, H: H,
-    )
+    if alg is Algorithm.MU:
+        if config.mask == "observed":
+            return run(mu_update_frobenius_masked
+                       if config.objective is Objective.FROBENIUS
+                       else mu_update_kl_masked)
+        if config.alpha_confidence > 0.0:
+            return run(mu_update_frobenius_weighted_sparse,
+                       alpha=config.alpha_confidence)
+        if config.objective is Objective.FROBENIUS:
+            return run(mu_update_frobenius_sparse)
+        if config.objective is Objective.BETA:
+            return run(mu_update_beta_sparse, beta=config.beta)
+        return run(mu_update_kl_sparse)
+    solves = dict(lambda_w=config.lambda_w, lambda_h=config.lambda_h,
+                  solver=config.als_solver, cg_steps=config.cg_steps)
+    if alg is Algorithm.ALS and config.mask == "observed":
+        return run(als_update_masked_sparse, **solves)
+    if alg is Algorithm.ALS and config.alpha_confidence > 0.0:
+        return run(als_update_weighted_sparse,
+                   alpha=config.alpha_confidence, **solves)
+    if alg in (Algorithm.ALS, Algorithm.ACLS, Algorithm.AHCLS):
+        return run(als_family_update_sparse, **dict(zip(
+            ("shift_w", "shift_h", "off_w", "off_h"),
+            _als_family_shifts(config))))
+    if alg is Algorithm.HALS:
+        return run(hals_update_sparse, l2_w=config.lambda_w,
+                   l2_h=config.lambda_h, l1_w=config.l1_w, l1_h=config.l1_h)
+    if alg is Algorithm.GDCLS:
+        return run(gdcls_update_sparse, lambda_tik=config.lambda_tik)
+    if alg is Algorithm.NSNMF:
+        obj = "frobenius" if config.objective is Objective.FROBENIUS else "kl"
+        return (_smoothing_aux(config, resolve_dtype(config.dtype)),
+                lambda coo, aux, W, H: nsnmf_update_sparse(
+                    coo, W, H, aux[0], eps=eps, objective=obj, order=order),
+                _smoothed_h)
+    raise ValueError(f"unknown algorithm: {alg}")
 
 
 # ---------------------------------------------------------------------------
@@ -535,13 +790,81 @@ def build_sparse_update(config: NmfConfig):
 # ---------------------------------------------------------------------------
 
 
+def extract_columns(coo: DeviceCOO, col_idx) -> torch.Tensor:
+    """Columns `col_idx` (k distinct indices) of V densified -> (n, k):
+    a per-column slot map (slot of each wanted column, -1 elsewhere)
+    sends each nonzero of a wanted column to its (row, slot) cell by one
+    flat `index_add_` per chunk; the others add 0 at slot 0."""
+    n, m = coo.shape
+    device = coo.values.device
+    col_idx = torch.as_tensor(col_idx, device=device).long()
+    k = col_idx.shape[0]
+    slot = torch.full((m,), -1, dtype=torch.long, device=device)
+    slot[col_idx] = torch.arange(k, device=device)
+    acc = torch.zeros((n, k), dtype=coo.values.dtype, device=device)
+    flat = acc.view(-1)
+    for v, rr, cc in _chunks(coo):
+        s = slot[cc.long()]
+        flat.index_add_(0, rr.long() * k + torch.clamp(s, min=0),
+                        torch.where(s >= 0, v, 0.0))
+    return acc
+
+
+def _lloyd_sparse(coo: DeviceCOO, centroids, max_iter: int):
+    """`max_iter` Lloyd rounds over the columns of sparse V from
+    `centroids` (n, r), on the SpMM primitives (the twin of
+    ``init.kmeans._lloyd``): the assignment's cross term is (Wᵀ V)ᵀ with
+    W := centroids, the centroid update V · onehot. Returns (centroids,
+    assignments (m,) int64); an empty cluster keeps its centroid."""
+    rank = centroids.shape[1]
+    col_sq = col_sums(coo.with_values(coo.values * coo.values))
+
+    def assign(centroids):
+        cross = wt_v(coo, centroids).T                    # (m, r)
+        cent_sq = torch.sum(centroids * centroids, dim=0)
+        d2 = col_sq[:, None] - 2.0 * cross + cent_sq[None, :]
+        return torch.argmin(d2, dim=1)
+
+    for _ in range(max_iter):
+        onehot = torch.nn.functional.one_hot(
+            assign(centroids), rank).to(coo.values.dtype)  # (m, r)
+        sums = project_columns(coo, onehot)               # (n, r)
+        counts = torch.sum(onehot, dim=0)
+        new = sums / torch.clamp(counts, min=1.0)[None, :]
+        centroids = torch.where(counts[None, :] > 0, new, centroids)
+    return centroids, assign(centroids)
+
+
+def kmeans_columns_sparse(coo: DeviceCOO, rank, gen, max_iter=25):
+    """Lloyd's k-means over the columns of sparse V, started from `rank`
+    distinct columns drawn with `gen` (a torch.Generator on V's device).
+    Returns (centroids (n, rank), assignments (m,))."""
+    cols = torch.randperm(coo.shape[1], generator=gen,
+                          device=coo.values.device)[:rank]
+    return _lloyd_sparse(coo, extract_columns(coo, cols), max_iter)
+
+
+def host_csr(coo: DeviceCOO):
+    """The true nonzeros of `coo` as a scipy CSR on the host (the chunk
+    padding stripped)."""
+    import scipy.sparse as sps
+
+    k = coo.nnz
+    return sps.coo_matrix(
+        (coo.values[:k].cpu().numpy(),
+         (coo.rows[:k].cpu().numpy(), coo.cols[:k].cpu().numpy())),
+        shape=coo.shape).tocsr()
+
+
 def sparse_initialize_factors(coo: DeviceCOO, rank, method: Initialization,
-                              gen, W0=None, H0=None):
-    """(W, H) on V's device in V's dtype for the copy, random and
-    mean_columns inits; `gen` is the run's torch.Generator on that
+                              gen, W0=None, H0=None, kmeans_max_iter=25):
+    """(W, H) on V's device in V's dtype for every init of ``nmftpu``,
+    with V never densified; `gen` is the run's torch.Generator on that
     device. The random draws are the sklearn 'random' convention,
-    (u + 1e-4) · sqrt(mean(V) / rank), as in ``nmftpu`` (not its
-    bits)."""
+    (u + 1e-4) · sqrt(mean(V) / rank), as in ``nmftpu`` (not its bits);
+    the k-means inits cluster V's columns (`kmeans_columns_sparse`), the
+    NNDSVD variants run a host `svds` (``init.nndsvd``) with the
+    nndsvdar fill seeded from `gen`."""
     n, m = coo.shape
     dtype, device = coo.values.dtype, coo.values.device
 
@@ -579,11 +902,32 @@ def sparse_initialize_factors(coo: DeviceCOO, rank, method: Initialization,
         W = project_columns(coo, A)
         return W, rand((rank, m))
 
-    raise NotImplementedError(
-        f"init {method.value!r} is not ported to nmftpu_torch yet "
-        "on sparse V (ROADMAP.md queue 1 item 3, slice 4b-ii); use "
-        "'copy', 'random' or 'mean_columns'"
-    )
+    if method in (Initialization.NNDSVD, Initialization.NNDSVDA,
+                  Initialization.NNDSVDAR):
+        from nmftpu_torch.init.nndsvd import nndsvd_init
+
+        seed = int(torch.randint(0, 2**31 - 1, (), generator=gen,
+                                 device=device))
+        W, H = nndsvd_init(host_csr(coo), rank, variant=method.value,
+                           seed=seed)
+        return (torch.as_tensor(W, dtype=dtype, device=device),
+                torch.as_tensor(H, dtype=dtype, device=device))
+
+    if method in (Initialization.K_MEANS_AND_RANDOM_VALUES,
+                  Initialization.K_MEANS_AND_NON_NEGATIVE_WTV,
+                  Initialization.K_MEANS_AND_ABSOLUTE_WTV):
+        centroids, _ = kmeans_columns_sparse(coo, rank, gen,
+                                             max_iter=kmeans_max_iter)
+        W = torch.clamp(centroids, min=0.0) + 1e-6
+        if method is Initialization.K_MEANS_AND_RANDOM_VALUES:
+            H = rand((rank, m))
+        elif method is Initialization.K_MEANS_AND_NON_NEGATIVE_WTV:
+            H = torch.clamp(wt_v(coo, W), min=0.0) + 1e-6
+        else:
+            H = torch.abs(wt_v(coo, W)) + 1e-6
+        return W, H
+
+    raise ValueError(f"unknown initialization method: {method}")
 
 
 # ---------------------------------------------------------------------------
@@ -627,18 +971,71 @@ def _sparse_ops_bundle(config: NmfConfig) -> LoopOps:
     )
 
 
-def _densified_ops_bundle(config: NmfConfig, coo: DeviceCOO) -> LoopOps:
-    """MU on the densified operand: bf16 Vd, or the (Vq, scale) pair of
-    `densify_quantized` under v_storage="int8"."""
+def _densified_family(config: NmfConfig, int8: bool):
+    """(make_aux, update, effective_h) of the ALS family, GDCLS and nsNMF
+    on the densified operand: bf16 Vd, or the (Vq, scale) pair, whose
+    Frobenius right-hand sides are #6's one-sided int8 entries on the
+    card (``linalg.dense.*_int8x8``)."""
     from nmftpu_torch import densified as DF
     from nmftpu_torch.linalg import dense as D
 
-    _check_ported(config)
+    eps, order, alg = config.eps, config.update_order, config.algorithm
+    no_aux = lambda V: ()  # noqa: E731
+    if alg in (Algorithm.ALS, Algorithm.ACLS, Algorithm.AHCLS):
+        shifts = dict(zip(("shift_w", "shift_h", "off_w", "off_h"),
+                          _als_family_shifts(config)))
+        if int8:
+            def update(V, aux, W, H):
+                return D.als_family_update_int8x8(V[0], V[1], W, H, **shifts,
+                                                  eps=eps, order=order)
+        else:
+            def update(Vd, aux, W, H):
+                return DF.als_family_update_densified(Vd, W, H, **shifts,
+                                                      eps=eps, order=order)
+        return no_aux, update, _identity_h
+    if alg is Algorithm.GDCLS:
+        lt = config.lambda_tik
+        if int8:
+            def update(V, aux, W, H):
+                return D.gdcls_update_int8x8(V[0], V[1], W, H, lambda_tik=lt,
+                                             eps=eps, order=order)
+        else:
+            def update(Vd, aux, W, H):
+                return DF.gdcls_update_densified(Vd, W, H, lambda_tik=lt,
+                                                 eps=eps, order=order)
+        return no_aux, update, _identity_h
+    if alg is not Algorithm.NSNMF:
+        raise ValueError(f"algorithm {alg.value!r} does not run on the "
+                         "densified engine")
+    if config.objective is Objective.KL:
+        def update(V, aux, W, H):
+            Vd, scale = V if int8 else (V, None)
+            return DF.nsnmf_update_kl_densified(Vd, W, H, aux[0], eps=eps,
+                                                order=order, scale=scale)
+    elif int8:
+        def update(V, aux, W, H):
+            return D.nsnmf_update_frobenius_int8x8(V[0], V[1], W, H, aux[0],
+                                                   eps=eps, order=order)
+    else:
+        def update(Vd, aux, W, H):
+            return DF.nsnmf_update_densified(Vd, W, H, aux[0], eps=eps,
+                                             order=order)
+    return _smoothing_aux(config), update, _smoothed_h
+
+
+def _densified_ops_bundle(config: NmfConfig, coo: DeviceCOO) -> LoopOps:
+    """Every algorithm but HALS, iALS and masked ALS on the densified
+    operand: bf16 Vd, or the (Vq, scale) pair of `densify_quantized`
+    under v_storage="int8"."""
+    from nmftpu_torch import densified as DF
+    from nmftpu_torch.linalg import dense as D
+
     eps = config.eps
     order = config.update_order
     alpha = config.alpha_confidence
     kl = config.objective is Objective.KL
     beta = config.beta if config.objective is Objective.BETA else None
+    int8 = config.v_storage == "int8"
     n, m = coo.shape
     # the true n·m, not the row-padded shape: pad rows add no error
     numel = lambda V: n * m  # noqa: E731
@@ -649,7 +1046,10 @@ def _densified_ops_bundle(config: NmfConfig, coo: DeviceCOO) -> LoopOps:
             return DF.kl_error_densified(Vd, W, H, scale=scale)
         return DF.beta_divergence_densified(Vd, W, H, beta, scale=scale)
 
-    if config.v_storage == "int8":
+    make_aux, effective_h = (lambda V: ()), _identity_h
+    if config.algorithm is not Algorithm.MU:
+        make_aux, update, effective_h = _densified_family(config, int8)
+    elif int8:
         if kl:
             def update(V, aux, W, H):
                 return DF.mu_update_kl_densified(V[0], W, H, eps=eps,
@@ -668,17 +1068,7 @@ def _densified_ops_bundle(config: NmfConfig, coo: DeviceCOO) -> LoopOps:
             def update(V, aux, W, H):
                 return D.mu_update_frobenius_int8x8(V[0], V[1], W, H,
                                                     eps=eps, order=order)
-        return LoopOps(
-            make_aux=lambda V: (),
-            update=update,
-            effective_h=lambda aux, H: H,
-            frobenius=lambda V, aux, W, He, svsq: (
-                DF.frobenius_error_int8_densified(V[0], V[1], W, He, svsq)),
-            kl=lambda V, aux, W, He: divergence(V[0], W, He, scale=V[1]),
-            sum_v_sq=lambda V: DF.sum_v_sq_int8_densified(V[0], V[1]),
-            numel=numel,
-        )
-    if kl:
+    elif kl:
         def update(Vd, aux, W, H):
             return DF.mu_update_kl_densified(Vd, W, H, eps=eps, order=order)
     elif beta is not None:
@@ -693,10 +1083,21 @@ def _densified_ops_bundle(config: NmfConfig, coo: DeviceCOO) -> LoopOps:
         def update(Vd, aux, W, H):
             return D.mu_update_frobenius_bf16v(Vd, W, H, eps=eps,
                                                order=order)
+    if int8:
+        return LoopOps(
+            make_aux=make_aux,
+            update=update,
+            effective_h=effective_h,
+            frobenius=lambda V, aux, W, He, svsq: (
+                DF.frobenius_error_int8_densified(V[0], V[1], W, He, svsq)),
+            kl=lambda V, aux, W, He: divergence(V[0], W, He, scale=V[1]),
+            sum_v_sq=lambda V: DF.sum_v_sq_int8_densified(V[0], V[1]),
+            numel=numel,
+        )
     return LoopOps(
-        make_aux=lambda Vd: (),
+        make_aux=make_aux,
         update=update,
-        effective_h=lambda aux, H: H,
+        effective_h=effective_h,
         frobenius=lambda Vd, aux, W, He, svsq: DF.frobenius_error_densified(
             Vd, W, He, svsq),
         kl=lambda Vd, aux, W, He: divergence(Vd, W, He),
@@ -710,13 +1111,20 @@ def _densified_ops_bundle(config: NmfConfig, coo: DeviceCOO) -> LoopOps:
 def _ell_ops_bundle(config: NmfConfig) -> LoopOps:
     from nmftpu_torch import sparse_ell as SE
 
-    _check_ported(config)
     eps = config.eps
     order = config.update_order
+    alg = config.algorithm
+    solves = dict(lambda_w=config.lambda_w, lambda_h=config.lambda_h,
+                  solver=config.als_solver, cg_steps=config.cg_steps)
     if config.mask == "observed":
-        upd = (SE.mu_update_frobenius_masked_ell
-               if config.objective is Objective.FROBENIUS
-               else SE.mu_update_kl_masked_ell)
+        if alg is Algorithm.ALS:
+            def upd(pair, W, H, eps, order):
+                return SE.als_update_masked_ell(pair, W, H, eps=eps,
+                                                order=order, **solves)
+        elif config.objective is Objective.FROBENIUS:
+            upd = SE.mu_update_frobenius_masked_ell
+        else:
+            upd = SE.mu_update_kl_masked_ell
         return _masked_ops(
             lambda pair: (),
             lambda pair, aux, W, H: upd(pair, W, H, eps=eps, order=order),
@@ -731,7 +1139,38 @@ def _ell_ops_bundle(config: NmfConfig) -> LoopOps:
         # iterations
         wt_v = SEK.wt_v_ell_pallas
     beta = config.beta if config.objective is Objective.BETA else None
-    if config.objective is Objective.KL:
+    make_aux, effective_h = (lambda pair: ()), _identity_h
+    if alg is Algorithm.ALS and config.alpha_confidence > 0.0:
+        alpha = config.alpha_confidence
+
+        def update(pair, aux, W, H):
+            return SE.als_update_weighted_ell_exact(pair, W, H, alpha,
+                                                    eps=eps, order=order,
+                                                    **solves)
+    elif alg in (Algorithm.ALS, Algorithm.ACLS, Algorithm.AHCLS):
+        shifts = dict(zip(("shift_w", "shift_h", "off_w", "off_h"),
+                          _als_family_shifts(config)))
+
+        def update(pair, aux, W, H):
+            return SE.als_family_update_ell(pair, W, H, **shifts, eps=eps,
+                                            order=order)
+    elif alg is Algorithm.GDCLS:
+        lt = config.lambda_tik
+
+        def update(pair, aux, W, H):
+            return SE.gdcls_update_ell(pair, W, H, lambda_tik=lt, eps=eps,
+                                       order=order)
+    elif alg is Algorithm.NSNMF:
+        fn = (SE.nsnmf_update_kl_ell if config.objective is Objective.KL
+              else SE.nsnmf_update_ell)
+        make_aux, effective_h = _smoothing_aux(config), _smoothed_h
+
+        def update(pair, aux, W, H):
+            return fn(pair, W, H, aux[0], eps=eps, order=order)
+    elif alg is not Algorithm.MU:
+        raise ValueError(f"algorithm {alg.value!r} does not run on the ELL "
+                         "engine")
+    elif config.objective is Objective.KL:
         def update(pair, aux, W, H):
             return SE.mu_update_kl_ell(pair, W, H, eps=eps, order=order)
     elif beta is not None:
@@ -764,15 +1203,56 @@ def _ell_ops_bundle(config: NmfConfig) -> LoopOps:
         return SE.beta_divergence_ell(pair, W, He, beta)
 
     return LoopOps(
-        make_aux=lambda pair: (),
+        make_aux=make_aux,
         update=update,
-        effective_h=lambda aux, H: H,
+        effective_h=effective_h,
         frobenius=lambda pair, aux, W, He, svsq: SE.frobenius_error_ell(
             pair, W, He, svsq, wt_v=wt_v),
         kl=divergence,
         sum_v_sq=lambda pair: SE.sum_v_sq_ell(pair.rows),
         numel=lambda pair: pair.shape[0] * pair.shape[1],
     )
+
+
+def _check_weighted_gram_budget(n: int, m: int, rank: int) -> None:
+    """iALS and masked ALS hold (n, r, r) + (m, r, r) float32 Grams:
+    refuse clearly beyond NMFTPU_WEIGHTED_GRAM_BUDGET_BYTES (read at
+    call time; default 8 GiB) instead of failing for device memory."""
+    budget = int(os.environ.get("NMFTPU_WEIGHTED_GRAM_BUDGET_BYTES",
+                                8 * 1024**3))
+    need = (n + m) * rank * rank * 4
+    if need > budget:
+        raise ValueError(
+            f"weighted ALS per-row Grams need ~{need / 2**30:.1f} "
+            f"GiB ((n+m)\u00b7r\u00b2 f32) \u2014 over the "
+            f"{budget / 2**30:.1f} GiB budget "
+            "(NMFTPU_WEIGHTED_GRAM_BUDGET_BYTES). Lower the rank "
+            "or use the weighted MU algorithm."
+        )
+
+
+def _check_engine(config: NmfConfig, strategy: str, n: int, m: int) -> None:
+    """The engines an algorithm runs on, as ``prepare_sparse`` in
+    ``nmftpu`` checks them: iALS and masked ALS on `ell` or `scatter`
+    (within the Gram budget), HALS on `scatter`. A plan checks each
+    config it runs too, where ``nmftpu`` would run a HALS config on
+    another engine's MU or nsNMF update."""
+    if (config.algorithm is Algorithm.ALS
+            and (config.alpha_confidence > 0.0
+                 or config.mask == "observed")):
+        if strategy not in ("scatter", "ell"):
+            raise ValueError(
+                "weighted ALS (iALS) and masked ALS run on the 'ell' "
+                "(batched-GEMM Gram deltas, the fast path) or 'scatter' "
+                f"(f64-exact oracle) engines; strategy resolved to "
+                f"{strategy!r}"
+            )
+        _check_weighted_gram_budget(n, m, config.rank)
+    if config.algorithm is Algorithm.HALS and strategy != "scatter":
+        raise ValueError(
+            "HALS runs on the 'scatter' sparse engine (exact "
+            f"numerators); strategy resolved to {strategy!r}"
+        )
 
 
 def _densified_supported(config: NmfConfig) -> bool:
@@ -891,6 +1371,7 @@ class SparsePlan:
                 f"({self.config.v_storage!r} at prepare time vs "
                 f"{config.v_storage!r}); re-run prepare_sparse"
             )
+        _check_engine(config, self.strategy, n, m)
         if self.strategy in ("ell", "scatter") \
                 and config.v_storage != "float32":
             raise ValueError(
@@ -907,6 +1388,7 @@ class SparsePlan:
             W, H = sparse_initialize_factors(
                 coo, config.rank, config.init_method,
                 run_generator(config.seed, run_idx, device), W0=W0, H0=H0,
+                kmeans_max_iter=config.kmeans_max_iter,
             )
             if n_pad != n:  # zero rows are absorbing under every rule
                 W = torch.nn.functional.pad(W, (0, 0, 0, n_pad - n))
@@ -936,7 +1418,6 @@ def prepare_sparse(
             "mu_style='jacobi' is wired through the dense engine only; "
             "sparse engines run gauss-seidel half-steps"
         )
-    _check_ported(config)
     dtype = resolve_dtype(config.dtype)
     if isinstance(V, DeviceCOO):
         if V.values.dtype != dtype:
@@ -961,6 +1442,7 @@ def prepare_sparse(
             f"strategy must be 'auto', 'ell', 'densified' or 'scatter', "
             f"got {strategy!r}"
         )
+    _check_engine(config, strategy, n, m)
     if strategy in ("ell", "scatter") and config.v_storage != "float32":
         raise ValueError(
             f"v_storage={config.v_storage!r} is only honored by the "
@@ -1017,7 +1499,8 @@ def compute_sparse(
                     use_pallas=True the MU-Frobenius SpMMs run the CUDA
                     ELL kernel (kernels/sparse_ell_kernel.py);
       "auto"      — as ``nmftpu``: densified within DENSIFY_BUDGET_BYTES,
-                    else ell; scatter for float64.
+                    else ell; ell for iALS and masked ALS, scatter for
+                    HALS and for float64.
 
     Repeated factorizations of one matrix should call
     :func:`prepare_sparse` once and ``plan.run(...)`` per run: this

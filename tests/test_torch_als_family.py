@@ -35,8 +35,8 @@ the flips (the H step is held from the same W by the step test), so that
 after 10 iterations the reference drifts from itself by more than 1e-3
 when one column of H0 moves by a relative 1e-6
 (`test_reference_bf16_clamped_solves_drift`; ROADMAP hazards "HALS
-trajectories" and "Requantization flips"). iALS still raises, naming
-slice 4c.
+trajectories" and "Requantization flips"). Dense iALS runs as nmftpu's
+(its steps are held in `tests/test_torch_ials.py`).
 """
 
 import os
@@ -386,6 +386,19 @@ def test_nsnmf_result_is_the_raw_h():
     {"alpha_confidence": 2.0, "update_order": "HW"},
 ])
 def test_ials_still_raises(knobs):
-    with pytest.raises(NotImplementedError, match="slice 4c"):
-        nt.nmf(V_FIX[:50, :60], 4, algorithm="als", num_iterations=1,
-               device="cpu", **knobs)
+    """Dense iALS is ported (slice 4c, `tests/test_torch_ials.py`): each
+    configuration runs as nmftpu's (the errors of 3 iterations, 1e-4);
+    what still raises with it is vectorize_runs (slice 5)."""
+    V = V_FIX[:50, :60]
+    rng = np.random.default_rng(7)
+    W0 = rng.uniform(0.05, 1.0, (V.shape[0], 4)).astype(np.float32)
+    H0 = rng.uniform(0.05, 1.0, (4, V.shape[1])).astype(np.float32)
+    kw = dict(algorithm="als", init="copy", W0=W0, H0=H0, num_iterations=3,
+              check_interval=1, **knobs)
+    want = nmftpu.nmf(V, 4, **kw)
+    got = nt.nmf(V, 4, device="cpu", **kw)
+    np.testing.assert_allclose(got.stats.errors,
+                               np.asarray(want.stats.errors), rtol=1e-4)
+    with pytest.raises(NotImplementedError, match="slice 5"):
+        nt.nmf(V, 4, algorithm="als", num_iterations=1, num_runs=2,
+               vectorize_runs=True, device="cpu", **knobs)

@@ -278,9 +278,26 @@ def test_copy_init_copies_and_casts():
 @pytest.mark.parametrize("init", [Initialization.NNDSVD,
                                   Initialization.K_MEANS_AND_RANDOM_VALUES])
 def test_unported_inits_raise(init):
-    _, _, tc = _coos()
-    with pytest.raises(NotImplementedError, match="slice 4"):
-        TS.sparse_initialize_factors(tc, RANK, init, torch.Generator())
+    """Both inits are ported on sparse V (slice 4b-ii,
+    `tests/test_torch_sparse_init.py`): nonnegative factors of the
+    requested shapes in V's dtype, NNDSVD equal to nmftpu's (the same
+    svds of the same host CSR); what still raises with them is
+    vectorize_runs (slice 5)."""
+    dense, jc, tc = _coos()
+    W, H = TS.sparse_initialize_factors(tc, RANK, init, torch.Generator())
+    assert W.shape == (dense.shape[0], RANK) and H.shape == (RANK,
+                                                             dense.shape[1])
+    assert W.dtype == H.dtype == torch.float32
+    assert (W >= 0).all() and (H >= 0).all()
+    if init is Initialization.NNDSVD:
+        jW, jH = JS.sparse_initialize_factors(
+            jc, RANK, JS.Initialization.NNDSVD, jax.random.PRNGKey(0))
+        np.testing.assert_array_equal(W.numpy(), np.asarray(jW))
+        np.testing.assert_array_equal(H.numpy(), np.asarray(jH))
+    _, _, tsp = _matrix()
+    with pytest.raises(NotImplementedError, match="slice 5"):
+        nt.nmf(tsp, RANK, init=init, num_runs=2, vectorize_runs=True,
+               device="cpu", num_iterations=1)
 
 
 # ---------------------------------------------------------------------------
@@ -355,21 +372,30 @@ def test_densify_budget_reads_the_environment():
     # confidence weighting, masked completion and int8 densified storage
     # are ported in slice 8 (test_torch_weighted.py, test_torch_masked.py,
     # test_torch_int8_densified.py), the beta divergence on every engine
-    # in slice 10 (test_torch_beta_engines.py); these ids now hold what
-    # still raises with each of them
-    pytest.param(dict(algorithm="als", alpha_confidence=2.0), "als",
+    # in slice 10 (test_torch_beta_engines.py), every other algorithm and
+    # init on sparse V in slices 4b-ii and 4c (test_torch_sparse_
+    # algorithms.py, test_torch_ials.py, test_torch_sparse_init.py);
+    # these ids now hold what still raises with each of them:
+    # vectorize_runs (slice 5) and mesh= (slice 6)
+    pytest.param(dict(algorithm="als", alpha_confidence=2.0,
+                      vectorize_runs=True, num_runs=2), "slice 5",
                  id="knobs0-confidence weighting"),
-    pytest.param(dict(algorithm="als", mask="observed"), "als",
-                 id="knobs1-masked completion"),
-    pytest.param(dict(objective="beta", beta=0.5, init="nndsvd"), "nndsvd",
+    pytest.param(dict(algorithm="als", mask="observed", mesh=object()),
+                 "slice 6", id="knobs1-masked completion"),
+    pytest.param(dict(objective="beta", beta=0.5, init="nndsvd",
+                      vectorize_runs=True, num_runs=2), "slice 5",
                  id="knobs2-beta-divergence"),
     pytest.param(dict(v_storage="int8", objective="beta", beta=0.5,
-                      init="kmeans_random"), "kmeans",
+                      init="kmeans_random", mesh=object()), "slice 6",
                  id="knobs3-int8"),
-    (dict(algorithm="hals"), "hals"),
-    (dict(algorithm="als"), "als"),
-    (dict(algorithm="nsnmf"), "nsnmf"),
-    (dict(algorithm="gdcls"), "gdcls"),
+    pytest.param(dict(algorithm="hals", vectorize_runs=True, num_runs=2),
+                 "slice 5", id="knobs4-hals"),
+    pytest.param(dict(algorithm="als", mesh=object()), "slice 6",
+                 id="knobs5-als"),
+    pytest.param(dict(algorithm="nsnmf", vectorize_runs=True, num_runs=2),
+                 "slice 5", id="knobs6-nsnmf"),
+    pytest.param(dict(algorithm="gdcls", mesh=object()), "slice 6",
+                 id="knobs7-gdcls"),
 ])
 def test_unported_sparse_configs_raise(knobs, match):
     _, _, tsp = _matrix()
