@@ -3,7 +3,7 @@
 
     python3 chip_profile.py [--out DIR]
                             [--cells dense,serving,sparse,slice8,foldin,beta,
-                                     algorithms,sparse_algorithms]
+                                     algorithms,sparse_algorithms,surfaces]
 
 Two shapes -- 4096 x 4096 at rank 256 (bench.py's headline) and the
 ML-20M shape 138,493 x 26,744 at rank 64, with chip_smoke.py's synthetic
@@ -71,9 +71,16 @@ and iALS at config 3's full size (rank 128, alpha 40) on ELL, profiled
 over one iteration (the Gram budget raised to 16 GiB for it): ms per
 iteration by CUDA events, device ms per iteration by class (gathers,
 index_add_ scatters, GEMMs, the Cholesky and triangular solves, #6's int8
-entries, #7's sweep, everything else) and the idle share. --cells picks a
-subset of the eight cells. Every line ends with the card's nvidia-smi
-name and power limit.
+entries, #7's sweep, everything else) and the idle share. Then slice 5's
+surfaces (cell "surfaces", chip_smoke.py's phase-23 paths): the sklearn
+facade's NMF(solver="cd") fit at config 2 (2 iterations, its set-up
+included), MiniBatchNMF's host loop over its first 8 panels (KL, 1,024
+rows each, each panel densified on the host), compute_batched (8 x
+4096^2, rank 256; plain, the float32 and int8 MU kernels, HALS) and 4
+vectorized restarts (MU kernels, HALS) over 4 iterations: host-clock ms
+per iteration or panel, device ms per iteration or panel by class and
+the idle share. --cells picks a subset of the nine cells. Every line
+ends with the card's nvidia-smi name and power limit.
 The profiler traces and summary.json go to --out (default: profile_out/
 beside this script). Exits 1 without a CUDA device.
 """
@@ -125,11 +132,16 @@ BETA_PROFILE_ITERS = 2
 # shape
 FAMILY_PROFILE_ITERS = 10
 CELLS = ("dense", "serving", "sparse", "slice8", "foldin", "beta",
-         "algorithms", "sparse_algorithms")
+         "algorithms", "sparse_algorithms", "surfaces")
 # the sparse algorithms: iterations profiled at config 2 and for config 3's
 # iALS
 S12_PROFILE_ITERS = 2
 IALS_PROFILE_ITERS = 1
+# the surfaces: iterations of the facade's fit and of the batched and
+# vectorized runs, and mini-batch panels profiled
+SURFACE_PROFILE_ITERS = 2
+BATCHED_PROFILE_ITERS = 4
+MB_PROFILE_PANELS = 8
 
 
 def kernel_class(name: str) -> str:
@@ -304,6 +316,8 @@ def main() -> None:
         algorithms_cell(nt, dev, card, out, summary)
     if "sparse_algorithms" in cells:
         sparse_algorithms_cell(nt, dev, card, out, summary)
+    if "surfaces" in cells:
+        surfaces_cell(nt, dev, card, out, summary)
 
     if "jax" in sys.modules:
         fail("jax was imported")
@@ -727,6 +741,106 @@ def sparse_algorithms_cell(nt, dev, card, out, summary) -> None:
     report("ials_config3_ell", plan, cfg, W3, H3, IALS_PROFILE_ITERS, ms)
     os.environ.pop("NMFTPU_WEIGHTED_GRAM_BUDGET_BYTES")
     del plan, update, W3, H3
+    torch.cuda.empty_cache()
+
+
+def surfaces_cell(nt, dev, card, out, summary) -> None:
+    """Slice 5's surfaces (chip_smoke.py's phase 23 (a)-(d)): the sklearn
+    facade's HALS fit at config 2 (set-up included), MiniBatchNMF's host
+    loop over its first panels (KL, the host's densify of each panel
+    included), compute_batched on four routes and vectorized restarts at
+    4096^2 / r = 256."""
+    import scipy.sparse as sps
+
+    from nmftpu_torch import minibatch as MB
+    from nmftpu_torch import sklearn_api as SK
+    from nmftpu_torch.batched import compute_batched
+    from nmftpu_torch.config import Initialization, NmfConfig
+
+    from chip_smoke import BATCH, BATCH_SHAPE, MB_BATCH, VEC_RUNS, \
+        config2_start
+
+    cell = "surfaces"
+    summary[cell] = {}
+
+    def report(path, fn, iters, unit="iteration"):
+        fn()                                    # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        host_ms = (time.perf_counter() - t0) * 1e3 / iters
+        trace = out / f"{cell}_{path}.json"
+        with torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        prof.export_chrome_trace(str(trace))
+        row = {f"host_ms_per_{unit}": host_ms,
+               **device_summary(trace, iters)}
+        summary[cell][path] = row
+        say("profile", cell=cell, path=path,
+            **{f"host_ms_per_{unit}": f"{host_ms:.4f}"},
+            device_ms_per=unit,
+            device_ms={k: round(v, 4) for k, v in
+                       row["device_ms_per_iter"].items()},
+            idle_share=f"{row['idle_share']:.4f}", card=card)
+
+    n, m, r = 138_493, 26_744, 64
+    gen = torch.Generator(device=dev).manual_seed(SEED + 5)
+    R = synthetic_ratings(n, m, 20_000_263, gen, dev)
+    ratings = ratings_csr(R)
+    del R
+    torch.cuda.empty_cache()
+    X = sps.csr_matrix((ratings.data, ratings.indices, ratings.indptr),
+                       shape=(n, m))
+    W0, H0 = config2_start(n, m, r,
+                           float(ratings.data.sum(dtype=np.float64)), dev)
+    W0n, H0n = W0.cpu().numpy(), H0.cpu().numpy()
+    del ratings, W0, H0
+    its = SURFACE_PROFILE_ITERS
+    est = SK.NMF(r, init="custom", solver="cd", max_iter=its, tol=0.0,
+                 device=dev)
+    report("nmf_cd_fit_config2",
+           lambda: est.fit_transform(X, W=W0n, H=H0n), its)
+    panels = MB_PROFILE_PANELS
+    Xp = SK._RowSource(X[:panels * MB_BATCH])
+    report("minibatch_kl_host_panels",
+           lambda: MB.minibatch_fit(Xp, r, batch_size=MB_BATCH, max_iter=1,
+                                    beta=1.0, tol=0.0,
+                                    max_no_improvement=None,
+                                    W0=W0n[:panels * MB_BATCH], H0=H0n,
+                                    device=dev), panels, unit="panel")
+    del X, Xp, est
+    torch.cuda.empty_cache()
+
+    nb, rb = BATCH_SHAPE
+    Vs, W0s, H0s = [], [], []
+    for i in range(BATCH):
+        g = torch.Generator(device=dev).manual_seed(SEED + i)
+        Vs.append(synthetic_lowrank(nb, nb, rb, g, dev))
+        W0s.append(torch.rand(nb, rb, generator=g, device=dev) + 0.01)
+        H0s.append(torch.rand(rb, nb, generator=g, device=dev) + 0.01)
+    Vs, W0s, H0s = torch.stack(Vs), torch.stack(W0s), torch.stack(H0s)
+    its = BATCHED_PROFILE_ITERS
+    for path, knobs in (("batched_plain", {}),
+                        ("batched_kernels_f32", {"use_pallas": True}),
+                        ("batched_int8", {"v_storage": "int8",
+                                          "use_pallas": True}),
+                        ("batched_hals", {"algorithm": "hals"})):
+        cfg = NmfConfig(rank=rb, init_method=Initialization.COPY_EXISTING,
+                        num_iterations=its, check_interval=its, **knobs)
+        report(path, lambda: compute_batched(Vs, cfg, W0=W0s, H0=H0s), its)
+    V0 = Vs[0]
+    del Vs, W0s, H0s
+    for path, knobs in (("vectorized_kernels_f32", {"use_pallas": True}),
+                        ("vectorized_hals", {"algorithm": "hals"})):
+        report(path, lambda: nt.nmf(V0, rb, num_runs=VEC_RUNS,
+                                    vectorize_runs=True, num_iterations=its,
+                                    check_interval=its, seed=SEED,
+                                    device=dev, **knobs), its)
+    del V0
     torch.cuda.empty_cache()
 
 

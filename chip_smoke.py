@@ -108,6 +108,35 @@ ratings, rank 32) sparse k-means against the dense Lloyd (float64) and
 NNDSVD from a host svds (nndsvd and nndsvdar below the random start,
 nndsvda the nndsvd start filled with the mean, within 1e-3 of the dense
 nndsvd start). It prints ms per iteration, peak memory and its seconds.
+Phase 23 drives the remaining surfaces: (a) the sklearn facade at config
+2's full width (phase 10's ratings as a scipy CSR, phase 22's W0/H0,
+rank 64): NMF(solver="cd") (HALS on scatter, #7 twice an iteration)
+after one iteration within 1e-4 of compute_sparse from the same start
+and its objective after 4 within 2e-3, reconstruction_err_ within 1e-4
+of the script's float64 error of the same factors, NMF(solver="mu",
+beta_loss="kullback-leibler") likewise (auto's engine printed), the
+HALS fold-in (transform) of 2,048 held-out users with 100 distinct
+items each falling at every iteration on #7, inverse_transform and
+non_negative_factorization(update_H=False); (b) MiniBatchNMF (KL,
+1,024-row panels, 2 epochs): one minibatch_step against float64 at
+1e-4, the divergence per epoch, ms per panel and peak device memory
+below one dense n x m float32 array, and an OnlineNMF stream saved
+after 68 panels, loaded and fed the other 68, equal to the
+uninterrupted stream (atol 0); (c) compute_batched of 8 problems at
+4096 x 4096 / rank 256 (phase 4's generator) on plain MU, #1/#2, #3/#4
+and HALS (#7), each problem against a solo compute (W/H 1e-3; int8 and
+HALS errors 1e-3 and 2e-3, HALS after one iteration 1e-4), one launch
+per problem and half-step, and #1-#4 and #7 against their twins on
+problem 0's factors; (d) 4 vectorized restarts (#1/#2, HALS) against
+the sequential ones (run errors 1e-4, the best run); (e) a checkpoint
+after 10 iterations resumed to 20 against the uninterrupted run
+(1e-6); (f) rank selection over ranks 16, 32, 64 at config 1's shape
+(consensus symmetric, unit diagonal, in [0, 1]) and the compat API
+(the card's name, RMSD below the zero model's); (g) python -m
+nmftpu_torch on config 1's ratings written as u.data (recall@10, a
+saved bundle that Recommender.load reads onto the card, one JSONL record
+per check); (h) native/test_capi.c compiled unchanged against the
+port's C ABI (nmftpu_torch.capi.build()) and run on the card.
 Every phase prints its results; any failure exits non-zero, as does a
 kernel timed below its bound. Without a CUDA device it exits 1 and runs
 nothing.
@@ -118,6 +147,7 @@ line is {"ok": true, "device": {...}}.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import re
 import shutil
@@ -375,6 +405,29 @@ IALS_CG_FACTOR = 1.02
 IALS_BUDGET = 16 * 2**30
 DENSE_IALS_ITERS = 2
 
+# phase 23: the remaining surfaces. (a) the sklearn facade at config 2's
+# full width (phase 10's ratings, phase 22's W0/H0, r = 64), fits of 1 and
+# SURFACE_FIT_ITERS iterations: one cd iteration against compute_sparse at
+# HALS_STEP_RTOL, the objective after SURFACE_FIT_ITERS at HALS_E2E_RTOL
+# (scatter's atomics reorder the sums; after the first sweep a float32 ulp
+# can flip a clamp), reconstruction_err_ against the script's float64
+# error of the same factors at SURFACE_ERR_RTOL (float32 sums of the
+# Gram-trick terms or of 3.7e9 KL terms in row panels); (b) MiniBatchNMF
+# at config 2, batch MB_BATCH, 2 epochs: one step against float64 at
+# SURFACE_ERR_RTOL (the same guarded float32 operations, sums of 26,744
+# terms); (c) compute_batched, BATCH problems of 4096^2 / r = 256 (phase
+# 4's generator, seeds SEED + i), BATCH_ITERS iterations, each against a
+# solo compute at E2E_RTOL (HALS: one iteration at HALS_STEP_RTOL, the
+# error at HALS_E2E_RTOL); (d) VEC_RUNS vectorized restarts against the
+# sequential ones; (f) RANKS at config 1
+SURFACE_FIT_ITERS = 4
+SURFACE_ERR_RTOL = 1e-4
+MB_BATCH = 1024
+BATCH, BATCH_ITERS = 8, 20
+BATCH_SHAPE = (4096, 256)   # n = m, r
+VEC_RUNS = 4
+RANKS = (16, 32, 64)
+
 # the card's peaks (NVIDIA's H100 SXM data sheet, dense): float32 on the
 # CUDA cores, bf16 and int8 on the tensor cores, HBM bandwidth
 F32_PEAK, BF16_PEAK, INT8_PEAK = 67e12, 989e12, 1979e12
@@ -593,11 +646,10 @@ def synthetic_ratings(n, m, nnz, gen, dev, rows_per_chunk=2048):
     return V
 
 
-def distinct_items(n, gen, dev):
+def distinct_items(n, gen, dev, m=SERVE_ITEMS):
     """(n, SERVE_SEEN) int32 numpy array of sorted distinct item ids per
-    user, uniform over the catalog: draw a few spare, drop repeats (they
-    sort last as m), keep the first SERVE_SEEN."""
-    m = SERVE_ITEMS
+    user, uniform over a catalog of m items: draw a few spare, drop
+    repeats (they sort last as m), keep the first SERVE_SEEN."""
     items = torch.randint(0, m, (n, SERVE_SEEN + 8), generator=gen,
                           device=dev)
     items = torch.sort(items, dim=1).values
@@ -3747,6 +3799,657 @@ def sparse_algorithms_phase(nt, card, dev, ratings, c3, V, W0d, H0d) -> dict:
             "hals_plain_ms": t_ms["plain"], "hals_bound": hals_bound}
 
 
+# -- phase 23: the remaining surfaces (slice 5) ------------------------------
+
+
+def config2_start(n, m, r, data_sum, dev):
+    """Phase 22's W0/H0 at config 2 (the random init's scale, generator
+    SEED + 22), made again from the same generator."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 22)
+    scale = (data_sum / (n * m) / r) ** 0.5
+    W0 = (torch.rand(n, r, generator=gen, device=dev) + 1e-4) * scale
+    H0 = (torch.rand(r, m, generator=gen, device=dev) + 1e-4) * scale
+    return W0, H0
+
+
+def csr_panel(X, lo, hi, dev):
+    """Rows lo:hi of a scipy CSR as a dense float32 device panel, made on
+    the card (the script's own source for the online stream and the
+    per-epoch divergences; the facade densifies its panels on the
+    host)."""
+    blk = X[lo:hi]
+    rows = np.repeat(np.arange(hi - lo), np.diff(blk.indptr))
+    P = torch.zeros(hi - lo, X.shape[1], device=dev)
+    P[torch.as_tensor(rows, device=dev),
+      torch.as_tensor(blk.indices.astype(np.int64), device=dev)] = \
+        torch.as_tensor(blk.data, device=dev)
+    return P
+
+
+class DevicePanels:
+    """A row-sliceable view of a scipy CSR whose slices are device
+    panels (`csr_panel`)."""
+
+    def __init__(self, X, dev):
+        self.X, self.dev, self.shape = X, dev, X.shape
+
+    def __getitem__(self, sl):
+        return csr_panel(self.X, sl.start, sl.stop, self.dev)
+
+
+def fro64(X, W, H, chunk=1 << 21) -> float:
+    """||X - W H||_F in float64 for a scipy CSR X and device factors:
+    ||X||^2 - 2 <X, WH> + tr(WᵀW HHᵀ), the cross term over the nonzeros
+    in chunks."""
+    W64, H64 = W.double(), H.double()
+    coo = X.tocoo()
+    cross = 0.0
+    for s in range(0, coo.nnz, chunk):
+        r = torch.as_tensor(coo.row[s:s + chunk].astype(np.int64),
+                            device=W.device)
+        c = torch.as_tensor(coo.col[s:s + chunk].astype(np.int64),
+                            device=W.device)
+        v = torch.as_tensor(coo.data[s:s + chunk], device=W.device).double()
+        cross += float((v * (W64[r] * H64[:, c].T).sum(1)).sum())
+    vv = float(np.square(coo.data.astype(np.float64)).sum())
+    quad = float(((W64.T @ W64) * (H64 @ H64.T)).sum())
+    return max(vv - 2.0 * cross + quad, 0.0) ** 0.5
+
+
+def kl64(X, W, H, chunk=1 << 21) -> float:
+    """D_KL(X || W H) in float64 for a scipy CSR X: the nonzeros'
+    v log(v / wh) - v, plus the sum of WH (zero entries add their wh)."""
+    W64, H64 = W.double(), H.double()
+    coo = X.tocoo()
+    total = float(W64.sum(0) @ H64.sum(1))
+    for s in range(0, coo.nnz, chunk):
+        r = torch.as_tensor(coo.row[s:s + chunk].astype(np.int64),
+                            device=W.device)
+        c = torch.as_tensor(coo.col[s:s + chunk].astype(np.int64),
+                            device=W.device)
+        v = torch.as_tensor(coo.data[s:s + chunk], device=W.device).double()
+        wh = (W64[r] * H64[:, c].T).sum(1)
+        total += float((v * torch.log(v / wh) - v).sum())
+    return total
+
+
+def rel_to_max(a, b) -> float:
+    """max|a - b| / max|b| of two tensors or arrays."""
+    a, b = torch.as_tensor(a), torch.as_tensor(b)
+    return float((a.double() - b.double().to(a.device)).abs().max()
+                 / b.double().abs().max())
+
+
+def surfaces_phase(nt, card, dev, ratings, max_abs) -> dict:
+    """Phase 23 (slice 5): the sklearn facade at config 2's full width
+    (a), MiniBatchNMF and an OnlineNMF stream at config 2 (b),
+    compute_batched at 4096^2 / r = 256 on four routes (c), vectorized
+    restarts (d), a checkpoint and resume (e), rank selection and the
+    compat API at config 1 (f), the CLI (g) and the C ABI (h). Each path
+    is driven with the kernels' counts read just before and just after
+    it; returns the launches of #1-#4 and #7 on them and raises max_abs's
+    entries to the errors of #1-#4 and #7 against their twins on this
+    phase's operands."""
+    import os
+    import tempfile
+
+    import scipy.sparse as sps
+
+    from nmftpu_torch import capi
+    from nmftpu_torch import checkpoint as CK
+    from nmftpu_torch import compat
+    from nmftpu_torch import minibatch as MB
+    from nmftpu_torch import model_selection as MS
+    from nmftpu_torch import sklearn_api as SK
+    from nmftpu_torch import sparse_ops as TS
+    from nmftpu_torch.batched import compute_batched
+    from nmftpu_torch.config import Initialization, NmfConfig
+    from nmftpu_torch.kernels import dense_mu as K
+    from nmftpu_torch.kernels import hals_sweep as HS
+    from nmftpu_torch.kernels import quantized as Q
+    from nmftpu_torch.serving import Recommender
+
+    t_phase = time.perf_counter()
+    counted = (K.LAUNCHES, Q.LAUNCHES, HS.LAUNCHES)
+    names = ("w_update_fused", "h_update_fused", "w_update_fused_q",
+             "h_update_fused_q", "hals_sweep")
+    launches = dict.fromkeys(names, 0)
+
+    def snapshot():
+        return {k: c[k] for c in counted for k in c if k in names}
+
+    def add(before):
+        now = snapshot()
+        delta = {k: now[k] - before[k] for k in names}
+        for k in names:
+            launches[k] += delta[k]
+        return delta
+
+    def sync_s(t0):
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    # -- 23 (a): the sklearn facade at config 2's full width -----------------
+    n, m = ratings.shape
+    r = SPARSE_RANK
+    X = sps.csr_matrix((ratings.data, ratings.indices, ratings.indptr),
+                       shape=(n, m))
+    W0, H0 = config2_start(n, m, r,
+                           float(ratings.data.sum(dtype=np.float64)), dev)
+    W0n, H0n = W0.cpu().numpy(), H0.cpu().numpy()
+    del W0, H0
+    common = dict(n_components=r, init="custom", tol=0.0, device=dev)
+    fits, secs = {}, {}
+    for label, kw in (("cd", dict(solver="cd")),
+                      ("kl", dict(solver="mu",
+                                  beta_loss="kullback-leibler"))):
+        # a warm-up fit first: the timed fits' difference is the
+        # iterations' time
+        SK.NMF(max_iter=1, **common, **kw).fit(X, W=W0n, H=H0n)
+        for iters in (1, SURFACE_FIT_ITERS):
+            est = SK.NMF(max_iter=iters, **common, **kw)
+            before = snapshot()
+            t0 = time.perf_counter()
+            W = est.fit_transform(X, W=W0n, H=H0n)
+            secs[label, iters] = sync_s(t0)
+            delta = add(before)
+            fits[label, iters] = (est, W)
+            if label == "cd" and delta["hals_sweep"] != 2 * iters:
+                fail(f"NMF(solver='cd') launched #7 {delta['hals_sweep']} "
+                     f"times in {iters} iterations, not {2 * iters}")
+    port_csr = nt.sparse.from_scipy(X)
+    cd1, cd4 = fits["cd", 1][0], fits["cd", SURFACE_FIT_ITERS][0]
+    engines = {label: TS._resolve_strategy(
+        port_csr, fits[label, 1][0]._config(
+            r, Initialization.COPY_EXISTING, (n, m)), "auto", n, m)
+        for label in ("cd", "kl")}
+    say("23 (a) auto", engines=engines)
+    if engines["cd"] != "scatter":
+        fail(f"NMF(solver='cd') ran on {engines['cd']}, not scatter")
+    refs = {}
+    for iters, est in ((1, cd1), (SURFACE_FIT_ITERS, cd4)):
+        cfg = est._config(r, Initialization.COPY_EXISTING, (n, m))
+        refs[iters] = nt.compute_sparse(port_csr, cfg, W0=W0n, H0=H0n,
+                                        device=dev)
+    dW = rel_to_max(torch.as_tensor(fits["cd", 1][1]), refs[1].W.cpu())
+    dH = rel_to_max(torch.as_tensor(cd1.components_), refs[1].H.cpu())
+    d_obj = abs(cd4.reconstruction_err_ - refs[SURFACE_FIT_ITERS]
+                .frobenius_error) / refs[SURFACE_FIT_ITERS].frobenius_error
+    W4 = torch.as_tensor(fits["cd", SURFACE_FIT_ITERS][1], device=dev)
+    H4 = torch.as_tensor(cd4.components_, device=dev)
+    e64 = fro64(X, W4, H4)
+    d_err = abs(cd4.reconstruction_err_ - e64) / e64
+    kl_est = fits["kl", SURFACE_FIT_ITERS][0]
+    Wk = torch.as_tensor(fits["kl", SURFACE_FIT_ITERS][1], device=dev)
+    Hk = torch.as_tensor(kl_est.components_, device=dev)
+    kl_err64 = (2.0 * kl64(X, Wk, Hk)) ** 0.5
+    d_kl = abs(kl_est.reconstruction_err_ - kl_err64) / kl_err64
+    it_ms = {label: (secs[label, SURFACE_FIT_ITERS] - secs[label, 1])
+             / (SURFACE_FIT_ITERS - 1) * 1e3 for label in ("cd", "kl")}
+    say("23 (a) NMF", shape=f"{n}x{m}", nnz=X.nnz, rank=r,
+        cd_one_iteration_W_rel=f"{dW:.3e}", H_rel=f"{dH:.3e}",
+        limit=HALS_STEP_RTOL, cd_objective_vs_compute_sparse=f"{d_obj:.3e}",
+        objective_limit=HALS_E2E_RTOL,
+        cd_reconstruction_err=f"{cd4.reconstruction_err_:.7g}",
+        float64=f"{e64:.7g}", rel=f"{d_err:.3e}",
+        kl_reconstruction_err=f"{kl_est.reconstruction_err_:.7g}",
+        kl_float64=f"{kl_err64:.7g}", kl_rel=f"{d_kl:.3e}",
+        err_limit=SURFACE_ERR_RTOL)
+    say("23 (a) ms per iteration", cd=f"{it_ms['cd']:.3f}",
+        kl=f"{it_ms['kl']:.3f}",
+        fit_s={f"{k[0]}x{k[1]}": f"{v:.2f}" for k, v in secs.items()},
+        card=card)
+    if not (dW <= HALS_STEP_RTOL and dH <= HALS_STEP_RTOL):
+        fail(f"NMF(solver='cd') after one iteration: W {dW:.3e}, H "
+             f"{dH:.3e} from compute_sparse (> {HALS_STEP_RTOL})")
+    if not d_obj <= HALS_E2E_RTOL:
+        fail(f"NMF(solver='cd'): objective {d_obj:.3e} from "
+             "compute_sparse's")
+    if not (d_err <= SURFACE_ERR_RTOL and d_kl <= SURFACE_ERR_RTOL):
+        fail(f"reconstruction_err_ off float64: cd {d_err:.3e}, KL "
+             f"{d_kl:.3e} (> {SURFACE_ERR_RTOL})")
+    del refs, fits, Wk, Hk, kl_est
+
+    # held-out users: 100 distinct items each, drawn as phase 18 draws
+    gen = torch.Generator(device=dev).manual_seed(SEED + 18)
+    items = distinct_items(COLD_USERS, gen, dev, m=m)
+    vals = np.random.default_rng(SEED + 18).integers(
+        1, 6, items.shape).astype(np.float32)
+    Xh = sps.csr_matrix((vals.reshape(-1), items.reshape(-1),
+                         np.arange(0, items.size + 1, SERVE_SEEN)),
+                        shape=(COLD_USERS, m))
+    Xh_dense = torch.as_tensor(Xh.toarray(), device=dev).double()
+    H4_64 = H4.double()
+
+    def held_out_error(W):
+        W = torch.as_tensor(W, device=dev).double()
+        return float(torch.linalg.norm(Xh_dense - W @ H4_64))
+
+    fold = []
+    before = snapshot()
+    for k in range(1, SURFACE_FIT_ITERS + 1):
+        cd4.set_params(max_iter=k)
+        Wt = cd4.transform(Xh)
+        fold.append((held_out_error(Wt), float(Wt.min())))
+    delta = add(before)
+    cd4.set_params(max_iter=SURFACE_FIT_ITERS)
+    recon = cd4.inverse_transform(Wt)
+    before = snapshot()
+    Wn, _, _ = SK.non_negative_factorization(
+        Xh, H=cd4.components_, n_components=r, update_H=False,
+        solver="cd", max_iter=SURFACE_FIT_ITERS, device=dev)
+    nnf_delta = add(before)
+    nnf_err = held_out_error(Wn)
+    errs = [e for e, _ in fold]
+    want_sweeps = SURFACE_FIT_ITERS * (SURFACE_FIT_ITERS + 1) // 2
+    say("23 (a) transform", users=COLD_USERS, items_each=SERVE_SEEN,
+        objective_per_iteration=[f"{e:.7g}" for e in errs],
+        min_W=min(w for _, w in fold), hals_launches=delta["hals_sweep"],
+        expected=want_sweeps, inverse_shape=recon.shape,
+        non_negative_factorization_objective=f"{nnf_err:.7g}",
+        its_hals_launches=nnf_delta["hals_sweep"])
+    if not all(b < a for a, b in zip(errs, errs[1:])):
+        fail(f"the HALS fold-in objective did not fall: {errs}")
+    if min(w for _, w in fold) < 0:
+        fail("transform returned negative W")
+    if recon.shape != (COLD_USERS, m):
+        fail(f"inverse_transform shape {recon.shape}")
+    if delta["hals_sweep"] != want_sweeps or \
+            nnf_delta["hals_sweep"] != SURFACE_FIT_ITERS:
+        fail(f"#7 launches: transform {delta['hals_sweep']} (not "
+             f"{want_sweeps}), non_negative_factorization "
+             f"{nnf_delta['hals_sweep']} (not {SURFACE_FIT_ITERS})")
+    # #7 on the fold-in's own operands against its twin
+    N = (Xh_dense.float() @ H4.T).contiguous()
+    G = (H4 @ H4.T).contiguous()
+    Wf = torch.as_tensor(Wt, device=dev).contiguous()
+    got, want = HS.hals_sweep(N, G, Wf), HS.hals_sweep_plain(N, G, Wf)
+    d7 = float((got - want).abs().max())
+    say("23 kernel", kernel="hals_sweep", operands="fold-in 2048x64",
+        max_abs=f"{d7:.3e}", rel_to_max=f"{d7 / float(want.abs().max()):.3e}",
+        bound=HALS_ATOL)
+    if not d7 <= HALS_ATOL * float(want.abs().max()):
+        fail("hals_sweep disagrees with its twin on the fold-in's operands")
+    max_abs["hals_sweep"] = max(max_abs["hals_sweep"], d7)
+    del Xh_dense, N, G, Wf, got, want, recon, W4, H4, H4_64, cd1, cd4
+
+    # -- 23 (b): MiniBatchNMF and an OnlineNMF stream at config 2 ------------
+    bs = MB_BATCH
+    panels = -(-n // bs)
+    mb = SK.MiniBatchNMF(r, beta_loss="kullback-leibler", batch_size=bs,
+                         init="random", random_state=SEED, max_iter=2,
+                         tol=0.0, max_no_improvement=None, device=dev)
+    W0n, H0n = mb._init_wh(X, r, None, None)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base_mem = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    Wmb = mb.fit_transform(X)
+    fit_s = sync_s(t0)
+    peak = torch.cuda.max_memory_allocated() - base_mem
+    src = DevicePanels(X, dev)
+    div0 = MB.divergence_blocked(src, W0n, H0n, 1.0, batch=bs, device=dev)
+    W1, H1, _, _ = MB.minibatch_fit(src, r, batch_size=bs, max_iter=1,
+                                    beta=1.0, tol=0.0,
+                                    max_no_improvement=None, W0=W0n,
+                                    H0=H0n, device=dev)
+    div1 = MB.divergence_blocked(src, W1, H1, 1.0, batch=bs, device=dev)
+    div2 = mb.reconstruction_err_ ** 2 / 2.0
+    # one step on the first panel against float64 (same function)
+    rho = 0.7 ** (bs / n)
+    Xb = csr_panel(X, 0, bs, dev)
+    args32 = [torch.as_tensor(a, device=dev, dtype=torch.float32)
+              for a in (W0n[:bs], H0n, H0n, np.ones_like(H0n))]
+    out32 = MB.minibatch_step(Xb, *args32[:2], *args32[2:], rho, beta=1.0)
+    out64 = MB.minibatch_step(Xb.double(), *[a.double() for a in args32[:2]],
+                              *[a.double() for a in args32[2:]], rho,
+                              beta=1.0)
+    d_step = max(rel_to_max(a, b) for a, b in zip(out32[:4], out64[:4]))
+    say("23 (b) MiniBatchNMF", shape=f"{n}x{m}", batch=bs, panels=panels,
+        epochs=2, divergence_per_epoch=[f"{d:.7g}" for d in
+                                        (div0, div1, div2)],
+        one_step_vs_float64=f"{d_step:.3e}", limit=SURFACE_ERR_RTOL,
+        fit_s=f"{fit_s:.2f}", ms_per_panel=f"{fit_s / (2 * panels) * 1e3:.3f}",
+        peak_GiB=f"{peak / 2**30:.3f}",
+        limit_GiB=f"{n * m * 4 / 2**30:.2f}", card=card)
+    if not d_step <= SURFACE_ERR_RTOL:
+        fail(f"minibatch_step off float64 by {d_step:.3e}")
+    if not peak < n * m * 4:
+        fail(f"MiniBatchNMF peaked at {peak / 2**30:.2f} GiB on the card, "
+             "not below one dense n x m float32 array")
+    if not (np.isfinite(Wmb).all() and Wmb.shape == (n, r)):
+        fail("MiniBatchNMF returned non-finite or misshapen W")
+    del Wmb, W1, H1, out32, out64, args32, Xb
+    # the stream: saved after half the panels, loaded, fed the rest
+    whole = MB.OnlineNMF(r, beta=1.0, batch_size=bs, n_rows_hint=n,
+                         seed=SEED, device=dev)
+    part = MB.OnlineNMF(r, beta=1.0, batch_size=bs, n_rows_hint=n,
+                        seed=SEED, device=dev)
+    half = panels // 2
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        for i in range(panels):
+            P = csr_panel(X, i * bs, min((i + 1) * bs, n), dev)
+            whole.partial_fit(P, H0=H0n)
+            if i < half:
+                part.partial_fit(P, H0=H0n)
+            if i == half - 1:
+                part.save(tmp)
+                part = MB.OnlineNMF.load(tmp, device=dev)
+            if i >= half:
+                part.partial_fit(P)
+    stream_s = sync_s(t0)
+    same = all(torch.equal(a, b) for a, b in ((whole.H, part.H),
+                                              (whole._A, part._A),
+                                              (whole._B, part._B)))
+    say("23 (b) OnlineNMF", panels=panels, saved_after=half,
+        resumed_equals_uninterrupted=same, n_steps=part.n_steps,
+        seconds=f"{stream_s:.2f}")
+    if not same or part.n_steps != panels:
+        fail("the resumed OnlineNMF stream differs from the uninterrupted "
+             "one")
+    del whole, part, X, port_csr
+
+    # -- 23 (c): compute_batched at 4096^2, r = 256 --------------------------
+    nb, rb = BATCH_SHAPE
+    Vs, W0s, H0s = [], [], []
+    for i in range(BATCH):
+        g = torch.Generator(device=dev).manual_seed(SEED + i)
+        Vs.append(synthetic_lowrank(nb, nb, rb, g, dev))
+        W0s.append(torch.rand(nb, rb, generator=g, device=dev) + 0.01)
+        H0s.append(torch.rand(rb, nb, generator=g, device=dev) + 0.01)
+    Vs, W0s, H0s = torch.stack(Vs), torch.stack(W0s), torch.stack(H0s)
+    routes = {"plain": ({}, ()),
+              "kernels_f32": ({"use_pallas": True},
+                              ("w_update_fused", "h_update_fused")),
+              "int8": ({"v_storage": "int8", "use_pallas": True},
+                       ("w_update_fused_q", "h_update_fused_q")),
+              "hals": ({"algorithm": "hals"}, ("hals_sweep",))}
+    batched = {}
+    for label, (knobs, kernels) in routes.items():
+        cfg = NmfConfig(rank=rb, init_method=Initialization.COPY_EXISTING,
+                        num_iterations=BATCH_ITERS, check_interval=10,
+                        **knobs)
+        # a one-iteration warm-up: the allocator's first blocks for the
+        # route's operands stay out of the timed run
+        compute_batched(Vs, dataclasses.replace(cfg, num_iterations=1),
+                        W0=W0s, H0=H0s)
+        torch.cuda.synchronize()
+        before = snapshot()
+        t0 = time.perf_counter()
+        res = compute_batched(Vs, cfg, W0=W0s, H0=H0s)
+        b_s = sync_s(t0)
+        delta = add(before)
+        solo_s, worst = 0.0, 0.0
+        for i in range(BATCH):
+            t0 = time.perf_counter()
+            solo = nt.compute(Vs[i], cfg, W0=W0s[i], H0=H0s[i])
+            solo_s += sync_s(t0)
+            if label in ("plain", "kernels_f32"):
+                d = max(rel_to_max(res.W[i], solo.W),
+                        rel_to_max(res.H[i], solo.H))
+            else:
+                d = abs(res.error[i] - solo.error) / solo.error
+            worst = max(worst, d)
+            del solo
+        limit = {"plain": E2E_RTOL, "kernels_f32": E2E_RTOL,
+                 "int8": E2E_RTOL, "hals": HALS_E2E_RTOL}[label]
+        extra = {}
+        if label == "hals":
+            one = dataclasses.replace(cfg, num_iterations=1)
+            r1 = compute_batched(Vs, one, W0=W0s, H0=H0s)
+            d1 = 0.0
+            for i in range(BATCH):
+                s1 = nt.compute(Vs[i], one, W0=W0s[i], H0=H0s[i])
+                d1 = max(d1, rel_to_max(r1.W[i], s1.W),
+                         rel_to_max(r1.H[i], s1.H))
+            extra = {"one_iteration_WH_rel": f"{d1:.3e}",
+                     "one_iteration_limit": HALS_STEP_RTOL}
+            if not d1 <= HALS_STEP_RTOL:
+                fail(f"batched HALS after one iteration: {d1:.3e}")
+            del r1, s1
+        # one launch per problem and half-step (2-D slices): each MU
+        # kernel runs one half-step, #7 both
+        per = 2 if label == "hals" else 1
+        want = {k: per * BATCH_ITERS * BATCH for k in kernels}
+        got = {k: delta[k] for k in kernels}
+        say("23 (c) compute_batched", route=label, problems=BATCH,
+            shape=f"{nb}x{nb}", rank=rb, iterations=BATCH_ITERS,
+            compared="W/H" if label in ("plain", "kernels_f32")
+            else "error", worst_rel=f"{worst:.3e}", limit=limit,
+            launches=got, expected=want,
+            batch_ms_per_iter=f"{b_s / BATCH_ITERS * 1e3:.3f}",
+            solo_sum_ms_per_iter=f"{solo_s / BATCH_ITERS * 1e3:.3f}",
+            **extra, card=card)
+        if not worst <= limit:
+            fail(f"compute_batched {label}: {worst:.3e} from the solo runs")
+        if got != want:
+            fail(f"compute_batched {label}: launches {got}, not {want}")
+        batched[label] = res
+    # #1-#4 and #7 against their twins on problem 0's final factors
+    V0 = Vs[0]
+    Wk, Hk = batched["kernels_f32"].W[0], batched["kernels_f32"].H[0]
+    Vq0, sc0 = Q.quantize_v(V0)
+    Gw, Gh = Hk @ Hk.T, Wk.T @ Wk
+    twins = {
+        "w_update_fused": (K.w_update_fused(V0, Wk, Hk, Gw),
+                           K.w_update_fused_plain(V0, Wk, Hk, Gw)),
+        "h_update_fused": (K.h_update_fused(V0, Wk, Hk, Gh),
+                           K.h_update_fused_plain(V0, Wk, Hk, Gh)),
+        "w_update_fused_q": (Q.w_update_fused_q(Vq0, sc0, Wk, Hk, Gw),
+                             Q.w_update_fused_q_plain(Vq0, sc0, Wk, Hk, Gw)),
+        "h_update_fused_q": (Q.h_update_fused_q(Vq0, sc0, Wk, Hk, Gh),
+                             Q.h_update_fused_q_plain(Vq0, sc0, Wk, Hk, Gh)),
+    }
+    for name, (got, want) in twins.items():
+        a, rel = rel_err(got, want)
+        max_abs[name] = max(max_abs[name], a)
+        say("23 kernel", kernel=name, operands="batched problem 0",
+            max_abs=f"{a:.3e}", max_rel=f"{rel:.3e}", rtol=KERNEL_RTOL)
+        if not rel <= KERNEL_RTOL:
+            fail(f"{name} on the batched operands: {rel:.3e}")
+    Wh, Hh = batched["hals"].W[0], batched["hals"].H[0]
+    XHt, G = (V0 @ Hh.T).contiguous(), (Hh @ Hh.T).contiguous()
+    got, want = HS.hals_sweep(XHt, G, Wh), HS.hals_sweep_plain(XHt, G, Wh)
+    d7 = float((got - want).abs().max())
+    say("23 kernel", kernel="hals_sweep", operands="batched problem 0",
+        rel_to_max=f"{d7 / float(want.abs().max()):.3e}", bound=HALS_ATOL)
+    if not d7 <= HALS_ATOL * float(want.abs().max()):
+        fail("hals_sweep disagrees with its twin on the batched operands")
+    max_abs["hals_sweep"] = max(max_abs["hals_sweep"], d7)
+    del twins, got, want, XHt, G, Vq0, sc0, Wh, Hh
+
+    # -- 23 (d): vectorized restarts -----------------------------------------
+    for label, knobs, kernels in (
+            ("kernels_f32", {"use_pallas": True},
+             ("w_update_fused", "h_update_fused")),
+            ("hals", {"algorithm": "hals"}, ("hals_sweep",))):
+        kw = dict(num_runs=VEC_RUNS, num_iterations=BATCH_ITERS,
+                  check_interval=10, seed=SEED, device=dev, **knobs)
+        before = snapshot()
+        t0 = time.perf_counter()
+        vec = nt.nmf(V0, rb, vectorize_runs=True, **kw)
+        v_s = sync_s(t0)
+        delta = add(before)
+        t0 = time.perf_counter()
+        seq = nt.nmf(V0, rb, **kw)
+        s_s = sync_s(t0)
+        d_runs = max(abs(a - b) / b for a, b in zip(vec.run_errors,
+                                                    seq.run_errors))
+        srt = sorted(seq.run_errors)
+        close = srt[1] - srt[0] <= 1e-4 * srt[0]
+        if label == "hals":
+            d_best = abs(vec.error - seq.error) / seq.error
+            lim = HALS_E2E_RTOL
+        else:
+            d_best = max(rel_to_max(vec.W, seq.W), rel_to_max(vec.H, seq.H))
+            lim = E2E_RTOL
+        got = {k: delta[k] for k in kernels}
+        per = 2 if label == "hals" else 1
+        want = {k: per * BATCH_ITERS * VEC_RUNS for k in kernels}
+        say("23 (d) vectorize_runs", route=label, runs=VEC_RUNS,
+            run_errors=[f"{e:.7g}" for e in vec.run_errors],
+            sequential=[f"{e:.7g}" for e in seq.run_errors],
+            worst_rel=f"{d_runs:.3e}", limit=1e-4, best=vec.best_run,
+            sequential_best=seq.best_run, two_runs_close=close,
+            best_rel=f"{d_best:.3e}", best_limit=lim, launches=got,
+            expected=want,
+            vectorized_ms_per_iter=f"{v_s / BATCH_ITERS * 1e3:.3f}",
+            sequential_ms_per_iter=f"{s_s / BATCH_ITERS * 1e3:.3f}",
+            card=card)
+        if not d_runs <= 1e-4:
+            fail(f"vectorized {label}: run errors {d_runs:.3e} from the "
+                 "sequential restarts'")
+        if vec.best_run != seq.best_run and not close:
+            fail(f"vectorized {label}: best run {vec.best_run}, sequential "
+                 f"{seq.best_run}")
+        if vec.best_run == seq.best_run and not d_best <= lim:
+            fail(f"vectorized {label}: best run {d_best:.3e} off")
+        if got != want:
+            fail(f"vectorized {label}: launches {got}, not {want}")
+        del vec, seq
+
+    # -- 23 (e): checkpoint and resume ---------------------------------------
+    cfg = NmfConfig(rank=rb, init_method=Initialization.COPY_EXISTING,
+                    num_iterations=BATCH_ITERS, check_interval=10,
+                    use_pallas=True)
+    before = snapshot()
+    full = nt.compute(V0, cfg, W0=W0s[0], H0=H0s[0])
+    first = nt.compute(V0, dataclasses.replace(cfg, num_iterations=10),
+                       W0=W0s[0], H0=H0s[0])
+    with tempfile.TemporaryDirectory() as tmp:
+        CK.save(tmp, first.W, first.H, iteration=10, config=cfg)
+        resumed = CK.resume(tmp, V0, cfg, device=dev)
+    add(before)
+    d_ck = max(rel_to_max(resumed.W, full.W), rel_to_max(resumed.H, full.H))
+    say("23 (e) checkpoint", saved_at=10, resumed_to=BATCH_ITERS,
+        resumed_iterations=resumed.num_iterations, WH_rel=f"{d_ck:.3e}",
+        limit=1e-6)
+    if not (d_ck <= 1e-6 and resumed.num_iterations == 10):
+        fail(f"resume differs from the uninterrupted run: {d_ck:.3e}")
+    del full, first, resumed, Vs, W0s, H0s, batched, V0, Wk, Hk
+    torch.cuda.empty_cache()
+
+    # -- 23 (f): rank selection and compat at config 1 -----------------------
+    n1, m1, nnz1 = CONFIG1
+    rng = np.random.default_rng(SEED + 23)
+    config1 = np.zeros(n1 * m1, np.float32)
+    config1[rng.choice(n1 * m1, nnz1, replace=False)] = rng.integers(
+        1, 6, nnz1)
+    config1 = config1.reshape(n1, m1)
+    t0 = time.perf_counter()
+    for k in RANKS:
+        C, errs = MS.consensus_matrix(
+            config1, NmfConfig(rank=k, num_iterations=100, seed=SEED),
+            n_runs=4, device=dev)
+        rho_k, disp = MS.cophenetic_correlation(C), MS.dispersion(C)
+        sym = bool(np.array_equal(C, C.T))
+        diag = bool(np.all(np.diag(C) == 1.0))
+        in01 = bool(C.min() >= 0.0 and C.max() <= 1.0)
+        say("23 (f) consensus", rank=k, runs=4, symmetric=sym,
+            unit_diagonal=diag, in_0_1=in01, cophenetic=f"{rho_k:.6f}",
+            dispersion=f"{disp:.6f}",
+            mean_error=f"{np.mean(errs):.6g}")
+        if not (sym and diag and in01 and -1.0 <= rho_k <= 1.0
+                and 0.0 <= disp <= 1.0):
+            fail(f"consensus at rank {k}: symmetric {sym}, diagonal "
+                 f"{diag}, in [0, 1] {in01}, rho {rho_k}, dispersion {disp}")
+    sel = MS.rank_selection(config1, RANKS, n_runs=4, num_iterations=100,
+                            seed=SEED, device=dev)
+    say("23 (f) rank_selection", ranks=sel.ranks,
+        cophenetic=[f"{x:.6f}" for x in sel.cophenetic],
+        dispersion=[f"{x:.6f}" for x in sel.dispersion],
+        best_rank=sel.best_rank, seconds=f"{sync_s(t0):.2f}")
+    if compat.initialize() != compat.ResultType.SUCCESS:
+        fail("compat.initialize() did not succeed on the card")
+    info = compat.device_info(0)
+    count = compat.device_count()
+    rc = compat.choose_device(0)
+    res = compat.compute(compat.NmfDescription(
+        input_matrix=config1, rank=32, num_iterations=100, seed=SEED))
+    rmsd_zero = float(np.sqrt(np.mean(config1.astype(np.float64) ** 2)))
+    compat.finalize()
+    say("23 (f) compat", version=compat.version(), device_count=count,
+        device_info=info, choose_device=rc, rmsd=f"{res.rmsd:.6f}",
+        zero_model_rmsd=f"{rmsd_zero:.6f}", device=res.W.device)
+    if count != torch.cuda.device_count() or \
+            info["kind"] != torch.cuda.get_device_name(0) or rc != 0:
+        fail(f"compat devices: count {count}, info {info}, choose {rc}")
+    if not (res.W.device.type == "cuda" and res.rmsd < rmsd_zero):
+        fail(f"compat.compute: RMSD {res.rmsd} on {res.W.device} (the zero "
+             f"model's is {rmsd_zero})")
+
+    # -- 23 (g): the CLI on config 1's ratings -------------------------------
+    env = {k: v for k, v in os.environ.items() if k != "NMFTPU_PLATFORM"}
+    with tempfile.TemporaryDirectory() as tmp:
+        rows, cols = np.nonzero(config1)
+        data = os.path.join(tmp, "u.data")
+        with open(data, "w") as f:
+            f.writelines(f"{u + 1}\t{i + 1}\t{int(config1[u, i])}\t"
+                         f"{880_000_000 + j}\n"
+                         for j, (u, i) in enumerate(zip(rows, cols)))
+        bundle, jsonl = os.path.join(tmp, "bundle"), os.path.join(tmp,
+                                                                  "m.jsonl")
+        t0 = time.perf_counter()
+        out = subprocess.run(
+            [sys.executable, "-m", "nmftpu_torch", data, "--rank", "32",
+             "--iters", "100", "--eval-recall", "10", "--save", bundle,
+             "--metrics", jsonl], cwd=str(HERE), env=env,
+            capture_output=True, text=True, timeout=600)
+        cli_s = time.perf_counter() - t0
+        if out.returncode != 0:
+            fail(f"python -m nmftpu_torch exited {out.returncode}:\n"
+                 f"{out.stderr[-3000:]}")
+        summary = json.loads(out.stdout.strip().splitlines()[-1])
+        records = [json.loads(x) for x in open(jsonl)]
+        rec = Recommender.load(bundle, device=dev)
+        top = rec.recommend([0, 1], k=10)
+        say("23 (g) CLI", exit_code=out.returncode, summary=summary,
+            jsonl_records=len(records), checks=100 // 10,
+            loaded_users=rec.n_users, loaded_items=rec.n_items,
+            table_device=rec.H.device, top10_shape=np.asarray(top[0]).shape,
+            seconds=f"{cli_s:.2f}")
+        if "recall@10" not in summary or len(records) != 100 // 10:
+            fail(f"CLI: summary {summary}, {len(records)} JSONL records")
+        if rec.H.device.type != "cuda":
+            fail("Recommender.load did not load onto the card")
+
+    # -- 23 (h): the C ABI from a pure-C host --------------------------------
+    t0 = time.perf_counter()
+    lib = capi.build()
+    build_s = time.perf_counter() - t0
+    with tempfile.TemporaryDirectory() as tmp:
+        exe = os.path.join(tmp, "test_capi")
+        cc = subprocess.run(
+            ["gcc", str(HERE / "native" / "test_capi.c"), "-I",
+             str(capi.HERE), "-L", str(lib.parent), "-lnmftpu_torch",
+             "-lm", "-o", exe], capture_output=True, text=True)
+        if cc.returncode != 0:
+            fail(f"native/test_capi.c did not compile against the port's "
+                 f"header:\n{cc.stderr[-3000:]}")
+        capi_env = capi.embed_env(env)
+        t0 = time.perf_counter()
+        out = subprocess.run([exe, str(HERE)], capture_output=True,
+                             text=True, timeout=600, env=capi_env)
+        run_s = time.perf_counter() - t0
+    found = re.search(r"callback records=(\d+).*iters=(\d+)", out.stdout)
+    say("23 (h) C ABI", library=lib.name, build_s=f"{build_s:.2f}",
+        exit_code=out.returncode, seconds=f"{run_s:.2f}",
+        stdout=" | ".join(out.stdout.strip().splitlines()))
+    if out.returncode != 0 or "C ABI OK" not in out.stdout:
+        fail(f"test_capi exited {out.returncode}:\n{out.stdout}\n"
+             f"{out.stderr[-3000:]}")
+    if not (found and int(found.group(1)) >= 3
+            and int(found.group(2)) < 400):
+        fail(f"test_capi's callback did not cancel the run: {out.stdout}")
+
+    if min(launches.values()) < 1:
+        fail(f"a kernel of phase 23's paths never launched: {launches}")
+    say("23 launches", **launches)
+    say("23 seconds", seconds=f"{time.perf_counter() - t_phase:.1f}")
+    return launches
+
+
 def main() -> None:
     if not (HERE / "nmftpu_torch").is_dir():
         fail(f"no nmftpu_torch package beside {__file__}")
@@ -4206,8 +4909,14 @@ def main() -> None:
     torch.cuda.empty_cache()
     s12 = sparse_algorithms_phase(nt, card, dev, ratings, s8.pop("config3"),
                                   V, W0, H0)
-    del ratings
     max_abs["hals_sweep"] = max(max_abs["hals_sweep"], s12["hals_max_abs"])
+
+    # -- 23. slice 5: the sklearn facade, mini-batch, batched, vectorized,
+    # checkpoint, model selection, compat, the CLI and the C ABI ----------
+    del V, W0, H0, Vq, scale
+    torch.cuda.empty_cache()
+    s13 = surfaces_phase(nt, card, dev, ratings, max_abs)
+    del ratings
 
     if "jax" in sys.modules:
         fail("jax was imported")
@@ -4229,6 +4938,9 @@ def main() -> None:
     # #7 on sparse HALS, the one-sided entries on the int8 densified family
     # (phase 22)
     for name, count in s12["launches"].items():
+        launches[name] += count
+    # #1-#4 and #7 on phase 23's surfaces
+    for name, count in s13.items():
         launches[name] += count
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": SOURCES[name],

@@ -31,10 +31,21 @@ imports). It mirrors ``nmftpu``'s module names and public surface:
   Recommender's ``fold_in*`` / ``recommend_from_history*``;
 * dense float32 MU under the generalized beta divergence
   (``objective="beta-divergence"``); the dense ALS family, GDCLS, nsNMF
-  and iALS; the k-means and NNDSVD inits.
+  and iALS; the k-means and NNDSVD inits;
+* restarts in lockstep on stacked factors (``vectorize_runs=True``) and
+  ``compute_batched`` for a stack of problems (``batched.py``);
+* the surfaces over all of it: the scikit-learn facade (``NMF``,
+  ``MiniBatchNMF``, ``non_negative_factorization``; no sklearn needed),
+  online NMF (``minibatch.py``: ``OnlineNMF``, ``minibatch_fit``),
+  checkpoints (``checkpoint.py``), consensus rank selection
+  (``model_selection.py``), the nmfgpu-style ``compat`` API, the CLI
+  (``python -m nmftpu_torch``), its C ABI (``capi/``, driven through
+  ``capi_bridge.py``) and JSONL metrics and traces (``utils/``).
 
-``vectorize_runs=True`` and ``mesh=`` raise NotImplementedError naming
-their slice in ROADMAP.md (5 and 6).
+``mesh=`` raises NotImplementedError naming its slice in ROADMAP.md (6).
+The heavier entry points (the facade, the online and batched engines,
+rank selection) load at first use; every submodule is reachable as an
+attribute of the package (``nmftpu_torch.sklearn_api.NMF``).
 """
 
 from nmftpu_torch.api import nmf
@@ -55,22 +66,61 @@ from nmftpu_torch.sparse_ops import compute_sparse, prepare_sparse
 
 __version__ = "0.1.0"
 
+_LAZY = {
+    "NMF": ("nmftpu_torch.sklearn_api", "NMF"),
+    "MiniBatchNMF": ("nmftpu_torch.sklearn_api", "MiniBatchNMF"),
+    "non_negative_factorization": (
+        "nmftpu_torch.sklearn_api", "non_negative_factorization"
+    ),
+    "OnlineNMF": ("nmftpu_torch.minibatch", "OnlineNMF"),
+    "minibatch_fit": ("nmftpu_torch.minibatch", "minibatch_fit"),
+    "rank_selection": ("nmftpu_torch.model_selection", "rank_selection"),
+    "compute_batched": ("nmftpu_torch.batched", "compute_batched"),
+    "BatchedNmfResult": ("nmftpu_torch.batched", "BatchedNmfResult"),
+    "SparsePlan": ("nmftpu_torch.sparse_ops", "SparsePlan"),
+}
+
+
+def __getattr__(name):
+    """Lazy re-exports of the heavier entry points; any other name that
+    is a submodule is imported (``nmftpu_torch.sklearn_api`` works after
+    ``import nmftpu_torch`` alone)."""
+    import importlib.util
+
+    if name in _LAZY:
+        module, attr = _LAZY[name]
+        return getattr(importlib.import_module(module), attr)
+    if not name.startswith("_") and \
+            importlib.util.find_spec(f"{__name__}.{name}") is not None:
+        return importlib.import_module(f"{__name__}.{name}")
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+
+
 __all__ = [
     "Algorithm",
+    "BatchedNmfResult",
     "Initialization",
     "MatrixFormat",
+    "MiniBatchNMF",
+    "NMF",
     "NmfConfig",
     "NmfResult",
     "Objective",
+    "OnlineNMF",
     "Recommender",
     "RunStats",
+    "SparsePlan",
     "ThresholdType",
     "TransformResult",
     "compute",
+    "compute_batched",
     "compute_sparse",
+    "minibatch_fit",
     "nmf",
+    "non_negative_factorization",
     "prepare_sparse",
     "prepare_table",
+    "rank_selection",
     "recall_at_k",
     "transform",
     "__version__",

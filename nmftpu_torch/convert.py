@@ -1,6 +1,7 @@
-"""Carry configurations, factors, quantized V, serving tables and fold-in
-tables between ``nmftpu`` and ``nmftpu_torch``. Nothing here imports jax:
-the ``nmftpu`` side arrives as objects or numpy arrays."""
+"""Carry configurations, factors, quantized V, serving tables, fold-in
+tables, online-NMF state, sklearn estimators and batched results between
+``nmftpu`` and ``nmftpu_torch``. Nothing here imports jax: the ``nmftpu``
+side arrives as objects or numpy arrays."""
 
 from __future__ import annotations
 
@@ -152,3 +153,95 @@ def prepared_table_from_nmftpu(prep, *, device):
         scale=None if prep.scale is None else torch.tensor(
             np.asarray(prep.scale, np.float32), device=device),
     )
+
+
+_ONLINE_PARAMS = ("beta", "batch_size", "forget_factor", "alpha_w",
+                  "alpha_h", "l1_ratio", "fresh_max_iter",
+                  "transform_max_iter", "transform_tol", "seed")
+
+
+def online_state_from_nmftpu(model, *, device):
+    """The port's `minibatch.OnlineNMF` with the state of an
+    ``nmftpu.minibatch.OnlineNMF`` `model`: its hyperparameters, its exact
+    forgetting rate rho, its step count and its H, A and B (taken as
+    numpy, placed on `device` in the model's dtype), so the stream goes
+    on in the port as it would have in ``nmftpu``."""
+    from nmftpu_torch.minibatch import OnlineNMF
+
+    if getattr(model, "_shardings", None) is not None:
+        raise NotImplementedError(
+            "an OnlineNMF sharded over a mesh belongs to the multi-GPU "
+            "path, not ported yet (ROADMAP queue 1, slice 6)"
+        )
+    out = OnlineNMF(model.rank, dtype=np.dtype(model.dtype).name,
+                    device=device,
+                    **{k: getattr(model, k) for k in _ONLINE_PARAMS})
+    out.rho = model.rho
+    out.n_steps = int(model.n_steps)
+    if model.H is not None:
+        out.H, out._A, out._B = (
+            torch.tensor(np.asarray(x), dtype=out.dtype, device=device)
+            for x in (model.H, model._A, model._B))
+    return out
+
+
+_FITTED = ("components_", "n_components_", "n_features_in_", "n_iter_",
+           "n_steps_", "reconstruction_err_")
+
+
+def estimator_from_nmftpu(est, *, device):
+    """The port's `sklearn_api.NMF` or `MiniBatchNMF` with the parameters
+    of an ``nmftpu.sklearn_api`` estimator of the same name and, if it
+    was fitted, its fitted attributes (components_ as numpy) and the
+    online state a MiniBatchNMF's partial_fit keeps; `device` is where
+    the port's estimator runs."""
+    from nmftpu_torch import sklearn_api as SK
+
+    kind = type(est).__name__
+    if kind not in ("NMF", "MiniBatchNMF"):
+        raise TypeError(f"expected an nmftpu NMF or MiniBatchNMF, got "
+                        f"{kind}")
+    params = {k: getattr(est, k)
+              for k in getattr(SK, kind)._get_param_names()
+              if k != "device"}
+    if params.get("mesh") is not None:
+        raise NotImplementedError(
+            "an estimator over a mesh belongs to the multi-GPU path, not "
+            "ported yet (ROADMAP queue 1, slice 6)"
+        )
+    out = getattr(SK, kind)(**params, device=device)
+    for name in _FITTED:
+        if hasattr(est, name):
+            value = getattr(est, name)
+            # components_ copied: nmftpu's may be a read-only view
+            setattr(out, name, np.array(value) if name == "components_"
+                    else value)
+    if getattr(est, "_online", None) is not None:
+        out._online = online_state_from_nmftpu(est._online, device=device)
+        out._components_view = out.components_
+    return out
+
+
+def batched_result_to_numpy(res) -> dict:
+    """A BatchedNmfResult, the port's or ``nmftpu``'s, as a dict of numpy
+    arrays: W (B, n, r), H (B, r, m), the per-problem metrics as (B,)
+    arrays, and each problem's stats as a (checks, 3) array of
+    (iteration, error, delta)."""
+    return {
+        "W": _numpy(res.W),
+        "H": _numpy(res.H),
+        "error": np.asarray(res.error),
+        "frobenius_error": np.asarray(res.frobenius_error),
+        "rmsd": np.asarray(res.rmsd),
+        "kl_error": (None if res.kl_error is None
+                     else np.asarray(res.kl_error)),
+        "num_iterations": np.asarray(res.num_iterations),
+        "converged": np.asarray(res.converged),
+        "stats": [
+            np.stack([np.asarray(s.iterations, np.float64),
+                      np.asarray(s.errors, np.float64),
+                      np.asarray(s.deltas, np.float64)],
+                     axis=1).reshape(-1, 3)
+            for s in res.stats
+        ],
+    }

@@ -9,7 +9,7 @@ import numpy as np
 import torch
 
 from nmftpu_torch.algorithms import build_dense_update
-from nmftpu_torch.config import NmfConfig, Objective, resolve_dtype
+from nmftpu_torch.config import Algorithm, NmfConfig, Objective, resolve_dtype
 from nmftpu_torch.init import initialize_factors, run_generator
 from nmftpu_torch.linalg import dense as D
 from nmftpu_torch.loop import (
@@ -21,6 +21,26 @@ from nmftpu_torch.loop import (
 )
 
 __all__ = ["compute", "NmfResult", "RunStats"]
+
+
+def _stacked_update(config: NmfConfig):
+    """The update on stacked factors for the routes whose math is
+    batched GEMMs as it stands: plain float32 Gauss–Seidel MU under the
+    Frobenius or KL objective (`linalg.dense.mu_update_frobenius` /
+    `mu_update_kl` on (S, n, r) / (S, r, m)); None for every other route
+    (a kernel, a low-precision V, a solver), which the lockstep runner
+    updates slot by slot."""
+    plain = (config.algorithm is Algorithm.MU and config.v_storage ==
+             "float32" and not config.use_pallas
+             and config.alpha_confidence == 0.0
+             and config.mu_style != "jacobi"
+             and config.objective in (Objective.FROBENIUS, Objective.KL))
+    if not plain:
+        return None
+    eps, order = config.eps, config.update_order
+    fn = (D.mu_update_kl if config.objective is Objective.KL
+          else D.mu_update_frobenius)
+    return lambda V, W, H: fn(V, W, H, eps=eps, order=order)
 
 
 def _dense_ops(config: NmfConfig) -> LoopOps:
@@ -43,6 +63,7 @@ def _dense_ops(config: NmfConfig) -> LoopOps:
         kl=divergence,
         sum_v_sq=lambda V: torch.sum(V * V),
         numel=lambda V: V.shape[0] * V.shape[1],
+        stacked_update=_stacked_update(config),
     )
 
 

@@ -27,17 +27,19 @@ import torch
 
 
 def mu_update_w_frobenius(V, W, H, eps):
-    """W <- W * (V H^T) / (W (H H^T) + eps).   One Lee–Seung half-step."""
-    numer = V @ H.T                      # (n, r)   O(nmr)
-    HHt = H @ H.T                        # (r, r)   O(mr^2)
+    """W <- W * (V H^T) / (W (H H^T) + eps).   One Lee–Seung half-step.
+    Stacked factors (S, n, r) / (S, r, m) with V (n, m) or (S, n, m) run
+    as batched GEMMs (the lockstep runner's `stacked_update`)."""
+    numer = V @ H.mT                     # (n, r)   O(nmr)
+    HHt = H @ H.mT                       # (r, r)   O(mr^2)
     denom = W @ HHt + eps                # (n, r)   O(nr^2)
     return W * (numer / denom)
 
 
 def mu_update_h_frobenius(V, W, H, eps):
-    """H <- H * (W^T V) / ((W^T W) H + eps)."""
-    numer = W.T @ V                      # (r, m)
-    WtW = W.T @ W                        # (r, r)
+    """H <- H * (W^T V) / ((W^T W) H + eps); stacked as the W step."""
+    numer = W.mT @ V                     # (r, m)
+    WtW = W.mT @ W                       # (r, r)
     denom = WtW @ H + eps                # (r, m)
     return H * (numer / denom)
 
@@ -94,18 +96,20 @@ def mu_update_frobenius(V, W, H, eps=1e-9, order="WH"):
 
 
 def mu_update_w_kl(V, W, H, eps):
-    """KL half-step: W <- W * ((V / (WH)) H^T) / (row-broadcast sum_j H)."""
+    """KL half-step: W <- W * ((V / (WH)) H^T) / (row-broadcast sum_j H);
+    stacked factors as `mu_update_w_frobenius`."""
     ratio = V / (W @ H + eps)            # (n, m)
-    numer = ratio @ H.T                  # (n, r)
-    denom = torch.clamp(torch.sum(H, dim=1), min=eps)[None, :]
+    numer = ratio @ H.mT                 # (n, r)
+    denom = torch.clamp(torch.sum(H, dim=-1), min=eps).unsqueeze(-2)
     return W * (numer / denom)
 
 
 def mu_update_h_kl(V, W, H, eps):
-    """KL half-step: H <- H * (W^T (V / (WH))) / (col-broadcast sum_i W)."""
+    """KL half-step: H <- H * (W^T (V / (WH))) / (col-broadcast sum_i W);
+    stacked factors as `mu_update_w_frobenius`."""
     ratio = V / (W @ H + eps)
-    numer = W.T @ ratio                  # (r, m)
-    denom = torch.clamp(torch.sum(W, dim=0), min=eps)[:, None]
+    numer = W.mT @ ratio                 # (r, m)
+    denom = torch.clamp(torch.sum(W, dim=-2), min=eps).unsqueeze(-1)
     return H * (numer / denom)
 
 

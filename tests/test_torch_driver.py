@@ -257,8 +257,11 @@ def test_numpy_input_without_a_device_needs_cuda(monkeypatch):
     ({"data": np.ones(5, np.float32)}, ValueError),
     ({"mesh": object()}, NotImplementedError),
     # the k-means and NNDSVD inits are ported in slice 4b-i
-    # (test_torch_init.py); this id now holds what still raises with them
-    pytest.param({"init": "kmeans", "vectorize_runs": True, "num_runs": 2},
+    # (test_torch_init.py), vectorize_runs in slice 5
+    # (test_torch_batched.py); this id now holds what still raises with
+    # them: mesh= (slice 6)
+    pytest.param({"init": "kmeans", "vectorize_runs": True, "num_runs": 2,
+                  "mesh": object()},
                  NotImplementedError, id="bad3-NotImplementedError"),
     pytest.param({"init": "copy"}, ValueError, id="bad5-ValueError"),
 ])
@@ -321,17 +324,18 @@ def test_registry_routes(monkeypatch, knobs, route):
     # beta MU (slice 10, test_torch_beta_engines.py), the dense ALS
     # family, GDCLS, nsNMF and the k-means and NNDSVD inits (slice 4b-i,
     # test_torch_als_family.py, test_torch_init.py; iALS's refusal is
-    # test_torch_als_family.py::test_ials_still_raises); these cases keep
-    # their ids and now hold what still raises
+    # test_torch_als_family.py::test_ials_still_raises) and vectorize_runs
+    # (slice 5, test_torch_batched.py); these cases keep their ids and now
+    # hold what still raises: mesh= (slice 6)
     pytest.param({"objective": "beta", "beta": 0.5, "mesh": object()},
                  "slice 6", id="knobs3-slice 4"),
     pytest.param({"algorithm": "gdcls", "v_storage": "int8",
-                  "vectorize_runs": True, "num_runs": 2}, "slice 5",
-                 id="knobs4-slice 4"),
+                  "vectorize_runs": True, "num_runs": 2, "mesh": object()},
+                 "slice 6", id="knobs4-slice 4"),
     pytest.param({"algorithm": "nsnmf", "mesh": object()}, "slice 6",
                  id="knobs5-slice 3"),
-    pytest.param({"vectorize_runs": True, "num_runs": 2}, "slice 5",
-                 id="knobs7-slice 5"),
+    pytest.param({"vectorize_runs": True, "num_runs": 2, "mesh": object()},
+                 "slice 6", id="knobs7-slice 5"),
 ])
 def test_unported_configurations_raise(knobs, where):
     with pytest.raises(NotImplementedError, match=where):

@@ -281,8 +281,9 @@ def test_unported_inits_raise(init):
     """Both inits are ported on sparse V (slice 4b-ii,
     `tests/test_torch_sparse_init.py`): nonnegative factors of the
     requested shapes in V's dtype, NNDSVD equal to nmftpu's (the same
-    svds of the same host CSR); what still raises with them is
-    vectorize_runs (slice 5)."""
+    svds of the same host CSR); with vectorize_runs (slice 5) two
+    restarts in lockstep give the sequential restarts' errors (rtol
+    1e-5)."""
     dense, jc, tc = _coos()
     W, H = TS.sparse_initialize_factors(tc, RANK, init, torch.Generator())
     assert W.shape == (dense.shape[0], RANK) and H.shape == (RANK,
@@ -295,9 +296,12 @@ def test_unported_inits_raise(init):
         np.testing.assert_array_equal(W.numpy(), np.asarray(jW))
         np.testing.assert_array_equal(H.numpy(), np.asarray(jH))
     _, _, tsp = _matrix()
-    with pytest.raises(NotImplementedError, match="slice 5"):
-        nt.nmf(tsp, RANK, init=init, num_runs=2, vectorize_runs=True,
-               device="cpu", num_iterations=1)
+    seq = nt.nmf(tsp, RANK, init=init, num_runs=2, device="cpu",
+                 num_iterations=1)
+    vec = nt.nmf(tsp, RANK, init=init, num_runs=2, vectorize_runs=True,
+                 device="cpu", num_iterations=1)
+    np.testing.assert_allclose(vec.run_errors, seq.run_errors, rtol=1e-5)
+    assert vec.best_run == seq.best_run
 
 
 # ---------------------------------------------------------------------------
@@ -374,26 +378,26 @@ def test_densify_budget_reads_the_environment():
     # test_torch_int8_densified.py), the beta divergence on every engine
     # in slice 10 (test_torch_beta_engines.py), every other algorithm and
     # init on sparse V in slices 4b-ii and 4c (test_torch_sparse_
-    # algorithms.py, test_torch_ials.py, test_torch_sparse_init.py);
-    # these ids now hold what still raises with each of them:
-    # vectorize_runs (slice 5) and mesh= (slice 6)
+    # algorithms.py, test_torch_ials.py, test_torch_sparse_init.py),
+    # vectorize_runs in slice 5 (test_torch_batched.py); these ids now
+    # hold what still raises with each of them: mesh= (slice 6)
     pytest.param(dict(algorithm="als", alpha_confidence=2.0,
-                      vectorize_runs=True, num_runs=2), "slice 5",
-                 id="knobs0-confidence weighting"),
+                      vectorize_runs=True, num_runs=2, mesh=object()),
+                 "slice 6", id="knobs0-confidence weighting"),
     pytest.param(dict(algorithm="als", mask="observed", mesh=object()),
                  "slice 6", id="knobs1-masked completion"),
     pytest.param(dict(objective="beta", beta=0.5, init="nndsvd",
-                      vectorize_runs=True, num_runs=2), "slice 5",
-                 id="knobs2-beta-divergence"),
+                      vectorize_runs=True, num_runs=2, mesh=object()),
+                 "slice 6", id="knobs2-beta-divergence"),
     pytest.param(dict(v_storage="int8", objective="beta", beta=0.5,
                       init="kmeans_random", mesh=object()), "slice 6",
                  id="knobs3-int8"),
-    pytest.param(dict(algorithm="hals", vectorize_runs=True, num_runs=2),
-                 "slice 5", id="knobs4-hals"),
+    pytest.param(dict(algorithm="hals", vectorize_runs=True, num_runs=2,
+                      mesh=object()), "slice 6", id="knobs4-hals"),
     pytest.param(dict(algorithm="als", mesh=object()), "slice 6",
                  id="knobs5-als"),
-    pytest.param(dict(algorithm="nsnmf", vectorize_runs=True, num_runs=2),
-                 "slice 5", id="knobs6-nsnmf"),
+    pytest.param(dict(algorithm="nsnmf", vectorize_runs=True, num_runs=2,
+                      mesh=object()), "slice 6", id="knobs6-nsnmf"),
     pytest.param(dict(algorithm="gdcls", mesh=object()), "slice 6",
                  id="knobs7-gdcls"),
 ])
