@@ -3,7 +3,8 @@
 
     python3 chip_profile.py [--out DIR]
                             [--cells dense,serving,sparse,slice8,foldin,beta,
-                                     algorithms,sparse_algorithms,surfaces]
+                                     algorithms,sparse_algorithms,surfaces,
+                                     sharded]
 
 Two shapes -- 4096 x 4096 at rank 256 (bench.py's headline) and the
 ML-20M shape 138,493 x 26,744 at rank 64, with chip_smoke.py's synthetic
@@ -79,7 +80,13 @@ rows each, each panel densified on the host), compute_batched (8 x
 4096^2, rank 256; plain, the float32 and int8 MU kernels, HALS) and 4
 vectorized restarts (MU kernels, HALS) over 4 iterations: host-clock ms
 per iteration or panel, device ms per iteration or panel by class and
-the idle share. --cells picks a subset of the nine cells. Every line
+the idle share. Then slice 6a's grid engine (cell "sharded",
+chip_smoke.py's phase 24 (a)): one rank of the port's launcher under
+NCCL, a 1 x 1 mesh, one device's share of BASELINE config 4 (12,500,000
+x 2,500,000 from 156,250,000 power-law draws, rank 256): one MU-Frobenius
+iteration of the sharded update on the ELL and the scatter tiles, each
+profiled after a warm-up iteration: CUDA-event ms, device ms by class and
+the idle share. --cells picks a subset of the ten cells. Every line
 ends with the card's nvidia-smi name and power limit.
 The profiler traces and summary.json go to --out (default: profile_out/
 beside this script). Exits 1 without a CUDA device.
@@ -132,7 +139,7 @@ BETA_PROFILE_ITERS = 2
 # shape
 FAMILY_PROFILE_ITERS = 10
 CELLS = ("dense", "serving", "sparse", "slice8", "foldin", "beta",
-         "algorithms", "sparse_algorithms", "surfaces")
+         "algorithms", "sparse_algorithms", "surfaces", "sharded")
 # the sparse algorithms: iterations profiled at config 2 and for config 3's
 # iALS
 S12_PROFILE_ITERS = 2
@@ -318,6 +325,14 @@ def main() -> None:
         sparse_algorithms_cell(nt, dev, card, out, summary)
     if "surfaces" in cells:
         surfaces_cell(nt, dev, card, out, summary)
+    if "sharded" in cells:
+        from nmftpu_torch.kernels import _build
+        from nmftpu_torch.parallel import launch
+
+        _build.build()  # the rank loads it
+        torch.cuda.empty_cache()
+        summary["sharded"] = launch(sharded_rank, 1, args=(str(out), card),
+                                    backend="nccl", timeout=1200)[0]
 
     if "jax" in sys.modules:
         fail("jax was imported")
@@ -842,6 +857,57 @@ def surfaces_cell(nt, dev, card, out, summary) -> None:
                                     device=dev, **knobs), its)
     del V0
     torch.cuda.empty_cache()
+
+
+def sharded_rank(out: str, card: str) -> dict:
+    """The "sharded" cell, in a one-rank NCCL world of the launcher: one
+    sharded MU-Frobenius iteration at config 4's one-device share on each
+    tile engine, profiled."""
+    from nmftpu_torch.config import Initialization, NmfConfig
+    from nmftpu_torch.data.synthetic import synthetic_powerlaw_sparse
+    from nmftpu_torch.parallel import make_grid_mesh, prepare_sharded
+    from nmftpu_torch.parallel.driver import _sharded_ops
+
+    from chip_smoke import C4_DRAWS, C4_RANK, C4_SEED, C4_SHAPE
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda")
+    mesh = make_grid_mesh((1, 1))
+    n, m = C4_SHAPE
+    r = C4_RANK
+    t0 = time.perf_counter()
+    sp = synthetic_powerlaw_sparse(n, m, C4_DRAWS, seed=C4_SEED)
+    gen_s = time.perf_counter() - t0
+    cfg = NmfConfig(rank=r, init_method=Initialization.COPY_EXISTING,
+                    num_iterations=1)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 24)
+    scale = (float(sp.data.sum(dtype=np.float64)) / (n * m) / r) ** 0.5
+    summary = {"nnz": int(sp.nnz), "generator_s": gen_s}
+    for engine in ("ell", "scatter"):
+        plan = prepare_sharded(sp, cfg, mesh=mesh, balance=False,
+                               chunk=1 << 17, engine=engine)
+        ops = _sharded_ops(cfg, mesh, plan.engine, n, m, plan.nnz)
+        W = (torch.rand(n, r, generator=gen, device=dev) + 1e-4) * scale
+        H = (torch.rand(r, m, generator=gen, device=dev) + 1e-4) * scale
+        W, H = ops.update(plan.operand, (), W, H)     # warm-up
+        ms = cuda_ms(lambda: ops.update(plan.operand, (), W, H), 1)
+        trace = Path(out) / f"sharded_config4_{engine}.json"
+        with torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            ops.update(plan.operand, (), W, H)
+            torch.cuda.synchronize()
+        prof.export_chrome_trace(str(trace))
+        row = {"ms_per_iter": ms, **device_summary(trace, 1)}
+        summary[engine] = row
+        say("profile", cell="sharded_config4_1x1", path=engine,
+            nnz=sp.nnz, ms_per_iter=f"{ms:.1f}",
+            device_ms_per_iter={k: round(v, 2) for k, v in
+                                row["device_ms_per_iter"].items()},
+            idle_share=f"{row['idle_share']:.4f}", card=card)
+        del plan, ops, W, H
+        torch.cuda.empty_cache()
+    return summary
 
 
 if __name__ == "__main__":

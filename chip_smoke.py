@@ -137,6 +137,30 @@ nmftpu_torch on config 1's ratings written as u.data (recall@10, a
 saved bundle that Recommender.load reads onto the card, one JSONL record
 per check); (h) native/test_capi.c compiled unchanged against the
 port's C ABI (nmftpu_torch.capi.build()) and run on the card.
+Phase 24 drives slice 6a, the multi-GPU layer, through the port's
+launcher (nmftpu_torch.parallel.launch: spawned ranks, a FileStore; any
+rank's failure fails the script): (a) one rank under NCCL on a 1 x 1 mesh
+at one device's share of BASELINE config 4 on an 8 x 4 grid (12,500,000 x
+2,500,000, rank 256, 156,250,000 power-law draws from the port's
+generator, made in a background process while phases 2-23 run): MU
+Frobenius through prepare_sharded / run on ELL (2 iterations) and
+scatter (1), each half of one iteration against compute_sparse from the
+same W0/H0 (1e-4, or 8 sqrt(K) 2^-24 for sums of K > 175,000 terms), ms
+per iteration and peak memory; (b) four ranks sharing the card on a 2 x 2
+gloo mesh at config 2 (phase 10's ratings, phase 22's W0/H0): MU
+Frobenius and KL on ELL and scatter, HALS (#7, two launches an iteration
+on every rank) and iALS (alpha 40) on scatter, each half of one
+iteration against the 1 x 1 run and compute_sparse, the error after 4
+against the 1 x 1 run, the bytes staged through the host for gloo, which
+gloo collectives take CUDA tensors, and #7 against its twin on each
+rank's operands; (c) four ranks on a 1 x 4 mesh serving config 5, each
+holding a quarter of
+phase 8's int8 table: recommend on the reservoir kernel (#8 on each
+rank), the exact sharded scan, recommend_certified(fallback="exact")
+with the count kernel (#9 on each rank), against the unsharded exact scan
+(recall@100, rows not exact, seen violations), #8 and #9 against their
+twins on each rank's slice. Times of ranks sharing one card say nothing
+about scaling.
 Every phase prints its results; any failure exits non-zero, as does a
 kernel timed below its bound. Without a CUDA device it exits 1 and runs
 nothing.
@@ -149,13 +173,14 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import os
 import re
 import shutil
 import subprocess
 import sys
 import time
 import warnings
-from concurrent.futures import ThreadPoolExecutor
+from concurrent.futures import ProcessPoolExecutor, ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -427,6 +452,37 @@ BATCH, BATCH_ITERS = 8, 20
 BATCH_SHAPE = (4096, 256)   # n = m, r
 VEC_RUNS = 4
 RANKS = (16, 32, 64)
+
+# phase 24: slice 6a, the 2-D grid and sharded serving over the port's
+# launcher. (a) one rank, NCCL, a 1 x 1 mesh, at one device's share of
+# BASELINE config 4 on an 8 x 4 grid: 100M x 10M / 32 devices, the graded
+# script's power-law generator (alphas 1.1, seed 3) and 50 ratings a user
+# (5e9 draws / 32), rank 256; duplicate draws collapse, so the tile's
+# nonzeros are read from the result. MU-Frobenius on ELL and scatter
+# through prepare_sharded / run, each half of one iteration against
+# compute_sparse (scatter) from the same W0/H0 (grid_config's orders):
+# float32 sums of up to the tile's longest row's or column's K terms in
+# another order (gathers against atomics), ~sqrt(K) 2^-24 apart; held at
+# GRID_STEP_RTOL as phase 22 holds ELL against scatter (7x its sqrt(K)
+# 2^-24 there), or at the same margin, 8 sqrt(K) 2^-24, where K passes
+# 175,000 (config 4's head rows and columns hold ~10^6 nonzeros). (b)
+# four ranks sharing the card (gloo), a 2 x 2 mesh, config 2 (phase 10's
+# ratings, phase 22's W0/H0): MU Frobenius and KL on ELL and scatter, HALS
+# and iALS (alpha 40) on scatter; each half of one iteration against the
+# 1 x 1 run and compute_sparse at GRID_STEP_RTOL (HALS at HALS_ATOL of
+# max|W|: the sweep's clamp and hessian division amplify the reordering,
+# as phase 13 holds #7), the error after GRID_ITERS against the 1 x 1 run
+# at GRID_ERR_RTOL (a float32 ulp can flip a clamp after the first step).
+# (c) four ranks on a 1 x 4 mesh, config 5 at full width, each holding a
+# quarter of phase 8's int8 table.
+C4_SHAPE = (12_500_000, 2_500_000)
+C4_DRAWS = 156_250_000
+C4_RANK, C4_SEED = 256, 3
+GRID_STEP_RTOL = 1e-4
+GRID_ERR_RTOL = 1e-3
+GRID_ITERS = 4
+GRID_RANKS, GRID_SHAPE, SERVE_GRID = 4, (2, 2), (1, 4)
+GRID_TIMEOUT = 600
 
 # the card's peaks (NVIDIA's H100 SXM data sheet, dense): float32 on the
 # CUDA cores, bf16 and int8 on the tensor cores, HBM bandwidth
@@ -3164,11 +3220,12 @@ def row_systems64(csr, idx, P, alpha, lam, masked, eps=1e-9, x0=None,
     return torch.clamp(x, min=0.0), torch.linalg.cond(A)
 
 
-def per_row_check(got, want, kappas, r, extra=None) -> tuple:
+def per_row_check(got, want, kappas, r, extra=None, scale=1.0) -> tuple:
     """Each row's max|a - b| / max|b| (0 where both are 0) against its
     own SOLVE_FACTOR sqrt(r) kappa 2^-24 (+ `extra` kappa, the
-    propagated difference of an input): (worst ratio, worst rel, its
-    kappa)."""
+    propagated difference of an input), times `scale` (2 for two float32
+    solves, each within the limit of float64): (worst ratio, worst rel,
+    its kappa)."""
     diff = (got.double() - want).abs().amax(dim=1)
     top = torch.maximum(want.abs().amax(dim=1), got.double().abs().amax(
         dim=1)).clamp_min(torch.finfo(torch.float64).tiny)
@@ -3176,6 +3233,7 @@ def per_row_check(got, want, kappas, r, extra=None) -> tuple:
     limit = SOLVE_FACTOR * r ** 0.5 * kappas * 2.0 ** -24
     if extra is not None:
         limit = limit + kappas * extra
+    limit = scale * limit
     k = int(torch.argmax(rel / limit))
     return float((rel / limit)[k]), float(rel[k]), float(kappas[k])
 
@@ -4450,12 +4508,664 @@ def surfaces_phase(nt, card, dev, ratings, max_abs) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 24: the 2-D grid and sharded serving (slice 6a). The rank programs
+# below run in the processes of the port's launcher (spawned: each imports
+# this file as a module, so they may use its helpers)
+# ---------------------------------------------------------------------------
+
+
+def c4_tile(path: str) -> tuple[str, float, int]:
+    """One device's share of config 4 from the port's generator, saved as
+    (row, col, data) at `path`; run in a background process while the
+    earlier phases use the card. Returns (path, seconds, nonzeros)."""
+    from nmftpu_torch.data.synthetic import synthetic_powerlaw_sparse
+
+    t0 = time.perf_counter()
+    sp = synthetic_powerlaw_sparse(*C4_SHAPE, C4_DRAWS, seed=C4_SEED)
+    np.savez(path, row=sp.row, col=sp.col, data=sp.data)
+    return path, time.perf_counter() - t0, int(sp.nnz)
+
+
+GRID_CASES = (("mu-frobenius", "ell"), ("mu-frobenius", "scatter"),
+              ("mu-kl", "ell"), ("mu-kl", "scatter"), ("hals", "scatter"),
+              ("ials", "scatter"))
+
+
+def grid_config(kind: str, iters: int, rank: int = SPARSE_RANK,
+                order: str = "WH"):
+    """Phase 24's configs. One iteration in order "WH" takes the W half
+    from (W0, H0), in order "HW" the H half: each half is held against
+    its reference from the same inputs, as phase 22 holds them."""
+    from nmftpu_torch.config import (Algorithm, Initialization, NmfConfig,
+                                     Objective)
+
+    knobs = {"mu-frobenius": {}, "mu-kl": dict(objective=Objective.KL),
+             "hals": dict(algorithm=Algorithm.HALS),
+             "ials": dict(algorithm=Algorithm.ALS,
+                          alpha_confidence=40.0)}[kind]
+    return NmfConfig(rank=rank, init_method=Initialization.COPY_EXISTING,
+                     num_iterations=iters, check_interval=1,
+                     update_order=order, **knobs)
+
+
+def load_ratings(path):
+    from nmftpu_torch.sparse import SparseCSR
+
+    z = np.load(path)
+    return SparseCSR(z["indptr"], z["indices"], z["data"],
+                     tuple(int(x) for x in z["shape"]))
+
+
+def grid_runs(mesh, sp, W0, H0, keep_factors: bool):
+    """The cases of phase 24 (b) on `mesh` from W0/H0: one iteration in
+    each order (its first half's factor kept where asked) and GRID_ITERS
+    (not iALS), each run's #7 launches, staged bytes and seconds. Returns
+    (results, plans)."""
+    from nmftpu_torch.kernels import hals_sweep as HS
+    from nmftpu_torch.parallel import STAGED_BYTES, prepare_sharded
+
+    plans, out = {}, {}
+    for kind, engine in GRID_CASES:
+        if engine not in plans:
+            t0 = time.perf_counter()
+            plans[engine] = prepare_sharded(sp, grid_config(kind, 1),
+                                            mesh=mesh, engine=engine,
+                                            chunk=1 << 17)
+            out[f"prepare-{engine}"] = time.perf_counter() - t0
+        got = {}
+        # the HW run first: it also warms the engine up for the timed pair
+        runs = [(1, "HW"), (1, "WH")]
+        if kind != "ials":
+            runs.append((GRID_ITERS, "WH"))
+        for iters, order in runs:
+            hals, staged = HS.LAUNCHES["hals_sweep"], sum(STAGED_BYTES
+                                                          .values())
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = plans[engine].run(grid_config(kind, iters, order=order),
+                                    W0=W0, H0=H0)
+            torch.cuda.synchronize()
+            got[iters, order] = dict(
+                secs=time.perf_counter() - t0, error=res.error,
+                fro=res.frobenius_error, kl=res.kl_error,
+                hals=HS.LAUNCHES["hals_sweep"] - hals,
+                staged=sum(STAGED_BYTES.values()) - staged)
+            if iters == 1 and keep_factors:
+                got[order] = (res.W if order == "WH" else res.H).cpu().numpy()
+            del res
+        out[f"{kind}-{engine}"] = got
+    return out, plans
+
+
+def rel_host(X, Y, rows=1 << 20) -> float:
+    """max |X - Y| / max |Y| for a host tensor X and a card tensor Y of
+    one shape, over row panels (no second card-sized copy)."""
+    diff = 0.0
+    for lo in range(0, Y.shape[0], rows):
+        d = (X[lo:lo + rows].to(Y.device) - Y[lo:lo + rows]).abs().max()
+        diff = max(diff, float(d))
+    return diff / float(Y.abs().max())
+
+
+def h_half64(sp, W, H0, cols, eps, chunk=1 << 20):
+    """The MU-Frobenius H half from (W, H0) in float64 on columns `cols`
+    of the host COO sp: H0 ⊙ Wᵀv / (WᵀW H0 + eps), W on the card, its
+    Gram summed over row panels. Returns (r, len(cols)) on the card."""
+    dev, r = W.device, W.shape[1]
+    G = torch.zeros((r, r), dtype=torch.float64, device=dev)
+    for lo in range(0, W.shape[0], chunk):
+        P = W[lo:lo + chunk].double()
+        G += P.T @ P
+    keep = np.flatnonzero(np.isin(sp.col, cols))
+    slot = np.searchsorted(cols, sp.col[keep])
+    num = torch.zeros((len(cols), r), dtype=torch.float64, device=dev)
+    for lo in range(0, len(keep), chunk):
+        k = keep[lo:lo + chunk]
+        rows = torch.as_tensor(sp.row[k].astype(np.int64), device=dev)
+        v = torch.as_tensor(sp.data[k].astype(np.float64), device=dev)
+        num.index_add_(0, torch.as_tensor(slot[lo:lo + chunk], device=dev),
+                       W[rows].double() * v[:, None])
+    H0s = H0[:, torch.as_tensor(cols)].to(dev).double()
+    return H0s * num.T / (G @ H0s + eps)
+
+
+def grid_one_rank(c4_path, ratings_path, W0, H0):
+    """Phase 24 (a), and the 1 x 1 runs and compute_sparse references of
+    (b): one rank of the launcher's NCCL world, a 1 x 1 mesh."""
+    import torch.distributed as dist
+
+    from nmftpu_torch import sparse_ops as TS
+    from nmftpu_torch.parallel import make_grid_mesh, prepare_sharded
+    from nmftpu_torch.parallel.driver import _sharded_ops
+    from nmftpu_torch.sparse import SparseCOO
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda")
+    mesh = make_grid_mesh((1, 1))
+    out = {"backend": dist.get_backend(), "world": dist.get_world_size()}
+
+    # (a) one device's share of config 4
+    n, m = C4_SHAPE
+    r = C4_RANK
+    z = np.load(c4_path)
+    sp = SparseCOO(row=z["row"], col=z["col"], data=z["data"], shape=C4_SHAPE)
+    del z
+    gen = torch.Generator(device=dev).manual_seed(SEED + 24)
+    scale = (float(sp.data.sum(dtype=np.float64)) / (n * m) / r) ** 0.5
+    W0c = ((torch.rand(n, r, generator=gen, device=dev) + 1e-4) * scale).cpu()
+    H0c = ((torch.rand(r, m, generator=gen, device=dev) + 1e-4) * scale).cpu()
+    torch.cuda.empty_cache()
+    cfg = grid_config("mu-frobenius", 1, rank=r)
+    a = {"nnz": int(sp.nnz)}
+    host, halves = {}, {}
+    for engine in ("ell", "scatter"):
+        t0 = time.perf_counter()
+        plan = prepare_sharded(sp, cfg, mesh=mesh, balance=False,
+                               chunk=1 << 17, engine=engine)
+        torch.cuda.synchronize()
+        got = {"prepare_s": time.perf_counter() - t0}
+        torch.cuda.reset_peak_memory_stats()
+        hw = plan.run(dataclasses.replace(cfg, update_order="HW"), W0=W0c,
+                      H0=H0c, unpermute=False)
+        H1 = hw.H.cpu()
+        del hw
+        t0 = time.perf_counter()
+        res = plan.run(W0=W0c, H0=H0c, unpermute=False)
+        torch.cuda.synchronize()
+        got["run1_s"] = time.perf_counter() - t0
+        got["error1"] = res.frobenius_error
+        host[engine] = (res.W.cpu(), H1, res.H.cpu())
+        halves[engine] = H1
+        # one more iteration on the run's factors, timed by CUDA events
+        ops = _sharded_ops(cfg, mesh, plan.engine, n, m, plan.nnz)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        W2, H2 = ops.update(plan.operand, (), res.W, res.H)
+        end.record()
+        end.synchronize()
+        got["update_ms"] = start.elapsed_time(end)
+        del res, W2, H2
+        if engine == "ell":
+            stamps = []
+            res = plan.run(dataclasses.replace(cfg, num_iterations=2),
+                           W0=W0c, H0=H0c, unpermute=False,
+                           callback=lambda *a: stamps.append(
+                               time.perf_counter()))
+            got["iteration_with_check_ms"] = (stamps[1] - stamps[0]) * 1e3
+            got["errors"] = res.stats.errors.tolist()
+            del res
+        got["peak_GiB"] = torch.cuda.max_memory_allocated() / 2**30
+        a[engine] = got
+        del plan, ops
+        torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    ref = TS.compute_sparse(sp, cfg, W0=W0c, H0=H0c, strategy="scatter",
+                            device=dev)
+    torch.cuda.synchronize()
+    a["compute_sparse"] = dict(secs=time.perf_counter() - t0,
+                               error1=ref.frobenius_error,
+                               peak_GiB=torch.cuda.max_memory_allocated()
+                               / 2**30)
+    for engine, (Wx, _, Hw) in host.items():
+        a[engine]["W_rel"] = rel_host(Wx, ref.W)
+        # H after the grid's own W half
+        a[engine]["H_after_W_rel"] = rel_host(Hw.T, ref.H.T)
+    a["finite"] = bool(torch.isfinite(ref.W).all() and
+                       torch.isfinite(ref.H).all())
+    # each engine's H half from compute_sparse's own W half (ref.H's very
+    # inputs), and all three against float64 on sampled columns: the
+    # columns where ELL and compute_sparse differ most, the longest and
+    # some at random
+    for engine in ("ell", "scatter"):
+        plan = prepare_sharded(sp, cfg, mesh=mesh, balance=False,
+                               chunk=1 << 17, engine=engine)
+        hw = plan.run(dataclasses.replace(cfg, update_order="HW"),
+                      W0=ref.W, H0=H0c, unpermute=False)
+        host[engine] = hw.H.cpu()
+        del plan, hw
+        torch.cuda.empty_cache()
+    top = float(ref.H.abs().max())
+    gap = (host["ell"].to(dev) - ref.H).abs().amax(dim=0)
+    a["ell"]["H_from_reference_W_rel"] = float(gap.max()) / top
+    a["scatter"]["H_from_reference_W_rel"] = rel_host(host["scatter"].T,
+                                                      ref.H.T)
+    col_nnz = np.bincount(sp.col, minlength=m)
+    rng = np.random.default_rng(SEED + 24)
+    cols = np.unique(np.concatenate([
+        torch.topk(gap, 32).indices.cpu().numpy(),
+        np.argsort(col_nnz)[-16:], rng.choice(m, 16, replace=False)]))
+    del gap
+    H64 = h_half64(sp, ref.W, H0c, cols, cfg.eps)
+    f64 = {}
+    for label, Hx in (("ell", host["ell"]), ("scatter", host["scatter"]),
+                      ("compute_sparse", ref.H)):
+        d = (Hx[:, torch.as_tensor(cols, device=Hx.device)].to(dev).double()
+             - H64).abs().amax(dim=0) / top
+        k = int(torch.argmax(d))
+        f64[label] = (float(d[k]), int(col_nnz[cols[k]]))
+    a["float64"] = f64
+    a["float64_columns"] = len(cols)
+    del ref, H64
+    torch.cuda.empty_cache()
+    ref = TS.compute_sparse(sp, dataclasses.replace(cfg, update_order="HW"),
+                            W0=W0c, H0=H0c, strategy="scatter", device=dev)
+    for engine, Hx in halves.items():
+        a[engine]["H_rel"] = rel_host(Hx.T, ref.H.T)
+    # the longest row and column: their sums set the reordering error
+    a["longest"] = (int(np.bincount(sp.row).max()),
+                    int(np.bincount(sp.col).max()))
+    out["a"] = a
+    del ref, host, halves, sp, W0c, H0c
+    torch.cuda.empty_cache()
+
+    # (b)'s references at config 2: the same cases on the 1 x 1 mesh, and
+    # one iteration of compute_sparse on the same engine
+    ratings = load_ratings(ratings_path)
+    out["one"], _ = grid_runs(mesh, ratings, W0, H0, keep_factors=True)
+    sparse_plans, refs = {}, {}
+    for kind, engine in GRID_CASES:
+        if engine not in sparse_plans:
+            sparse_plans[engine] = TS.prepare_sparse(
+                ratings, grid_config(kind, 1), strategy=engine, device=dev)
+        wh = sparse_plans[engine].run(grid_config(kind, 1), W0=W0, H0=H0)
+        hw = sparse_plans[engine].run(grid_config(kind, 1, order="HW"),
+                                      W0=W0, H0=H0)
+        refs[f"{kind}-{engine}"] = (wh.W.cpu().numpy(), hw.H.cpu().numpy(),
+                                    wh.frobenius_error)
+    out["sparse"] = refs
+    return out
+
+
+def grid_four_ranks(ratings_path, W0, H0):
+    """Phase 24 (b): one rank of four sharing the card (gloo), a 2 x 2
+    mesh, config 2."""
+    import torch.distributed as dist
+
+    from nmftpu_torch.kernels import hals_sweep as HS
+    from nmftpu_torch.parallel import STAGED_BYTES, make_grid_mesh, psum
+    from nmftpu_torch.sparse_ops import v_ht
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mesh = make_grid_mesh(GRID_SHAPE)
+    rank = dist.get_rank()
+    ratings = load_ratings(ratings_path)
+    out = {"rank": rank, "backend": dist.get_backend(),
+           "coords": (mesh.get_local_rank("users"),
+                      mesh.get_local_rank("items"))}
+    out["cases"], plans = grid_runs(mesh, ratings, W0, H0,
+                                    keep_factors=rank == 0)
+    out["staged"] = dict(STAGED_BYTES)
+    # #7 against its twin on this rank's own operands of a HALS W sweep
+    plan = plans["scatter"]
+    res = plan.run(grid_config("hals", 1), W0=W0, H0=H0, unpermute=False)
+    local = plan.operand.local()
+    XHt = psum(v_ht(local, res.H), mesh, "items")
+    G = psum(res.H @ res.H.T, mesh, "items")
+    got = HS.hals_sweep(XHt, G, res.W)
+    want = HS.hals_sweep_plain(XHt, G, res.W)
+    torch.cuda.synchronize()
+    out["hals_twin"] = (float((got - want).abs().max()),
+                        float(want.abs().max()), tuple(XHt.shape))
+    return out
+
+
+def serving_four_ranks(users):
+    """Phase 24 (c): one rank of four sharing the card (gloo), a 1 x 4
+    mesh, config 5 at full width. The ranks take turns to make phase 8's
+    factors and keep their quarter of its int8 table."""
+    import torch.distributed as dist
+
+    from nmftpu_torch.kernels import count_above as CA
+    from nmftpu_torch.kernels import mips_reservoir as MR
+    from nmftpu_torch.parallel import make_grid_mesh
+    from nmftpu_torch.serving import Recommender
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda")
+    mesh = make_grid_mesh(SERVE_GRID)
+    rank, world = dist.get_rank(), dist.get_world_size()
+    for turn in range(world):
+        if turn == rank:
+            W8, H8, train = serving_data(
+                torch.Generator(device=dev).manual_seed(SEED + 8), dev)
+            rec = Recommender(W8, H8, train=train, mesh=mesh,
+                              method="reservoir", table_dtype="int8")
+            exact = Recommender(W8, H8, train=train, mesh=mesh,
+                                method="exact", table_dtype="int8")
+            del W8, H8
+            torch.cuda.empty_cache()
+        dist.barrier()
+    out = {"rank": rank, "m_local": int(rec.H.shape[1])}
+    before = (MR.LAUNCHES["reservoir_scan"], CA.LAUNCHES["count_above"],
+              CA.band_pairs())
+    out["reservoir"] = rec.recommend(users, k=SERVE_K)
+    out["exact"] = exact.recommend(users, k=SERVE_K + 1)
+    out["certified"] = rec.recommend_certified(users, k=SERVE_K,
+                                               fallback="exact")
+    out["launches"] = (MR.LAUNCHES["reservoir_scan"] - before[0],
+                       CA.LAUNCHES["count_above"] - before[1])
+    out["band_pairs"] = CA.band_pairs() - before[2]
+    out["ms"] = {
+        "reservoir": event_ms(lambda: rec.recommend(users, k=SERVE_K), 2),
+        "certified_exact": event_ms(lambda: rec.recommend_certified(
+            users, k=SERVE_K, fallback="exact"), 2),
+        "exact": event_ms(lambda: exact.recommend(users, k=SERVE_K), 1),
+    }
+    # #8 and #9 against their twins on this rank's own slice
+    Wq = rec.W[torch.as_tensor(users, device=dev)]
+    Wk = (Wq * rec._h_scale).contiguous()
+    label = f"rank {rank} slice m={rec.H.shape[1]} b={len(users)} int8"
+    a, cand, _ = check_reservoir(MR, label, Wk, rec.H, rec.H.shape[1], 4096)
+    theta = cand.topk(SERVE_K, dim=1).values[:, -1].contiguous()
+    d, _ = check_count(CA, label, Wq, rec.H, theta, rec._h_scale)
+    out["twins"] = (a, d)
+    return out
+
+
+def grid_phase(nt, card, dev, ratings, c4, max_abs) -> dict:
+    """Phase 24 (slice 6a): (a) one rank, NCCL, one device's share of
+    config 4; (b) four ranks sharing the card on a 2 x 2 gloo mesh at
+    config 2, against the 1 x 1 run and compute_sparse; (c) sharded
+    serving of config 5 on four ranks. Every rank runs under the port's
+    launcher, and any rank's failure fails the script. Returns the
+    launches of #7, #8 and #9 on the ranks' main paths, and raises
+    max_abs's entries to their errors against their twins on the ranks'
+    operands."""
+    import tempfile
+
+    from nmftpu_torch.parallel import launch
+
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="nmftpu_phase24_")
+    try:
+        c4_path, gen_s, c4_nnz = c4.result()
+        n, m = ratings.shape
+        r = SPARSE_RANK
+        path = os.path.join(tmp, "ratings.npz")
+        np.savez(path, indptr=ratings.indptr, indices=ratings.indices,
+                 data=ratings.data, shape=np.array(ratings.shape))
+        W0, H0 = config2_start(n, m, r,
+                               float(ratings.data.sum(dtype=np.float64)), dev)
+        W0, H0 = W0.cpu().numpy(), H0.cpu().numpy()
+        torch.cuda.empty_cache()
+
+        # -- (a) and (b)'s references: one rank, NCCL ----------------------
+        t0 = time.perf_counter()
+        one = launch(grid_one_rank, 1, args=(c4_path, path, W0, H0),
+                     backend="nccl", timeout=GRID_TIMEOUT)[0]
+        a = one["a"]
+        # float32 sums of K terms in two orders: sqrt(K) 2^-24 apart each
+        lim_w, lim_h = (max(GRID_STEP_RTOL, 8 * k ** 0.5 * 2.0 ** -24)
+                        for k in a["longest"])
+        say("24a config 4 share", shape=f"{C4_SHAPE[0]}x{C4_SHAPE[1]}",
+            rank=C4_RANK, draws=C4_DRAWS, nnz=a["nnz"],
+            generator_s=f"{gen_s:.1f}", backend=one["backend"],
+            world=one["world"], seconds=f"{time.perf_counter() - t0:.1f}")
+        for engine in ("ell", "scatter"):
+            g = a[engine]
+            say("24a engine", engine=engine, prepare_s=f"{g['prepare_s']:.1f}",
+                run_1_iteration_s=f"{g['run1_s']:.2f}",
+                update_ms=f"{g['update_ms']:.1f}",
+                **({"iteration_with_check_ms":
+                    f"{g['iteration_with_check_ms']:.1f}",
+                    "errors": [f"{e:.6g}" for e in g["errors"]]}
+                   if engine == "ell" else {}),
+                error_1=f"{g['error1']:.6g}", W_rel=f"{g['W_rel']:.3e}",
+                H_rel=f"{g['H_rel']:.3e}",
+                H_after_own_W_half_rel=f"{g['H_after_W_rel']:.3e}",
+                H_from_compute_sparse_W_half_rel=
+                f"{g['H_from_reference_W_rel']:.3e}",
+                H_from_compute_sparse_W_half_vs_float64=
+                f"{a['float64'][engine][0]:.3e} (column of "
+                f"{a['float64'][engine][1]} nonzeros)",
+                longest_row_column=a["longest"],
+                W_rtol=f"{lim_w:.3e}", H_rtol=f"{lim_h:.3e}",
+                peak_GiB=f"{g['peak_GiB']:.1f}", card=card)
+            e_rel = abs(g["error1"] - a["compute_sparse"]["error1"]) \
+                / a["compute_sparse"]["error1"]
+            # H after the W half: the whole iteration within lim_h of
+            # compute_sparse's, or else the engine's H half from
+            # compute_sparse's own W half within lim_h of float64 (where
+            # the two engines differ, the grid's must be the nearer)
+            h_ok = (g["H_after_W_rel"] <= lim_h
+                    or a["float64"][engine][0] <= lim_h)
+            if not (g["W_rel"] <= lim_w and g["H_rel"] <= lim_h and h_ok
+                    and e_rel <= GRID_STEP_RTOL):
+                fail(f"phase 24 (a) {engine}: one iteration differs from "
+                     f"compute_sparse (W {g['W_rel']:.3e}, H "
+                     f"{g['H_rel']:.3e}, H after the W half "
+                     f"{g['H_after_W_rel']:.3e}, error {e_rel:.3e}; "
+                     f"its H half from compute_sparse's W half "
+                     f"{a['float64'][engine][0]:.3e} off float64 (limit "
+                     f"{lim_h:.3e})")
+        if not (a["finite"] and a["ell"]["errors"][1] < a["ell"]["errors"][0]):
+            fail(f"phase 24 (a): non-finite factors or the error did not "
+                 f"fall: {a['ell']['errors']}")
+        cs = a["compute_sparse"]
+        say("24a compute_sparse", engine="scatter", seconds=f"{cs['secs']:.1f}",
+            error_1=f"{cs['error1']:.6g}", peak_GiB=f"{cs['peak_GiB']:.1f}",
+            H_half_from_its_W_half_vs_float64=
+            f"{a['float64']['compute_sparse'][0]:.3e} (column of "
+            f"{a['float64']['compute_sparse'][1]} nonzeros)",
+            float64_columns=a["float64_columns"])
+
+        # -- (b) four ranks sharing the card, gloo, 2 x 2 ------------------
+        t0 = time.perf_counter()
+        four = launch(grid_four_ranks, GRID_RANKS, args=(path, W0, H0),
+                      backend="gloo", timeout=GRID_TIMEOUT, threads=2)
+        b_s = time.perf_counter() - t0
+        # iALS's per-row solves: each half against float64 normal equations
+        # on 64 users and 64 items (the most popular included), each row
+        # within (SOLVE_FACTOR sqrt(r) + 4 sqrt(K)) kappa 2^-24: phase 22's
+        # solve limit, plus the system's own float32 assembly (its Gram and
+        # right-hand side are sums of the row's K nonzeros' terms, in any
+        # order ~sqrt(K) 2^-24 from float64; config 2's values up to 5
+        # give weights up to 200, so the head items' K ~ 10^4 reach kappa)
+        csc = ratings.T.to_csr()
+        rng = np.random.default_rng(SEED + 24)
+        lines = []
+        for csr_, count in ((ratings, n), (csc, m)):
+            top = int(np.argmax(np.diff(csr_.indptr)))
+            lines.append(np.concatenate([[top], rng.choice(
+                np.setdiff1d(np.arange(count), [top]), 63, replace=False)]))
+        H0d, W0d = torch.as_tensor(H0, device=dev), torch.as_tensor(W0,
+                                                                    device=dev)
+        want_w, kap_w = row_systems64(ratings, lines[0], H0d.T, 40.0, 0.0,
+                                      False)
+        want_h, kap_h = row_systems64(csc, lines[1], W0d, 40.0, 0.0, False)
+        assembly = [4 * torch.as_tensor(np.diff(c.indptr)[idx], device=dev,
+                                        dtype=torch.float64).sqrt() * 2.0**-24
+                    for c, idx in ((ratings, lines[0]), (csc, lines[1]))]
+        del csc, H0d, W0d
+        hals = 0
+        for name in (f"{k}-{e}" for k, e in GRID_CASES):
+            got, ref1 = four[0]["cases"][name], one["one"][name]
+            Ws, Hs, e_sparse = one["sparse"][name]
+            tol = HALS_ATOL if name.startswith("hals") else GRID_STEP_RTOL
+            dev1 = max(rel_to_max(got["WH"], ref1["WH"]),
+                       rel_to_max(got["HW"], ref1["HW"]))
+            devs = max(rel_to_max(got["WH"], Ws), rel_to_max(got["HW"], Hs))
+            iters = 1 if name.startswith("ials") else GRID_ITERS
+            e4 = abs(got[iters, "WH"]["error"] - ref1[iters, "WH"]["error"]) \
+                / ref1[iters, "WH"]["error"]
+            runs = [k for k in got if isinstance(k, tuple)]
+            launched = [f["cases"][name][k]["hals"] for f in four
+                        for k in runs]
+            hals += sum(launched)
+            # iALS: its one-iteration run, set-up and checks included
+            ms = [((f["cases"][name][iters, "WH"]["secs"]
+                    - f["cases"][name][1, "WH"]["secs"]) / (iters - 1)
+                   if iters > 1 else f["cases"][name][1, "WH"]["secs"]) * 1e3
+                  for f in four]
+            say("24b grid 2x2", case=name, vs_1x1=f"{dev1:.3e}",
+                vs_compute_sparse=f"{devs:.3e}",
+                rtol=("per row, against float64 (below)"
+                      if name.startswith("ials") else tol),
+                error_after=iters,
+                error=f"{got[iters, 'WH']['error']:.6g}",
+                error_1x1=f"{ref1[iters, 'WH']['error']:.6g}",
+                error_rel=f"{e4:.3e}", error_rtol=GRID_ERR_RTOL,
+                hals_launches_per_rank=launched,
+                staged_MB_rank0=f"{got[iters, 'WH']['staged'] / 2**20:.1f}",
+                ms_per_iteration_per_rank=[f"{x:.1f}" for x in ms])
+            if name.startswith("ials"):
+                # the solves amplify the Grams' reordering by kappa, so
+                # each sampled row is held per row: the 2 x 2 run, the
+                # 1 x 1 run and compute_sparse against float64 (the
+                # assembly term included; phase 22's limit without it
+                # printed as the witness of where a miss comes from), and
+                # the 2 x 2 run against the other two at twice the limit
+                sel = {label: (torch.as_tensor(Wx[lines[0]], device=dev),
+                               torch.as_tensor(Hx[:, lines[1]].T,
+                                               device=dev))
+                       for label, (Wx, Hx) in (
+                           ("2x2", (got["WH"], got["HW"])),
+                           ("1x1", (ref1["WH"], ref1["HW"])),
+                           ("compute_sparse", (Ws, Hs)))}
+                checks = {}
+                for label, (Wx, Hx) in sel.items():
+                    checks[label] = (
+                        per_row_check(Wx, want_w, kap_w, r, assembly[0]),
+                        per_row_check(Hx, want_h, kap_h, r, assembly[1]))
+                    checks[f"{label}_phase22_limit"] = (
+                        per_row_check(Wx, want_w, kap_w, r),
+                        per_row_check(Hx, want_h, kap_h, r))
+                for other in ("1x1", "compute_sparse"):
+                    checks[f"2x2_vs_{other}"] = tuple(
+                        per_row_check(sel["2x2"][h], sel[other][h].double(),
+                                      kap, r, extra, scale=2.0)
+                        for h, kap, extra in ((0, kap_w, assembly[0]),
+                                              (1, kap_h, assembly[1])))
+                say("24b ials rows", **{
+                    f"{label}_{half}_worst_ratio_to_limit":
+                    f"{c[0]:.3e} (rel {c[1]:.3e}, kappa {c[2]:.4g})"
+                    for label, pair in checks.items()
+                    for half, c in zip("WH", pair)})
+                worst = {label: max(c[0] for c in pair)
+                         for label, pair in checks.items()}
+                held = [label for label in worst if "phase22" not in label]
+                if max(worst[label] for label in held) > 1:
+                    fail(f"phase 24 (b) iALS: a row is off its limit: "
+                         f"{worst}")
+                if worst["compute_sparse_phase22_limit"] <= 1 < max(
+                        worst["1x1_phase22_limit"],
+                        worst["2x2_phase22_limit"]):
+                    fail("phase 24 (b) iALS: compute_sparse meets phase "
+                         f"22's per-row limit and the grid does not: {worst}")
+            elif not (dev1 <= tol and devs <= tol):
+                fail(f"phase 24 (b) {name}: the 2 x 2 run differs (1 x 1 "
+                     f"{dev1:.3e}, compute_sparse {devs:.3e})")
+            if not e4 <= GRID_ERR_RTOL:
+                fail(f"phase 24 (b) {name}: the 2 x 2 run's error differs "
+                     f"from the 1 x 1 run's by {e4:.3e}")
+            if name.startswith("hals") and launched != [2, 2, 2 * iters] * 4:
+                fail(f"phase 24 (b): #7 launched {launched} times on the "
+                     f"ranks, not 2 an iteration")
+            errs = {f["cases"][name][iters, "WH"]["error"] for f in four}
+            if len(errs) != 1:
+                fail(f"phase 24 (b) {name}: the ranks disagree: {errs}")
+        for f in four:
+            diff, scale, shape = f["hals_twin"]
+            max_abs["hals_sweep"] = max(max_abs["hals_sweep"], diff)
+            say("24b hals_sweep twin", rank=f["rank"], coords=f["coords"],
+                operands=shape, max_abs=f"{diff:.3e}",
+                rel_to_max=f"{diff / scale:.3e}", bound=HALS_ATOL)
+            if not diff <= HALS_ATOL * scale:
+                fail(f"phase 24 (b) rank {f['rank']}: #7 disagrees with "
+                     "its twin")
+        ials = four[0]["cases"]["ials-scatter"][1, "WH"]["staged"]
+        say("24b staging", backend=four[0]["backend"],
+            STAGED_BYTES_per_rank=[f["staged"] for f in four],
+            ials_one_iteration_staged_MB_rank0=f"{ials / 2**20:.1f}",
+            prepare_s_rank0={k: f"{v:.1f}" for k, v in four[0]["cases"]
+                             .items() if k.startswith("prepare")},
+            seconds=f"{b_s:.1f}",
+            note="four processes time-share one card: these times say "
+                 "nothing about scaling", card=card)
+
+        # -- (c) sharded serving of config 5, four ranks -------------------
+        users = np.sort(np.random.default_rng(SEED).choice(
+            SERVE_USERS, 512, replace=False))
+        t0 = time.perf_counter()
+        serve = launch(serving_four_ranks, GRID_RANKS, args=(users,),
+                       backend="gloo", timeout=GRID_TIMEOUT, threads=2)
+        c_s = time.perf_counter() - t0
+        W8, H8, train = serving_data(
+            torch.Generator(device=dev).manual_seed(SEED + 8), dev)
+        oracle = nt.Recommender(W8, H8, train=train, method="exact",
+                                table_dtype="int8", device=dev)
+        s_o, i_o = oracle.recommend(users, k=SERVE_K + 1)
+        del W8, H8, oracle
+        torch.cuda.empty_cache()
+        seen = [set(train.indices[train.indptr[u]:train.indptr[u + 1]]
+                    .tolist()) for u in users]
+        launched = [f["launches"] for f in serve]
+        for f in serve:
+            s, i = f["reservoir"]
+            recall = np.mean([len(set(i[row].tolist())
+                                  & set(i_o[row, :SERVE_K].tolist()))
+                              / SERVE_K for row in range(len(users))])
+            s_c, i_c, cert = f["certified"]
+            s_x, i_x = f["exact"]
+            violations = sum(len(set(i[row].tolist()) & seen[row])
+                             + len(set(i_c[row].tolist()) & seen[row])
+                             for row in range(len(users)))
+            not_exact = rows_not_exact(s_c, i_c, s_o, i_o, SERVE_K)
+            exact_differs = rows_not_exact(s_x[:, :SERVE_K],
+                                           i_x[:, :SERVE_K], s_o, i_o,
+                                           SERVE_K)
+            a8, d9 = f["twins"]
+            max_abs["reservoir_scan"] = max(max_abs["reservoir_scan"], a8)
+            max_abs["count_above"] = max(max_abs["count_above"], d9)
+            say("24c serve 1x4", rank=f["rank"], items_per_rank=f["m_local"],
+                batch=len(users), k=SERVE_K, recall_at_100=f"{recall:.6f}",
+                seen_violations=violations,
+                certified_fraction=f"{cert.mean():.6f}",
+                rows_not_exact=not_exact,
+                exact_rows_unlike_unsharded=exact_differs,
+                launches_reservoir_count=f["launches"],
+                band_pairs=f["band_pairs"],
+                ms={k: f"{v:.1f}" for k, v in f["ms"].items()})
+            if not (recall >= RECALL_FLOOR and violations == 0
+                    and not_exact == 0 and exact_differs == 0):
+                fail(f"phase 24 (c) rank {f['rank']}: recall {recall:.6f}, "
+                     f"{violations} seen violations, {not_exact} rows not "
+                     f"exact, {exact_differs} exact rows unlike the "
+                     "unsharded scan")
+            if min(f["launches"]) < 1:
+                fail(f"phase 24 (c) rank {f['rank']}: kernels not launched "
+                     f"{f['launches']}")
+        say("24c", seconds=f"{c_s:.1f}", card=card,
+            note="four processes time-share one card: these times say "
+                 "nothing about scaling")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    say("24", seconds=f"{time.perf_counter() - t_phase:.1f}")
+    return {"hals_sweep": hals,
+            "reservoir_scan": sum(x[0] for x in launched),
+            "count_above": sum(x[1] for x in launched)}
+
+
 def main() -> None:
     if not (HERE / "nmftpu_torch").is_dir():
         fail(f"no nmftpu_torch package beside {__file__}")
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: no CUDA device")
     sys.path.insert(0, str(HERE))
+    # phase 24's config-4 tile: the host generator runs in a process of its
+    # own beside phases 2-23 (spawned, so it shares no CUDA state)
+    import atexit
+    import multiprocessing
+    import tempfile
+
+    c4_dir = tempfile.mkdtemp(prefix="nmftpu_c4_")
+    atexit.register(shutil.rmtree, c4_dir, True)
+    c4_pool = ProcessPoolExecutor(
+        1, mp_context=multiprocessing.get_context("spawn"))
+    c4 = c4_pool.submit(c4_tile, os.path.join(c4_dir, "c4.npz"))
 
     import nmftpu_torch as nt
     from nmftpu_torch import native_loader as NL
@@ -4916,6 +5626,12 @@ def main() -> None:
     del V, W0, H0, Vq, scale
     torch.cuda.empty_cache()
     s13 = surfaces_phase(nt, card, dev, ratings, max_abs)
+
+    # -- 24. slice 6a: the 2-D grid (config 4's share, config 2 on four
+    # ranks) and sharded serving (config 5 on four ranks) ---------------
+    torch.cuda.empty_cache()
+    s14 = grid_phase(nt, card, dev, ratings, c4, max_abs)
+    c4_pool.shutdown()
     del ratings
 
     if "jax" in sys.modules:
@@ -4941,6 +5657,9 @@ def main() -> None:
         launches[name] += count
     # #1-#4 and #7 on phase 23's surfaces
     for name, count in s13.items():
+        launches[name] += count
+    # #7, #8 and #9 on phase 24's ranks
+    for name, count in s14.items():
         launches[name] += count
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": SOURCES[name],

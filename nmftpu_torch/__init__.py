@@ -42,7 +42,16 @@ imports). It mirrors ``nmftpu``'s module names and public surface:
   (``python -m nmftpu_torch``), its C ABI (``capi/``, driven through
   ``capi_bridge.py``) and JSONL metrics and traces (``utils/``).
 
-``mesh=`` raises NotImplementedError naming its slice in ROADMAP.md (6).
+* multi-GPU (``parallel/``, slice 6a): SPMD over ``torch.distributed``,
+  one process per rank, on a ('users', 'items') mesh
+  (``parallel.make_grid_mesh``): sparse V through ``nmf(..., mesh=)`` /
+  ``parallel.compute_sharded`` (the scatter and ELL grid engines, every
+  algorithm of the scatter engine), and ``Recommender(..., mesh=)`` /
+  ``recall_at_k(mesh=)`` over an items-sharded table.
+
+``mesh=`` with dense V, the ring engine, and ``mesh=`` on the online,
+checkpoint, facade, rank-selection and conversion surfaces raise
+NotImplementedError naming slice 6b of ROADMAP.md.
 The heavier entry points (the facade, the online and batched engines,
 rank selection) load at first use; every submodule is reachable as an
 attribute of the package (``nmftpu_torch.sklearn_api.NMF``).
@@ -78,6 +87,8 @@ _LAZY = {
     "compute_batched": ("nmftpu_torch.batched", "compute_batched"),
     "BatchedNmfResult": ("nmftpu_torch.batched", "BatchedNmfResult"),
     "SparsePlan": ("nmftpu_torch.sparse_ops", "SparsePlan"),
+    "compute_sharded": ("nmftpu_torch.parallel", "compute_sharded"),
+    "make_grid_mesh": ("nmftpu_torch.parallel", "make_grid_mesh"),
 }
 
 
@@ -114,7 +125,9 @@ __all__ = [
     "TransformResult",
     "compute",
     "compute_batched",
+    "compute_sharded",
     "compute_sparse",
+    "make_grid_mesh",
     "minibatch_fit",
     "nmf",
     "non_negative_factorization",

@@ -71,7 +71,9 @@ def nmf(
     use_pallas, update_order, ...) forward into NmfConfig. strategy: the
     sparse engine (auto | densified | ell | scatter; ignored for dense
     data). device: where to run; by default a tensor's own device, else
-    "cuda". mesh raises until its slice is ported.
+    "cuda". mesh: a ('users', 'items') rank mesh
+    (`parallel.make_grid_mesh`) for sparse V, every rank calling alike
+    (dense V on a mesh raises: slice 6b).
     """
     init_method = _coerce(Initialization, init, _INIT_ALIASES)
     if (W0 is not None or H0 is not None) and \
@@ -113,14 +115,14 @@ def dispatch(
     device=None,
 ) -> "driver.NmfResult":
     """Route (data, config) to an engine: the port's sparse containers →
-    sparse_ops.compute_sparse, dense → driver.compute. Other sparse types
-    (scipy.sparse, torch sparse tensors) raise TypeError."""
+    sparse_ops.compute_sparse, or with a mesh the sharded driver
+    (`parallel.compute_sharded`, strategy naming its per-tile engine);
+    dense → driver.compute. Other sparse types (scipy.sparse, torch
+    sparse tensors) raise TypeError."""
     if isinstance(data, (SparseMatrix, sparse_ops.DeviceCOO)):
         if mesh is not None:
-            raise NotImplementedError(
-                "mesh= (multi-device runs) is not ported to nmftpu_torch "
-                "yet (ROADMAP.md slice 6)"
-            )
+            return _sharded(data, config, W0, H0, mesh, strategy, callback,
+                            interrupt)
         return sparse_ops.compute_sparse(
             data, config, W0=W0, H0=H0, strategy=strategy,
             callback=callback, interrupt=interrupt, device=device,
@@ -139,3 +141,27 @@ def dispatch(
         data, config, W0=W0, H0=H0, mesh=mesh,
         callback=callback, interrupt=interrupt, device=device,
     )
+
+
+def _sharded(data, config, W0, H0, mesh, strategy, callback, interrupt):
+    """Sparse V on a mesh: strategy names the per-tile engine, as in
+    ``nmftpu.api.dispatch``."""
+    from nmftpu_torch.parallel import compute_sharded
+
+    if isinstance(data, sparse_ops.DeviceCOO):
+        raise ValueError(
+            "mesh= takes a host sparse container (each rank keeps its own "
+            "tile); a DeviceCOO already lies on one device")
+    if strategy == "densified":
+        raise ValueError(
+            "strategy='densified' is single-device only; the sharded "
+            "engines are 'ell', 'scatter', 'ring' (or 'auto')"
+        )
+    if strategy not in ("auto", "ell", "scatter", "ring"):
+        raise ValueError(
+            f"unknown strategy {strategy!r}; sharded engines are "
+            "'ell', 'scatter', 'ring' (or 'auto')"
+        )
+    return compute_sharded(data, config, mesh=mesh, W0=W0, H0=H0,
+                           engine=strategy, callback=callback,
+                           interrupt=interrupt)

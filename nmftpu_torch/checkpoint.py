@@ -88,7 +88,7 @@ def resume(path: str, V, config: NmfConfig, strict: bool = True, **kwargs):
     if kwargs.pop("mesh", None) is not None:
         raise NotImplementedError(
             "resume(mesh=...) belongs to the multi-GPU path, not ported "
-            "to nmftpu_torch yet (ROADMAP.md slice 6)"
+            "to nmftpu_torch yet (ROADMAP.md queue 1, slice 6b)"
         )
     ck = load(path)
     if strict and ck.config_fingerprint != _config_fingerprint(config):

@@ -105,7 +105,7 @@ def recommender_from_nmftpu(rec, *, device):
     if getattr(rec, "mesh", None) is not None:
         raise NotImplementedError(
             "a sharded Recommender belongs to the multi-GPU path, not "
-            "ported yet (ROADMAP queue 1, slice 6)"
+            "ported yet (ROADMAP queue 1, slice 6b)"
         )
     table = np.asarray(rec.H)[:, :rec._m_items]
     if table.dtype == np.int8:
@@ -171,7 +171,7 @@ def online_state_from_nmftpu(model, *, device):
     if getattr(model, "_shardings", None) is not None:
         raise NotImplementedError(
             "an OnlineNMF sharded over a mesh belongs to the multi-GPU "
-            "path, not ported yet (ROADMAP queue 1, slice 6)"
+            "path, not ported yet (ROADMAP queue 1, slice 6b)"
         )
     out = OnlineNMF(model.rank, dtype=np.dtype(model.dtype).name,
                     device=device,
@@ -207,7 +207,7 @@ def estimator_from_nmftpu(est, *, device):
     if params.get("mesh") is not None:
         raise NotImplementedError(
             "an estimator over a mesh belongs to the multi-GPU path, not "
-            "ported yet (ROADMAP queue 1, slice 6)"
+            "ported yet (ROADMAP queue 1, slice 6b)"
         )
     out = getattr(SK, kind)(**params, device=device)
     for name in _FITTED:

@@ -104,8 +104,9 @@ def compute(
     """
     if mesh is not None:
         raise NotImplementedError(
-            "mesh= (multi-device runs) is not ported to nmftpu_torch yet "
-            "(ROADMAP.md slice 6)"
+            "mesh= with dense V (the GSPMD-sharded dense path) is not "
+            "ported to nmftpu_torch yet (ROADMAP.md queue 1, slice 6b); "
+            "sparse V runs on a mesh"
         )
     if config.mask == "observed":
         raise ValueError(

@@ -18,13 +18,18 @@ from nmftpu_torch.config import Initialization
 from nmftpu_torch.init.kmeans import kmeans_columns
 
 
-def run_generator(seed: int, run_idx: int, device) -> torch.Generator:
-    """The generator of restart `run_idx` of a computation seeded with
-    `seed`: a torch.Generator on `device` seeded with
+def run_seed(seed: int, run_idx: int) -> int:
+    """The seed of restart `run_idx` of a computation seeded with `seed`:
     (seed * 1_000_003 + run_idx) mod 2**64, so each (seed, run) pair has
     its own stream and a run is reproducible on its own."""
+    return (int(seed) * 1_000_003 + int(run_idx)) % 2**64
+
+
+def run_generator(seed: int, run_idx: int, device) -> torch.Generator:
+    """The generator of restart `run_idx`: a torch.Generator on `device`
+    seeded with `run_seed(seed, run_idx)`."""
     g = torch.Generator(device=device)
-    g.manual_seed((int(seed) * 1_000_003 + int(run_idx)) % 2**64)
+    g.manual_seed(run_seed(seed, run_idx))
     return g
 
 

@@ -18,7 +18,7 @@ Numerics mirror sklearn's `_multiplicative_update_w/_h` guard for guard
 stabilizations), through the beta helpers of `linalg.dense`.
 
 Entry points run on CUDA unless the caller passes ``device="cpu"`` (or
-a CPU tensor); ``mesh=`` belongs to the multi-GPU slice.
+a CPU tensor); ``mesh=`` belongs to the multi-GPU slice 6b.
 """
 
 from __future__ import annotations
@@ -50,7 +50,7 @@ def _no_mesh(mesh, what):
     if mesh is not None:
         raise NotImplementedError(
             f"{what}(mesh=...) belongs to the multi-GPU path, not ported "
-            "to nmftpu_torch yet (ROADMAP.md slice 6)"
+            "to nmftpu_torch yet (ROADMAP.md queue 1, slice 6b)"
         )
 
 

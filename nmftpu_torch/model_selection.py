@@ -162,8 +162,13 @@ def rank_selection(
     NmfConfig — algorithm, objective, eps, ...). Random-restart init is
     forced (consensus is meaningless under deterministic seeding).
     device: where the restarts run (default CUDA); mesh raises until
-    the multi-GPU slice."""
+    the multi-GPU slice 6b."""
     from nmftpu_torch.api import dispatch
+
+    if mesh is not None:
+        raise NotImplementedError(
+            "rank_selection(mesh=...) belongs to the multi-GPU path, not "
+            "ported to nmftpu_torch yet (ROADMAP.md queue 1, slice 6b)")
 
     ranks = [int(k) for k in ranks]
     cards, disps, means, stds = [], [], [], []

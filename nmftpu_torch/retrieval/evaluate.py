@@ -29,19 +29,25 @@ def recall_at_k(
 
     W: (n, r) user factors; H: (r, m) item factors, a tensor (scored on
     its device) or an array (scored on the CPU); test_pairs: (t, 2)
-    [user, item]. ``mesh=`` belongs to the multi-GPU path, not ported
-    yet."""
+    [user, item]. With ``mesh`` (every rank calling alike with the full
+    W and H) each rank scores its slice of H on the 'items' axis, on its
+    mesh device, through the two-stage sharded top-k
+    (``parallel.topk_mips_sharded``); m must divide evenly."""
+    m = H.shape[1]
+    shards = 1
     if mesh is not None:
-        raise NotImplementedError(
-            "recall_at_k(mesh=...) belongs to the multi-GPU path, not "
-            "ported yet (ROADMAP queue 1, slice 6)"
-        )
+        from nmftpu_torch.parallel.mesh import AXIS_ITEMS, mesh_device
+
+        shards = mesh.size(1)
+        if m % shards:
+            raise ValueError(f"m={m} must divide into {shards} item shards")
+        j, m_loc = mesh.get_local_rank(AXIS_ITEMS), m // shards
+        H = _tensor(H[:, j * m_loc:(j + 1) * m_loc], mesh_device(mesh))
     H = H if isinstance(H, torch.Tensor) else _tensor(H, "cpu")
     W = _tensor(W, H.device, torch.float32)
     test_pairs = np.asarray(test_pairs)
     if test_pairs.size == 0:
         return float("nan")
-    m = H.shape[1]
     train_csr = train.to_csr() if train is not None else None
 
     users = np.unique(test_pairs[:, 0])
@@ -54,10 +60,19 @@ def recall_at_k(
     for start in range(0, len(users), batch_users):
         batch = users[start:start + batch_users]
         Wq = W[_tensor(batch, H.device, torch.int64)]
-        lists = (build_block_exclusion(batch, train_csr, m, block)
+        lists = (build_block_exclusion(batch, train_csr, m, block,
+                                       shards=shards)
                  if train_csr is not None else None)
-        scr, idx = topk_mips_blocked(Wq, H, k, block=block,
-                                     exclude_lists=lists, method=method)
+        if mesh is not None:
+            from nmftpu_torch.parallel.retrieval_sharded import (
+                topk_mips_sharded,
+            )
+
+            scr, idx = topk_mips_sharded(Wq, H, k, mesh, block=block,
+                                         exclude_lists=lists, method=method)
+        else:
+            scr, idx = topk_mips_blocked(Wq, H, k, block=block,
+                                         exclude_lists=lists, method=method)
         idx = idx.cpu().numpy()
         scr = scr.cpu().numpy()
         for bi, u in enumerate(batch):

@@ -30,19 +30,20 @@ def build_block_exclusion(user_ids, csr, m: int, block: int,
 
     user_ids: (b,) global user ids of the batch; csr: training
     interactions (SparseCSR-like with indptr/indices); m: item count;
-    block: the scoring block size. ``shards > 1`` (the items-sharded
-    layout of the multi-GPU path) is not ported yet.
+    block: the scoring block size; shards: for the items-sharded path,
+    the number of item shards (m must divide evenly): block indices are
+    then per-shard-local, concatenated shard-major, and columns are
+    shard-local, matching what each shard's blocked scan sees.
 
-    Returns (ex_user, ex_col): (nblocks, E) int32, -1 padded.
+    Returns (ex_user, ex_col): (nblocks_total, E) int32, -1 padded.
     """
-    if shards != 1:
-        raise NotImplementedError(
-            "item-sharded exclusion lists belong to the multi-GPU path, "
-            "not ported yet (ROADMAP queue 1, slice 6)"
-        )
     user_ids = np.asarray(user_ids)
-    eff_block = min(block, m)
-    nblocks = (m + eff_block - 1) // eff_block
+    if shards > 1 and m % shards != 0:
+        raise ValueError(f"m={m} must divide into {shards} item shards")
+    m_loc = m // shards
+    eff_block = min(block, m_loc)
+    nblocks_loc = (m_loc + eff_block - 1) // eff_block
+    nblocks = nblocks_loc * shards
 
     b = len(user_ids)
     starts = np.asarray(csr.indptr)[user_ids]
@@ -59,7 +60,9 @@ def build_block_exclusion(user_ids, csr, m: int, block: int,
          for s, e in zip(starts, ends) if e > s]
     )
     items = np.asarray(csr.indices)[pos].astype(np.int64)
-    blk, col = np.divmod(items, eff_block)
+    shard, loc = np.divmod(items, m_loc)
+    blk_loc, col = np.divmod(loc, eff_block)
+    blk = shard * nblocks_loc + blk_loc
 
     order = np.argsort(blk, kind="stable")
     blk_s, rows_s, col_s = blk[order], rows[order], col[order]

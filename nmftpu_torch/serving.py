@@ -19,8 +19,15 @@ Differences from ``nmftpu``, none of which changes a result:
 * cold users (``fold_in*``, ``recommend_from_history*``) fold in against
   the table as it is, with no padding columns to drop first.
 
-Not ported yet: ``mesh=`` (multi-GPU, slice 6), which raises
-NotImplementedError.
+With ``mesh=`` (a ('users', 'items') rank mesh,
+``parallel.make_grid_mesh``) every rank builds the Recommender from the
+same full W and H and keeps its slice of H on the 'items' axis (the
+item count must divide evenly); the scans, the certificate, the exact
+fallback and `score`/`save` go through ``parallel.retrieval_sharded``,
+each rank returning the same results. The reservoir escalation of
+``recommend_certified`` is skipped on a mesh, as in ``nmftpu``. Not
+ported yet on a mesh: fold-in (``fold_in*``, ``recommend_from_history*``;
+slice 6b), which raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -67,12 +74,19 @@ def _resolve_device(device) -> torch.device:
     return dev
 
 
-def quantize_table(H):
+def table_scale(H):
+    """The (r,) per-dimension int8 scale of a float32 table H (r, m)."""
+    return torch.clamp(H.abs().amax(dim=1) / 127.0, min=1e-30)
+
+
+def quantize_table(H, scale=None):
     """H (r, m) float32 -> (Hq int8, scale (r,) float32), true H ~=
     diag(scale) @ Hq, with per-dimension symmetric scales. The same float
     ops as ``nmftpu``'s numpy code (serving.py:89-96), so both packages
-    hold identical int8 bits; `round` is half to even in both."""
-    scale = torch.clamp(H.abs().amax(dim=1) / 127.0, min=1e-30)
+    hold identical int8 bits; `round` is half to even in both. scale:
+    the whole table's `table_scale` when H is a slice of it."""
+    if scale is None:
+        scale = table_scale(H)
     Hq = torch.empty(H.shape, dtype=torch.int8, device=H.device)
     for lo in range(0, H.shape[1], _QUANT_CHUNK):
         blk = H[:, lo:lo + _QUANT_CHUNK]
@@ -88,28 +102,43 @@ class Recommender:
                  mesh=None, block: int | None = None,
                  method: str = "approx", table_dtype: str = "float32",
                  reservoir_slots: int = 4096, device="cuda"):
-        if mesh is not None:
-            raise NotImplementedError(
-                "Recommender(mesh=...) belongs to the multi-GPU path, not "
-                "ported yet (ROADMAP queue 1, slice 6)"
-            )
         if table_dtype not in TABLE_DTYPES:
             raise ValueError(
                 f"table_dtype must be float32|bfloat16|int8, "
                 f"got {table_dtype!r}"
             )
-        dev = _resolve_device(device)
-        H = _tensor(H, dev, torch.float32)
+        scale = n_items = None
+        if mesh is not None:
+            from nmftpu_torch.parallel.mesh import AXIS_ITEMS, mesh_device
+
+            # this rank's slice of the full table; the int8 scale is the
+            # whole table's, so each slice holds the unsharded bits
+            dev = mesh_device(mesh)
+            n_items, shards = int(H.shape[1]), mesh.size(1)
+            if n_items % shards:
+                raise ValueError(
+                    f"n_items={n_items} must divide evenly over the "
+                    f"{shards} item shards of the mesh; pad H")
+            if table_dtype == "int8":
+                full = H if isinstance(H, torch.Tensor) else \
+                    torch.from_numpy(np.asarray(H, np.float32))
+                scale = table_scale(full.float()).to(dev)
+            m_loc = n_items // shards
+            j = mesh.get_local_rank(AXIS_ITEMS)
+            H = H[:, j * m_loc:(j + 1) * m_loc]
+        else:
+            dev = _resolve_device(device)
+        H = _tensor(H, dev, torch.float32).contiguous()
         # the ITEM table is the scanned operand: bf16 halves and int8
         # quarters its footprint and read traffic; int8 uses
         # per-dimension scales that fold into the query side
         h_scale = None
         if table_dtype == "int8":
-            table, h_scale = quantize_table(H)
+            table, h_scale = quantize_table(H, scale)
         else:
             table = H.to(TABLE_DTYPES[table_dtype])
         self._setup(W, table, h_scale, train, block, method,
-                    reservoir_slots, dev)
+                    reservoir_slots, dev, mesh, n_items)
 
     @classmethod
     def from_table(cls, W, table, *, h_scale=None,
@@ -135,7 +164,7 @@ class Recommender:
         return rec
 
     def _setup(self, W, table, h_scale, train, block, method,
-               reservoir_slots, device):
+               reservoir_slots, device, mesh=None, n_items=None):
         if method not in ("approx", "exact", "reservoir"):
             raise ValueError(
                 f"method must be approx|exact|reservoir, got {method!r}"
@@ -150,10 +179,14 @@ class Recommender:
                        if table.dtype == torch.bfloat16 else None)
         self.table_dtype = {v: k for k, v in TABLE_DTYPES.items()}[
             table.dtype]
-        self._m_items = int(table.shape[1])
-        # a block wider than m would only waste memory
-        self.block = (max(1, min(_SERVE_BLOCK, self._m_items))
-                      if block is None else int(block))
+        self.mesh = mesh
+        self._m_items = int(table.shape[1] if n_items is None else n_items)
+        # a block wider than m would only waste memory; sharded scans keep
+        # nmftpu's 8192 (the exclusion lists are bucketed per shard-block)
+        if block is None:
+            block = (8192 if mesh is not None
+                     else max(1, min(_SERVE_BLOCK, self._m_items)))
+        self.block = int(block)
         self.method = method
         self.reservoir_slots = int(reservoir_slots)
         self._train_csr = train.to_csr() if train is not None else None
@@ -162,6 +195,10 @@ class Recommender:
     def _prep(self):
         """Fold-in table invariants (``foldin.prepare_table``), built once
         per Recommender: the O(r²m) Gram is not rebuilt per request."""
+        if self.mesh is not None:
+            raise NotImplementedError(
+                "fold-in against a sharded table (Recommender(mesh=...)) "
+                "is not ported yet (ROADMAP queue 1, slice 6b)")
         if self._prepared is None:
             from nmftpu_torch.foldin import prepare_table
 
@@ -181,6 +218,22 @@ class Recommender:
                 "candidate_k has no effect on the reservoir scan — "
                 "its recall is tuned via reservoir_slots (missed "
                 "items ~ C(k,3)/slots^2)", UserWarning, stacklevel=3,
+            )
+        if self.mesh is not None:
+            from nmftpu_torch.parallel.retrieval_sharded import (
+                topk_mips_sharded,
+            )
+
+            # scatter-list exclusion needs the blocked scans: a reservoir
+            # server with wide seen lists takes the approx scan for it
+            method = self.method
+            if method == "reservoir" and lists is not None:
+                method = "approx"
+            return topk_mips_sharded(
+                Wq, self.H, k, self.mesh, block=self.block,
+                exclude_lists=lists, seen=seen, method=method,
+                candidate_k=candidate_k, h_scale=self._h_scale,
+                reservoir_slots=self.reservoir_slots,
             )
         if self.method == "reservoir":
             if lists is None:
@@ -221,8 +274,9 @@ class Recommender:
         mask."""
         if self._train_csr is None:
             return None
-        return build_block_exclusion(user_ids, self._train_csr,
-                                     self.n_items, self.block)
+        return build_block_exclusion(
+            user_ids, self._train_csr, self.n_items, self.block,
+            shards=1 if self.mesh is None else self.mesh.size(1))
 
     def _seen_padded(self, csr: SparseCSR, user_ids, k: int):
         """Padded (b, S) seen-item array for the oversampling exclusion
@@ -321,7 +375,8 @@ class Recommender:
         esc = self.reservoir_slots * 4
         padded = -(-self._m_items // self.reservoir_slots) \
             * self.reservoir_slots
-        if self.method != "reservoir" or padded % esc != 0:
+        if (self.mesh is not None or self.method != "reservoir"
+                or padded % esc != 0):
             return rows
         sub_users = user_ids[rows]
         Wq = self._queries(sub_users)
@@ -380,6 +435,9 @@ class Recommender:
     def _certified_scan(self, Wq, k, candidate_k, seen_os, seen_full,
                         lists):
         """Certified candidates + certificate."""
+        if self.mesh is not None:
+            return self._certified_scan_sharded(Wq, k, candidate_k, seen_os,
+                                                seen_full, lists)
         if lists is not None:
             # wide-seen degrade: candidates from the scatter-list scan;
             # the certify discount gathers the full (b, S) seen columns
@@ -419,12 +477,46 @@ class Recommender:
             h_scale=self._h_scale, seen=seen_os,
         )
 
+    def _certified_scan_sharded(self, Wq, k, candidate_k, seen_os,
+                                seen_full, lists):
+        """Certified candidates over the sharded table, then the
+        certificate's counts summed over 'items' (#9 on each rank). The
+        reservoir merge keeps the kernel's scores, so its candidates are
+        re-scored at the certify pass's rules first (a b·k column gather
+        from the owning ranks)."""
+        from nmftpu_torch.parallel.retrieval_sharded import (
+            certify_topk_sharded,
+            rescore_and_sort_sharded,
+        )
+
+        s, i = self._topk(Wq, k, lists, candidate_k, seen=seen_os)
+        if self.method == "reservoir" and lists is None:
+            s, i = rescore_and_sort_sharded(
+                Wq, self.H, i, self.mesh, h_scale=self._h_scale,
+                invalid=s == float("-inf"), seen=seen_os)
+        cert = certify_topk_sharded(
+            Wq, self.H, s, k, self.mesh, block=self.block,
+            h_scale=self._h_scale,
+            seen=seen_os if seen_os is not None else seen_full,
+            h_max=self._h_max)
+        return s, i, cert
+
     def _exact_rows(self, user_ids, k: int, exclude_seen: bool):
         """Exact top-k for a row subset (the fallback="exact" re-scan):
         the blocked exact scan with scatter-list exclusion."""
         user_ids = np.asarray(user_ids)
         lists = (self._exclusion(user_ids)
                  if exclude_seen and self._train_csr is not None else None)
+        if self.mesh is not None:
+            from nmftpu_torch.parallel.retrieval_sharded import (
+                topk_mips_sharded,
+            )
+
+            s, i = topk_mips_sharded(
+                self._queries(user_ids), self.H, k, self.mesh,
+                block=self.block, exclude_lists=lists, method="exact",
+                h_scale=self._h_scale)
+            return s.cpu().numpy(), i.cpu().numpy()
         s, i = topk_mips_blocked(
             self._queries(user_ids), self.H, k, block=self.block,
             exclude_lists=lists, method="exact", h_scale=self._h_scale,
@@ -562,21 +654,49 @@ class Recommender:
             raise ValueError(
                 f"item index out of range for {self.n_items} items"
             )
-        cols = self.H.index_select(
-            1, _tensor(item_ids, self.device, torch.int64))
-        cols = cols.float().cpu().numpy()
+        cols = self._columns(item_ids).float().cpu().numpy()
         if self._h_scale is not None:
             cols = cols * self._h_scale.cpu().numpy().reshape(-1, 1)
         return self.W[int(user_id)].cpu().numpy() @ cols
+
+    def _columns(self, item_ids):
+        """Table columns (r, S) of GLOBAL item ids; on a mesh each from the
+        rank that holds it (the others add exact zeros)."""
+        ids = _tensor(item_ids, self.device, torch.int64)
+        if self.mesh is None:
+            return self.H.index_select(1, ids)
+        from nmftpu_torch.parallel.mesh import AXIS_ITEMS, psum
+        from nmftpu_torch.parallel.retrieval_sharded import _owned
+
+        loc, own = _owned(ids, self.mesh, self.H.shape[1])
+        cols = self.H.index_select(1, loc).float() * own
+        return psum(cols, self.mesh, AXIS_ITEMS)
+
+    def _full_table(self):
+        """The whole item table in its serving dtype (on a mesh, gathered
+        over 'items')."""
+        if self.mesh is None:
+            return self.H
+        from nmftpu_torch.parallel.mesh import AXIS_ITEMS, all_gather
+
+        parts = all_gather(self.H, self.mesh, AXIS_ITEMS)
+        return parts.permute(1, 0, 2).reshape(self.H.shape[0], -1)
 
     # -- persistence ------------------------------------------------------
 
     def save(self, path: str) -> None:
         """The bundle of ``nmftpu``'s `save`: W.npy, H.npy (float32, int8
-        dequantized), meta.json and train.npz."""
+        dequantized), meta.json and train.npz. On a mesh every rank calls
+        it; rank 0 writes the gathered table and the others wait."""
+        import torch.distributed as dist
+
+        table = self._full_table()
+        if self.mesh is not None and dist.get_rank() != 0:
+            dist.barrier()
+            return
         os.makedirs(path, exist_ok=True)
         np.save(os.path.join(path, "W.npy"), self.W.cpu().numpy())
-        Hf = self.H.float().cpu().numpy()
+        Hf = table.float().cpu().numpy()
         if self._h_scale is not None:
             Hf = Hf * self._h_scale.cpu().numpy().reshape(-1, 1)
         np.save(os.path.join(path, "H.npy"), Hf)
@@ -595,6 +715,8 @@ class Recommender:
             meta["has_train"] = True
         with open(os.path.join(path, "meta.json"), "w") as f:
             json.dump(meta, f)
+        if self.mesh is not None:
+            dist.barrier()
 
     @classmethod
     def load(cls, path: str, mesh=None, device="cuda") -> "Recommender":

@@ -16,7 +16,7 @@ scikit-learn itself is not needed: the estimators derive from
 ``BaseEstimator`` does, so ``sklearn.base.clone`` and ``Pipeline`` work
 with them where sklearn is installed. Results come back as numpy arrays;
 ``device`` (default CUDA; ``"cpu"`` for the plain torch path) says where
-the work runs, and ``mesh`` raises until the multi-GPU slice.
+the work runs, and ``mesh`` raises until the multi-GPU slice 6b.
 
 Semantics notes vs sklearn (`sklearn/decomposition/_nmf.py`):
   * solver="mu" (multiplicative) AND solver="cd" (sklearn's DEFAULT:
@@ -228,7 +228,7 @@ class NMF(_Estimator):
       ("mu", "hals", "als", "acls", "ahcls", "gdcls", "nsnmf") —
       explicit algorithm= wins over solver.
     mesh: multi-device runs; raises NotImplementedError until the
-      multi-GPU slice (ROADMAP.md slice 6).
+      multi-GPU slice (ROADMAP.md queue 1, slice 6b).
     strategy: sparse engine ("auto" | "densified" | "ell" | "scatter").
     v_storage: "float32" | "bfloat16" | "int8" — V's on-device storage
       (the dense and densified paths).

@@ -307,26 +307,14 @@ def mu_update_kl_ell(pair: EllPair, W, H, eps=1e-9, order="WH"):
     return _apply_order(upd_w, upd_h, W, H, order)
 
 
-def mu_update_beta_ell(pair: EllPair, W, H, beta, eps=1e-9, order="WH",
-                       block=2048):
-    """Generalized beta-divergence MU on the gather-only layout: the
-    numerator is one fused gather-once pass per half-step
-    (`sampled_rowsums_ell` with the coefficient v·(WH)^(β-2)), the
-    dense-in-FLOPs denominator streams panels
-    (``sparse_ops.beta_denom_w_blocked`` / ``_h_blocked``). Guards, γ and
-    the β < 1 stabilization are sklearn's. The coefficient keeps
-    ``nmftpu``'s forms: β = 0 divides by s·s with s clamped up to
-    EPSILON; β < 2 clamps s up to EPSILON, which keeps the pad lanes'
-    sampled products finite (their v = 0, so they add exact zeros).
-    `eps` is accepted for the update signature and unused."""
-    from nmftpu_torch.linalg.dense import EPSILON, beta_gamma
-    from nmftpu_torch.sparse_ops import (
-        _beta_apply,
-        beta_denom_h_blocked,
-        beta_denom_w_blocked,
-    )
+def beta_coef(beta):
+    """Beta MU's per-nonzero numerator coefficient fn(v, s) = v·s^(β-2)
+    of the sampled product s, in ``nmftpu``'s forms: β = 0 divides by
+    s·s with s clamped up to EPSILON; β < 2 clamps s up to EPSILON,
+    which keeps the pad lanes' sampled products finite (their v = 0, so
+    they add exact zeros)."""
+    from nmftpu_torch.linalg.dense import EPSILON
 
-    gamma = beta_gamma(beta)
     if beta == 0.0:
         def cf(v, s):
             sc = torch.clamp(s, min=EPSILON)
@@ -337,6 +325,28 @@ def mu_update_beta_ell(pair: EllPair, W, H, beta, eps=1e-9, order="WH",
     else:
         def cf(v, s):
             return v * s ** (beta - 2.0)
+    return cf
+
+
+def mu_update_beta_ell(pair: EllPair, W, H, beta, eps=1e-9, order="WH",
+                       block=2048):
+    """Generalized beta-divergence MU on the gather-only layout: the
+    numerator is one fused gather-once pass per half-step
+    (`sampled_rowsums_ell` with the coefficient v·(WH)^(β-2)), the
+    dense-in-FLOPs denominator streams panels
+    (``sparse_ops.beta_denom_w_blocked`` / ``_h_blocked``). Guards, γ and
+    the β < 1 stabilization are sklearn's; the coefficient is
+    `beta_coef`'s. `eps` is accepted for the update signature and
+    unused."""
+    from nmftpu_torch.linalg.dense import beta_gamma
+    from nmftpu_torch.sparse_ops import (
+        _beta_apply,
+        beta_denom_h_blocked,
+        beta_denom_w_blocked,
+    )
+
+    gamma = beta_gamma(beta)
+    cf = beta_coef(beta)
 
     def upd_w(W, H):
         numer, = sampled_rowsums_ell(pair.rows, W, H, (cf,))

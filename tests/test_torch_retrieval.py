@@ -404,9 +404,18 @@ def test_build_block_exclusion_equals_nmftpu(block):
 
 
 def test_sharded_exclusion_raises():
+    """Sharded lists are ported (slice 6a; held against nmftpu here and in
+    test_torch_retrieval_sharded.py); an item count that the shards do
+    not divide still raises, as in nmftpu."""
     csr = PS.from_dense(np.eye(4, 8, dtype=np.float32)).to_csr()
-    with pytest.raises(NotImplementedError, match="slice 6"):
-        PX.build_block_exclusion(np.arange(4), csr, 8, 4, shards=2)
+    with pytest.raises(ValueError, match="must divide into 3 item shards"):
+        PX.build_block_exclusion(np.arange(4), csr, 8, 4, shards=3)
+    with pytest.raises(ValueError, match="must divide into 3 item shards"):
+        JX.build_block_exclusion(np.arange(4), csr, 8, 4, shards=3)
+    for got, want in zip(
+            PX.build_block_exclusion(np.arange(4), csr, 8, 4, shards=2),
+            JX.build_block_exclusion(np.arange(4), csr, 8, 4, shards=2)):
+        np.testing.assert_array_equal(got, want)
 
 
 def test_sparse_containers_equal_nmftpu():

@@ -389,14 +389,35 @@ def test_recall_at_k_matches_nmftpu():
                              batch_users=16, block=300, method=method)
         assert got == want
     assert np.isnan(nt.recall_at_k(W, H, np.zeros((0, 2), int)))
-    with pytest.raises(NotImplementedError, match="slice 6"):
-        nt.recall_at_k(W, H, test_pairs, mesh=object())
+    # mesh= is ported (slice 6a, held against nmftpu in
+    # test_torch_retrieval_sharded.py); what still raises with it is a
+    # catalog that the items axis does not divide
+    with pytest.raises(ValueError, match="must divide into 3 item shards"):
+        nt.recall_at_k(W, H, test_pairs, mesh=_ItemShards(3))
+
+
+class _ItemShards:
+    """The two questions a Recommender or recall_at_k asks a mesh before
+    any collective: the items axis's size and this rank's place on it."""
+
+    device_type = "cpu"
+
+    def __init__(self, shards):
+        self.shards = shards
+
+    def size(self, dim):
+        return self.shards if dim == 1 else 1
+
+    def get_local_rank(self, axis):
+        return 0
 
 
 def test_unported_surfaces_raise(tmp_path):
     """Fold-in is ported (slice 9, held against nmftpu in
-    test_torch_foldin.py): its four entry points now serve. mesh= still
-    raises, at construction and at load."""
+    test_torch_foldin.py): its four entry points now serve. mesh= is
+    ported too (slice 6a, test_torch_retrieval_sharded.py); fold-in on a
+    mesh still raises (slice 6b), on a Recommender built or loaded over
+    one."""
     W, H = _factors(17)
     rec = nt.Recommender(W, H, device="cpu")
     assert rec.fold_in([1, 2]).shape == (8,)
@@ -405,12 +426,13 @@ def test_unported_surfaces_raise(tmp_path):
     assert s.shape == i.shape == (5,) and not {1, 2} & set(i.tolist())
     s, i = rec.recommend_from_history_batch([[1, 2]], k=5)
     assert s.shape == i.shape == (1, 5)
-    with pytest.raises(NotImplementedError, match="slice 6"):
-        nt.Recommender(W, H, mesh=object(), device="cpu")
+    with pytest.raises(NotImplementedError, match="slice 6b"):
+        nt.Recommender(W, H, mesh=_ItemShards(1),
+                       device="cpu").fold_in([1, 2])
     rec.save(str(tmp_path / "r"))
-    with pytest.raises(NotImplementedError, match="slice 6"):
-        nt.Recommender.load(str(tmp_path / "r"), mesh=object(),
-                            device="cpu")
+    with pytest.raises(NotImplementedError, match="slice 6b"):
+        nt.Recommender.load(str(tmp_path / "r"), mesh=_ItemShards(1),
+                            device="cpu").recommend_from_history([1, 2])
 
 
 def test_bad_settings_raise():

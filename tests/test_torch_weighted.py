@@ -422,14 +422,17 @@ def test_synthetic_powerlaw_is_nmftpus_bit_for_bit(kw):
 
 
 def test_chip_scripts_import_neither_jax_nor_nmftpu():
-    """chip_smoke.py (which drives config 3 on the card), chip_profile.py
-    and chip_ablate.py import nmftpu_torch only: no import statement
-    anywhere in them names jax or nmftpu."""
+    """chip_smoke.py (which drives config 3 on the card), chip_profile.py,
+    chip_ablate.py and the rank programs of the multi-rank tests
+    (tests/torch_parallel_ranks.py, which the spawned ranks import)
+    import nmftpu_torch only: no import statement anywhere in them names
+    jax or nmftpu."""
     import ast
     import os
 
     repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-    for name in ("chip_smoke.py", "chip_profile.py", "chip_ablate.py"):
+    for name in ("chip_smoke.py", "chip_profile.py", "chip_ablate.py",
+                 os.path.join("tests", "torch_parallel_ranks.py")):
         with open(os.path.join(repo, name)) as f:
             tree = ast.parse(f.read())
         mods = []
