@@ -4,7 +4,7 @@
     python3 chip_profile.py [--out DIR]
                             [--cells dense,serving,sparse,slice8,foldin,beta,
                                      algorithms,sparse_algorithms,surfaces,
-                                     sharded]
+                                     sharded,ring,dense_mesh]
 
 Two shapes -- 4096 x 4096 at rank 256 (bench.py's headline) and the
 ML-20M shape 138,493 x 26,744 at rank 64, with chip_smoke.py's synthetic
@@ -86,7 +86,15 @@ NCCL, a 1 x 1 mesh, one device's share of BASELINE config 4 (12,500,000
 x 2,500,000 from 156,250,000 power-law draws, rank 256): one MU-Frobenius
 iteration of the sharded update on the ELL and the scatter tiles, each
 profiled after a warm-up iteration: CUDA-event ms, device ms by class and
-the idle share. --cells picks a subset of the ten cells. Every line
+the idle share. Then slice 6b (chip_smoke.py's phase 25 (a) and (b)),
+four ranks of the launcher sharing the card over gloo: the ring engine
+at config 2 (cell "ring": phase 10's ratings, rank 64, one MU-Frobenius
+iteration on a 4-ring) and dense V at the ML-20M shape on a 2 x 2 mesh
+(cell "dense_mesh": one MU-Frobenius iteration, float32 V), each rank
+profiling its own iteration after a warm-up one: CUDA-event ms, device
+ms by class and the idle share a rank (four processes time-share the
+card, so the idle share of one rank's timeline counts the others'
+kernels as idle). --cells picks a subset of the twelve cells. Every line
 ends with the card's nvidia-smi name and power limit.
 The profiler traces and summary.json go to --out (default: profile_out/
 beside this script). Exits 1 without a CUDA device.
@@ -139,7 +147,8 @@ BETA_PROFILE_ITERS = 2
 # shape
 FAMILY_PROFILE_ITERS = 10
 CELLS = ("dense", "serving", "sparse", "slice8", "foldin", "beta",
-         "algorithms", "sparse_algorithms", "surfaces", "sharded")
+         "algorithms", "sparse_algorithms", "surfaces", "sharded", "ring",
+         "dense_mesh")
 # the sparse algorithms: iterations profiled at config 2 and for config 3's
 # iALS
 S12_PROFILE_ITERS = 2
@@ -333,6 +342,30 @@ def main() -> None:
         torch.cuda.empty_cache()
         summary["sharded"] = launch(sharded_rank, 1, args=(str(out), card),
                                     backend="nccl", timeout=1200)[0]
+
+    if cells & {"ring", "dense_mesh"}:
+        from nmftpu_torch.kernels import _build
+        from nmftpu_torch.parallel import launch
+
+        _build.build()  # the ranks load it
+        gen = torch.Generator(device=dev).manual_seed(SEED + 5)
+        n, m = ML20M[:2]
+        R = synthetic_ratings(n, m, ML20M[3], gen, dev)
+        ratings = ratings_csr(R)
+        del R
+        torch.cuda.empty_cache()
+        path = out / "ratings.npz"
+        np.savez(path, indptr=ratings.indptr, indices=ratings.indices,
+                 data=ratings.data, shape=np.array(ratings.shape))
+        del ratings
+        rows = launch(mesh_cells_rank, 4,
+                      args=(str(path), str(out), card,
+                            sorted(cells & {"ring", "dense_mesh"})),
+                      backend="gloo", timeout=1200, threads=2)
+        path.unlink()
+        for cell in ("ring", "dense_mesh"):
+            if cell in cells:
+                summary[cell] = [r[cell] for r in rows]
 
     if "jax" in sys.modules:
         fail("jax was imported")
@@ -907,6 +940,81 @@ def sharded_rank(out: str, card: str) -> dict:
             idle_share=f"{row['idle_share']:.4f}", card=card)
         del plan, ops, W, H
         torch.cuda.empty_cache()
+    return summary
+
+
+def mesh_cells_rank(path: str, out: str, card: str, cells) -> dict:
+    """The "ring" and "dense_mesh" cells on one rank of four sharing the
+    card (gloo): one MU-Frobenius iteration of each, profiled after a
+    warm-up one."""
+    import torch.distributed as dist
+
+    from nmftpu_torch.config import Initialization, NmfConfig
+    from nmftpu_torch.parallel import make_grid_mesh, prepare_sharded
+    from nmftpu_torch.parallel.dense_mesh import (
+        DenseTile, _tile_of, block_shape, dense_mesh_ops)
+    from nmftpu_torch.parallel.driver import _sharded_ops
+    from nmftpu_torch.parallel.mesh import AXIS_ITEMS, AXIS_USERS
+
+    from chip_smoke import CSRTiles, config2_start, load_ratings
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda")
+    rank = dist.get_rank()
+    ratings = load_ratings(path)
+    n, m = ratings.shape
+    r = ML20M[2]
+    cfg = NmfConfig(rank=r, init_method=Initialization.COPY_EXISTING,
+                    num_iterations=1)
+    W0, H0 = config2_start(n, m, r, float(ratings.data.sum(
+        dtype=np.float64)), dev)
+    summary = {"rank": rank}
+
+    def profile(cell, step):
+        step()      # warm-up
+        ms = cuda_ms(step, 1)
+        trace = Path(out) / f"{cell}_rank{rank}.json"
+        with torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            step()
+            torch.cuda.synchronize()
+        prof.export_chrome_trace(str(trace))
+        row = {"ms_per_iter": ms, **device_summary(trace, 1)}
+        say("profile", cell=cell, rank=rank, ms_per_iter=f"{ms:.1f}",
+            device_ms_per_iter={k: round(v, 2) for k, v in
+                                row["device_ms_per_iter"].items()},
+            idle_share=f"{row['idle_share']:.4f}", card=card,
+            note="four ranks time-share the card")
+        summary[cell] = row
+
+    if "ring" in cells:
+        mesh = make_grid_mesh((1, 4))
+        plan = prepare_sharded(ratings, cfg, mesh=mesh, engine="ring",
+                               chunk=1 << 17)
+        ops = _sharded_ops(cfg, plan.mesh, "ring", n, m, plan.nnz)
+        W, H = plan._init_fn(cfg, W0, H0)(0)
+        profile("ring", lambda: ops.update(plan.operand, (), W, H))
+        del plan, ops, W, H
+        torch.cuda.empty_cache()
+    if "dense_mesh" in cells:
+        mesh = make_grid_mesh((2, 2))
+        br, bc = block_shape((n, m), (2, 2))
+        i, j = (mesh.get_local_rank(AXIS_USERS),
+                mesh.get_local_rank(AXIS_ITEMS))
+        tile = DenseTile(V=_tile_of(CSRTiles(ratings, dev),
+                                    slice(i * br, (i + 1) * br),
+                                    slice(j * bc, (j + 1) * bc), (br, bc),
+                                    torch.float32, dev),
+                         shape=(n, m), coords=(i, j))
+        ops = dense_mesh_ops(cfg, mesh)
+        aux = ops.make_aux(tile)
+        # the blocks zero-padded to the tile, as compute_dense_mesh pads them
+        W = torch.zeros((br, r), device=dev)
+        H = torch.zeros((r, bc), device=dev)
+        Wb, Hb = W0[i * br:(i + 1) * br], H0[:, j * bc:(j + 1) * bc]
+        W[:Wb.shape[0]], H[:, :Hb.shape[1]] = Wb, Hb
+        profile("dense_mesh", lambda: ops.update(tile, aux, W, H))
     return summary
 
 

@@ -161,6 +161,31 @@ with the count kernel (#9 on each rank), against the unsharded exact scan
 (recall@100, rows not exact, seen violations), #8 and #9 against their
 twins on each rank's slice. Times of ranks sharing one card say nothing
 about scaling.
+Phase 25 drives slice 6b on four gloo ranks sharing the card and one NCCL
+rank: (a) the ring engine (a 4-ring; p = 1 under NCCL, nothing sent) at
+config 2's full width (phase 10's ratings, phase 22's W0/H0, rank 64:
+MU Frobenius and KL, beta 1.5, ALS, GDCLS, nsNMF) and weighted MU at
+config 3's (phase 16's matrix and start, rank 128, alpha 40), each half
+of one iteration against compute_sparse's scatter engine from the same
+(W, H) within 8 sqrt(K) 2^-24 (a solved half (10 sqrt(r) + 8 sqrt(K))
+kappa 2^-24), ms an iteration a rank and MB staged; (b) dense V at the
+ML-20M shape (each rank densifies its tile of the ratings on the card),
+float32 and int8, on 2 x 2 and 1 x 1: each half against the unsharded
+driver.compute (1e-4; int8 1e-5), the errors after 2 iterations (1e-3);
+4096^2 / rank 256 (phase 4's V) with use_pallas on 4 x 1 and 1 x 4
+(#1-#4 on the local half, #5 on the other) and int8 Jacobi on 2 x 2
+(#6's dual entry), each against the unsharded run, the kernels against
+their twins on a rank's tile and #5 bit-equal; every kernel of (b) must
+launch; (c) config 5's int8 table on 1 x 4 (2,621,440 items a rank):
+phase 18's cold users at b = 512, the sharded Gram equal to the
+unsharded one, ALS against float64 within 10 kappa 2^-24, ALS, MU and
+HALS fold-ins against the unsharded ones (1e-4), recommend_from_history's
+recall@100 against the exact scan (0.999) with no history item, #7 and
+#8 against their twins on a rank; (d) MiniBatchNMF (KL, 1,024-row
+panels, one epoch) on four item shards against one card; (e) NMF(mesh=)
+at config 2 and checkpoint.resume(mesh=) of phase 23's checkpoint on 2 x
+2 against one card, rank_selection(mesh=) at config 1's shape, the three
+conversions onto the mesh and dryrun_multichip(4).
 Every phase prints its results; any failure exits non-zero, as does a
 kernel timed below its bound. Without a CUDA device it exits 1 and runs
 nothing.
@@ -483,6 +508,42 @@ GRID_ERR_RTOL = 1e-3
 GRID_ITERS = 4
 GRID_RANKS, GRID_SHAPE, SERVE_GRID = 4, (2, 2), (1, 4)
 GRID_TIMEOUT = 600
+
+# phase 25: slice 6b over the port's launcher, four gloo ranks sharing the
+# card and one NCCL rank. (a) the ring at config 2's full width (phase
+# 10's ratings, phase 22's W0/H0, rank 64; six algorithms, one iteration
+# in each order) and weighted MU at config 3's (phase 16's matrix and
+# start, rank 128, alpha 40), each half against compute_sparse's scatter
+# engine from the same (W, H): float32 sums of up to the longest row's or
+# column's K terms in another order, 8 sqrt(K) 2^-24 (GRID_STEP_RTOL at
+# least), a solved half (10 sqrt(r) + 8 sqrt(K)) kappa 2^-24 of its
+# system. (b) dense V at the ML-20M shape (the ratings densified tile by
+# tile on the card), float32 and int8, MU Frobenius, on 2 x 2 and on one
+# NCCL rank: each half from (W0, H0) against the unsharded
+# driver.compute's at DENSE_F32_RTOL (sums of up to 138,493 terms in
+# another order) and
+# DENSE_INT8_RTOL (int32 sums exact, only the Grams' order differs), the
+# errors after DENSE_ITERS at DENSE_ERR_RTOL (requantization can flip);
+# 4096^2 / rank 256 with the fused kernels on 4 x 1 and 1 x 4 and int8
+# Jacobi on 2 x 2. (c) config 5's int8 table on 1 x 4 (2,621,440 items a
+# rank), phase 18's cold users at b = FOLD_B: the Gram equal to the
+# unsharded one, the fold-ins at FOLD_RTOL, the top-100's recall against
+# the exact unsharded scan at RECALL_FLOOR. (d) MiniBatchNMF, KL, one
+# epoch at config 2 on four item shards. (e) the surfaces on 2 x 2.
+MESH_RANKS = 4
+RING_KINDS = ("mu-frobenius", "mu-kl", "beta-1.5", "als", "gdcls", "nsnmf")
+DENSE_F32_RTOL, DENSE_INT8_RTOL, DENSE_ERR_RTOL = 1e-4, 1e-5, 1e-3
+DENSE_ITERS = 2
+FOLD_B = 512
+# the sharded fold-in against the unsharded one: the same Gram, history
+# rows summed by index_add_ (atomics: float32 sums in another order), then
+# the same solves and iterations
+FOLD_RTOL = 1e-4
+MESH_TIMEOUT = 900
+# the kernels that phase 25 (b) must launch: #1-#5 and #6's entries
+DENSE_KERNELS = ("w_update_fused", "h_update_fused", "w_update_fused_q",
+                 "h_update_fused_q", "fused_multiply_divide", "vht_int8",
+                 "wtv_int8", "dual_numerators_int8")
 
 # the card's peaks (NVIDIA's H100 SXM data sheet, dense): float32 on the
 # CUDA cores, bf16 and int8 on the tensor cores, HBM bandwidth
@@ -3938,7 +3999,7 @@ def rel_to_max(a, b) -> float:
                  / b.double().abs().max())
 
 
-def surfaces_phase(nt, card, dev, ratings, max_abs) -> dict:
+def surfaces_phase(nt, card, dev, ratings, max_abs, ck_dir) -> dict:
     """Phase 23 (slice 5): the sklearn facade at config 2's full width
     (a), MiniBatchNMF and an OnlineNMF stream at config 2 (b),
     compute_batched at 4096^2 / r = 256 on four routes (c), vectorized
@@ -3947,7 +4008,8 @@ def surfaces_phase(nt, card, dev, ratings, max_abs) -> dict:
     is driven with the kernels' counts read just before and just after
     it; returns the launches of #1-#4 and #7 on them and raises max_abs's
     entries to the errors of #1-#4 and #7 against their twins on this
-    phase's operands."""
+    phase's operands. The checkpoint of (e) is written to `ck_dir`, where
+    phase 25 resumes it on a mesh."""
     import os
     import tempfile
 
@@ -4375,9 +4437,8 @@ def surfaces_phase(nt, card, dev, ratings, max_abs) -> dict:
     full = nt.compute(V0, cfg, W0=W0s[0], H0=H0s[0])
     first = nt.compute(V0, dataclasses.replace(cfg, num_iterations=10),
                        W0=W0s[0], H0=H0s[0])
-    with tempfile.TemporaryDirectory() as tmp:
-        CK.save(tmp, first.W, first.H, iteration=10, config=cfg)
-        resumed = CK.resume(tmp, V0, cfg, device=dev)
+    CK.save(ck_dir, first.W, first.H, iteration=10, config=cfg)
+    resumed = CK.resume(ck_dir, V0, cfg, device=dev)
     add(before)
     d_ck = max(rel_to_max(resumed.W, full.W), rel_to_max(resumed.H, full.H))
     say("23 (e) checkpoint", saved_at=10, resumed_to=BATCH_ITERS,
@@ -5149,6 +5210,1024 @@ def grid_phase(nt, card, dev, ratings, c4, max_abs) -> dict:
             "count_above": sum(x[1] for x in launched)}
 
 
+# phase 25: slice 6b. The rank programs below run in the processes of the
+# port's launcher (spawned: each imports this file as a module).
+# ---------------------------------------------------------------------------
+
+
+def ring_config(kind: str, order: str, rank: int = SPARSE_RANK):
+    """Phase 25 (a)'s configs, one iteration from W0/H0: order "WH" takes
+    the W half from (W0, H0), "HW" the H half, as phase 24 holds them."""
+    from nmftpu_torch.config import (Algorithm, Initialization, NmfConfig,
+                                     Objective)
+
+    knobs = {"mu-frobenius": {}, "mu-kl": dict(objective=Objective.KL),
+             "beta-1.5": dict(objective=Objective.BETA, beta=1.5),
+             "als": dict(algorithm=Algorithm.ALS),
+             "gdcls": dict(algorithm=Algorithm.GDCLS),
+             "nsnmf": dict(algorithm=Algorithm.NSNMF),
+             "weighted": dict(alpha_confidence=C3_ALPHA)}[kind]
+    return NmfConfig(rank=rank, init_method=Initialization.COPY_EXISTING,
+                     num_iterations=1, check_interval=1, update_order=order,
+                     **knobs)
+
+
+def ring_limits(kind: str, K: int, kappa_w: float, kappa_h: float, r: int):
+    """(W limit, H limit) of one ring half against compute_sparse's:
+    scatter's float32 sums of up to K terms in another order, 8 sqrt(K)
+    2^-24 (GRID_STEP_RTOL at least); a solved half also moves by its
+    system's condition, (10 sqrt(r) + 8 sqrt(K)) kappa 2^-24."""
+    base = max(GRID_STEP_RTOL, 8 * K ** 0.5 * 2.0 ** -24)
+
+    def solved(kappa):
+        return max(base, (10 * r ** 0.5 + 8 * K ** 0.5) * kappa * 2.0 ** -24)
+
+    if kind == "als":
+        return solved(kappa_w), solved(kappa_h)
+    if kind == "gdcls":
+        return base, solved(kappa_h)
+    return base, base
+
+
+def load_coo(path):
+    from nmftpu_torch.sparse import SparseCOO
+
+    z = np.load(path)
+    return SparseCOO(z["row"], z["col"], z["data"],
+                     tuple(int(x) for x in z["shape"]))
+
+
+class CSRTiles:
+    """Dense V as a view of a host CSR: V[rows, cols] (two slices) is the
+    dense block, made on the card. What `driver.compute(mesh=)` reads of
+    V is its shape and each rank's tile, so no rank holds V whole."""
+
+    def __init__(self, csr, dev):
+        self.csr, self.dev = csr, dev
+        self.shape, self.ndim = csr.shape, 2
+
+    def __getitem__(self, key):
+        (r0, r1, _), (c0, c1, _) = (s.indices(n) for s, n in
+                                    zip(key, self.shape))
+        ip = self.csr.indptr
+        lo, hi = int(ip[r0]), int(ip[r1])
+        rows = np.repeat(np.arange(r1 - r0), np.diff(ip[r0:r1 + 1]))
+        cols = self.csr.indices[lo:hi].astype(np.int64)
+        keep = (cols >= c0) & (cols < c1)
+        out = torch.zeros((r1 - r0, c1 - c0), device=self.dev)
+        out[torch.as_tensor(rows[keep], device=self.dev),
+            torch.as_tensor(cols[keep] - c0, device=self.dev)] = \
+            torch.as_tensor(self.csr.data[lo:hi][keep], device=self.dev)
+        return out
+
+
+def dense_config(storage: str, iters: int, **knobs):
+    from nmftpu_torch.config import Initialization, NmfConfig
+
+    return NmfConfig(rank=knobs.pop("rank", SPARSE_RANK),
+                     init_method=Initialization.COPY_EXISTING,
+                     num_iterations=iters, check_interval=1,
+                     v_storage=storage, **knobs)
+
+
+# (b)'s 4096^2 runs: (mesh shape, label, knobs); the axis of size 1 makes
+# a half local (#1-#4 whole), #5 takes the other; Jacobi int8 runs #6's
+# dual entry per tile
+DENSE_4096 = (((4, 1), "f32-pallas", dict(use_pallas=True)),
+              ((1, 4), "f32-pallas", dict(use_pallas=True)),
+              ((4, 1), "int8-pallas", dict(v_storage="int8",
+                                           use_pallas=True)),
+              ((1, 4), "int8-pallas", dict(v_storage="int8",
+                                           use_pallas=True)),
+              ((2, 2), "int8-jacobi", dict(v_storage="int8", use_pallas=True,
+                                           mu_style="jacobi")))
+
+
+def headline_v(dev):
+    """Phase 4's V, W0, H0 (4096^2, rank 256), made again from its seed."""
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    V = synthetic_lowrank(4096, 4096, 256, gen, dev)
+    W0 = torch.rand(4096, 256, generator=gen, device=dev) + 0.01
+    H0 = torch.rand(256, 4096, generator=gen, device=dev) + 0.01
+    return V, W0, H0
+
+
+def all_launches():
+    """Every kernel wrapper's count, by name."""
+    from nmftpu_torch.kernels import count_above as CA
+    from nmftpu_torch.kernels import dense_mu as K
+    from nmftpu_torch.kernels import dual_numer as DN
+    from nmftpu_torch.kernels import hals_sweep as HS
+    from nmftpu_torch.kernels import mips_reservoir as MR
+    from nmftpu_torch.kernels import quantized as Q
+    from nmftpu_torch.kernels import sparse_ell_kernel as SEK
+
+    out = {}
+    for counts in (K.LAUNCHES, Q.LAUNCHES, DN.LAUNCHES, HS.LAUNCHES,
+                   MR.LAUNCHES, CA.LAUNCHES, SEK.LAUNCHES):
+        out.update(counts)
+    return dict(out)
+
+
+def launches_since(before):
+    now = all_launches()
+    return {k: now[k] - before.get(k, 0) for k in now}
+
+
+class RecordedMuldiv:
+    """Inside `with`, every #5 launch of the path also keeps a copy of
+    its operands, so that `check` can hold the kernel against its twin on
+    exactly the shapes and values the path gave it."""
+
+    def __init__(self):
+        self.calls = []
+
+    def __enter__(self):
+        from nmftpu_torch.kernels import dense_mu as K
+
+        self.real = real = K.fused_multiply_divide
+
+        def spy(X, numer, denom, eps=1e-9):
+            self.calls.append((X.clone(), numer.clone(), denom.clone(), eps))
+            return real(X, numer, denom, eps)
+
+        K.fused_multiply_divide = spy
+        return self
+
+    def __exit__(self, *exc):
+        from nmftpu_torch.kernels import dense_mu as K
+
+        K.fused_multiply_divide = self.real
+
+    def check(self, where):
+        """#5 against its twin on each recorded call, bit for bit (these
+        launches come after the path's count is read). Returns
+        (calls, max |kernel - twin|, shapes)."""
+        from nmftpu_torch.kernels import dense_mu as K
+
+        worst, shapes = 0.0, set()
+        for X, numer, denom, eps in self.calls:
+            got = K.fused_multiply_divide(X, numer, denom, eps)
+            want = K.fused_multiply_divide_plain(X, numer, denom, eps)
+            d = float((got - want).abs().max())
+            if not torch.equal(got, want):
+                fail(f"#5 differs from its twin by {d} on {where}'s "
+                     f"operands {tuple(X.shape)}")
+            worst = max(worst, d)
+            shapes.add(tuple(X.shape))
+        n = len(self.calls)
+        self.calls = []
+        return n, worst, sorted(shapes)
+
+
+def ring_section(mesh, sp, W0, H0, kinds, refs, limits, rank, chunk=1 << 17):
+    """(a) on `mesh`: one iteration in each order of each kind on the
+    ring; rank 0 holds each half against compute_sparse's (refs, an npz
+    path). Returns {kind: row}."""
+    import torch.distributed as dist
+
+    from nmftpu_torch.parallel import STAGED_BYTES, prepare_sharded
+
+    ref = np.load(refs)
+    t0 = time.perf_counter()
+    plan = prepare_sharded(sp, ring_config(kinds[0], "WH", rank),
+                           mesh=mesh, engine="ring", chunk=chunk)
+    out = {"prepare_s": time.perf_counter() - t0}
+    for kind in kinds:
+        row = {}
+        for order in ("HW", "WH"):
+            staged = sum(STAGED_BYTES.values())
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = plan.run(ring_config(kind, order, rank), W0=W0, H0=H0)
+            torch.cuda.synchronize()
+            row[order] = dict(secs=time.perf_counter() - t0,
+                              error=res.error,
+                              staged=sum(STAGED_BYTES.values()) - staged)
+            if dist.get_rank() == 0:
+                X = res.W if order == "WH" else res.H
+                Y = torch.as_tensor(ref[f"{kind}-{order}"], device=X.device)
+                row[order]["rel"] = float((X - Y).abs().max()
+                                          / Y.abs().max())
+                row[order]["limit"] = limits[kind][order == "HW"]
+            del res
+        out[kind] = row
+    del plan
+    torch.cuda.empty_cache()
+    return out
+
+
+def dense_section(mesh, ratings, W0, H0, save):
+    """(b) at the ML-20M shape on `mesh`: MU Frobenius, float32 and int8 V,
+    one iteration in each order, so that each half starts from (W0, H0)
+    (the first rank saves the W of "WH" and the H of "HW" to `save`), and
+    DENSE_ITERS (the errors)."""
+    import torch.distributed as dist
+
+    import nmftpu_torch as nt
+
+    dev = torch.device("cuda")
+    V = CSRTiles(ratings, dev)
+    out = {}
+    for storage in ("float32", "int8"):
+        halves = {}
+        for order in ("HW", "WH"):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            one = nt.driver.compute(V, dense_config(storage, 1,
+                                                    update_order=order),
+                                    W0=W0, H0=H0, mesh=mesh)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            halves[order] = (one.W if order == "WH" else one.H).cpu().numpy()
+            del one
+        if dist.get_rank() == 0:
+            np.savez(f"{save}-{storage}.npz", W=halves["WH"],
+                     H=halves["HW"])
+        more = nt.driver.compute(V, dense_config(storage, DENSE_ITERS),
+                                 W0=W0, H0=H0, mesh=mesh)
+        out[storage] = dict(secs_one=secs, errors=list(more.stats.errors))
+        del more
+        torch.cuda.empty_cache()
+    return out
+
+
+def dense_4096_section(shapes_meshes, save, max_abs, muldiv):
+    """(b) at 4096^2 / rank 256 (phase 4's V): DENSE_4096's runs, one
+    iteration each (the first rank saves the factors), #5 against its
+    twin on the operands each run gave it, and the kernels of the local
+    halves against their twins on this rank's operands."""
+    import torch.distributed as dist
+
+    import nmftpu_torch as nt
+    from nmftpu_torch.algorithms.registry import _quantize_v
+    from nmftpu_torch.kernels import dense_mu as K
+    from nmftpu_torch.kernels import dual_numer as DN
+    from nmftpu_torch.kernels import quantized as Q
+    from nmftpu_torch.linalg import dense as D
+    from nmftpu_torch.parallel.dense_mesh import (
+        DenseTile, MeshSums, _tile_of, block_shape)
+    from nmftpu_torch.parallel.mesh import AXIS_ITEMS, AXIS_USERS
+
+    dev = torch.device("cuda")
+    V, W0, H0 = headline_v(dev)
+    out = {}
+    for shape, label, knobs in DENSE_4096:
+        mesh = shapes_meshes[shape]
+        kn = dict(knobs)
+        cfg = dense_config(kn.pop("v_storage", "float32"), 1, rank=256,
+                           **kn)
+        before = all_launches()
+        with RecordedMuldiv() as rec:
+            res = nt.driver.compute(V, cfg, W0=W0, H0=H0, mesh=mesh)
+        torch.cuda.synchronize()
+        out[shape, label] = launches_since(before)
+        muldiv[shape, label] = rec.check(f"{label} {shape}")
+        if dist.get_rank() == 0:
+            np.savez(f"{save}-{label}-{shape[0]}x{shape[1]}.npz",
+                     W=res.W.cpu().numpy(), H=res.H.cpu().numpy())
+        # the kernels against their twins on this rank's tile and blocks
+        br, bc = block_shape(V.shape, shape)
+        i, j = mesh.get_local_rank(AXIS_USERS), mesh.get_local_rank(AXIS_ITEMS)
+        tile = DenseTile(V=_tile_of(V, slice(i * br, (i + 1) * br),
+                                    slice(j * bc, (j + 1) * bc), (br, bc),
+                                    torch.float32, dev),
+                         shape=tuple(V.shape), coords=(i, j))
+        Wb = W0[i * br:(i + 1) * br].contiguous()
+        Hb = H0[:, j * bc:(j + 1) * bc].contiguous()
+        sums = MeshSums(mesh)
+        if cfg.v_storage == "int8":
+            Vq, scale = _quantize_v(sums)(tile.V)
+        Gw, Gh = H0 @ H0.T, W0.T @ W0
+        pairs = {}
+        if label == "f32-pallas" and shape == (4, 1):
+            pairs["w_update_fused"] = (
+                K.w_update_fused(tile.V, Wb, Hb, Gw),
+                K.w_update_fused_plain(tile.V, Wb, Hb, Gw))
+        if label == "f32-pallas" and shape == (1, 4):
+            pairs["h_update_fused"] = (
+                K.h_update_fused(tile.V, Wb, Hb, Gh),
+                K.h_update_fused_plain(tile.V, Wb, Hb, Gh))
+        if label == "int8-pallas" and shape == (4, 1):
+            pairs["w_update_fused_q"] = (
+                Q.w_update_fused_q(Vq, scale, Wb, Hb, Gw),
+                Q.w_update_fused_q_plain(Vq, scale, Wb, Hb, Gw))
+        if label == "int8-pallas" and shape == (1, 4):
+            pairs["h_update_fused_q"] = (
+                Q.h_update_fused_q(Vq, scale, Wb, Hb, Gh),
+                Q.h_update_fused_q_plain(Vq, scale, Wb, Hb, Gh))
+        if label == "int8-jacobi":
+            s_w, WqT = D._quantize_wt(Wb, sums)
+            s_h, Hq = D._quantize_h(Hb, sums)
+            got = DN.dual_int8(Vq, WqT, Hq)
+            want = DN.dual_int8_plain(Vq, WqT, Hq)
+            pairs["dual_numerators_int8"] = (
+                torch.cat([got[0].reshape(-1), got[1].reshape(-1)]).double(),
+                torch.cat([want[0].reshape(-1), want[1].reshape(-1)])
+                .double())
+        torch.cuda.synchronize()
+        for name, (got, want) in pairs.items():
+            max_abs[name] = max(max_abs.get(name, 0.0),
+                                float((got - want).abs().max()))
+        n_calls, d, _ = muldiv[shape, label]
+        if n_calls:
+            max_abs["fused_multiply_divide"] = max(
+                max_abs.get("fused_multiply_divide", 0.0), d)
+        del res, tile, pairs
+        torch.cuda.empty_cache()
+    return out
+
+
+def foldin_section(mesh, cold, max_abs):
+    """(c): config 5's int8 table sharded over `mesh` (the ranks make
+    phase 8's factors in turns), the cold users' fold-ins (ALS, MU, HALS)
+    and recommend_from_history_batch at b = FOLD_B, #7 and #8 against
+    their twins on this rank."""
+    import torch.distributed as dist
+
+    from nmftpu_torch.kernels import hals_sweep as HS
+    from nmftpu_torch.kernels import mips_reservoir as MR
+    from nmftpu_torch.serving import Recommender
+
+    dev = torch.device("cuda")
+    rank, world = dist.get_rank(), dist.get_world_size()
+    for turn in range(world):
+        if turn == rank:
+            W8, H8, train = serving_data(
+                torch.Generator(device=dev).manual_seed(SEED + 8), dev)
+            rec = Recommender(W8, H8, train=train, mesh=mesh,
+                              method="reservoir", table_dtype="int8")
+            del W8, H8
+            torch.cuda.empty_cache()
+        dist.barrier()
+    hists = list(cold[:FOLD_B])
+    before = all_launches()
+    t0 = time.perf_counter()
+    prep = rec._prep()
+    folded = {"als": rec.fold_in_batch(hists)}
+    for rule in ("mu", "hals"):
+        folded[rule] = rec.fold_in_batch(hists, algorithm=rule,
+                                         num_iterations=COLD_ITERS)
+    top = rec.recommend_from_history_batch(hists, k=SERVE_K)
+    torch.cuda.synchronize()
+    out = {"launches": launches_since(before),
+           "secs": time.perf_counter() - t0, "m_local": int(rec.H.shape[1])}
+    if rank == 0:
+        out.update(G=prep.G.cpu().numpy(), folded=folded, top=top)
+    # #7 and #8 against their twins on this rank's operands
+    W = torch.as_tensor(folded["hals"], device=dev)
+    N = torch.as_tensor(folded["als"], device=dev) @ prep.G
+    got, want = HS.hals_sweep(N, prep.G, W), HS.hals_sweep_plain(N, prep.G, W)
+    max_abs["hals_sweep"] = float((got - want).abs().max())
+    if not max_abs["hals_sweep"] <= HALS_ATOL * float(want.abs().max()):
+        fail(f"rank {rank}: #7 differs from its twin by "
+             f"{max_abs['hals_sweep']:.3e} on the fold-in's operands")
+    Wk = (torch.as_tensor(folded["als"], device=dev)
+          * rec._h_scale).contiguous()
+    a, _, _ = check_reservoir(MR, f"rank {rank} fold-in b={FOLD_B} int8",
+                              Wk, rec.H, rec.H.shape[1], 4096)
+    max_abs["reservoir_scan"] = a
+    del rec, prep
+    torch.cuda.empty_cache()
+    return out
+
+
+def minibatch_section(mesh, ratings_path, W0, H0):
+    """(d): MiniBatchNMF(mesh=), KL, MB_BATCH-row panels, one epoch at
+    config 2."""
+    import scipy.sparse as sps
+
+    from nmftpu_torch import sklearn_api as SK
+
+    ratings = load_ratings(ratings_path)
+    X = sps.csr_matrix((ratings.data, ratings.indices, ratings.indptr),
+                       shape=ratings.shape)
+    est = SK.MiniBatchNMF(n_components=SPARSE_RANK, init="custom",
+                          beta_loss="kullback-leibler", batch_size=MB_BATCH,
+                          max_iter=1, tol=0.0, max_no_improvement=None,
+                          mesh=mesh)
+    t0 = time.perf_counter()
+    W = est.fit_transform(X, W=W0, H=H0)
+    return {"secs": time.perf_counter() - t0, "W": W,
+            "H": est.components_, "err": est.reconstruction_err_}
+
+
+def _stand_in(kind, attrs):
+    """An object of class name `kind` holding `attrs`: what the convert
+    functions read of an nmftpu object."""
+    return type(kind, (), dict(attrs))()
+
+
+def config1_dense():
+    """Config 1's shape as a dense V (the rank selections of phase 25)."""
+    n1, m1, nnz1 = CONFIG1
+    rng = np.random.default_rng(SEED + 23)
+    config1 = np.zeros(n1 * m1, np.float32)
+    config1[rng.choice(n1 * m1, nnz1, replace=False)] = rng.integers(
+        1, 6, nnz1)
+    return config1.reshape(n1, m1)
+
+
+RANK_SELECTION = dict(ranks=(16, 32), n_runs=3, num_iterations=50,
+                      seed=SEED)
+# the mesh's rank selection against the unsharded one from the same
+# draws: float32 sums in another order can flip a row's argmax in a near
+# tie, which moves a consensus entry by 1/n_runs
+RANK_SELECTION_RTOL = 1e-3
+
+
+def surfaces_section(mesh, ratings_path, W0, H0, ck_dir, dev, muldiv):
+    """(e): NMF(mesh=) at config 2, checkpoint.resume(mesh=) of phase
+    23's checkpoint (its #5 operands recorded in `muldiv`),
+    rank_selection(mesh=) at config 1, and the three conversions onto
+    the mesh."""
+    import scipy.sparse as sps
+    import torch.distributed as dist
+
+    import nmftpu_torch as nt
+    from nmftpu_torch import checkpoint as CK
+    from nmftpu_torch import convert
+    from nmftpu_torch import minibatch as MB
+    from nmftpu_torch import sklearn_api as SK
+    from nmftpu_torch.serving import Recommender, quantize_table
+    from nmftpu_torch.sparse import from_dense
+
+    out = {}
+    ratings = load_ratings(ratings_path)
+    X = sps.csr_matrix((ratings.data, ratings.indices, ratings.indptr),
+                       shape=ratings.shape)
+    est = SK.NMF(n_components=SPARSE_RANK, init="custom", solver="mu",
+                 max_iter=2, tol=0.0, strategy="ell", mesh=mesh)
+    t0 = time.perf_counter()
+    Wn = est.fit_transform(X, W=W0, H=H0)
+    out["nmf"] = {"secs": time.perf_counter() - t0,
+                  "err": est.reconstruction_err_,
+                  "W": Wn if dist.get_rank() == 0 else None}
+    V0, _, _ = headline_v(dev)
+    cfg = dense_config("float32", BATCH_ITERS, rank=256, use_pallas=True)
+    cfg = dataclasses.replace(cfg, check_interval=10)
+    with muldiv:
+        res = CK.resume(ck_dir, V0, cfg, mesh=mesh)
+    out["resume"] = {"error": res.error, "iterations": res.num_iterations,
+                     "W": res.W.cpu().numpy() if dist.get_rank() == 0
+                     else None}
+    del V0, res
+    sel = nt.rank_selection(config1_dense(), mesh=mesh, **RANK_SELECTION)
+    out["ranks"] = {"best": sel.best_rank,
+                    "cophenetic": list(sel.cophenetic),
+                    "dispersion": list(sel.dispersion)}
+    # the conversions: stand-ins with an nmftpu object's attributes, made
+    # from the port's own objects on one card
+    gen = torch.Generator(device=dev).manual_seed(SEED + 25)
+    Wr = torch.rand(2048, 64, generator=gen, device=dev)
+    Hr = torch.rand(64, 8192, generator=gen, device=dev)
+    Hq, hs = quantize_table(Hr)
+    seen = from_dense((torch.rand(2048, 8192, generator=gen, device=dev)
+                       < 0.01).float().cpu().numpy()).to_csr()
+    rec = convert.recommender_from_nmftpu(_stand_in("Recommender", {
+        "W": Wr.cpu().numpy(), "H": Hq.cpu().numpy(), "_m_items": 8192,
+        "table_dtype": "int8", "_h_scale": hs.cpu().numpy(),
+        "_train_csr": seen, "block": 1024, "method": "exact",
+        "reservoir_slots": 4096, "mesh": True}), device=dev, mesh=mesh)
+    direct = Recommender.from_table(Wr, Hq, h_scale=hs, train=seen,
+                                    block=1024, method="exact", device=dev)
+    users = np.arange(64)
+    s1, i1 = rec.recommend(users, k=10)
+    s2, i2 = direct.recommend(users, k=11)
+    out["convert_recommender"] = rows_not_exact(s1, i1, s2, i2, 10)
+    Vmb = torch.rand(256, 4096, generator=gen, device=dev)
+    H0m = torch.rand(16, 4096, generator=gen, device=dev) + 0.01
+    W0m = torch.rand(128, 16, generator=gen, device=dev) + 0.01
+    one = MB.OnlineNMF(16, batch_size=128, device=dev)
+    one.partial_fit(Vmb[:128], H0=H0m)
+    attrs = {k: getattr(one, k) for k in convert._ONLINE_PARAMS}
+    attrs.update(rank=16, dtype=np.float32, rho=one.rho,
+                 n_steps=one.n_steps, _shardings=True,
+                 H=one.H.cpu().numpy(), _A=one._A.cpu().numpy(),
+                 _B=one._B.cpu().numpy())
+    moved = convert.online_state_from_nmftpu(_stand_in("OnlineNMF", attrs),
+                                             device=dev, mesh=mesh)
+    moved.partial_fit(Vmb[128:])
+    one.partial_fit(Vmb[128:])
+    a = moved.components()
+    out["convert_online"] = float((a - one.H).abs().max()
+                                  / one.H.abs().max())
+    est1 = SK.MiniBatchNMF(n_components=16, init="custom", batch_size=128,
+                           max_iter=1, tol=0.0, device=dev)
+    est1.partial_fit(Vmb[:128].cpu().numpy(), W=W0m.cpu().numpy(),
+                     H=H0m.cpu().numpy())
+    ea = {k: getattr(est1, k) for k in SK.MiniBatchNMF._get_param_names()
+          if k not in ("device", "mesh")}
+    ea.update({k: getattr(est1, k) for k in convert._FITTED
+               if hasattr(est1, k)})
+    oa = {k: getattr(est1._online, k) for k in convert._ONLINE_PARAMS}
+    oa.update(rank=16, dtype=np.float32, rho=est1._online.rho,
+              n_steps=est1._online.n_steps, _shardings=True,
+              H=est1._online.H.cpu().numpy(),
+              _A=est1._online._A.cpu().numpy(),
+              _B=est1._online._B.cpu().numpy())
+    ea["_online"] = _stand_in("OnlineNMF", oa)
+    est2 = convert.estimator_from_nmftpu(_stand_in("MiniBatchNMF", ea),
+                                         device=dev, mesh=mesh)
+    est2.partial_fit(Vmb[128:].cpu().numpy())
+    est1.partial_fit(Vmb[128:].cpu().numpy())
+    out["convert_estimator"] = float(
+        np.abs(est2.components_ - est1.components_).max()
+        / np.abs(est1.components_).max())
+    return out
+
+
+def mesh_four_ranks(paths, W0, H0, W3, H3, limits, cold):
+    """Phase 25 on four ranks sharing the card (gloo): (a) the ring at
+    config 2 and weighted MU at config 3, (b) dense V on 2 x 2, 4 x 1 and
+    1 x 4, (c) the sharded fold-in on 1 x 4, (d) MiniBatchNMF and (e) the
+    surfaces on 2 x 2. Every section's launches are read from 0 (a fresh
+    process) around it."""
+    import torch.distributed as dist
+
+    from nmftpu_torch.parallel import STAGED_BYTES, make_grid_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda")
+    meshes = {s: make_grid_mesh(s) for s in ((2, 2), (1, 4), (4, 1))}
+    rank = dist.get_rank()
+    out = {"rank": rank, "backend": dist.get_backend()}
+    max_abs = {}
+    ratings = load_ratings(paths["ratings"])
+
+    t0 = time.perf_counter()
+    before = all_launches()
+    out["ring"] = ring_section(meshes[1, 4], ratings, W0, H0, RING_KINDS,
+                               paths["refs2"], limits["c2"], SPARSE_RANK)
+    c3 = load_coo(paths["c3"])
+    out["ring3"] = ring_section(meshes[1, 4], c3, W3, H3, ("weighted",),
+                                paths["refs3"], limits["c3"], C3_RANK)
+    del c3
+    out["ring_launches"] = launches_since(before)
+    out["ring_peak_GiB"] = torch.cuda.max_memory_allocated() / 2**30
+    out["ring_secs"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    before = all_launches()
+    out["dense"] = dense_section(meshes[2, 2], ratings, W0, H0,
+                                 paths["dense_save"])
+    out["dense_launches"] = launches_since(before)
+    out["dense_peak_GiB"] = torch.cuda.max_memory_allocated() / 2**30
+    out["muldiv"] = {}
+    out["dense4096"] = dense_4096_section(meshes, paths["d4096_save"],
+                                          max_abs, out["muldiv"])
+    out["dense_secs"] = time.perf_counter() - t0
+    del ratings
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    out["foldin"] = foldin_section(meshes[1, 4], cold, max_abs)
+    out["foldin_secs"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    before = all_launches()
+    out["minibatch"] = minibatch_section(meshes[2, 2], paths["ratings"], W0,
+                                         H0)
+    if rank:
+        out["minibatch"]["W"] = out["minibatch"]["H"] = None
+    rec = RecordedMuldiv()
+    out["surfaces"] = surfaces_section(meshes[2, 2], paths["ratings"], W0,
+                                       H0, paths["ck23"], dev, rec)
+    out["surfaces_launches"] = launches_since(before)
+    out["muldiv"]["(e) resume"] = rec.check("(e) resume")
+    out["surfaces_secs"] = time.perf_counter() - t0
+    out["staged"] = dict(STAGED_BYTES)
+    out["max_abs"] = max_abs
+    return out
+
+
+def mesh_one_rank(paths, W0, H0, W3, H3, limits):
+    """Phase 25 under NCCL, one rank: the ring with p = 1 (no sends) and
+    dense V at the ML-20M shape on a 1 x 1 mesh."""
+    import torch.distributed as dist
+
+    from nmftpu_torch.parallel import STAGED_BYTES, make_grid_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mesh = make_grid_mesh((1, 1))
+    ratings = load_ratings(paths["ratings"])
+    out = {"backend": dist.get_backend()}
+    before = all_launches()
+    out["ring"] = ring_section(mesh, ratings, W0, H0, RING_KINDS,
+                               paths["refs2"], limits["c2"], SPARSE_RANK)
+    c3 = load_coo(paths["c3"])
+    out["ring3"] = ring_section(mesh, c3, W3, H3, ("weighted",),
+                                paths["refs3"], limits["c3"], C3_RANK)
+    del c3
+    torch.cuda.reset_peak_memory_stats()
+    out["dense"] = dense_section(mesh, ratings, W0, H0,
+                                 paths["dense_save"] + "-1x1")
+    out["launches"] = launches_since(before)
+    out["dense_peak_GiB"] = torch.cuda.max_memory_allocated() / 2**30
+    out["staged"] = dict(STAGED_BYTES)
+    return out
+
+
+def longest(coo_rows, coo_cols, n, m) -> int:
+    return int(max(np.bincount(coo_rows, minlength=n).max(),
+                   np.bincount(coo_cols, minlength=m).max()))
+
+
+def ring_references(TS, sp, W0, H0, kinds, rank, path, dev):
+    """compute_sparse's scatter engine, one iteration in each order of
+    each kind from W0/H0 (the halves phase 25 (a) holds the ring to),
+    saved to `path`; the Grams' conditions of W0 and H0."""
+    refs = {}
+    plan = TS.prepare_sparse(sp, ring_config(kinds[0], "WH", rank),
+                             strategy="scatter", device=dev)
+    Wd = torch.as_tensor(W0, device=dev)
+    Hd = torch.as_tensor(H0, device=dev)
+    for kind in kinds:
+        for order in ("WH", "HW"):
+            res = plan.run(ring_config(kind, order, rank), W0=Wd, H0=Hd)
+            refs[f"{kind}-{order}"] = (res.W if order == "WH"
+                                       else res.H).cpu().numpy()
+            del res
+    np.savez(path, **refs)
+    kappa_w = float(torch.linalg.cond((Hd @ Hd.T).double()))
+    kappa_h = float(torch.linalg.cond((Wd.T @ Wd).double()))
+    del plan, Wd, Hd
+    torch.cuda.empty_cache()
+    return kappa_w, kappa_h
+
+
+def mesh_phase(nt, card, dev, ratings, c3, ck_dir, max_abs) -> dict:
+    """Phase 25 (slice 6b): the ring engine (a), dense V on a mesh (b),
+    the sharded fold-in (c), MiniBatchNMF (d) and the surfaces (e) on
+    four gloo ranks sharing the card, the ring and dense V on one NCCL
+    rank, and dryrun_multichip; each against the unsharded run on the
+    card. Returns the ranks' launches by kernel; raises max_abs's entries
+    to the errors of the kernels against their twins on the ranks'
+    operands."""
+    import tempfile
+
+    from nmftpu_torch import checkpoint as CK
+    from nmftpu_torch import foldin as PF
+    from nmftpu_torch import sklearn_api as SK
+    from nmftpu_torch import sparse_ops as TS
+    from nmftpu_torch.parallel import dryrun_multichip, launch
+
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="nmftpu_phase25_")
+    try:
+        n, m = ratings.shape
+        r = SPARSE_RANK
+        paths = {"ratings": os.path.join(tmp, "ratings.npz"),
+                 "c3": os.path.join(tmp, "c3.npz"),
+                 "refs2": os.path.join(tmp, "refs2.npz"),
+                 "refs3": os.path.join(tmp, "refs3.npz"),
+                 "dense_save": os.path.join(tmp, "dense"),
+                 "d4096_save": os.path.join(tmp, "d4096"), "ck23": ck_dir}
+        np.savez(paths["ratings"], indptr=ratings.indptr,
+                 indices=ratings.indices, data=ratings.data,
+                 shape=np.array(ratings.shape))
+        csr3 = c3["csr"]
+        coo3 = csr3.to_coo()
+        np.savez(paths["c3"], row=coo3.row, col=coo3.col, data=coo3.data,
+                 shape=np.array(csr3.shape))
+        W0, H0 = config2_start(n, m, r,
+                               float(ratings.data.sum(dtype=np.float64)), dev)
+        W0, H0 = W0.cpu().numpy(), H0.cpu().numpy()
+        n3, m3 = csr3.shape
+        # phase 16's start
+        W3, H3 = (np.asarray(x.cpu() if isinstance(x, torch.Tensor) else x,
+                             np.float32) for x in (c3["W0"], c3["H0"]))
+        coo2 = ratings.to_coo()
+        K2 = longest(coo2.row, coo2.col, n, m)
+        K3 = longest(coo3.row, coo3.col, n3, m3)
+        del coo2
+        t0 = time.perf_counter()
+        kw2, kh2 = ring_references(TS, ratings, W0, H0, RING_KINDS, r,
+                                   paths["refs2"], dev)
+        kw3, kh3 = ring_references(TS, csr3, W3, H3, ("weighted",),
+                                   C3_RANK, paths["refs3"], dev)
+        limits = {"c2": {k: ring_limits(k, K2, kw2, kh2, r)
+                         for k in RING_KINDS},
+                  "c3": {"weighted": ring_limits("weighted", K3, kw3, kh3,
+                                                 C3_RANK)}}
+        ref_s = time.perf_counter() - t0
+        gen = torch.Generator(device=dev).manual_seed(SEED + 18)
+        cold = distinct_items(COLD_USERS, gen, dev)
+        torch.cuda.empty_cache()
+
+        t0 = time.perf_counter()
+        four = launch(mesh_four_ranks, MESH_RANKS,
+                      args=(paths, W0, H0, W3, H3, limits, cold),
+                      backend="gloo", timeout=MESH_TIMEOUT, threads=2)
+        four_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        one = launch(mesh_one_rank, 1, args=(paths, W0, H0, W3, H3, limits),
+                     backend="nccl", timeout=MESH_TIMEOUT)[0]
+        one_s = time.perf_counter() - t0
+        say("25 launches", four_gloo_ranks_s=f"{four_s:.1f}",
+            one_nccl_rank_s=f"{one_s:.1f}", references_s=f"{ref_s:.1f}",
+            card=card)
+        f0 = four[0]
+        for f in four:
+            for name, a in f["max_abs"].items():
+                max_abs[name] = max(max_abs[name], a)
+
+        # -- (a) the ring ---------------------------------------------------
+        for label, res, p in (("4 gloo ranks", f0, 4),
+                              ("1 NCCL rank", one, 1)):
+            for sect, K in (("ring", K2), ("ring3", K3)):
+                for kind, row in res[sect].items():
+                    if kind == "prepare_s":
+                        continue
+                    for order in ("HW", "WH"):
+                        g = row[order]
+                        half = "H" if order == "HW" else "W"
+                        say("25a ring", ranks=label, p=p, kind=kind,
+                            half=half, rel=f"{g['rel']:.3e}",
+                            limit=f"{g['limit']:.3e}", longest=K,
+                            ms_per_iteration=f"{1e3 * g['secs']:.1f}",
+                            staged_MB=f"{g['staged'] / 2**20:.1f}",
+                            error=f"{g['error']:.6g}")
+                        if not g["rel"] <= g["limit"]:
+                            fail(f"phase 25 (a) {label} {kind}: the {half} "
+                                 f"half differs from compute_sparse's by "
+                                 f"{g['rel']:.3e} > {g['limit']:.3e}")
+        say("25a", prepare_s=f"{f0['ring']['prepare_s']:.1f}",
+            seconds=f"{f0['ring_secs']:.1f}",
+            peak_GiB_per_rank=[round(f["ring_peak_GiB"], 1) for f in four],
+            ring_launches=sum(sum(f["ring_launches"].values())
+                              for f in four), card=card,
+            note="four processes time-share one card: these times say "
+                 "nothing about scaling")
+
+        # -- (b) dense V on the mesh -----------------------------------------
+        V = CSRTiles(ratings, dev)
+        for storage, rtol in (("float32", DENSE_F32_RTOL),
+                              ("int8", DENSE_INT8_RTOL)):
+            # each half from (W0, H0): the W of a "WH" step, the H of an
+            # "HW" one (a step's second half would see a factor one
+            # ulp apart, which int8 requantization can flip)
+            ref_w = nt.driver.compute(V[:, :], dense_config(storage, 1),
+                                      W0=W0, H0=H0).W
+            ref_h = nt.driver.compute(V[:, :], dense_config(
+                storage, 1, update_order="HW"), W0=W0, H0=H0).H
+            refk = nt.driver.compute(V[:, :], dense_config(storage,
+                                                           DENSE_ITERS),
+                                     W0=W0, H0=H0)
+            for tag, res in (("2x2 gloo", f0["dense"][storage]),
+                             ("1x1 nccl", one["dense"][storage])):
+                z = np.load(paths["dense_save"]
+                            + ("-1x1" if tag == "1x1 nccl" else "")
+                            + f"-{storage}.npz")
+                dw = rel_host(torch.from_numpy(z["W"]), ref_w)
+                dh = rel_host(torch.from_numpy(z["H"]), ref_h)
+                derr = max(abs(a - b) / b for a, b in
+                           zip(res["errors"], refk.stats.errors))
+                say("25b ML-20M dense", mesh=tag, storage=storage,
+                    W_rel=f"{dw:.3e}", H_rel=f"{dh:.3e}", rtol=rtol,
+                    errors=[f"{e:.6g}" for e in res["errors"]],
+                    errors_rel=f"{derr:.3e}", err_rtol=DENSE_ERR_RTOL,
+                    first_iteration_s=f"{res['secs_one']:.2f}")
+                if not (dw <= rtol and dh <= rtol):
+                    fail(f"phase 25 (b) {tag} {storage}: a half differs "
+                         f"from the unsharded run's (W {dw:.3e}, H "
+                         f"{dh:.3e} > {rtol})")
+                if not derr <= DENSE_ERR_RTOL:
+                    fail(f"phase 25 (b) {tag} {storage}: the errors after "
+                         f"{DENSE_ITERS} differ by {derr:.3e}")
+            del ref_w, ref_h, refk
+            torch.cuda.empty_cache()
+        del V
+        say("25b peak", peak_GiB_per_rank=[round(f["dense_peak_GiB"], 1)
+                                           for f in four],
+            one_rank_peak_GiB=round(one["dense_peak_GiB"], 1))
+        V4, W04, H04 = headline_v(dev)
+        b_launches = {}
+        for f in four:
+            for key in ("dense_launches",):
+                for k, v in f[key].items():
+                    b_launches[k] = b_launches.get(k, 0) + v
+            for runs in f["dense4096"].values():
+                for k, v in runs.items():
+                    b_launches[k] = b_launches.get(k, 0) + v
+        for shape, label, knobs in DENSE_4096:
+            kn = dict(knobs)
+            cfg = dense_config(kn.pop("v_storage", "float32"), 1, rank=256,
+                               **kn)
+            ref = nt.driver.compute(V4, cfg, W0=W04, H0=H04)
+            z = np.load(f"{paths['d4096_save']}-{label}-{shape[0]}x"
+                        f"{shape[1]}.npz")
+            dw = rel_host(torch.from_numpy(z["W"]), ref.W)
+            dh = rel_host(torch.from_numpy(z["H"]), ref.H)
+            rtol = DENSE_INT8_RTOL if label == "int8-jacobi" \
+                else DENSE_F32_RTOL
+            ran = {k: sum(f["dense4096"][shape, label][k] for f in four)
+                   for k in DENSE_KERNELS}
+            say("25b 4096^2 r=256", mesh=f"{shape[0]}x{shape[1]}",
+                run=label, W_rel=f"{dw:.3e}", H_rel=f"{dh:.3e}", rtol=rtol,
+                launches={k: v for k, v in ran.items() if v})
+            if not (dw <= rtol and dh <= rtol):
+                fail(f"phase 25 (b) {label} {shape}: one iteration differs "
+                     f"from the unsharded run (W {dw:.3e}, H {dh:.3e})")
+            del ref
+        del V4, W04, H04
+        missing = [k for k in DENSE_KERNELS if b_launches.get(k, 0) < 1]
+        say("25b launches", **{k: b_launches.get(k, 0)
+                               for k in DENSE_KERNELS})
+        if missing:
+            fail(f"phase 25 (b): kernels never launched: {missing}")
+
+        # -- (c) fold-in on the sharded table --------------------------------
+        W8, H8, train = serving_data(
+            torch.Generator(device=dev).manual_seed(SEED + 8), dev)
+        rec = nt.Recommender(W8, H8, train=train, method="reservoir",
+                             table_dtype="int8", device=dev)
+        exact = nt.Recommender(W8, H8, train=train, method="exact",
+                               table_dtype="int8", device=dev)
+        del W8, H8
+        torch.cuda.empty_cache()
+        hists = list(cold[:FOLD_B])
+        prep = rec._prep()
+        g = f0["foldin"]
+        g_rel = float(np.abs(g["G"] - prep.G.cpu().numpy()).max()
+                      / np.abs(prep.G.cpu().numpy()).max())
+        folded = {"als": rec.fold_in_batch(hists)}
+        for rule in ("mu", "hals"):
+            folded[rule] = rec.fold_in_batch(hists, algorithm=rule,
+                                             num_iterations=COLD_ITERS)
+        A, N, _, _, _ = foldin_system64(prep, rec._histories_csr(hists))
+        W64 = torch.clamp(torch.linalg.solve(A, N.T).T, min=0.0)
+        kappa = float(torch.linalg.cond(A))
+        rel64 = float(np.abs(g["folded"]["als"] - W64.cpu().numpy()).max()
+                      / float(W64.abs().max()))
+        solve_lim = SOLVE_FACTOR * kappa * 2.0 ** -24
+        d_rules = {rule: float(np.abs(g["folded"][rule] - folded[rule]).max()
+                               / np.abs(folded[rule]).max())
+                   for rule in folded}
+        # the reservoir scan keeps C(k,3)/R^2 misses a row and scores on
+        # bf16 products: its top-100 is held by recall against the exact
+        # unsharded scan, and beside the unsharded reservoir scan's
+        _, i_o = exact.recommend_from_history_batch(hists, k=SERVE_K)
+        _, i_r = rec.recommend_from_history_batch(hists, k=SERVE_K)
+        s, i = g["top"]
+
+        def recall(ids, ref):
+            return float(np.mean([len(set(ids[row].tolist())
+                                      & set(ref[row].tolist())) / SERVE_K
+                                  for row in range(len(hists))]))
+
+        rec_exact, rec_res = recall(i, i_o), recall(i, i_r)
+        seen = sum(len(set(i[row].tolist()) & set(hists[row].tolist()))
+                   for row in range(len(hists)))
+        c_launches = {}
+        for f in four:
+            for k, v in f["foldin"]["launches"].items():
+                c_launches[k] = c_launches.get(k, 0) + v
+        say("25c fold-in", items_per_rank=g["m_local"], batch=FOLD_B,
+            gram_rel=f"{g_rel:.3e}", gram_rtol=1e-6,
+            als_vs_float64=f"{rel64:.3e}", solve_limit=f"{solve_lim:.3e}",
+            kappa=f"{kappa:.4g}",
+            vs_unsharded={k: f"{v:.3e}" for k, v in d_rules.items()},
+            fold_rtol=FOLD_RTOL, recall_at_100=f"{rec_exact:.6f}",
+            recall_floor=RECALL_FLOOR,
+            overlap_with_unsharded_reservoir=f"{rec_res:.6f}",
+            history_violations=seen,
+            launches={k: c_launches[k] for k in ("vht_int8", "hals_sweep",
+                                                 "reservoir_scan")},
+            seconds=f"{g['secs']:.1f}", card=card)
+        if not g_rel <= 1e-6:
+            fail(f"phase 25 (c): the sharded Gram differs by {g_rel:.3e}")
+        if not rel64 <= solve_lim:
+            fail(f"phase 25 (c): the ALS fold-in is {rel64:.3e} off the "
+                 f"float64 solve, above {solve_lim:.3e}")
+        if not max(d_rules.values()) <= FOLD_RTOL:
+            fail(f"phase 25 (c): fold-ins differ from the unsharded ones: "
+                 f"{d_rules}")
+        if not (rec_exact >= RECALL_FLOOR and seen == 0):
+            fail(f"phase 25 (c): recall@100 {rec_exact:.6f}, {seen} history "
+                 "items returned")
+        if min(c_launches[k] for k in ("vht_int8", "hals_sweep",
+                                       "reservoir_scan")) < 1:
+            fail(f"phase 25 (c): kernels not launched: {c_launches}")
+        del rec, exact, prep, A, N, W64
+        torch.cuda.empty_cache()
+
+        # -- (d) MiniBatchNMF on four item shards --------------------------
+        mb = f0["minibatch"]
+        want = minibatch_section(None, paths["ratings"], W0, H0)
+        dw = float(np.abs(mb["W"] - want["W"]).max() / np.abs(want["W"]).max())
+        dh = float(np.abs(mb["H"] - want["H"]).max() / np.abs(want["H"]).max())
+        derr = abs(mb["err"] - want["err"]) / want["err"]
+        say("25d MiniBatchNMF", ranks=4, items_per_rank=m // 4,
+            W_rel=f"{dw:.3e}", H_rel=f"{dh:.3e}", factor_rtol=1e-3,
+            err=f"{mb['err']:.6g}", err_rel=f"{derr:.3e}",
+            err_rtol=SURFACE_ERR_RTOL, seconds=f"{mb['secs']:.1f}",
+            one_device_seconds=f"{want['secs']:.1f}", card=card)
+        if not (dw <= 1e-3 and dh <= 1e-3 and derr <= SURFACE_ERR_RTOL):
+            fail(f"phase 25 (d): MiniBatchNMF on the mesh differs (W "
+                 f"{dw:.3e}, H {dh:.3e}, error {derr:.3e})")
+
+        # -- (e) the surfaces ------------------------------------------------
+        s = f0["surfaces"]
+        import scipy.sparse as sps
+
+        X = sps.csr_matrix((ratings.data, ratings.indices, ratings.indptr),
+                           shape=ratings.shape)
+        est = SK.NMF(n_components=r, init="custom", solver="mu",
+                     max_iter=2, tol=0.0, strategy="ell", device=dev)
+        Wn = est.fit_transform(X, W=W0, H=H0)
+        d_nmf = abs(s["nmf"]["err"] - est.reconstruction_err_) \
+            / est.reconstruction_err_
+        dw_nmf = float(np.abs(s["nmf"]["W"] - Wn).max() / np.abs(Wn).max())
+        V0, _, _ = headline_v(dev)
+        cfg = dataclasses.replace(dense_config("float32", BATCH_ITERS,
+                                               rank=256, use_pallas=True),
+                                  check_interval=10)
+        res = CK.resume(ck_dir, V0, cfg, device=dev)
+        d_ck = abs(s["resume"]["error"] - res.error) / res.error
+        dw_ck = rel_host(torch.from_numpy(s["resume"]["W"]), res.W)
+        sel = s["ranks"]
+        one_sel = nt.rank_selection(config1_dense(), device=dev,
+                                    **RANK_SELECTION)
+        d_coph = float(np.max(np.abs(np.subtract(sel["cophenetic"],
+                                                 one_sel.cophenetic))
+                              / np.abs(one_sel.cophenetic)))
+        d_disp = float(np.max(np.abs(np.subtract(sel["dispersion"],
+                                                 one_sel.dispersion))
+                              / np.abs(one_sel.dispersion)))
+        say("25e surfaces", nmf_2x2_err_rel=f"{d_nmf:.3e}",
+            nmf_W_rel=f"{dw_nmf:.3e}", resume_2x2_err_rel=f"{d_ck:.3e}",
+            resume_W_rel=f"{dw_ck:.3e}",
+            resume_iterations=s["resume"]["iterations"],
+            rank_selection_best=sel["best"],
+            unsharded_best=one_sel.best_rank,
+            cophenetic=[f"{x:.6f}" for x in sel["cophenetic"]],
+            cophenetic_rel=f"{d_coph:.3e}", dispersion_rel=f"{d_disp:.3e}",
+            rank_selection_rtol=RANK_SELECTION_RTOL,
+            convert_recommender_rows_not_exact=s["convert_recommender"],
+            convert_online_rel=f"{s['convert_online']:.3e}",
+            convert_estimator_rel=f"{s['convert_estimator']:.3e}",
+            seconds=f"{f0['surfaces_secs']:.1f}")
+        if not (d_nmf <= SURFACE_ERR_RTOL and dw_nmf <= 1e-3):
+            fail(f"phase 25 (e): NMF(mesh=) differs ({d_nmf:.3e}, "
+                 f"{dw_nmf:.3e})")
+        if not (d_ck <= SURFACE_ERR_RTOL and dw_ck <= 1e-3
+                and s["resume"]["iterations"] == 10):
+            fail(f"phase 25 (e): resume(mesh=) differs ({d_ck:.3e}, "
+                 f"{dw_ck:.3e})")
+        if not (sel["best"] == one_sel.best_rank
+                and d_coph <= RANK_SELECTION_RTOL
+                and d_disp <= RANK_SELECTION_RTOL):
+            fail(f"phase 25 (e): rank selection on the mesh {sel} differs "
+                 f"from the unsharded one {one_sel}")
+        if not (s["convert_recommender"] == 0
+                and s["convert_online"] <= 1e-4
+                and s["convert_estimator"] <= 1e-5):
+            fail("phase 25 (e): a conversion onto the mesh differs: "
+                 f"{s['convert_recommender']}, {s['convert_online']}, "
+                 f"{s['convert_estimator']}")
+        del V0, res, est, X
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        dry = dryrun_multichip(MESH_RANKS, device_type="cuda",
+                               timeout=MESH_TIMEOUT)
+        say("25e dryrun_multichip", ranks=MESH_RANKS, mesh=dry["mesh"],
+            seconds=f"{time.perf_counter() - t0:.1f}")
+        say("25 staging", backend=f0["backend"],
+            STAGED_MB_per_rank=[{k: round(v / 2**20, 1) for k, v in
+                                 f["staged"].items()} for f in four],
+            one_rank_backend=one["backend"],
+            one_rank_staged=one["staged"])
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    say("25", seconds=f"{time.perf_counter() - t_phase:.1f}")
+    launches = {}
+    for f in four:
+        for key in ("ring_launches", "dense_launches", "surfaces_launches"):
+            for k, v in f[key].items():
+                launches[k] = launches.get(k, 0) + v
+        for runs in f["dense4096"].values():
+            for k, v in runs.items():
+                launches[k] = launches.get(k, 0) + v
+        for k, v in f["foldin"]["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+    for k, v in one["launches"].items():
+        launches[k] = launches.get(k, 0) + v
+    # every #5 launch of the phase was held against its twin on its own
+    # operands
+    checked = sum(n for f in four for n, _, _ in f["muldiv"].values())
+    shapes = sorted({sh for f in four for _, _, shs in f["muldiv"].values()
+                     for sh in shs})
+    say("25 #5 on the path's operands", launches=launches.get(
+        "fused_multiply_divide", 0), checked_bit_equal=checked,
+        shapes=shapes)
+    if checked != launches.get("fused_multiply_divide", 0):
+        fail(f"phase 25: {launches.get('fused_multiply_divide', 0)} #5 "
+             f"launches but {checked} checked against the twin")
+    return launches
+
+
 def main() -> None:
     if not (HERE / "nmftpu_torch").is_dir():
         fail(f"no nmftpu_torch package beside {__file__}")
@@ -5617,22 +6696,29 @@ def main() -> None:
 
     # -- 22. slices 4b-ii and 4c: every algorithm on sparse V, the inits ----
     torch.cuda.empty_cache()
-    s12 = sparse_algorithms_phase(nt, card, dev, ratings, s8.pop("config3"),
-                                  V, W0, H0)
+    c3 = s8.pop("config3")
+    s12 = sparse_algorithms_phase(nt, card, dev, ratings, c3, V, W0, H0)
     max_abs["hals_sweep"] = max(max_abs["hals_sweep"], s12["hals_max_abs"])
 
     # -- 23. slice 5: the sklearn facade, mini-batch, batched, vectorized,
     # checkpoint, model selection, compat, the CLI and the C ABI ----------
     del V, W0, H0, Vq, scale
     torch.cuda.empty_cache()
-    s13 = surfaces_phase(nt, card, dev, ratings, max_abs)
+    ck_dir = tempfile.mkdtemp(prefix="nmftpu_ck23_")
+    atexit.register(shutil.rmtree, ck_dir, True)
+    s13 = surfaces_phase(nt, card, dev, ratings, max_abs, ck_dir)
 
     # -- 24. slice 6a: the 2-D grid (config 4's share, config 2 on four
     # ranks) and sharded serving (config 5 on four ranks) ---------------
     torch.cuda.empty_cache()
     s14 = grid_phase(nt, card, dev, ratings, c4, max_abs)
     c4_pool.shutdown()
-    del ratings
+
+    # -- 25. slice 6b: the ring, dense V on a mesh, the sharded fold-in,
+    # MiniBatchNMF and the surfaces on a mesh ----------------------------
+    torch.cuda.empty_cache()
+    s15 = mesh_phase(nt, card, dev, ratings, c3, ck_dir, max_abs)
+    del ratings, c3
 
     if "jax" in sys.modules:
         fail("jax was imported")
@@ -5661,6 +6747,10 @@ def main() -> None:
     # #7, #8 and #9 on phase 24's ranks
     for name, count in s14.items():
         launches[name] += count
+    # #1-#8 on phase 25's ranks (#5 first launched here)
+    for name, count in s15.items():
+        if name in launches:
+            launches[name] += count
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": SOURCES[name],
          "replaces": REPLACES[name], "launches": launches[name],

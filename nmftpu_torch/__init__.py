@@ -42,16 +42,16 @@ imports). It mirrors ``nmftpu``'s module names and public surface:
   (``python -m nmftpu_torch``), its C ABI (``capi/``, driven through
   ``capi_bridge.py``) and JSONL metrics and traces (``utils/``).
 
-* multi-GPU (``parallel/``, slice 6a): SPMD over ``torch.distributed``,
-  one process per rank, on a ('users', 'items') mesh
-  (``parallel.make_grid_mesh``): sparse V through ``nmf(..., mesh=)`` /
-  ``parallel.compute_sharded`` (the scatter and ELL grid engines, every
-  algorithm of the scatter engine), and ``Recommender(..., mesh=)`` /
-  ``recall_at_k(mesh=)`` over an items-sharded table.
-
-``mesh=`` with dense V, the ring engine, and ``mesh=`` on the online,
-checkpoint, facade, rank-selection and conversion surfaces raise
-NotImplementedError naming slice 6b of ROADMAP.md.
+* multi-GPU (``parallel/``, slices 6a and 6b): SPMD over
+  ``torch.distributed``, one process per rank, on a ('users', 'items')
+  mesh (``parallel.make_grid_mesh``): sparse V through ``nmf(...,
+  mesh=)`` / ``parallel.compute_sharded`` (the scatter and ELL grid
+  engines, and the ring engine ``parallel.ring`` over every rank), dense
+  V tiled over the mesh (``parallel.dense_mesh``), ``Recommender(...,
+  mesh=)`` / ``recall_at_k(mesh=)`` over an items-sharded table, fold-in
+  against it, and ``mesh=`` on the online, checkpoint, facade,
+  rank-selection and conversion surfaces; ``parallel.dryrun_multichip``
+  drives them all at a small size.
 The heavier entry points (the facade, the online and batched engines,
 rank selection) load at first use; every submodule is reachable as an
 attribute of the package (``nmftpu_torch.sklearn_api.NMF``).

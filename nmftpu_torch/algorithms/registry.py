@@ -1,7 +1,7 @@
 """Dispatch an NmfConfig to concrete update-step callables (port of
 ``nmftpu/algorithms/registry.py``).
 
-`build_dense_update(config)` returns a triple:
+`build_dense_update(config, sums)` returns a triple:
 
   make_aux(V)            -> tuple of per-problem constants computed once
                             outside the iteration loop (the int8 or bf16
@@ -61,6 +61,12 @@ The ALS family on int8 and bf16 V takes its shifts from
 On the CPU, ``nmftpu`` runs int8 MU as a bf16-dequantized contraction;
 the port takes the int8 x int8 route on every device. Dense iALS solves
 each row exactly whatever `als_solver` says, as ``nmftpu``'s does.
+
+`sums` (``linalg.dense.Sums``, `LOCAL` by default) goes to every route:
+on a mesh that tiles V (``parallel.dense_mesh``) V is this rank's tile,
+the contractions are summed over the ranks, int8 V takes the whole
+matrix's scale, and the fused kernels run only the half-steps local to
+the tile.
 """
 
 from __future__ import annotations
@@ -69,15 +75,26 @@ import torch
 
 from nmftpu_torch.config import Algorithm, NmfConfig, Objective
 from nmftpu_torch.linalg import dense as D
+from nmftpu_torch.linalg.dense import LOCAL
 
 
-def _low_precision_v(v_storage: str):
+def _quantize_v(sums):
+    """V -> (Vq int8, scale): `quantize_v` with the whole matrix's max|V|
+    (its tiles' max over the mesh)."""
+    from nmftpu_torch.kernels import quantized as Q
+
+    def quantize(V):
+        vmax = sums.both(torch.maximum(V.amax(), -V.amin()), maximum=True)
+        return Q.quantize_v(V, vmax=vmax)
+
+    return quantize
+
+
+def _low_precision_v(v_storage: str, sums=LOCAL):
     """make_aux for the densified routes: (Vq int8, scale) from
     `quantize_v` for int8 storage, (V in bf16, None) for bfloat16."""
     if v_storage == "int8":
-        from nmftpu_torch.kernels import quantized as Q
-
-        return Q.quantize_v
+        return _quantize_v(sums)
     return lambda V: (V.to(torch.bfloat16), None)
 
 
@@ -115,14 +132,14 @@ def _smoothed_h(aux, H):
     return aux[-1] @ H
 
 
-def _low_precision_family(config: NmfConfig):
+def _low_precision_family(config: NmfConfig, sums=LOCAL):
     """The ALS family, GDCLS and nsNMF on int8 V (Frobenius: the
     right-hand sides on #6's one-sided int8 entries) or bf16 V (bf16
     contractions into float32), and nsNMF under KL over row panels of
     either; aux = (V int8 or bf16, scale or None) and, for nsNMF, S."""
     eps, order, alg = config.eps, config.update_order, config.algorithm
     int8 = config.v_storage == "int8"
-    make_v = _low_precision_v(config.v_storage)
+    make_v = _low_precision_v(config.v_storage, sums)
     from nmftpu_torch import densified as DF
 
     if alg in (Algorithm.ALS, Algorithm.ACLS, Algorithm.AHCLS):
@@ -133,11 +150,12 @@ def _low_precision_family(config: NmfConfig):
         if int8:
             def update(V, aux, W, H):
                 return D.als_family_update_int8x8(
-                    aux[0], aux[1], W, H, **shifts, eps=eps, order=order)
+                    aux[0], aux[1], W, H, **shifts, eps=eps, order=order,
+                    sums=sums)
         else:
             def update(V, aux, W, H):
                 return DF.als_family_update_densified(
-                    aux[0], W, H, **shifts, eps=eps, order=order)
+                    aux[0], W, H, **shifts, eps=eps, order=order, sums=sums)
 
         return make_v, update, _identity_h
     if alg is Algorithm.GDCLS:
@@ -146,11 +164,12 @@ def _low_precision_family(config: NmfConfig):
             def update(V, aux, W, H):
                 return D.gdcls_update_int8x8(aux[0], aux[1], W, H,
                                              lambda_tik=lt, eps=eps,
-                                             order=order)
+                                             order=order, sums=sums)
         else:
             def update(V, aux, W, H):
                 return DF.gdcls_update_densified(aux[0], W, H, lambda_tik=lt,
-                                                 eps=eps, order=order)
+                                                 eps=eps, order=order,
+                                                 sums=sums)
 
         return make_v, update, _identity_h
     if alg is not Algorithm.NSNMF:
@@ -163,21 +182,21 @@ def _low_precision_family(config: NmfConfig):
         def update(V, aux, W, H):
             return DF.nsnmf_update_kl_densified(aux[0], W, H, aux[2],
                                                 eps=eps, order=order,
-                                                scale=aux[1])
+                                                scale=aux[1], sums=sums)
     elif int8:
         def update(V, aux, W, H):
             return D.nsnmf_update_frobenius_int8x8(aux[0], aux[1], W, H,
                                                    aux[2], eps=eps,
-                                                   order=order)
+                                                   order=order, sums=sums)
     else:
         def update(V, aux, W, H):
             return DF.nsnmf_update_densified(aux[0], W, H, aux[2], eps=eps,
-                                             order=order)
+                                             order=order, sums=sums)
 
     return make_aux, update, _smoothed_h
 
 
-def _float32_v_family(config: NmfConfig):
+def _float32_v_family(config: NmfConfig, sums=LOCAL):
     """ALS, ACLS, AHCLS, GDCLS and nsNMF (Frobenius or KL) on float32
     V."""
     eps, order, alg = config.eps, config.update_order, config.algorithm
@@ -193,27 +212,27 @@ def _float32_v_family(config: NmfConfig):
             def update(V, aux, W, H):
                 return D.als_update_weighted(V, W, H, alpha, lambda_w=lw,
                                              lambda_h=lh, eps=eps,
-                                             order=order)
+                                             order=order, sums=sums)
         else:
             def update(V, aux, W, H):
-                return D.als_update(V, W, H, eps=eps, order=order)
+                return D.als_update(V, W, H, eps=eps, order=order, sums=sums)
     elif alg is Algorithm.ACLS:
         def update(V, aux, W, H):
             return D.acls_update(V, W, H, lambda_w=lw, lambda_h=lh, eps=eps,
-                                 order=order)
+                                 order=order, sums=sums)
     elif alg is Algorithm.AHCLS:
         aw, ah = config.alpha_w, config.alpha_h
 
         def update(V, aux, W, H):
             return D.ahcls_update(V, W, H, lambda_w=lw, lambda_h=lh,
                                   alpha_w=aw, alpha_h=ah, eps=eps,
-                                  order=order)
+                                  order=order, sums=sums)
     elif alg is Algorithm.GDCLS:
         lt = config.lambda_tik
 
         def update(V, aux, W, H):
             return D.gdcls_update(V, W, H, lambda_tik=lt, eps=eps,
-                                  order=order)
+                                  order=order, sums=sums)
     elif alg is Algorithm.NSNMF:
         obj = "frobenius" if config.objective is Objective.FROBENIUS else "kl"
 
@@ -222,7 +241,7 @@ def _float32_v_family(config: NmfConfig):
 
         def update(V, aux, W, H):
             return D.nsnmf_update(V, W, H, aux[0], eps=eps, objective=obj,
-                                  order=order)
+                                  order=order, sums=sums)
 
         return make_aux, update, _smoothed_h
     else:
@@ -230,14 +249,14 @@ def _float32_v_family(config: NmfConfig):
     return (lambda V: ()), update, _identity_h
 
 
-def build_dense_update(config: NmfConfig):
+def build_dense_update(config: NmfConfig, sums=LOCAL):
     eps = config.eps
 
     if (config.algorithm not in (Algorithm.MU, Algorithm.HALS)
             and config.v_storage != "float32"):
         # config validation keeps confidence weighting away from here, and
         # KL to nsNMF
-        return _low_precision_family(config)
+        return _low_precision_family(config, sums)
     if config.algorithm is Algorithm.HALS:
         # config validation keeps HALS to float32-stored V, Frobenius
         lw, lh = config.lambda_w, config.lambda_h
@@ -246,18 +265,20 @@ def build_dense_update(config: NmfConfig):
 
         def update(V, aux, W, H):
             return D.hals_update(V, W, H, eps=eps, order=hals_order,
-                                 l2_w=lw, l2_h=lh, l1_w=l1w, l1_h=l1h)
+                                 l2_w=lw, l2_h=lh, l1_w=l1w, l1_h=l1h,
+                                 sums=sums)
 
         return (lambda V: ()), update, _identity_h
     if config.algorithm is not Algorithm.MU:
-        return _float32_v_family(config)
+        return _float32_v_family(config, sums)
     order = _jacobi_order(config)
     if config.objective is Objective.BETA:
         # config validation keeps beta to MU, without jacobi or weighting
         beta = config.beta
         if config.v_storage == "float32":
             def update(V, aux, W, H):
-                return D.mu_update_beta(V, W, H, beta, eps=eps, order=order)
+                return D.mu_update_beta(V, W, H, beta, eps=eps, order=order,
+                                        sums=sums)
 
             return (lambda V: ()), update, _identity_h
         # bf16 or int8 V: the densified row-panel update; int8's scale
@@ -266,9 +287,10 @@ def build_dense_update(config: NmfConfig):
 
         def update(V, aux, W, H):
             return DF.mu_update_beta_densified(aux[0], W, H, beta, eps=eps,
-                                               order=order, scale=aux[1])
+                                               order=order, scale=aux[1],
+                                               sums=sums)
 
-        return _low_precision_v(config.v_storage), update, _identity_h
+        return _low_precision_v(config.v_storage, sums), update, _identity_h
     kl = config.objective is Objective.KL
 
     if config.alpha_confidence > 0.0 and config.v_storage == "float32":
@@ -281,7 +303,7 @@ def build_dense_update(config: NmfConfig):
 
         def update(V, aux, W, H):
             return D.mu_update_frobenius_weighted(V, aux[0], W, H, eps=eps,
-                                                  order=order)
+                                                  order=order, sums=sums)
 
     elif config.alpha_confidence > 0.0 or (
             kl and config.v_storage != "float32"):
@@ -289,29 +311,30 @@ def build_dense_update(config: NmfConfig):
         # (C = 1 + alpha V rebuilt per panel, never at n x m)
         from nmftpu_torch import densified as DF
 
-        make_aux = _low_precision_v(config.v_storage)
+        make_aux = _low_precision_v(config.v_storage, sums)
         alpha = config.alpha_confidence
 
         if kl:
             def update(V, aux, W, H):
                 return DF.mu_update_kl_densified(aux[0], W, H, eps=eps,
-                                                 order=order, scale=aux[1])
+                                                 order=order, scale=aux[1],
+                                                 sums=sums)
         else:
             def update(V, aux, W, H):
                 return DF.mu_update_frobenius_weighted_densified(
                     aux[0], W, H, alpha, eps=eps, order=order,
-                    scale=aux[1])
+                    scale=aux[1], sums=sums)
 
     elif config.v_storage == "int8":
         from nmftpu_torch.kernels import quantized as Q
 
-        def make_aux(V):
-            return Q.quantize_v(V)
+        make_aux = _quantize_v(sums)
 
         if config.use_pallas and order != "jacobi":
             def update(V, aux, W, H):
                 return Q.mu_update_frobenius_q(aux[0], aux[1], W, H,
-                                               eps=eps, order=order)
+                                               eps=eps, order=order,
+                                               sums=sums)
         else:
             # use_pallas + jacobi opts into the dual-numerator kernel
             fused = bool(config.use_pallas)
@@ -319,7 +342,7 @@ def build_dense_update(config: NmfConfig):
             def update(V, aux, W, H):
                 return D.mu_update_frobenius_int8x8(
                     aux[0], aux[1], W, H, eps=eps, order=order,
-                    use_fused=fused)
+                    use_fused=fused, sums=sums)
 
     elif config.v_storage == "bfloat16":
 
@@ -328,7 +351,7 @@ def build_dense_update(config: NmfConfig):
 
         def update(V, aux, W, H):
             return D.mu_update_frobenius_bf16v(aux[0], W, H, eps=eps,
-                                               order=order)
+                                               order=order, sums=sums)
 
     elif kl:
 
@@ -336,7 +359,7 @@ def build_dense_update(config: NmfConfig):
             return ()
 
         def update(V, aux, W, H):
-            return D.mu_update_kl(V, W, H, eps=eps, order=order)
+            return D.mu_update_kl(V, W, H, eps=eps, order=order, sums=sums)
 
     elif config.use_pallas:
         from nmftpu_torch.kernels import dense_mu as K
@@ -345,7 +368,8 @@ def build_dense_update(config: NmfConfig):
             return ()
 
         def update(V, aux, W, H):
-            return K.mu_update_frobenius_fused(V, W, H, eps=eps, order=order)
+            return K.mu_update_frobenius_fused(V, W, H, eps=eps, order=order,
+                                               sums=sums)
 
     else:
 
@@ -353,6 +377,7 @@ def build_dense_update(config: NmfConfig):
             return ()
 
         def update(V, aux, W, H):
-            return D.mu_update_frobenius(V, W, H, eps=eps, order=order)
+            return D.mu_update_frobenius(V, W, H, eps=eps, order=order,
+                                         sums=sums)
 
     return make_aux, update, _identity_h

@@ -72,8 +72,9 @@ def nmf(
     sparse engine (auto | densified | ell | scatter; ignored for dense
     data). device: where to run; by default a tensor's own device, else
     "cuda". mesh: a ('users', 'items') rank mesh
-    (`parallel.make_grid_mesh`) for sparse V, every rank calling alike
-    (dense V on a mesh raises: slice 6b).
+    (`parallel.make_grid_mesh`), every rank calling alike: sparse V on
+    the sharded engines (strategy "ring" for the ring engine), dense V
+    tiled over the mesh (`parallel.dense_mesh`).
     """
     init_method = _coerce(Initialization, init, _INIT_ALIASES)
     if (W0 is not None or H0 is not None) and \

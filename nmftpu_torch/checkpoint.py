@@ -81,15 +81,14 @@ def resume(path: str, V, config: NmfConfig, strict: bool = True, **kwargs):
     tensor) or one of the port's sparse containers; extra kwargs (device,
     callback, strategy for sparse V, ...) forward to the driver. An
     exhausted budget runs zero update steps: the stored factors come back
-    with their real errors and converged=False."""
+    with their real errors and converged=False. mesh= (every rank
+    calling alike) routes sparse V through ``parallel.compute_sharded``
+    (kwargs such as engine= forward to it) and dense V through the
+    dense mesh path of ``driver.compute``."""
     from nmftpu_torch import driver, sparse_ops
     from nmftpu_torch.sparse import SparseMatrix
 
-    if kwargs.pop("mesh", None) is not None:
-        raise NotImplementedError(
-            "resume(mesh=...) belongs to the multi-GPU path, not ported "
-            "to nmftpu_torch yet (ROADMAP.md queue 1, slice 6b)"
-        )
+    mesh = kwargs.pop("mesh", None)
     ck = load(path)
     if strict and ck.config_fingerprint != _config_fingerprint(config):
         raise ValueError(
@@ -103,6 +102,11 @@ def resume(path: str, V, config: NmfConfig, strict: bool = True, **kwargs):
         num_iterations=remaining,
         num_runs=1,
     )
+    if mesh is not None and isinstance(V, SparseMatrix):
+        from nmftpu_torch.parallel import compute_sharded
+
+        return compute_sharded(V, cfg, mesh=mesh, W0=ck.W, H0=ck.H,
+                               **kwargs)
     if isinstance(V, (SparseMatrix, sparse_ops.DeviceCOO)):
         return sparse_ops.compute_sparse(V, cfg, W0=ck.W, H0=ck.H, **kwargs)
-    return driver.compute(V, cfg, W0=ck.W, H0=ck.H, **kwargs)
+    return driver.compute(V, cfg, W0=ck.W, H0=ck.H, mesh=mesh, **kwargs)

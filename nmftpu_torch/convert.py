@@ -1,7 +1,9 @@
 """Carry configurations, factors, quantized V, serving tables, fold-in
 tables, online-NMF state, sklearn estimators and batched results between
 ``nmftpu`` and ``nmftpu_torch``. Nothing here imports jax: the ``nmftpu``
-side arrives as objects or numpy arrays."""
+side arrives as objects or numpy arrays (a sharded object's arrays read
+whole). With ``mesh=`` (a port rank mesh; every rank converts alike)
+each rank keeps its own shard, as the port's constructors shard."""
 
 from __future__ import annotations
 
@@ -94,19 +96,15 @@ def result_to_numpy(res) -> dict:
     }
 
 
-def recommender_from_nmftpu(rec, *, device):
+def recommender_from_nmftpu(rec, *, device, mesh=None):
     """The port's Recommender over the same tables as an ``nmftpu``
-    Recommender `rec` (single device): its W, its item table taken as it
-    is (bf16 values and int8 bits unchanged, with the int8 scale) minus any
-    reservoir padding, its training CSR and its serving settings."""
+    Recommender `rec` (on one device or sharded): its W, its item table
+    taken as it is (bf16 values and int8 bits unchanged, with the int8
+    scale) minus any reservoir padding, its training CSR and its serving
+    settings; with `mesh`, sharded over the mesh's 'items' axis."""
     from nmftpu_torch.serving import Recommender
     from nmftpu_torch.sparse import SparseCSR
 
-    if getattr(rec, "mesh", None) is not None:
-        raise NotImplementedError(
-            "a sharded Recommender belongs to the multi-GPU path, not "
-            "ported yet (ROADMAP queue 1, slice 6b)"
-        )
     table = np.asarray(rec.H)[:, :rec._m_items]
     if table.dtype == np.int8:
         table = torch.tensor(table, device=device)
@@ -123,7 +121,7 @@ def recommender_from_nmftpu(rec, *, device):
         np.asarray(rec.W, np.float32), table,
         h_scale=None if rec._h_scale is None else np.asarray(rec._h_scale),
         train=train, block=rec.block, method=rec.method,
-        reservoir_slots=rec.reservoir_slots, device=device,
+        reservoir_slots=rec.reservoir_slots, device=device, mesh=mesh,
     )
 
 
@@ -160,27 +158,23 @@ _ONLINE_PARAMS = ("beta", "batch_size", "forget_factor", "alpha_w",
                   "transform_max_iter", "transform_tol", "seed")
 
 
-def online_state_from_nmftpu(model, *, device):
+def online_state_from_nmftpu(model, *, device, mesh=None):
     """The port's `minibatch.OnlineNMF` with the state of an
-    ``nmftpu.minibatch.OnlineNMF`` `model`: its hyperparameters, its exact
-    forgetting rate rho, its step count and its H, A and B (taken as
-    numpy, placed on `device` in the model's dtype), so the stream goes
-    on in the port as it would have in ``nmftpu``."""
+    ``nmftpu.minibatch.OnlineNMF`` `model` (on one device or sharded):
+    its hyperparameters, its exact forgetting rate rho, its step count
+    and its H, A and B (taken as numpy, placed on `device` in the model's
+    dtype; with `mesh`, this rank's columns), so the stream goes on in
+    the port as it would have in ``nmftpu``."""
     from nmftpu_torch.minibatch import OnlineNMF
 
-    if getattr(model, "_shardings", None) is not None:
-        raise NotImplementedError(
-            "an OnlineNMF sharded over a mesh belongs to the multi-GPU "
-            "path, not ported yet (ROADMAP queue 1, slice 6b)"
-        )
     out = OnlineNMF(model.rank, dtype=np.dtype(model.dtype).name,
-                    device=device,
+                    device=device, mesh=mesh,
                     **{k: getattr(model, k) for k in _ONLINE_PARAMS})
     out.rho = model.rho
     out.n_steps = int(model.n_steps)
     if model.H is not None:
         out.H, out._A, out._B = (
-            torch.tensor(np.asarray(x), dtype=out.dtype, device=device)
+            out._place(np.asarray(x)).contiguous()
             for x in (model.H, model._A, model._B))
     return out
 
@@ -189,12 +183,14 @@ _FITTED = ("components_", "n_components_", "n_features_in_", "n_iter_",
            "n_steps_", "reconstruction_err_")
 
 
-def estimator_from_nmftpu(est, *, device):
+def estimator_from_nmftpu(est, *, device, mesh=None):
     """The port's `sklearn_api.NMF` or `MiniBatchNMF` with the parameters
     of an ``nmftpu.sklearn_api`` estimator of the same name and, if it
     was fitted, its fitted attributes (components_ as numpy) and the
     online state a MiniBatchNMF's partial_fit keeps; `device` is where
-    the port's estimator runs."""
+    the port's estimator runs. An estimator's jax mesh does not carry
+    over: the port's runs on `mesh` (a port rank mesh), or on one device
+    without one."""
     from nmftpu_torch import sklearn_api as SK
 
     kind = type(est).__name__
@@ -203,13 +199,8 @@ def estimator_from_nmftpu(est, *, device):
                         f"{kind}")
     params = {k: getattr(est, k)
               for k in getattr(SK, kind)._get_param_names()
-              if k != "device"}
-    if params.get("mesh") is not None:
-        raise NotImplementedError(
-            "an estimator over a mesh belongs to the multi-GPU path, not "
-            "ported yet (ROADMAP queue 1, slice 6b)"
-        )
-    out = getattr(SK, kind)(**params, device=device)
+              if k not in ("device", "mesh")}
+    out = getattr(SK, kind)(**params, device=device, mesh=mesh)
     for name in _FITTED:
         if hasattr(est, name):
             value = getattr(est, name)
@@ -217,7 +208,8 @@ def estimator_from_nmftpu(est, *, device):
             setattr(out, name, np.array(value) if name == "components_"
                     else value)
     if getattr(est, "_online", None) is not None:
-        out._online = online_state_from_nmftpu(est._online, device=device)
+        out._online = online_state_from_nmftpu(est._online, device=device,
+                                               mesh=mesh)
         out._components_view = out.components_
     return out
 

@@ -23,6 +23,9 @@ contraction; the
 weighted update applies it per panel before the confidence; the
 Frobenius MU runs on ``linalg.dense.mu_update_frobenius_int8x8`` (the
 int8 kernels' one-sided entries on the card).
+
+The updates take ``linalg.dense.Sums`` as the dense ones do (`sums`,
+for a tile of V on a mesh).
 """
 
 from __future__ import annotations
@@ -30,6 +33,7 @@ from __future__ import annotations
 import torch
 
 from nmftpu_torch.linalg.dense import (
+    LOCAL,
     _apply_order,
     _bf16_dot,
     _beta_powers,
@@ -111,7 +115,7 @@ def _kl_numer_h_blocked(Vd, Q, H, eps, block_rows, scale=None):
 
 
 def mu_update_kl_densified(Vd, W, H, eps=1e-9, order="WH", block_rows=4096,
-                           scale=None):
+                           scale=None, sums=LOCAL):
     """KL MU against a dense bf16 or int8 V, blockwise over row panels:
     one pass over V per half-step; WH = W_blk H and the ratio V/(WH)
     live only at panel size. Orders "WH", "HW" and "jacobi" (both
@@ -120,21 +124,25 @@ def mu_update_kl_densified(Vd, W, H, eps=1e-9, order="WH", block_rows=4096,
     int8-stored V = scale · Vd, folded into the numerators (and ΣV)."""
 
     def upd_w(W, H):
-        numer = _kl_numer_w_blocked(Vd, W, H, eps, block_rows, scale)
-        h_sum = torch.clamp(torch.sum(H, dim=1), min=eps)[None, :]
+        numer = sums.cols(_kl_numer_w_blocked(Vd, W, H, eps, block_rows,
+                                              scale))
+        h_sum = torch.clamp(sums.cols(torch.sum(H, dim=1)), min=eps)[None, :]
         return W * (numer / h_sum)
 
     def upd_h(W, H):
-        numer = _kl_numer_h_blocked(Vd, W, H, eps, block_rows, scale)
-        w_sum = torch.clamp(torch.sum(W, dim=0), min=eps)[:, None]
+        numer = sums.rows(_kl_numer_h_blocked(Vd, W, H, eps, block_rows,
+                                              scale))
+        w_sum = torch.clamp(sums.rows(torch.sum(W, dim=0)), min=eps)[:, None]
         return H * (numer / w_sum)
 
     if order == "jacobi":
-        numer_w = _kl_numer_w_blocked(Vd, W, H, eps, block_rows, scale)
-        numer_h = _kl_numer_h_blocked(Vd, W, H, eps, block_rows, scale)
-        h_sum = torch.clamp(torch.sum(H, dim=1), min=eps)
-        w_sum = torch.clamp(torch.sum(W, dim=0), min=eps)
-        sum_v = torch.sum(Vd, dtype=torch.float32)
+        numer_w = sums.cols(_kl_numer_w_blocked(Vd, W, H, eps, block_rows,
+                                                scale))
+        numer_h = sums.rows(_kl_numer_h_blocked(Vd, W, H, eps, block_rows,
+                                                scale))
+        h_sum = torch.clamp(sums.cols(torch.sum(H, dim=1)), min=eps)
+        w_sum = torch.clamp(sums.rows(torch.sum(W, dim=0)), min=eps)
+        sum_v = sums.both(torch.sum(Vd, dtype=torch.float32))
         if scale is not None:
             sum_v = sum_v * scale
         inv_a = _jacobi_kl_scale(sum_v, w_sum, h_sum, eps)
@@ -144,7 +152,7 @@ def mu_update_kl_densified(Vd, W, H, eps=1e-9, order="WH", block_rows=4096,
 
 
 def nsnmf_update_kl_densified(Vd, W, H, S, eps=1e-9, order="WH",
-                              block_rows=4096, scale=None):
+                              block_rows=4096, scale=None, sums=LOCAL):
     """nsNMF under KL against a dense bf16 or int8 V: KL MU half-steps
     over row panels with the smoothed partners (S H stands in for H in
     the W step, W S for W in the H step). `scale` as in
@@ -152,14 +160,16 @@ def nsnmf_update_kl_densified(Vd, W, H, S, eps=1e-9, order="WH",
 
     def upd_w(W, H):
         SH = S @ H
-        numer = _kl_numer_w_blocked(Vd, W, SH, eps, block_rows, scale)
-        s_sum = torch.clamp(torch.sum(SH, dim=1), min=eps)[None, :]
+        numer = sums.cols(_kl_numer_w_blocked(Vd, W, SH, eps, block_rows,
+                                              scale))
+        s_sum = torch.clamp(sums.cols(torch.sum(SH, dim=1)), min=eps)[None, :]
         return W * (numer / s_sum)
 
     def upd_h(W, H):
         WS = W @ S
-        numer = _kl_numer_h_blocked(Vd, WS, H, eps, block_rows, scale)
-        s_sum = torch.clamp(torch.sum(WS, dim=0), min=eps)[:, None]
+        numer = sums.rows(_kl_numer_h_blocked(Vd, WS, H, eps, block_rows,
+                                              scale))
+        s_sum = torch.clamp(sums.rows(torch.sum(WS, dim=0)), min=eps)[:, None]
         return H * (numer / s_sum)
 
     return _apply_order(upd_w, upd_h, W, H, order)
@@ -176,48 +186,54 @@ def _big_wtv(W, Vd):
 
 
 def als_family_update_densified(Vd, W, H, shift_w=0.0, shift_h=0.0,
-                                off_w=0.0, off_h=0.0, eps=1e-9, order="WH"):
+                                off_w=0.0, off_h=0.0, eps=1e-9, order="WH",
+                                sums=LOCAL):
     """ALS / ACLS / AHCLS (the shifts of ``sparse_ops._als_family_shifts``)
     against a dense bf16 V: the O(nmr) right-hand sides contract bf16
     operands into float32 (`_big_vht`, `_big_wtv`); the r x r solves run
     in the factors' dtype (``linalg.dense.solve_clamped``)."""
 
     def upd_w(W, H):
-        rhs = _big_vht(Vd, H).T.to(H.dtype)               # (r, n)
-        return solve_clamped(H @ H.T, rhs, shift_w, off_w, eps).T
+        rhs = sums.cols(_big_vht(Vd, H)).T.to(H.dtype)    # (r, n)
+        return solve_clamped(sums.cols(H @ H.T), rhs, shift_w, off_w, eps).T
 
     def upd_h(W, H):
-        rhs = _big_wtv(W, Vd).to(W.dtype)                 # (r, m)
-        return solve_clamped(W.T @ W, rhs, shift_h, off_h, eps)
+        rhs = sums.rows(_big_wtv(W, Vd)).to(W.dtype)      # (r, m)
+        return solve_clamped(sums.rows(W.T @ W), rhs, shift_h, off_h, eps)
 
     return _apply_order(upd_w, upd_h, W, H, order)
 
 
-def gdcls_update_densified(Vd, W, H, lambda_tik=0.0, eps=1e-9, order="WH"):
+def gdcls_update_densified(Vd, W, H, lambda_tik=0.0, eps=1e-9, order="WH",
+                           sums=LOCAL):
     """GDCLS against a dense bf16 V: the MU W step and the Tikhonov H
     solve, both right-hand sides bf16 contractions."""
 
     def upd_w(W, H):
-        return W * (_big_vht(Vd, H) / (W @ (H @ H.T) + eps))
+        return W * (sums.cols(_big_vht(Vd, H))
+                    / (W @ sums.cols(H @ H.T) + eps))
 
     def upd_h(W, H):
-        return solve_clamped(W.T @ W, _big_wtv(W, Vd).to(W.dtype),
+        return solve_clamped(sums.rows(W.T @ W),
+                             sums.rows(_big_wtv(W, Vd)).to(W.dtype),
                              lambda_tik, 0.0, eps)
 
     return _apply_order(upd_w, upd_h, W, H, order)
 
 
-def nsnmf_update_densified(Vd, W, H, S, eps=1e-9, order="WH"):
+def nsnmf_update_densified(Vd, W, H, S, eps=1e-9, order="WH", sums=LOCAL):
     """nsNMF (Frobenius) against a dense bf16 V: MU against the smoothed
     partners, the numerators bf16 contractions."""
 
     def upd_w(W, H):
         SH = S @ H
-        return W * (_big_vht(Vd, SH) / (W @ (SH @ SH.T) + eps))
+        return W * (sums.cols(_big_vht(Vd, SH))
+                    / (W @ sums.cols(SH @ SH.T) + eps))
 
     def upd_h(W, H):
         WS = W @ S
-        return H * (_big_wtv(WS, Vd) / ((WS.T @ WS) @ H + eps))
+        return H * (sums.rows(_big_wtv(WS, Vd))
+                    / (sums.rows(WS.T @ WS) @ H + eps))
 
     return _apply_order(upd_w, upd_h, W, H, order)
 
@@ -264,7 +280,7 @@ def _beta_terms_h_blocked(Vd, W, H, beta, eps, block_rows, scale=None):
 
 
 def mu_update_beta_densified(Vd, W, H, beta, eps=1e-9, order="WH",
-                             block_rows=4096, scale=None):
+                             block_rows=4096, scale=None, sums=LOCAL):
     """Generalized beta-divergence MU against a dense bf16 or int8 V,
     over row panels (the dense twin is ``linalg.dense.mu_update_beta``):
     sklearn's float beta_loss semantics, i.e. the EPSILON power guards
@@ -275,12 +291,16 @@ def mu_update_beta_densified(Vd, W, H, beta, eps=1e-9, order="WH",
     gamma = beta_gamma(beta)
 
     def upd_w(W, H):
-        return _beta_apply(W, *_beta_terms_w_blocked(
-            Vd, W, H, beta, eps, block_rows, scale), beta, gamma)
+        numer, denom = _beta_terms_w_blocked(Vd, W, H, beta, eps, block_rows,
+                                             scale)
+        return _beta_apply(W, sums.cols(numer), sums.cols(denom), beta,
+                           gamma)
 
     def upd_h(W, H):
-        return _beta_apply(H, *_beta_terms_h_blocked(
-            Vd, W, H, beta, eps, block_rows, scale), beta, gamma)
+        numer, denom = _beta_terms_h_blocked(Vd, W, H, beta, eps, block_rows,
+                                             scale)
+        return _beta_apply(H, sums.rows(numer), sums.rows(denom), beta,
+                           gamma)
 
     return _apply_order(upd_w, upd_h, W, H, order)
 
@@ -311,9 +331,52 @@ def beta_divergence_densified(Vd, W, H, beta, eps=1e-12, block_rows=4096,
     return total if beta == 0.0 else total / (beta * (beta - 1.0))
 
 
+def _weighted_panel(Vd, W, H, alpha, s, e, scale):
+    """(C⊙V, C⊙WH) of rows s:e in float32, C = 1 + alpha·V."""
+    V32 = Vd[s:e].float()
+    if scale is not None:
+        V32 = V32 * scale
+    C = V32 * alpha
+    C += 1.0
+    CWH = _bf16_dot(W[s:e], H)
+    CWH *= C
+    C *= V32
+    return C, CWH
+
+
+def _weighted_terms_w_blocked(Vd, W, H, alpha, block_rows, scale=None):
+    """numer = (C⊙V) Hᵀ and denom = (C⊙WH) Hᵀ, both (n, r) float32,
+    over row panels."""
+    n, Ht = Vd.shape[0], H.T
+    numer = torch.empty((n, W.shape[1]), dtype=torch.float32,
+                        device=Vd.device)
+    denom = torch.empty_like(numer)
+    for s, e in _panels(n, block_rows):
+        CV, CWH = _weighted_panel(Vd, W, H, alpha, s, e, scale)
+        numer[s:e] = _bf16_dot(CV, Ht)
+        del CV
+        denom[s:e] = _bf16_dot(CWH, Ht)
+    return numer, denom
+
+
+def _weighted_terms_h_blocked(Vd, W, H, alpha, block_rows, scale=None):
+    """numer = Wᵀ (C⊙V) and denom = Wᵀ (C⊙WH), both (r, m) float32,
+    accumulated over row panels."""
+    numer = torch.zeros((W.shape[1], H.shape[1]), dtype=torch.float32,
+                        device=Vd.device)
+    denom = torch.zeros_like(numer)
+    for s, e in _panels(Vd.shape[0], block_rows):
+        CV, CWH = _weighted_panel(Vd, W, H, alpha, s, e, scale)
+        Wt = W[s:e].T
+        numer += _bf16_dot(Wt, CV)
+        del CV
+        denom += _bf16_dot(Wt, CWH)
+    return numer, denom
+
+
 def mu_update_frobenius_weighted_densified(Vd, W, H, alpha, eps=1e-9,
                                            order="WH", block_rows=4096,
-                                           scale=None):
+                                           scale=None, sums=LOCAL):
     """Confidence-weighted MU (c = 1 + alpha·v) against a dense bf16 or
     int8 V, over row panels: per panel V32 = V in float32 (times `scale`
     for int8), C = 1 + alpha·V32, WH as a bf16 x bf16 -> float32
@@ -321,43 +384,16 @@ def mu_update_frobenius_weighted_densified(Vd, W, H, alpha, eps=1e-9,
     to bf16 (where ``nmftpu`` rounds them). Each half-step computes only
     its own numerator and denominator, so C and C⊙WH exist at panel size
     only. Orders "WH" and "HW"."""
-    n = Vd.shape[0]
-
-    def panel_terms(W, H, s, e):
-        """(C⊙V, C⊙WH) of rows s:e, float32."""
-        V32 = Vd[s:e].float()
-        if scale is not None:
-            V32 = V32 * scale
-        C = V32 * alpha
-        C += 1.0
-        CWH = _bf16_dot(W[s:e], H)
-        CWH *= C
-        C *= V32
-        return C, CWH
 
     def upd_w(W, H):
-        Ht = H.T
-        numer = torch.empty((n, W.shape[1]), dtype=torch.float32,
-                            device=Vd.device)
-        denom = torch.empty_like(numer)
-        for s, e in _panels(n, block_rows):
-            CV, CWH = panel_terms(W, H, s, e)
-            numer[s:e] = _bf16_dot(CV, Ht)
-            del CV
-            denom[s:e] = _bf16_dot(CWH, Ht)
-        return W * (numer / (denom + eps))
+        numer, denom = _weighted_terms_w_blocked(Vd, W, H, alpha,
+                                                 block_rows, scale)
+        return W * (sums.cols(numer) / (sums.cols(denom) + eps))
 
     def upd_h(W, H):
-        numer = torch.zeros((W.shape[1], H.shape[1]), dtype=torch.float32,
-                            device=Vd.device)
-        denom = torch.zeros_like(numer)
-        for s, e in _panels(n, block_rows):
-            CV, CWH = panel_terms(W, H, s, e)
-            Wt = W[s:e].T
-            numer += _bf16_dot(Wt, CV)
-            del CV
-            denom += _bf16_dot(Wt, CWH)
-        return H * (numer / (denom + eps))
+        numer, denom = _weighted_terms_h_blocked(Vd, W, H, alpha,
+                                                 block_rows, scale)
+        return H * (sums.rows(numer) / (sums.rows(denom) + eps))
 
     return _apply_order(upd_w, upd_h, W, H, order)
 

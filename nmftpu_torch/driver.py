@@ -101,19 +101,27 @@ def compute(
     (run_index, iteration, error, delta); interrupt, if given, is polled
     at every check and a truthy return stops the run with the current
     factors.
+
+    mesh: a ('users', 'items') rank mesh (`parallel.make_grid_mesh`);
+    every rank calls alike with the whole V, keeps its tile on the mesh's
+    device (`device` is then unused) and gets the full factors back
+    (`parallel.dense_mesh`).
     """
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh= with dense V (the GSPMD-sharded dense path) is not "
-            "ported to nmftpu_torch yet (ROADMAP.md queue 1, slice 6b); "
-            "sparse V runs on a mesh"
-        )
     if config.mask == "observed":
         raise ValueError(
             "mask='observed' needs a sparse container (the stored "
             "nonzeros ARE the observed set); a dense V has no mask "
             "structure"
         )
+    if mesh is not None:
+        from nmftpu_torch.parallel.dense_mesh import compute_dense_mesh
+
+        # a tensor, an array, or any object with a shape whose [rows,
+        # cols] slices give the tiles (each rank reads only its own)
+        if not hasattr(V, "shape"):
+            V = np.asarray(V)
+        return compute_dense_mesh(V, config, mesh, W0=W0, H0=H0,
+                                  callback=callback, interrupt=interrupt)
     dtype = resolve_dtype(config.dtype)
     device = _resolve_device(V, device)
     if not isinstance(V, torch.Tensor):

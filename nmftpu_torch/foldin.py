@@ -25,6 +25,13 @@ The Gram of an int8 table is an int8 x int8 -> int32 contraction, run on
 the one-sided entry of the int8 numerator kernel
 (``kernels.dual_numer.vht_int8``) over panels short enough that no int32
 sum wraps, and added exactly in int64 (`int8_gram`).
+
+A table sharded over the items axis of a rank mesh
+(`prepare_table_sharded`, a ``Recommender(mesh=)``'s) keeps each rank's
+items: the Gram and row sums are each rank's own, summed over the axis
+(an int8 Gram in int64, exact), and a gather of history rows takes each
+row from the rank that owns it, assembled by a sum over the axis. The
+solves then run replicated, with equal bits on every rank.
 """
 
 from __future__ import annotations
@@ -70,11 +77,16 @@ class PreparedTable:
     # int8 tables: true H = scale * Ht.T (0-dim) or diag(scale) @ Ht.T
     # ((r,) per-dimension scales)
     scale: torch.Tensor | None = None
+    # a sharded table: `Ht` holds this rank's items of the mesh's items
+    # axis, the first of them item `offset`, of `n_items` in all
+    mesh: object = None
+    offset: int = 0
+    n_items: int | None = None
 
     @property
     def shape(self):
         m, r = self.Ht.shape
-        return r, m
+        return r, (m if self.n_items is None else self.n_items)
 
 
 def int8_gram(Hq, panel=GRAM_PANEL_INT8):
@@ -144,10 +156,56 @@ def prepare_table(H, scale=None, *, device=None) -> PreparedTable:
                          scale=sc)
 
 
+def prepare_table_sharded(H, mesh, n_items: int, scale=None
+                          ) -> PreparedTable:
+    """`prepare_table` of a table sharded over the items axis of `mesh`:
+    H (rank, n_items / shards) is this rank's slice, on its device. The
+    Gram and the row sums are summed over the axis before the scale
+    folds in, so an int8 table's are the unsharded ones bit for bit (the
+    int64 Gram is exact in any order)."""
+    from nmftpu_torch.parallel.mesh import AXIS_ITEMS, psum
+
+    if H.dtype.is_floating_point:
+        G, h_sum = _float_gram(H)
+        G = psum(G, mesh, AXIS_ITEMS)
+        h_sum = psum(h_sum, mesh, AXIS_ITEMS).float()
+    else:
+        if scale is None:
+            raise ValueError("an integer table needs its quantization "
+                             "scale")
+        G = psum(int8_gram(H), mesh, AXIS_ITEMS).double()
+        h_sum = torch.zeros(H.shape[0], dtype=torch.int64, device=H.device)
+        for lo in range(0, H.shape[1], GRAM_PANEL_INT8):
+            h_sum += H[:, lo:lo + GRAM_PANEL_INT8].sum(dim=1,
+                                                       dtype=torch.int32)
+        h_sum = psum(h_sum, mesh, AXIS_ITEMS).double()
+    layout = dict(mesh=mesh, offset=mesh.get_local_rank(AXIS_ITEMS)
+                  * H.shape[1], n_items=int(n_items))
+    if scale is None:
+        return PreparedTable(Ht=H.T, G=G, h_sum=h_sum, **layout)
+    sc = _tensor(scale, H.device, torch.float32)
+    outer = sc[:, None] * sc[None, :] if sc.ndim == 1 else sc * sc
+    return PreparedTable(Ht=H.T, G=(G * outer.to(G.dtype)).float(),
+                         h_sum=(h_sum * sc.to(h_sum.dtype)).float(),
+                         scale=sc, **layout)
+
+
 def _table_rows(prep, cols):
     """The table's rows for item ids `cols` (a 1-D int64 tensor), float32
-    (nnz, r), scaled: only these rows are read and up-cast."""
-    rows = prep.Ht.T.index_select(1, cols).float().T.contiguous()
+    (nnz, r), scaled: only these rows are read and up-cast. On a sharded
+    table each rank reads the rows it owns, zero the others, and a sum
+    over the items axis assembles them (one owner per row, so the sum
+    adds only zeros)."""
+    if prep.mesh is None:
+        rows = prep.Ht.T.index_select(1, cols).float().T.contiguous()
+    else:
+        from nmftpu_torch.parallel.mesh import AXIS_ITEMS, psum
+
+        loc = cols - prep.offset
+        own = (loc >= 0) & (loc < prep.Ht.shape[0])
+        rows = prep.Ht.T.index_select(
+            1, torch.where(own, loc, 0)).float().T.contiguous()
+        rows = psum(rows * own[:, None], prep.mesh, AXIS_ITEMS)
     return rows if prep.scale is None else rows * prep.scale
 
 
@@ -363,6 +421,10 @@ def transform(
             0, rows, vals[:, None] * Hc)
         sum_v_sq = torch.sum(vals * vals)
     else:
+        if prep.mesh is not None:
+            raise ValueError(
+                "dense fold-in against a sharded table is not supported: "
+                "pass sparse data (serving histories)")
         if prep.scale is not None:
             raise ValueError(
                 "dense fold-in against a quantized table is not "

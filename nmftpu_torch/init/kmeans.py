@@ -12,28 +12,31 @@ from __future__ import annotations
 
 import torch
 
+from nmftpu_torch.linalg.dense import LOCAL
 
-def _lloyd(V, centroids, max_iter: int):
+
+def _lloyd(V, centroids, max_iter: int, sums=LOCAL):
     """`max_iter` Lloyd rounds from `centroids` (n, r) over the columns
     of V (n, m). Returns (centroids (n, r), assignments (m,) int64). An
     empty cluster keeps its centroid. The argmin takes the first of
-    tied distances, as ``jnp.argmin`` does."""
+    tied distances, as ``jnp.argmin`` does. `sums` (``linalg.dense.
+    Sums``): V a tile of a mesh, the centroids its rows."""
     rank = centroids.shape[1]
-    col_sq = torch.sum(V * V, dim=0)                      # (m,)
+    col_sq = sums.rows(torch.sum(V * V, dim=0))           # (m,)
 
     def assign(centroids):
         # dist²(j, k) = ||v_j||² - 2 v_j·c_k + ||c_k||²
-        cross = V.T @ centroids                           # (m, r)
-        cent_sq = torch.sum(centroids * centroids, dim=0)
+        cross = sums.rows(V.T @ centroids)                # (m, r)
+        cent_sq = sums.rows(torch.sum(centroids * centroids, dim=0))
         d2 = col_sq[:, None] - 2.0 * cross + cent_sq[None, :]
         return torch.argmin(d2, dim=1)
 
     for _ in range(max_iter):
         onehot = torch.nn.functional.one_hot(assign(centroids),
                                              rank).to(V.dtype)
-        sums = V @ onehot                                 # (n, r)
-        counts = torch.sum(onehot, dim=0)                 # (r,)
-        new = sums / torch.clamp(counts, min=1.0)[None, :]
+        total = sums.cols(V @ onehot)                     # (n, r)
+        counts = sums.cols(torch.sum(onehot, dim=0))      # (r,)
+        new = total / torch.clamp(counts, min=1.0)[None, :]
         centroids = torch.where(counts[None, :] > 0, new, centroids)
     return centroids, assign(centroids)
 

@@ -14,7 +14,9 @@ reaches device memory except as the partial sums of a split depth
 (`mu_splits`), which the last block of a tile adds in split order before
 the Gram denominator and the multiply/divide epilogue, the only store. `fused_multiply_divide`, the
 elementwise X * numer / (denom + eps) on its own, is a third kernel
-(``csrc/muldiv.cu``); as in ``nmftpu``, no update path calls it.
+(``csrc/muldiv.cu``). On one device no update calls it; on a mesh that
+tiles V (``parallel.dense_mesh``) a half-step whose numerator spans
+ranks sums it first and applies the epilogue here.
 
 Beside each wrapper is its plain torch twin (``*_plain``), the same
 function written with ``torch.matmul``. A wrapper runs the twin only when
@@ -27,7 +29,7 @@ from __future__ import annotations
 import torch
 
 from nmftpu_torch.kernels import _build
-from nmftpu_torch.linalg.dense import _apply_order
+from nmftpu_torch.linalg.dense import LOCAL, _apply_order
 
 LAUNCHES = {"w_update_fused": 0, "h_update_fused": 0,
             "fused_multiply_divide": 0}
@@ -230,12 +232,23 @@ def fused_multiply_divide(X, numer, denom, eps=1e-9):
     return out
 
 
-def mu_update_frobenius_fused(V, W, H, eps=1e-9, order="WH"):
+def mu_update_frobenius_fused(V, W, H, eps=1e-9, order="WH", sums=LOCAL):
     """One full MU (Frobenius) iteration with the fused half-step kernels;
     the (r, r) Grams are plain torch.matmul. Semantics identical to
-    nmftpu_torch.linalg.dense.mu_update_frobenius. Returns new tensors."""
-    return _apply_order(
-        lambda W, H: w_update_fused(V, W, H, H @ H.T, eps=eps),
-        lambda W, H: h_update_fused(V, W, H, W.T @ W, eps=eps),
-        W, H, order,
-    )
+    nmftpu_torch.linalg.dense.mu_update_frobenius. A half-step that is
+    not local to this tile (`sums`) sums its numerator over the ranks
+    and ends on `fused_multiply_divide`. Returns new tensors."""
+
+    def upd_w(W, H):
+        G = sums.cols(H @ H.T)
+        if sums.local_w:
+            return w_update_fused(V, W, H, G, eps=eps)
+        return fused_multiply_divide(W, sums.cols(V @ H.T), W @ G, eps=eps)
+
+    def upd_h(W, H):
+        G = sums.rows(W.T @ W)
+        if sums.local_h:
+            return h_update_fused(V, W, H, G, eps=eps)
+        return fused_multiply_divide(H, sums.rows(W.T @ V), G @ H, eps=eps)
+
+    return _apply_order(upd_w, upd_h, W, H, order)

@@ -38,6 +38,7 @@ import torch
 
 from nmftpu_torch.kernels import _build
 from nmftpu_torch.kernels.dense_mu import _on_cpu
+from nmftpu_torch.linalg.dense import LOCAL, _quantize_h, _quantize_wt
 
 LAUNCHES = {"dual_numerators_int8": 0, "vht_int8": 0, "wtv_int8": 0}
 
@@ -172,14 +173,12 @@ def dual_int8(Vq, WqT, Hq):
     return nw, nh
 
 
-def _numerators(ints, Vq, scale_v, W, H):
-    from nmftpu_torch.linalg.dense import quantize_sym, quantize_sym_t
-
-    scale_w, WqT = quantize_sym_t(W)
-    scale_h, Hq = quantize_sym(H)
+def _numerators(ints, Vq, scale_v, W, H, sums=LOCAL):
+    scale_w, WqT = _quantize_wt(W, sums)
+    scale_h, Hq = _quantize_h(H, sums)
     nw, nh = ints(Vq, WqT, Hq)
-    return (nw.to(torch.float32) * (scale_v * scale_h),
-            nh.to(torch.float32) * (scale_v * scale_w))
+    return (sums.cols(nw).to(torch.float32) * (scale_v * scale_h),
+            sums.rows(nh).to(torch.float32) * (scale_v * scale_w))
 
 
 def dual_numerators_int8_plain(Vq, scale_v, W, H):
@@ -187,10 +186,12 @@ def dual_numerators_int8_plain(Vq, scale_v, W, H):
     return _numerators(dual_int8_plain, Vq, scale_v, W, H)
 
 
-def dual_numerators_int8(Vq, scale_v, W, H):
+def dual_numerators_int8(Vq, scale_v, W, H, sums=LOCAL):
     """Both Jacobi-MU numerators from one pass over Vq's tiles.
 
     Vq (n, m) int8 with scale `scale_v` (V = scale_v * Vq); W (n, r) and
     H (r, m), quantized here per call. Returns (numer_w (n, r) ~= V Hᵀ,
-    numer_h (r, m) ~= Wᵀ V), float32, both scales folded in."""
-    return _numerators(dual_int8, Vq, scale_v, W, H)
+    numer_h (r, m) ~= Wᵀ V), float32, both scales folded in. `sums` (a
+    ``linalg.dense.Sums``, for a tile of V on a mesh) takes the factors'
+    scales over the whole matrix and adds the int32 partials."""
+    return _numerators(dual_int8, Vq, scale_v, W, H, sums)

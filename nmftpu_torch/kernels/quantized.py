@@ -21,13 +21,14 @@ from __future__ import annotations
 
 import torch
 
+from nmftpu_torch.kernels import dense_mu as K
 from nmftpu_torch.kernels.dense_mu import (
     _check_cuda_operands,
     _check_shapes,
     _on_cpu,
     launch,
 )
-from nmftpu_torch.linalg.dense import _apply_order
+from nmftpu_torch.linalg.dense import LOCAL, _apply_order
 
 LAUNCHES = {"w_update_fused_q": 0, "h_update_fused_q": 0}
 
@@ -36,12 +37,15 @@ LAUNCHES = {"w_update_fused_q": 0, "h_update_fused_q": 0}
 _QUANT_CHUNK = 1 << 26
 
 
-def quantize_v(V):
+def quantize_v(V, vmax=None):
     """V -> (Vq int8, scale float32 0-dim) with V ~= scale * Vq (symmetric,
     no zero point). Bit-equal to ``nmftpu.kernels.quantized.quantize_v``:
     the same float ops, and ``torch.round`` rounds half to even like
-    ``jnp.round``. max|V| is max(max V, -min V), which is exact."""
-    scale = torch.maximum(V.amax(), -V.amin()) / 127.0
+    ``jnp.round``. max|V| is max(max V, -min V), which is exact. `vmax`,
+    if given, stands for max|V| (a tile of V passes the whole matrix's)."""
+    if vmax is None:
+        vmax = torch.maximum(V.amax(), -V.amin())
+    scale = vmax / 127.0
     scale = torch.clamp(scale, min=1e-30)
     Vq = torch.empty(V.shape, dtype=torch.int8, device=V.device)
     step = max(1, _QUANT_CHUNK // max(V.shape[1], 1))
@@ -86,12 +90,45 @@ def h_update_fused_q(Vq, scale, W, H, G, eps=1e-9):
                   Vq, scale, W, H, G, torch.empty_like(H), eps)
 
 
-def mu_update_frobenius_q(Vq, scale, W, H, eps=1e-9, order="WH"):
+def _vq_ht(Vq, H, block_rows=4096):
+    """Vq Hᵀ (n, r) in H's dtype, the int8 rows upcast a panel at a time
+    (the fused kernels' numerator before the scale)."""
+    out = torch.empty((Vq.shape[0], H.shape[0]), dtype=H.dtype,
+                      device=H.device)
+    for s in range(0, Vq.shape[0], block_rows):
+        out[s:s + block_rows] = Vq[s:s + block_rows].to(H.dtype) @ H.T
+    return out
+
+
+def _wt_vq(W, Vq, block_rows=4096):
+    """Wᵀ Vq (r, m) in W's dtype, summed over row panels of Vq."""
+    out = torch.zeros((W.shape[1], Vq.shape[1]), dtype=W.dtype,
+                      device=W.device)
+    for s in range(0, Vq.shape[0], block_rows):
+        out += W[s:s + block_rows].T @ Vq[s:s + block_rows].to(W.dtype)
+    return out
+
+
+def mu_update_frobenius_q(Vq, scale, W, H, eps=1e-9, order="WH",
+                          sums=LOCAL):
     """Full MU (Frobenius) iteration against int8-quantized V. Semantics
     match nmftpu_torch.linalg.dense.mu_update_frobenius on V = scale * Vq.
-    Returns new tensors."""
-    return _apply_order(
-        lambda W, H: w_update_fused_q(Vq, scale, W, H, H @ H.T, eps=eps),
-        lambda W, H: h_update_fused_q(Vq, scale, W, H, W.T @ W, eps=eps),
-        W, H, order,
-    )
+    A half-step that is not local to this tile (`sums`) sums the float
+    numerator scale · Vq Hᵀ (Wᵀ Vq) over the ranks and ends on
+    ``dense_mu.fused_multiply_divide``. Returns new tensors."""
+
+    def upd_w(W, H):
+        G = sums.cols(H @ H.T)
+        if sums.local_w:
+            return w_update_fused_q(Vq, scale, W, H, G, eps=eps)
+        return K.fused_multiply_divide(W, sums.cols(_vq_ht(Vq, H)) * scale,
+                                       W @ G, eps=eps)
+
+    def upd_h(W, H):
+        G = sums.rows(W.T @ W)
+        if sums.local_h:
+            return h_update_fused_q(Vq, scale, W, H, G, eps=eps)
+        return K.fused_multiply_divide(H, sums.rows(_wt_vq(W, Vq)) * scale,
+                                       G @ H, eps=eps)
+
+    return _apply_order(upd_w, upd_h, W, H, order)

@@ -19,6 +19,11 @@ int8 products (``kernels.dual_numer``: the MU numerators and the int8
 family's right-hand sides) and the HALS half-sweep
 (``kernels.hals_sweep``); on CPU tensors those wrappers run their plain
 torch twins.
+
+Every update takes `sums` (a `Sums`; `LOCAL` by default): the routes
+call it on each contraction over V's columns (the W side) or rows (the H
+side). On one device those are whole and it adds nothing; a rank that
+holds one tile of V (``parallel.dense_mesh``) sums them over the ranks.
 """
 
 from __future__ import annotations
@@ -26,20 +31,47 @@ from __future__ import annotations
 import torch
 
 
-def mu_update_w_frobenius(V, W, H, eps):
+class Sums:
+    """The sums of a route's partial contractions. One device holds the
+    whole V, so every contraction is already whole and each method
+    returns its argument. A mesh that tiles V (``parallel.dense_mesh.
+    MeshSums``) overrides them: `cols` sums a W-side partial (over its
+    tile's columns) across the ranks that share its rows, `rows` an
+    H-side partial across those that share its columns, `both` over all
+    ranks; maximum=True takes the max (the int8 scales of the whole
+    matrix). `local_w` / `local_h` say whether a half-step reads only
+    this rank's tile, so that a fused kernel may run it whole."""
+
+    local_w = True
+    local_h = True
+
+    def cols(self, x, maximum=False):
+        return x
+
+    def rows(self, x, maximum=False):
+        return x
+
+    def both(self, x, maximum=False):
+        return x
+
+
+LOCAL = Sums()
+
+
+def mu_update_w_frobenius(V, W, H, eps, sums=LOCAL):
     """W <- W * (V H^T) / (W (H H^T) + eps).   One Lee–Seung half-step.
     Stacked factors (S, n, r) / (S, r, m) with V (n, m) or (S, n, m) run
     as batched GEMMs (the lockstep runner's `stacked_update`)."""
-    numer = V @ H.mT                     # (n, r)   O(nmr)
-    HHt = H @ H.mT                       # (r, r)   O(mr^2)
+    numer = sums.cols(V @ H.mT)          # (n, r)   O(nmr)
+    HHt = sums.cols(H @ H.mT)            # (r, r)   O(mr^2)
     denom = W @ HHt + eps                # (n, r)   O(nr^2)
     return W * (numer / denom)
 
 
-def mu_update_h_frobenius(V, W, H, eps):
+def mu_update_h_frobenius(V, W, H, eps, sums=LOCAL):
     """H <- H * (W^T V) / ((W^T W) H + eps); stacked as the W step."""
-    numer = W.mT @ V                     # (r, m)
-    WtW = W.mT @ W                       # (r, r)
+    numer = sums.rows(W.mT @ V)          # (r, m)
+    WtW = sums.rows(W.mT @ W)            # (r, r)
     denom = WtW @ H + eps                # (r, m)
     return H * (numer / denom)
 
@@ -63,7 +95,7 @@ def _apply_order(upd_w, upd_h, W, H, order):
     return W, H
 
 
-def _jacobi_fro_apply(W, H, numer_w, numer_h, G_w, G_h, eps):
+def _jacobi_fro_apply(W, H, numer_w, numer_h, G_w, G_h, eps, sums=LOCAL):
     """Scale-corrected simultaneous (Jacobi) Frobenius MU step.
 
     The raw simultaneous step W ⊙ rw, H ⊙ rh squares the correction of
@@ -71,8 +103,9 @@ def _jacobi_fro_apply(W, H, numer_w, numer_h, G_w, G_h, eps):
     two-cycles on a scale-mismatched iterate. Both ratios are divided by
     √s, where s = ⟨V, WH⟩/‖WH‖² = ⟨numer_w, W⟩/⟨WᵀW, HHᵀ⟩ is the optimal
     global scale, read from the update's own pieces. At a stationary pair
-    s = 1, so the fixed points are those of Gauss–Seidel."""
-    s_num = torch.sum(numer_w * W)
+    s = 1, so the fixed points are those of Gauss–Seidel. The pieces come
+    summed; only ⟨numer_w, W⟩ is summed here, over W's rows."""
+    s_num = sums.rows(torch.sum(numer_w * W))
     s_den = torch.clamp(torch.sum(G_w * G_h), min=eps)
     inv_a = torch.rsqrt(torch.clamp(s_num / s_den, min=eps))
     W_new = W * (numer_w / (W @ G_h + eps)) * inv_a
@@ -80,36 +113,39 @@ def _jacobi_fro_apply(W, H, numer_w, numer_h, G_w, G_h, eps):
     return W_new, H_new
 
 
-def mu_update_frobenius(V, W, H, eps=1e-9, order="WH"):
+def mu_update_frobenius(V, W, H, eps=1e-9, order="WH", sums=LOCAL):
     """One full MU iteration under the Frobenius objective. order="WH"
     updates W first, "HW" H first; "jacobi" updates both from the
     incoming factors with the scale correction of `_jacobi_fro_apply`."""
     if order == "jacobi":
         return _jacobi_fro_apply(
-            W, H, V @ H.T, W.T @ V, W.T @ W, H @ H.T, eps,
+            W, H, sums.cols(V @ H.T), sums.rows(W.T @ V),
+            sums.rows(W.T @ W), sums.cols(H @ H.T), eps, sums,
         )
     return _apply_order(
-        lambda W, H: mu_update_w_frobenius(V, W, H, eps),
-        lambda W, H: mu_update_h_frobenius(V, W, H, eps),
+        lambda W, H: mu_update_w_frobenius(V, W, H, eps, sums),
+        lambda W, H: mu_update_h_frobenius(V, W, H, eps, sums),
         W, H, order,
     )
 
 
-def mu_update_w_kl(V, W, H, eps):
+def mu_update_w_kl(V, W, H, eps, sums=LOCAL):
     """KL half-step: W <- W * ((V / (WH)) H^T) / (row-broadcast sum_j H);
     stacked factors as `mu_update_w_frobenius`."""
     ratio = V / (W @ H + eps)            # (n, m)
-    numer = ratio @ H.mT                 # (n, r)
-    denom = torch.clamp(torch.sum(H, dim=-1), min=eps).unsqueeze(-2)
+    numer = sums.cols(ratio @ H.mT)      # (n, r)
+    denom = torch.clamp(sums.cols(torch.sum(H, dim=-1)),
+                        min=eps).unsqueeze(-2)
     return W * (numer / denom)
 
 
-def mu_update_h_kl(V, W, H, eps):
+def mu_update_h_kl(V, W, H, eps, sums=LOCAL):
     """KL half-step: H <- H * (W^T (V / (WH))) / (col-broadcast sum_i W);
     stacked factors as `mu_update_w_frobenius`."""
     ratio = V / (W @ H + eps)
-    numer = W.mT @ ratio                 # (r, m)
-    denom = torch.clamp(torch.sum(W, dim=-2), min=eps).unsqueeze(-1)
+    numer = sums.rows(W.mT @ ratio)      # (r, m)
+    denom = torch.clamp(sums.rows(torch.sum(W, dim=-2)),
+                        min=eps).unsqueeze(-1)
     return H * (numer / denom)
 
 
@@ -121,22 +157,22 @@ def _jacobi_kl_scale(sum_v, w_sum, h_sum, eps):
     return torch.rsqrt(torch.clamp(s, min=eps))
 
 
-def mu_update_kl(V, W, H, eps=1e-9, order="WH"):
+def mu_update_kl(V, W, H, eps=1e-9, order="WH", sums=LOCAL):
     """One full MU iteration under the KL (generalized I-divergence)
     objective. order="jacobi" computes both half-steps from one shared
     WH/ratio pass, both ratios divided by √a (`_jacobi_kl_scale`)."""
     if order == "jacobi":
         ratio = V / (W @ H + eps)
-        numer_w = ratio @ H.T
-        numer_h = W.T @ ratio
-        h_sum = torch.clamp(torch.sum(H, dim=1), min=eps)
-        w_sum = torch.clamp(torch.sum(W, dim=0), min=eps)
-        inv_a = _jacobi_kl_scale(torch.sum(V), w_sum, h_sum, eps)
+        numer_w = sums.cols(ratio @ H.T)
+        numer_h = sums.rows(W.T @ ratio)
+        h_sum = torch.clamp(sums.cols(torch.sum(H, dim=1)), min=eps)
+        w_sum = torch.clamp(sums.rows(torch.sum(W, dim=0)), min=eps)
+        inv_a = _jacobi_kl_scale(sums.both(torch.sum(V)), w_sum, h_sum, eps)
         return (W * (numer_w / h_sum[None, :]) * inv_a,
                 H * (numer_h / w_sum[:, None]) * inv_a)
     return _apply_order(
-        lambda W, H: mu_update_w_kl(V, W, H, eps),
-        lambda W, H: mu_update_h_kl(V, W, H, eps),
+        lambda W, H: mu_update_w_kl(V, W, H, eps, sums),
+        lambda W, H: mu_update_h_kl(V, W, H, eps, sums),
         W, H, order,
     )
 
@@ -193,44 +229,47 @@ def _beta_ratio(numer, denom, l1, l2, X, gamma):
     return d ** gamma if gamma != 1.0 else d
 
 
-def beta_w_step(V, W, H, beta, l1_w=0.0, l2_w=0.0, gamma=1.0):
+def beta_w_step(V, W, H, beta, l1_w=0.0, l2_w=0.0, gamma=1.0,
+                sums=LOCAL):
     """One multiplicative W update under the generalized beta divergence:
     sklearn's _multiplicative_update_w dense branch, guard for guard."""
+    S = sums.cols
     if beta == 2.0:
-        numer = V @ H.T
-        denom = W @ (H @ H.T)
+        numer = S(V @ H.T)
+        denom = W @ S(H @ H.T)
     else:
         pwr_n, pwr_d = _beta_powers(W @ H, beta)
-        numer = (pwr_n * V) @ H.T
+        numer = S((pwr_n * V) @ H.T)
         if beta == 1.0:
-            denom = torch.sum(H, dim=1)[None, :].expand_as(W)
+            denom = S(torch.sum(H, dim=1))[None, :].expand_as(W)
         else:
-            denom = pwr_d @ H.T
+            denom = S(pwr_d @ H.T)
     return W * _beta_ratio(numer, denom, l1_w, l2_w, W, gamma)
 
 
-def beta_h_terms(V, W, H, beta):
+def beta_h_terms(V, W, H, beta, sums=LOCAL):
     """(numerator, denominator) of the beta-MU H update before
     regularization."""
+    S = sums.rows
     if beta == 2.0:
-        return W.T @ V, (W.T @ W) @ H
+        return S(W.T @ V), S(W.T @ W) @ H
     pwr_n, pwr_d = _beta_powers(W @ H, beta)
-    numer = W.T @ (pwr_n * V)
+    numer = S(W.T @ (pwr_n * V))
     if beta == 1.0:
-        W_sum = torch.sum(W, dim=0)
+        W_sum = S(torch.sum(W, dim=0))
         W_sum = torch.where(W_sum == 0.0, 1.0, W_sum)
         return numer, W_sum[:, None].expand_as(H)
-    return numer, W.T @ pwr_d
+    return numer, S(W.T @ pwr_d)
 
 
-def beta_h_step(V, W, H, beta, l1_h=0.0, l2_h=0.0, gamma=1.0):
+def beta_h_step(V, W, H, beta, l1_h=0.0, l2_h=0.0, gamma=1.0, sums=LOCAL):
     """One multiplicative H update (sklearn's _multiplicative_update_h,
     dense branch, without the online accumulators)."""
-    numer, denom = beta_h_terms(V, W, H, beta)
+    numer, denom = beta_h_terms(V, W, H, beta, sums)
     return H * _beta_ratio(numer, denom, l1_h, l2_h, H, gamma)
 
 
-def mu_update_beta(V, W, H, beta, eps=1e-9, order="WH"):
+def mu_update_beta(V, W, H, beta, eps=1e-9, order="WH", sums=LOCAL):
     """One MU iteration under the generalized beta divergence:
 
         W <- W * ( ((WH)^(b-2) . V) H^T / ((WH)^(b-1) H^T) )^gamma
@@ -246,8 +285,10 @@ def mu_update_beta(V, W, H, beta, eps=1e-9, order="WH"):
         return torch.where(X < _STAB_EPS, 0.0, X) if beta < 1.0 else X
 
     return _apply_order(
-        lambda W, H: stabilize(beta_w_step(V, W, H, beta, gamma=gamma)),
-        lambda W, H: stabilize(beta_h_step(V, W, H, beta, gamma=gamma)),
+        lambda W, H: stabilize(beta_w_step(V, W, H, beta, gamma=gamma,
+                                           sums=sums)),
+        lambda W, H: stabilize(beta_h_step(V, W, H, beta, gamma=gamma,
+                                           sums=sums)),
         W, H, order,
     )
 
@@ -282,23 +323,27 @@ def _bf16_dot(a, b, block_rows=4096):
     return out
 
 
-def mu_update_frobenius_bf16v(Vb, W, H, eps=1e-9, order="WH"):
+def mu_update_frobenius_bf16v(Vb, W, H, eps=1e-9, order="WH", sums=LOCAL):
     """MU (Frobenius) against a bfloat16-stored V: the two O(nmr)
     numerators contract bf16 operands into float32; everything else stays
     in W/H's dtype. Plain torch, no kernel."""
 
+    def vht(H):
+        return sums.cols(_bf16_dot(Vb, H.T)).to(H.dtype)    # V H^T (n, r)
+
+    def wtv(W):
+        return sums.rows(_bf16_dot(W.T, Vb)).to(W.dtype)    # W^T V (r, m)
+
     def upd_w(W, H):
-        numer = _bf16_dot(Vb, H.T).to(W.dtype)      # V H^T (n, r)
-        return W * (numer / (W @ (H @ H.T) + eps))
+        return W * (vht(H) / (W @ sums.cols(H @ H.T) + eps))
 
     def upd_h(W, H):
-        numer = _bf16_dot(W.T, Vb).to(W.dtype)      # W^T V (r, m)
-        return H * (numer / ((W.T @ W) @ H + eps))
+        return H * (wtv(W) / (sums.rows(W.T @ W) @ H + eps))
 
     if order == "jacobi":
         return _jacobi_fro_apply(
-            W, H, _bf16_dot(Vb, H.T).to(W.dtype),
-            _bf16_dot(W.T, Vb).to(W.dtype), W.T @ W, H @ H.T, eps,
+            W, H, vht(H), wtv(W), sums.rows(W.T @ W), sums.cols(H @ H.T),
+            eps, sums,
         )
     return _apply_order(upd_w, upd_h, W, H, order)
 
@@ -309,22 +354,27 @@ def mu_update_frobenius_bf16v(Vb, W, H, eps=1e-9, order="WH"):
 # ---------------------------------------------------------------------------
 
 
-def quantize_sym(X, clip=127.0):
+def quantize_sym(X, clip=127.0, amax=None):
     """Symmetric per-matrix int8 quantization: X ~= scale * Xq. Returns
     (scale float32 0-dim, Xq int8). Bit-equal to ``nmftpu``'s: the scale
     is computed in X's type, and ``torch.round`` rounds half to even like
-    ``jnp.round``."""
-    scale = torch.clamp(X.abs().amax() / clip, min=1e-30)
+    ``jnp.round``. `amax`, if given, stands for max|X| (a sharded factor
+    passes the whole matrix's, so every block takes one scale)."""
+    if amax is None:
+        amax = X.abs().amax()
+    scale = torch.clamp(amax / clip, min=1e-30)
     Xq = torch.clamp(torch.round(X / scale), -clip, clip).to(torch.int8)
     return scale.to(torch.float32), Xq
 
 
-def quantize_sym_t(X, clip=127.0):
+def quantize_sym_t(X, clip=127.0, amax=None):
     """`quantize_sym` of X (n, r) with Xq emitted transposed, (r, n) and
     contiguous, as the int8 kernels take the W side: the same scale and
     the same integers bit for bit (the same elementwise operations, with
-    the quotient written in the transposed layout)."""
-    scale = torch.clamp(X.abs().amax() / clip, min=1e-30)
+    the quotient written in the transposed layout); `amax` as there."""
+    if amax is None:
+        amax = X.abs().amax()
+    scale = torch.clamp(amax / clip, min=1e-30)
     Xt = torch.empty((X.shape[1], X.shape[0]), dtype=X.dtype,
                      device=X.device)
     torch.div(X.T, scale, out=Xt)
@@ -332,25 +382,51 @@ def quantize_sym_t(X, clip=127.0):
     return scale.to(torch.float32), Xq
 
 
-def _rhs_vht_int8(Vq, scale_v, X):
+def _quantize_h(X, sums=LOCAL):
+    """`quantize_sym` of an (r, ·) right factor, one scale for the whole
+    matrix (its blocks' max taken over V's columns)."""
+    return quantize_sym(X, amax=sums.cols(X.abs().amax(), maximum=True))
+
+
+def _quantize_wt(X, sums=LOCAL):
+    """`quantize_sym_t` of an (·, r) left factor, one scale for the whole
+    matrix (its blocks' max taken over V's rows)."""
+    return quantize_sym_t(X, amax=sums.rows(X.abs().amax(), maximum=True))
+
+
+def _vht_ints(Vq, X, sums=LOCAL):
+    """(Vq·Xqᵀ int32 (n, r), s_x, Xq): X requantized, int8 × int8 →
+    int32 (``kernels.dual_numer.vht_int8``); partial sums added in int32,
+    so they wrap as one device's sum does."""
+    from nmftpu_torch.kernels import dual_numer as DN
+
+    s_x, Xq = _quantize_h(X, sums)
+    return sums.cols(DN.vht_int8(Vq, Xq)), s_x, Xq
+
+
+def _wtv_ints(Vq, X, sums=LOCAL):
+    """(Xqᵀ·Vq int32 (r, m), s_x, Xqᵀ); X (n, r) as `_vht_ints`."""
+    from nmftpu_torch.kernels import dual_numer as DN
+
+    s_x, XqT = _quantize_wt(X, sums)
+    return sums.rows(DN.wtv_int8(Vq, XqT)), s_x, XqT
+
+
+def _rhs_vht_int8(Vq, scale_v, X, sums=LOCAL):
     """V·Xᵀ (n, r) with int8 V: X requantized per call, int8 × int8 →
-    int32 (``kernels.dual_numer.vht_int8``), both scales after."""
-    from nmftpu_torch.kernels import dual_numer as DN
-
-    s_x, Xq = quantize_sym(X)
-    return DN.vht_int8(Vq, Xq).to(torch.float32) * (scale_v * s_x)
+    int32, both scales after."""
+    ints, s_x, _ = _vht_ints(Vq, X, sums)
+    return ints.to(torch.float32) * (scale_v * s_x)
 
 
-def _rhs_wtv_int8(Vq, scale_v, X):
+def _rhs_wtv_int8(Vq, scale_v, X, sums=LOCAL):
     """Xᵀ·V (r, m) with int8 V; X (n, r) requantized per call."""
-    from nmftpu_torch.kernels import dual_numer as DN
-
-    s_x, XqT = quantize_sym_t(X)
-    return DN.wtv_int8(Vq, XqT).to(torch.float32) * (scale_v * s_x)
+    ints, s_x, _ = _wtv_ints(Vq, X, sums)
+    return ints.to(torch.float32) * (scale_v * s_x)
 
 
 def mu_update_frobenius_int8x8(Vq, scale_v, W, H, eps=1e-9, order="WH",
-                               use_fused=False):
+                               use_fused=False, sums=LOCAL):
     """MU (Frobenius) with the O(nmr) contractions as int8 x int8 ->
     int32: V is stored int8 once (V ~= scale_v * Vq); the factor operand
     of each big contraction is requantized per half-step and both scales
@@ -362,23 +438,25 @@ def mu_update_frobenius_int8x8(Vq, scale_v, W, H, eps=1e-9, order="WH",
     decides."""
 
     def upd_w(W, H):
-        numer = _rhs_vht_int8(Vq, scale_v, H)
-        return W * (numer / (W @ (H @ H.T) + eps))
+        numer = _rhs_vht_int8(Vq, scale_v, H, sums)
+        return W * (numer / (W @ sums.cols(H @ H.T) + eps))
 
     def upd_h(W, H):
-        numer = _rhs_wtv_int8(Vq, scale_v, W)
-        return H * (numer / ((W.T @ W) @ H + eps))
+        numer = _rhs_wtv_int8(Vq, scale_v, W, sums)
+        return H * (numer / (sums.rows(W.T @ W) @ H + eps))
 
     if order == "jacobi":
         if use_fused:
             from nmftpu_torch.kernels import dual_numer as DN
 
-            numer_w, numer_h = DN.dual_numerators_int8(Vq, scale_v, W, H)
+            numer_w, numer_h = DN.dual_numerators_int8(Vq, scale_v, W, H,
+                                                       sums=sums)
         else:
-            numer_w = _rhs_vht_int8(Vq, scale_v, H)
-            numer_h = _rhs_wtv_int8(Vq, scale_v, W)
+            numer_w = _rhs_vht_int8(Vq, scale_v, H, sums)
+            numer_h = _rhs_wtv_int8(Vq, scale_v, W, sums)
         return _jacobi_fro_apply(
-            W, H, numer_w, numer_h, W.T @ W, H @ H.T, eps,
+            W, H, numer_w, numer_h, sums.rows(W.T @ W), sums.cols(H @ H.T),
+            eps, sums,
         )
     return _apply_order(upd_w, upd_h, W, H, order)
 
@@ -388,7 +466,8 @@ def mu_update_frobenius_int8x8(Vq, scale_v, W, H, eps=1e-9, order="WH",
 # ---------------------------------------------------------------------------
 
 
-def mu_update_frobenius_weighted(V, C, W, H, eps=1e-9, order="WH"):
+def mu_update_frobenius_weighted(V, C, W, H, eps=1e-9, order="WH",
+                                 sums=LOCAL):
     """Confidence-weighted MU: minimizes ||sqrt(C) ⊙ (V - WH)||_F², with
     C an elementwise confidence (1 + alpha·V, built once by the
     registry):
@@ -402,11 +481,11 @@ def mu_update_frobenius_weighted(V, C, W, H, eps=1e-9, order="WH"):
 
     def upd_w(W, H):
         CWH = C * (W @ H)
-        return W * ((CV @ H.T) / (CWH @ H.T + eps))
+        return W * (sums.cols(CV @ H.T) / (sums.cols(CWH @ H.T) + eps))
 
     def upd_h(W, H):
         CWH = C * (W @ H)
-        return H * ((W.T @ CV) / (W.T @ CWH + eps))
+        return H * (sums.rows(W.T @ CV) / (sums.rows(W.T @ CWH) + eps))
 
     return _apply_order(upd_w, upd_h, W, H, order)
 
@@ -511,7 +590,7 @@ WEIGHTED_GRAM_SUBPANEL_BYTES = 1 << 30
 
 
 def als_update_weighted(V, W, H, alpha, lambda_w=0.0, lambda_h=0.0,
-                        eps=1e-9, order="WH", block=1024):
+                        eps=1e-9, order="WH", block=1024, sums=LOCAL):
     """Confidence-weighted ALS (iALS, Hu-Koren-Volinsky) on dense V with
     C = 1 + alpha·V: each half-step solves every row's weighted normal
     equations
@@ -543,8 +622,9 @@ def als_update_weighted(V, W, H, alpha, lambda_w=0.0, lambda_h=0.0,
         for s, e in _panels(n, block):
             Vp = V[s:e]
             Cp = 1.0 + alpha * Vp
-            out[s:e] = _batched_solve_clamped(grams(H, Cp), (Cp * Vp) @ H.T,
-                                              lambda_w, eps)
+            out[s:e] = _batched_solve_clamped(
+                sums.cols(grams(H, Cp)), sums.cols((Cp * Vp) @ H.T),
+                lambda_w, eps)
         return out
 
     def upd_h(W, H):
@@ -553,9 +633,9 @@ def als_update_weighted(V, W, H, alpha, lambda_w=0.0, lambda_h=0.0,
         for s, e in _panels(m, block):
             Vp = V[:, s:e]
             Cp = (1.0 + alpha * Vp).T                     # (cols, n)
-            rhs = (Cp * Vp.T) @ W                         # (cols, r)
-            out[:, s:e] = _batched_solve_clamped(grams(Wt, Cp), rhs,
-                                                 lambda_h, eps).T
+            rhs = sums.rows((Cp * Vp.T) @ W)              # (cols, r)
+            out[:, s:e] = _batched_solve_clamped(sums.rows(grams(Wt, Cp)),
+                                                 rhs, lambda_h, eps).T
         return out
 
     return _apply_order(upd_w, upd_h, W, H, order)
@@ -566,7 +646,7 @@ def als_update_weighted(V, W, H, alpha, lambda_w=0.0, lambda_h=0.0,
 # ---------------------------------------------------------------------------
 
 
-def als_update(V, W, H, eps=1e-9, order="WH"):
+def als_update(V, W, H, eps=1e-9, order="WH", sums=LOCAL):
     """ALS iteration: exact least squares through the normal equations,
     then clamp at 0:
 
@@ -574,20 +654,21 @@ def als_update(V, W, H, eps=1e-9, order="WH"):
 
     The solves are r x r (`spd_solve`); the right-hand sides WᵀV and HVᵀ
     are the O(nmr) products. ACLS without penalties."""
-    return acls_update(V, W, H, 0.0, 0.0, eps, order)
+    return acls_update(V, W, H, 0.0, 0.0, eps, order, sums)
 
 
-def acls_update(V, W, H, lambda_w=0.0, lambda_h=0.0, eps=1e-9, order="WH"):
+def acls_update(V, W, H, lambda_w=0.0, lambda_h=0.0, eps=1e-9, order="WH",
+                sums=LOCAL):
     """ACLS (Langville et al.): ALS with the sparsity penalties on the
     diagonal, (WᵀW + lambda_h I) H = WᵀV and the dual for W, then clamp."""
 
     def upd_w(W, H):
-        return torch.clamp(_solve_h(H @ H.T, H @ V.T, lambda_w + eps).T,
-                           min=0.0)
+        return torch.clamp(_solve_h(sums.cols(H @ H.T), sums.cols(H @ V.T),
+                                    lambda_w + eps).T, min=0.0)
 
     def upd_h(W, H):
-        return torch.clamp(_solve_h(W.T @ W, W.T @ V, lambda_h + eps),
-                           min=0.0)
+        return torch.clamp(_solve_h(sums.rows(W.T @ W), sums.rows(W.T @ V),
+                                    lambda_h + eps), min=0.0)
 
     return _apply_order(upd_w, upd_h, W, H, order)
 
@@ -607,7 +688,7 @@ def _ahcls_shift(lam, alpha, r, dtype):
 
 
 def ahcls_update(V, W, H, lambda_w=0.0, lambda_h=0.0, alpha_w=0.5,
-                 alpha_h=0.5, eps=1e-9, order="WH"):
+                 alpha_h=0.5, eps=1e-9, order="WH", sums=LOCAL):
     """AHCLS: ACLS plus the Hoyer-sparseness targets alpha_w / alpha_h
     (`_ahcls_shift`), solved with `spd_solve` and clamped at 0."""
     r = W.shape[1]
@@ -618,26 +699,26 @@ def ahcls_update(V, W, H, lambda_w=0.0, lambda_h=0.0, alpha_w=0.5,
                                         _ahcls_shift(lambda_h, alpha_h, r, dt))
 
     def upd_w(W, H):
-        A = H @ H.T + (diag_w + eps) * eye + off_w * ones
-        return torch.clamp(spd_solve(A, H @ V.T).T, min=0.0)
+        A = sums.cols(H @ H.T) + (diag_w + eps) * eye + off_w * ones
+        return torch.clamp(spd_solve(A, sums.cols(H @ V.T)).T, min=0.0)
 
     def upd_h(W, H):
-        A = W.T @ W + (diag_h + eps) * eye + off_h * ones
-        return torch.clamp(spd_solve(A, W.T @ V), min=0.0)
+        A = sums.rows(W.T @ W) + (diag_h + eps) * eye + off_h * ones
+        return torch.clamp(spd_solve(A, sums.rows(W.T @ V)), min=0.0)
 
     return _apply_order(upd_w, upd_h, W, H, order)
 
 
-def gdcls_update(V, W, H, lambda_tik=0.0, eps=1e-9, order="WH"):
+def gdcls_update(V, W, H, lambda_tik=0.0, eps=1e-9, order="WH", sums=LOCAL):
     """GDCLS: a Frobenius MU step for W, a Tikhonov-regularized least
     squares solve (WᵀW + lambda_tik I) H = WᵀV for H, clamped at 0."""
 
     def upd_w(W, H):
-        return mu_update_w_frobenius(V, W, H, eps)
+        return mu_update_w_frobenius(V, W, H, eps, sums)
 
     def upd_h(W, H):
-        return torch.clamp(_solve_h(W.T @ W, W.T @ V, lambda_tik + eps),
-                           min=0.0)
+        return torch.clamp(_solve_h(sums.rows(W.T @ W), sums.rows(W.T @ V),
+                                    lambda_tik + eps), min=0.0)
 
     return _apply_order(upd_w, upd_h, W, H, order)
 
@@ -649,7 +730,8 @@ def nsnmf_smoothing_matrix(rank, theta, dtype=torch.float32, device=None):
     return (1.0 - theta) * eye + (theta / rank) * ones
 
 
-def nsnmf_update(V, W, H, S, eps=1e-9, objective="frobenius", order="WH"):
+def nsnmf_update(V, W, H, S, eps=1e-9, objective="frobenius", order="WH",
+                 sums=LOCAL):
     """One nsNMF iteration (Pascual-Montano 2006), V ≈ W S H: MU
     half-steps against the smoothed partners, S H standing in for H in
     the W step and W S for W in the H step; `objective` "frobenius" or
@@ -658,8 +740,9 @@ def nsnmf_update(V, W, H, S, eps=1e-9, objective="frobenius", order="WH"):
         upd_w, upd_h = mu_update_w_frobenius, mu_update_h_frobenius
     else:
         upd_w, upd_h = mu_update_w_kl, mu_update_h_kl
-    return _apply_order(lambda W, H: upd_w(V, W, S @ H, eps),
-                        lambda W, H: upd_h(V, W @ S, H, eps), W, H, order)
+    return _apply_order(lambda W, H: upd_w(V, W, S @ H, eps, sums),
+                        lambda W, H: upd_h(V, W @ S, H, eps, sums), W, H,
+                        order)
 
 
 # ---------------------------------------------------------------------------
@@ -668,7 +751,7 @@ def nsnmf_update(V, W, H, S, eps=1e-9, objective="frobenius", order="WH"):
 # ---------------------------------------------------------------------------
 
 
-def _ls_terms_w_int8(Vq, scale_v, H):
+def _ls_terms_w_int8(Vq, scale_v, H, sums=LOCAL):
     """(gram, rhs) of the W-side normal equations with H quantized once:
     gram = H̃H̃ᵀ (r, r) and rhs = H̃Ṽᵀ (r, n), both from the same
     dequantized H̃ = Hq·s_h. Consistency matters: an exact float32 Gram
@@ -676,29 +759,26 @@ def _ls_terms_w_int8(Vq, scale_v, H):
     while the consistent pair is the exact solution of the quantized
     least-squares problem. The rhs is the transpose of
     ``kernels.dual_numer.vht_int8``'s Vq Hqᵀ (the same integers)."""
-    from nmftpu_torch.kernels import dual_numer as DN
-
-    s_h, Hq = quantize_sym(H)
+    ints, s_h, Hq = _vht_ints(Vq, H, sums)
     Hd = Hq.to(torch.float32) * s_h
-    rhs = DN.vht_int8(Vq, Hq).T.to(torch.float32) * (scale_v * s_h)
-    return Hd @ Hd.T, rhs
+    rhs = ints.T.to(torch.float32) * (scale_v * s_h)
+    return sums.cols(Hd @ Hd.T), rhs
 
 
-def _ls_terms_h_int8(Vq, scale_v, W):
+def _ls_terms_h_int8(Vq, scale_v, W, sums=LOCAL):
     """(gram, rhs) of the H-side normal equations with W quantized once:
     gram = W̃ᵀW̃ (r, r), rhs = W̃ᵀṼ (r, m) from
     ``kernels.dual_numer.wtv_int8`` (W̃ᵀ comes transposed from
     `quantize_sym_t`). See `_ls_terms_w_int8`."""
-    from nmftpu_torch.kernels import dual_numer as DN
-
-    s_w, WqT = quantize_sym_t(W)
+    ints, s_w, WqT = _wtv_ints(Vq, W, sums)
     WdT = WqT.to(torch.float32) * s_w
-    rhs = DN.wtv_int8(Vq, WqT).to(torch.float32) * (scale_v * s_w)
-    return WdT @ WdT.T, rhs
+    rhs = ints.to(torch.float32) * (scale_v * s_w)
+    return sums.rows(WdT @ WdT.T), rhs
 
 
 def als_family_update_int8x8(Vq, scale_v, W, H, shift_w=0.0, shift_h=0.0,
-                             off_w=0.0, off_h=0.0, eps=1e-9, order="WH"):
+                             off_w=0.0, off_h=0.0, eps=1e-9, order="WH",
+                             sums=LOCAL):
     """ALS / ACLS / AHCLS (the shifts of ``sparse_ops._als_family_shifts``)
     with V stored int8 (V ≈ scale_v·Vq): each half-step quantizes its
     factor operand once and builds both the Gram and the rhs from it
@@ -707,48 +787,48 @@ def als_family_update_int8x8(Vq, scale_v, W, H, shift_w=0.0, shift_h=0.0,
     (a float64 factor holds the float32 solve's values)."""
 
     def upd_w(W, H):
-        gram, rhs = _ls_terms_w_int8(Vq, scale_v, H)
+        gram, rhs = _ls_terms_w_int8(Vq, scale_v, H, sums)
         return solve_clamped(gram, rhs, shift_w, off_w, eps).T.to(W.dtype)
 
     def upd_h(W, H):
-        gram, rhs = _ls_terms_h_int8(Vq, scale_v, W)
+        gram, rhs = _ls_terms_h_int8(Vq, scale_v, W, sums)
         return solve_clamped(gram, rhs, shift_h, off_h, eps).to(H.dtype)
 
     return _apply_order(upd_w, upd_h, W, H, order)
 
 
 def gdcls_update_int8x8(Vq, scale_v, W, H, lambda_tik=0.0, eps=1e-9,
-                        order="WH"):
+                        order="WH", sums=LOCAL):
     """GDCLS with int8-stored V: the MU W step and the Tikhonov H solve,
     both right-hand sides on the int8 entries; the H solve takes the
     consistent quantized Gram (see `als_family_update_int8x8`)."""
 
     def upd_w(W, H):
-        numer = _rhs_vht_int8(Vq, scale_v, H)
-        return W * (numer / (W @ (H @ H.T) + eps))
+        numer = _rhs_vht_int8(Vq, scale_v, H, sums)
+        return W * (numer / (W @ sums.cols(H @ H.T) + eps))
 
     def upd_h(W, H):
-        gram, rhs = _ls_terms_h_int8(Vq, scale_v, W)
+        gram, rhs = _ls_terms_h_int8(Vq, scale_v, W, sums)
         return solve_clamped(gram, rhs, lambda_tik, 0.0, eps).to(H.dtype)
 
     return _apply_order(upd_w, upd_h, W, H, order)
 
 
 def nsnmf_update_frobenius_int8x8(Vq, scale_v, W, H, S, eps=1e-9,
-                                  order="WH"):
+                                  order="WH", sums=LOCAL):
     """nsNMF (Frobenius) with int8-stored V: MU against the smoothed
     partners (S H for the W step, W S for the H step), the numerators on
     the int8 entries."""
 
     def upd_w(W, H):
         SH = S @ H
-        numer = _rhs_vht_int8(Vq, scale_v, SH)
-        return W * (numer / (W @ (SH @ SH.T) + eps))
+        numer = _rhs_vht_int8(Vq, scale_v, SH, sums)
+        return W * (numer / (W @ sums.cols(SH @ SH.T) + eps))
 
     def upd_h(W, H):
         WS = W @ S
-        numer = _rhs_wtv_int8(Vq, scale_v, WS)
-        return H * (numer / ((WS.T @ WS) @ H + eps))
+        numer = _rhs_wtv_int8(Vq, scale_v, WS, sums)
+        return H * (numer / (sums.rows(WS.T @ WS) @ H + eps))
 
     return _apply_order(upd_w, upd_h, W, H, order)
 
@@ -845,7 +925,7 @@ def hals_half_sweep(XHt, G, W, impl="auto", block=16):
 
 
 def hals_update(V, W, H, eps=1e-9, order="WH", l2_w=0.0, l2_h=0.0,
-                l1_w=0.0, l1_h=0.0, block=16, impl="auto"):
+                l1_w=0.0, l1_h=0.0, block=16, impl="auto", sums=LOCAL):
     """HALS / coordinate descent (Cichocki & Phan; sklearn's default 'cd'
     solver): one cyclic rank-1 sweep over W's columns, then one over H's
     rows (order "WH"; "HW" the other way). Frobenius objective only.
@@ -863,10 +943,12 @@ def hals_update(V, W, H, eps=1e-9, order="WH", l2_w=0.0, l2_h=0.0,
         half = _hals_half_sweep
 
     def sweep_w(W, H):
-        return half(V @ H.T - l1_w, H @ H.T + l2_w * eye, W)
+        return half(sums.cols(V @ H.T) - l1_w, sums.cols(H @ H.T) + l2_w * eye,
+                    W)
 
     def sweep_h(W, H):
-        return half(V.T @ W - l1_h, W.T @ W + l2_h * eye, H.T).T.contiguous()
+        return half(sums.rows(V.T @ W) - l1_h, sums.rows(W.T @ W) + l2_h * eye,
+                    H.T).T.contiguous()
 
     return _apply_order(sweep_w, sweep_h, W, H, order)
 

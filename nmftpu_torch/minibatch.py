@@ -18,7 +18,12 @@ Numerics mirror sklearn's `_multiplicative_update_w/_h` guard for guard
 stabilizations), through the beta helpers of `linalg.dense`.
 
 Entry points run on CUDA unless the caller passes ``device="cpu"`` (or
-a CPU tensor); ``mesh=`` belongs to the multi-GPU slice 6b.
+a CPU tensor). With ``mesh=`` (a rank mesh, every rank calling alike)
+the item axis of H, A, B and of each batch is sharded over ALL the
+mesh's ranks, flattened to one 'mb_items' axis as ``nmftpu`` flattens
+it: the H step is then local to each rank, and every contraction of the
+W step, the costs and the norms is a per-rank partial summed over the
+axis (`_Cols`). m must be divisible by the rank count.
 """
 
 from __future__ import annotations
@@ -34,7 +39,9 @@ from nmftpu_torch.config import _dtype_name, resolve_dtype
 from nmftpu_torch.linalg import dense as D
 from nmftpu_torch.linalg.dense import (
     EPSILON,
+    LOCAL,
     _STAB_EPS,
+    Sums,
     beta_gamma,
     beta_h_terms,
     beta_w_step,
@@ -46,12 +53,72 @@ _FUSED_BUDGET = int(os.environ.get("NMFTPU_MINIBATCH_FUSED_BUDGET_BYTES",
                                    8 * 1024**3))
 
 
-def _no_mesh(mesh, what):
-    if mesh is not None:
-        raise NotImplementedError(
-            f"{what}(mesh=...) belongs to the multi-GPU path, not ported "
-            "to nmftpu_torch yet (ROADMAP.md queue 1, slice 6b)"
-        )
+AXIS_MB = "mb_items"
+
+
+class _Cols(Sums):
+    """This rank's columns of the flat 'mb_items' axis of a mesh: the
+    shard of a full (·, m) operand it keeps, the sum of a partial over
+    the shards (`sum`, and `cols` for the shared beta W step), and the
+    gather of the full H."""
+
+    def __init__(self, mesh, m: int):
+        from nmftpu_torch.parallel.mesh import axis_index, flat_mesh
+
+        self.device = _mesh_device(mesh)
+        p = mesh.size()
+        if m % p:
+            raise ValueError(
+                f"the item count m={m} must be divisible by the {p} "
+                "ranks of the mesh (the item axis is sharded evenly)")
+        self.flat = flat_mesh(mesh, AXIS_MB)
+        self.m, self.m_loc = m, m // p
+        self.lo = axis_index(self.flat, AXIS_MB) * self.m_loc
+
+    def take(self, X):
+        """This rank's columns of a full (·, m) array or tensor."""
+        return X[:, self.lo:self.lo + self.m_loc]
+
+    def sum(self, x):
+        from nmftpu_torch.parallel.mesh import psum
+
+        return psum(x, self.flat, AXIS_MB)
+
+    def cols(self, x, maximum=False):
+        import torch.distributed as dist
+
+        from nmftpu_torch.parallel.mesh import psum
+
+        return psum(x, self.flat, AXIS_MB,
+                    dist.ReduceOp.MAX if maximum else dist.ReduceOp.SUM)
+
+    def barrier(self):
+        import torch.distributed as dist
+
+        dist.barrier(group=self.flat.get_group(AXIS_MB))
+
+    def gather(self, H):
+        """The full (r, m) from each rank's (r, m / p)."""
+        from nmftpu_torch.parallel.mesh import all_gather
+
+        parts = all_gather(H, self.flat, AXIS_MB)
+        return parts.permute(1, 0, 2).reshape(H.shape[0], -1)
+
+
+def _mesh_device(mesh):
+    from nmftpu_torch.parallel.mesh import check_mesh, mesh_device
+
+    check_mesh(mesh)
+    return mesh_device(mesh)
+
+
+def _cols(mesh, m):
+    return None if mesh is None else _Cols(mesh, m)
+
+
+def _summer(cols):
+    """x summed over the item shards, or x itself without them."""
+    return (lambda x: x) if cols is None else cols.sum
 
 
 def _device(V, device) -> torch.device:
@@ -70,11 +137,13 @@ def _put(x, dtype, device):
     return torch.as_tensor(np.asarray(x), dtype=dtype, device=device)
 
 
-def w_mu_step(Xb, W, H, beta=2.0, l1_w=0.0, l2_w=0.0, gamma=1.0):
+def w_mu_step(Xb, W, H, beta=2.0, l1_w=0.0, l2_w=0.0, gamma=1.0,
+              cols=None):
     """One multiplicative W update on a row batch (sklearn's
     _multiplicative_update_w; shared implementation with the batch
-    beta engine)."""
-    return beta_w_step(Xb, W, H, beta, l1_w=l1_w, l2_w=l2_w, gamma=gamma)
+    beta engine). cols: the item shards (Xb and H hold this rank's)."""
+    return beta_w_step(Xb, W, H, beta, l1_w=l1_w, l2_w=l2_w, gamma=gamma,
+                       sums=LOCAL if cols is None else cols)
 
 
 def h_online_step(Xb, W, H, A, B, rho, beta=2.0, l1_h=0.0, l2_h=0.0,
@@ -101,19 +170,23 @@ def h_online_step(Xb, W, H, A, B, rho, beta=2.0, l1_h=0.0, l2_h=0.0,
 
 
 def solve_w(Xb, H, beta=2.0, l1_w=0.0, l2_w=0.0, gamma=1.0,
-            max_iter=200, tol=1e-4, mean_v=None):
+            max_iter=200, tol=1e-4, mean_v=None, cols=None):
     """Solve for a batch's W with H frozen (sklearn's _solve_W: the
     transform path and the fresh-restarts path), from the flat
     sqrt(mean/r) start, stopping on relative W change <= tol (one host
     read per step when tol > 0). mean_v: optional precomputed global
     mean of the full matrix for the flat start."""
     r = H.shape[0]
-    avg = torch.sqrt(torch.mean(Xb) / r if mean_v is None else
-                     torch.tensor(mean_v / r, dtype=Xb.dtype,
-                                  device=Xb.device))
+    if mean_v is not None:
+        mean = torch.tensor(mean_v, dtype=Xb.dtype, device=Xb.device)
+    elif cols is None:
+        mean = torch.mean(Xb)
+    else:
+        mean = cols.sum(torch.sum(Xb)) / (Xb.shape[0] * cols.m)
+    avg = torch.sqrt(mean / r)
     W = avg.expand(Xb.shape[0], r).clone()
     for _ in range(int(max_iter)):
-        Wn = w_mu_step(Xb, W, H, beta, l1_w, l2_w, gamma)
+        Wn = w_mu_step(Xb, W, H, beta, l1_w, l2_w, gamma, cols)
         if tol > 0:
             diff = torch.linalg.norm(Wn - W) / torch.clamp(
                 torch.linalg.norm(Wn), min=EPSILON)
@@ -125,31 +198,46 @@ def solve_w(Xb, H, beta=2.0, l1_w=0.0, l2_w=0.0, gamma=1.0,
     return W
 
 
+def _divergence(Xb, W, H, beta, cols=None):
+    """D_beta(Xb || W H) of a batch (0.5 ‖·‖² for beta = 2); on item
+    shards each rank's terms summed (the Gram trick's clamp after the
+    sum)."""
+    if beta == 2.0:
+        if cols is None:
+            return 0.5 * D.frobenius_error_sq(Xb, W, H)
+        sq, cross = cols.sum(torch.stack([torch.sum(Xb * Xb),
+                                          torch.sum((W.T @ Xb) * H)]))
+        quad = torch.sum((W.T @ W) * cols.sum(H @ H.T))
+        return 0.5 * torch.clamp(sq - 2.0 * cross + quad, min=0.0)
+    S = _summer(cols)
+    if beta == 1.0:
+        return S(D.kl_error(Xb, W, H))
+    return S(D.beta_divergence(Xb, W, H, beta))
+
+
 def minibatch_step(Xb, W, H, A, B, rho, beta=2.0, l1_w=0.0, l2_w=0.0,
                    l1_h=0.0, l2_h=0.0, gamma=1.0, fresh=False,
-                   fresh_max_iter=30, fresh_tol=0.0, with_cost=False):
+                   fresh_max_iter=30, fresh_tol=0.0, with_cost=False,
+                   cols=None):
     """One full mini-batch step (sklearn's _minibatch_step with
     update_H=True): W step (warm single MU step, or a fresh solve),
     beta<1 stabilization, online H/A/B update. Returns
     (W, H, A, B, cost); cost is the per-sample regularized batch
-    divergence (a 0-dim tensor) when with_cost, else 0."""
+    divergence (a 0-dim tensor) when with_cost, else 0. cols: the item
+    shards (Xb, H, A, B hold this rank's columns; the H step is local)."""
     if fresh or W is None:
         W = solve_w(Xb, H, beta, l1_w, l2_w, gamma,
-                    max_iter=fresh_max_iter, tol=fresh_tol)
+                    max_iter=fresh_max_iter, tol=fresh_tol, cols=cols)
     else:
-        W = w_mu_step(Xb, W, H, beta, l1_w, l2_w, gamma)
+        W = w_mu_step(Xb, W, H, beta, l1_w, l2_w, gamma, cols)
     if beta < 1.0:
         W = torch.where(W < _STAB_EPS, 0.0, W)
     if with_cost:
-        if beta == 2.0:
-            cost = 0.5 * D.frobenius_error_sq(Xb, W, H)
-        elif beta == 1.0:
-            cost = D.kl_error(Xb, W, H)
-        else:
-            cost = D.beta_divergence(Xb, W, H, beta)
+        S = _summer(cols)
         cost = (
-            cost + l1_w * torch.sum(W) + l1_h * torch.sum(H)
-            + l2_w * torch.sum(W * W) + l2_h * torch.sum(H * H)
+            _divergence(Xb, W, H, beta, cols) + l1_w * torch.sum(W)
+            + l1_h * S(torch.sum(H))
+            + l2_w * torch.sum(W * W) + l2_h * S(torch.sum(H * H))
         ) / Xb.shape[0]
     else:
         cost = torch.zeros((), dtype=Xb.dtype, device=Xb.device)
@@ -160,7 +248,7 @@ def minibatch_step(Xb, W, H, A, B, rho, beta=2.0, l1_w=0.0, l2_w=0.0,
 def epoch_fused(V, W, H, A, B, rho, *, batch_size, beta=2.0, l1_w=0.0,
                 l2_w=0.0, l1_h_full=0.0, l2_h_full=0.0, l1_h_tail=0.0,
                 l2_h_tail=0.0, gamma=1.0, fresh=False,
-                fresh_max_iter=30, fresh_tol=0.0):
+                fresh_max_iter=30, fresh_tol=0.0, cols=None):
     """One full epoch of mini-batch steps over a device-resident V: the
     steps of the per-batch loop in its order, each on a row window (a
     view) of V, never a second V-sized buffer, with the tail batch's
@@ -179,7 +267,7 @@ def epoch_fused(V, W, H, A, B, rho, *, batch_size, beta=2.0, l1_w=0.0,
             l1_h=l1_h_full if full else l1_h_tail,
             l2_h=l2_h_full if full else l2_h_tail, gamma=gamma,
             fresh=fresh, fresh_max_iter=fresh_max_iter,
-            fresh_tol=fresh_tol,
+            fresh_tol=fresh_tol, cols=cols,
         )
         if not fresh:
             W[lo:hi] = Wb
@@ -221,6 +309,10 @@ class OnlineNMF:
     sklearn's partial_fit); `transform(X)` solves W for new rows with H
     frozen.
 
+    With ``mesh=`` every rank feeds the same full batches and keeps its
+    shard of the item axis: `H`, `_A`, `_B` are this rank's (r, m / p)
+    columns, `components()` the whole H on every rank.
+
     `beta` is the divergence exponent (2 = Frobenius, 1 = KL, 0 =
     Itakura-Saito, any float). alpha_w/alpha_h/l1_ratio carry sklearn's
     scaled-penalty semantics (W penalties scale by n_features, H
@@ -233,7 +325,6 @@ class OnlineNMF:
                  alpha_h="same", l1_ratio=0.0, fresh_max_iter=30,
                  transform_max_iter=200, transform_tol=1e-4,
                  dtype="float32", seed=0, mesh=None, device=None):
-        _no_mesh(mesh, "OnlineNMF")
         self.rank = int(rank)
         self.beta = float(beta)
         self.gamma = beta_gamma(self.beta)
@@ -253,7 +344,10 @@ class OnlineNMF:
         self.transform_tol = float(transform_tol)
         self.dtype = resolve_dtype(dtype)
         self.seed = int(seed)
-        self.device = _device(None, device)
+        self.mesh = mesh
+        self._cols = None  # the item shards, once m is known
+        self.device = (_mesh_device(mesh) if mesh is not None
+                       else _device(None, device))
         self.H = None
         self._A = None
         self._B = None
@@ -266,7 +360,25 @@ class OnlineNMF:
         l2_h = batch_rows * self.alpha_h * (1.0 - self.l1_ratio)
         return l1_w, l2_w, l1_h, l2_h
 
+    def _place(self, X):
+        """A full (·, m) batch as this rank's columns, on the device."""
+        X = _put(X, self.dtype, self.device)
+        if self.mesh is None:
+            return X
+        if self._cols is None:
+            self._cols = _Cols(self.mesh, X.shape[1])
+        return self._cols.take(X)
+
+    def components(self):
+        """The whole (r, m) H (gathered from the item shards on a
+        mesh)."""
+        if self.H is None or self._cols is None:
+            return self.H
+        return self._cols.gather(self.H)
+
     def _ensure_state(self, Xb, H0=None):
+        """The first state from the first FULL batch Xb (every rank the
+        same), then this rank's columns of it."""
         if self.H is not None:
             return
         m = Xb.shape[1]
@@ -289,6 +401,9 @@ class OnlineNMF:
             self.H = avg * torch.abs(torch.randn(
                 (self.rank, m), generator=gen, dtype=self.dtype,
                 device=self.device))
+        if self.mesh is not None:
+            self._cols = _Cols(self.mesh, m)
+            self.H = self._cols.take(self.H).contiguous()
         self._A = self.H
         self._B = torch.ones_like(self.H)
 
@@ -296,9 +411,17 @@ class OnlineNMF:
         """Persist the full streaming state (H, A, B, step count,
         hyperparameters) as ``online_state.npz`` and
         ``online_meta.json``, the layout ``nmftpu`` writes without
-        orbax, so a stream can resume after a crash or redeploy."""
+        orbax, so a stream can resume after a crash or redeploy. On a
+        mesh every rank calls it: the state is gathered and the first
+        rank writes it."""
         if self.H is None:
             raise ValueError("nothing to save: no data seen yet")
+        state = {"H": self.H, "A": self._A, "B": self._B}
+        if self._cols is not None:
+            state = {k: self._cols.gather(v) for k, v in state.items()}
+            if self._cols.lo:      # not the first shard's rank
+                self._cols.barrier()
+                return
         path = os.path.abspath(path)
         os.makedirs(path, exist_ok=True)
         meta = {
@@ -318,17 +441,18 @@ class OnlineNMF:
             "dtype": _dtype_name(self.dtype),
         }
         np.savez(os.path.join(path, "online_state.npz"),
-                 **{k: v.cpu().numpy() for k, v in
-                    (("H", self.H), ("A", self._A), ("B", self._B))})
+                 **{k: v.cpu().numpy() for k, v in state.items()})
         with open(os.path.join(path, "online_meta.json"), "w") as f:
             json.dump(meta, f)
+        if self._cols is not None:
+            # the other ranks return once the files are written
+            self._cols.barrier()
 
     @classmethod
     def load(cls, path, mesh=None, device=None):
         """Restore a saved stream state (this package's or ``nmftpu``'s
         npz layout); continue with partial_fit as if never
-        interrupted."""
-        _no_mesh(mesh, "OnlineNMF.load")
+        interrupted. mesh= re-shards H, A and B over the mesh's ranks."""
         path = os.path.abspath(path)
         with open(os.path.join(path, "online_meta.json")) as f:
             meta = json.load(f)
@@ -345,19 +469,19 @@ class OnlineNMF:
         rank = meta.pop("rank")
         alpha_h = meta.pop("alpha_h")
         model = cls(rank, dtype=dtype, alpha_h=alpha_h, device=device,
-                    **meta)
+                    mesh=mesh, **meta)
         model.rho = rho  # the exact resumed forgetting rate
         data = np.load(npz)
-        model.H = _put(data["H"], model.dtype, model.device)
-        model._A = _put(data["A"], model.dtype, model.device)
-        model._B = _put(data["B"], model.dtype, model.device)
+        model.H, model._A, model._B = (
+            model._place(data[k]).contiguous() for k in ("H", "A", "B"))
         model.n_steps = int(n_steps)
         return model
 
     def set_components(self, H):
-        """Replace the resident H; the A/B accumulators are kept, as
-        sklearn's partial_fit uses self.components_ in place."""
-        self.H = _put(H, self.dtype, self.device)
+        """Replace the resident H (a full (r, m) H: on a mesh each rank
+        keeps its columns); the A/B accumulators are kept, as sklearn's
+        partial_fit uses self.components_ in place."""
+        self.H = self._place(H).contiguous()
 
     def partial_fit(self, Xb, H0=None):
         """One online step on a row batch (fresh W solve, like
@@ -366,11 +490,11 @@ class OnlineNMF:
         self._ensure_state(Xb, H0)
         l1_w, l2_w, l1_h, l2_h = self._regs(Xb.shape[0], Xb.shape[1])
         _, self.H, self._A, self._B, _ = minibatch_step(
-            Xb, None, self.H, self._A, self._B, self.rho,
+            self._place(Xb), None, self.H, self._A, self._B, self.rho,
             beta=self.beta, l1_w=l1_w, l2_w=l2_w, l1_h=l1_h, l2_h=l2_h,
             gamma=self.gamma, fresh=True,
             fresh_max_iter=self.fresh_max_iter,
-            fresh_tol=self.transform_tol,
+            fresh_tol=self.transform_tol, cols=self._cols,
         )
         self.n_steps += 1
         return self
@@ -379,11 +503,11 @@ class OnlineNMF:
         """Solve W for rows of X against the current H (frozen)."""
         if self.H is None:
             raise ValueError("OnlineNMF has not seen any data yet")
-        X = _put(X, self.dtype, self.device)
         l1_w, l2_w, _, _ = self._regs(X.shape[0], X.shape[1])
         return solve_w(
-            X, self.H, self.beta, l1_w, l2_w, self.gamma,
+            self._place(X), self.H, self.beta, l1_w, l2_w, self.gamma,
             max_iter=self.transform_max_iter, tol=self.transform_tol,
+            cols=self._cols,
         )
 
 
@@ -421,8 +545,11 @@ def minibatch_fit(
     AND max_no_improvement=None to run exactly max_iter epochs).
 
     Returns (W, H, n_iter, n_steps), W and H tensors on the device.
+
+    mesh: every rank calls alike with the whole V, W0, H0; each keeps
+    its shard of the item axis (see the module docstring) and gets the
+    whole W and H back.
     """
-    _no_mesh(mesh, "minibatch_fit")
     n, m = V.shape
     rank = int(rank)
     batch_size = min(int(batch_size), n)
@@ -439,10 +566,17 @@ def minibatch_fit(
             "nmftpu_torch.init.initialize_factors or the sklearn facade, "
             "which resolves init= exactly like sklearn)"
         )
-    dev = _device(V, device)
+    cols = _cols(mesh, m)
+    dev = _device(V, device) if cols is None else cols.device
     dt = resolve_dtype(dtype)
+
+    def local(X):
+        """A full (·, m) operand as this rank's columns, on the device."""
+        X = _put(X, dt, dev)
+        return X if cols is None else cols.take(X).contiguous()
+
     W = _put(W0, dt, dev)
-    H = _put(H0, dt, dev)
+    H = local(H0)
     A = H
     B = torch.ones_like(H)
 
@@ -484,7 +618,7 @@ def minibatch_fit(
             )
     if use_fused:
         # the per-batch steps over views of the one device copy of V
-        Vd = _put(getattr(V, "X", V), dt, dev)
+        Vd = local(getattr(V, "X", V))
         tail_rows = n - (len(slices) - 1) * batch_size
         kw = dict(
             batch_size=batch_size, beta=float(beta), l1_w=l1_w,
@@ -495,20 +629,20 @@ def minibatch_fit(
             l2_h_tail=tail_rows * a_h * (1.0 - float(l1_ratio)),
             gamma=gamma, fresh=fresh_restarts,
             fresh_max_iter=int(fresh_restarts_max_iter),
-            fresh_tol=float(tol or 0.0),
+            fresh_tol=float(tol or 0.0), cols=cols,
         )
         for _ in range(int(max_iter)):
             W, H, A, B = epoch_fused(Vd, W, H, A, B, rho, **kw)
         if fresh_restarts:
             W = solve_w(Vd, H, float(beta), l1_w, l2_w, gamma,
-                        max_iter=tmax, tol=float(tol or 0.0))
-        return W, H, int(max_iter), n_steps_max
+                        max_iter=tmax, tol=float(tol or 0.0), cols=cols)
+        return W, _whole(H, cols), int(max_iter), n_steps_max
 
     if not fresh_restarts:
         W = W.clone()  # rows are written in place below
     for step in range(n_steps_max):
         lo, hi = slices[step % steps_per_iter]
-        Xb = _put(V[lo:hi], dt, dev)
+        Xb = local(V[lo:hi])
         b = hi - lo
         l1_h = b * a_h * float(l1_ratio)
         l2_h = b * a_h * (1.0 - float(l1_ratio))
@@ -518,7 +652,7 @@ def minibatch_fit(
             l2_h=l2_h, gamma=gamma, fresh=fresh_restarts,
             fresh_max_iter=int(fresh_restarts_max_iter),
             fresh_tol=float(tol or 0.0),
-            with_cost=monitor,
+            with_cost=monitor, cols=cols,
         )
         if not fresh_restarts:
             W[lo:hi] = Wb
@@ -529,9 +663,13 @@ def minibatch_fit(
                       f"{n_steps_max} batch cost {cost:.6g}")
             alpha = min(b / (n + 1), 1.0)
             ewa = cost if ewa is None else ewa * (1 - alpha) + cost * alpha
-            h_diff = float(
-                torch.linalg.norm(H - H_buffer) / torch.linalg.norm(H)
-            )
+            if cols is None:
+                h_diff = float(
+                    torch.linalg.norm(H - H_buffer) / torch.linalg.norm(H))
+            else:
+                sq = cols.sum(torch.stack([torch.sum((H - H_buffer) ** 2),
+                                           torch.sum(H * H)]))
+                h_diff = float(torch.sqrt(sq[0]) / torch.sqrt(sq[1]))
             if tol and tol > 0 and h_diff <= tol:
                 break
             if ewa_min is None or ewa < ewa_min:
@@ -547,22 +685,26 @@ def minibatch_fit(
     if fresh_restarts:
         if _can_fuse(V, False, dt):
             # in memory within budget: the exact full-matrix solve
-            Vd = _put(getattr(V, "X", V), dt, dev)
+            Vd = local(getattr(V, "X", V))
             W = solve_w(Vd, H, float(beta), l1_w, l2_w, gamma,
-                        max_iter=tmax, tol=float(tol or 0.0))
+                        max_iter=tmax, tol=float(tol or 0.0), cols=cols)
         else:
             # an out-of-core source: never V on the device whole
             W = _solve_w_streamed(V, H, slices, float(beta), l1_w,
                                   l2_w, gamma, tmax,
-                                  float(tol or 0.0), dt, dev)
+                                  float(tol or 0.0), local, cols)
 
     n_steps = step + 1
     n_iter = int(math.ceil(n_steps / steps_per_iter))
-    return W, H, n_iter, n_steps
+    return W, _whole(H, cols), n_iter, n_steps
+
+
+def _whole(H, cols):
+    return H if cols is None else cols.gather(H)
 
 
 def _solve_w_streamed(V, H, slices, beta, l1_w, l2_w, gamma, max_iter,
-                      tol, dtype, device):
+                      tol, local, cols=None):
     """Final fresh-restarts W solve without V on the device whole: the
     rows of W are independent given H, so each batch panel solves
     separately. The flat start uses the global mean (streamed), like
@@ -570,15 +712,13 @@ def _solve_w_streamed(V, H, slices, beta, l1_w, l2_w, gamma, max_iter,
     panel rather than on the global W norm (it changes when iteration
     stops, not the fixed point)."""
     total = 0.0
-    count = 0
     for lo, hi in slices:
-        Xb = _put(V[lo:hi], dtype, device)
-        total += float(torch.sum(Xb))
-        count += (hi - lo) * Xb.shape[1]
-    mean_v = total / count
+        total += float(torch.sum(local(V[lo:hi])) if cols is None
+                       else cols.sum(torch.sum(local(V[lo:hi]))))
+    mean_v = total / (V.shape[0] * V.shape[1])
     parts = [
-        solve_w(_put(V[lo:hi], dtype, device), H, beta, l1_w, l2_w, gamma,
-                max_iter=max_iter, tol=tol, mean_v=mean_v)
+        solve_w(local(V[lo:hi]), H, beta, l1_w, l2_w, gamma,
+                max_iter=max_iter, tol=tol, mean_v=mean_v, cols=cols)
         for lo, hi in slices
     ]
     return torch.cat(parts, dim=0)

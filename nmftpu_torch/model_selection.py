@@ -161,14 +161,10 @@ def rank_selection(
     one of the port's sparse containers; extra knobs forward into
     NmfConfig — algorithm, objective, eps, ...). Random-restart init is
     forced (consensus is meaningless under deterministic seeding).
-    device: where the restarts run (default CUDA); mesh raises until
-    the multi-GPU slice 6b."""
+    device: where the restarts run (default CUDA). mesh: every restart
+    runs sharded over the rank mesh (``api.dispatch``), every rank
+    calling alike."""
     from nmftpu_torch.api import dispatch
-
-    if mesh is not None:
-        raise NotImplementedError(
-            "rank_selection(mesh=...) belongs to the multi-GPU path, not "
-            "ported to nmftpu_torch yet (ROADMAP.md queue 1, slice 6b)")
 
     ranks = [int(k) for k in ranks]
     cards, disps, means, stds = [], [], [], []

@@ -12,8 +12,9 @@ sums its scalars over the mesh (every rank gets the same numbers, so
 every rank takes the same decision), then syncs with the host once.
 
 Engines: "scatter" (chunked COO, every algorithm), "ell" (gather-only
-ELL tiles, the MU family) and "auto" (as ``nmftpu`` resolves it: scatter
-for masked runs, ell for MU, else scatter). The ring engine is slice 6b.
+ELL tiles, the MU family), "ring" (``parallel/ring.py``: a 1-D ring over
+every rank of the mesh, H's blocks rotating) and "auto" (as ``nmftpu``
+resolves it: scatter for masked runs, ell for MU, else scatter).
 """
 
 from __future__ import annotations
@@ -40,10 +41,13 @@ from nmftpu_torch.parallel.init_sharded import (
 )
 from nmftpu_torch.parallel.mesh import (
     AXIS_ITEMS,
+    AXIS_RING,
     AXIS_USERS,
     all_gather,
     axis_index,
+    check_mesh,
     make_grid_mesh,
+    make_ring_mesh,
     mesh_device,
     grid_shape,
     psum,
@@ -62,14 +66,24 @@ _DATA_DEP = (
     Initialization.K_MEANS_AND_NON_NEGATIVE_WTV,
     Initialization.K_MEANS_AND_ABSOLUTE_WTV,
 )
-RING_6B = ("engine='ring' (the 1-D ring engine, nmftpu/parallel/ring.py) "
-           "is not ported yet: ROADMAP queue 1, slice 6b")
 
 
 def _sharded_ops(config: NmfConfig, mesh, engine: str, n: int, m: int,
                  nnz: int) -> LoopOps:
     masked = config.mask == "observed"
-    if engine == "ell":
+    axes = _BOTH
+    if engine == "ring":
+        from nmftpu_torch.parallel import ring as RING
+
+        make_aux, update, effective_h = RING.build_ring_update(config, mesh)
+        fro, kl = RING.build_ring_errors(mesh)
+        if config.objective is Objective.BETA:
+            kl = RING.build_ring_beta_error(mesh, config.beta)
+        axes = AXIS_RING
+
+        def local_sq(op):
+            return sum(torch.sum(t.values * t.values) for t in op.tiles)
+    elif engine == "ell":
         from nmftpu_torch.parallel import sharded_ell as SEL
 
         make_aux, update, effective_h = SEL.build_sharded_ell_update(
@@ -92,7 +106,7 @@ def _sharded_ops(config: NmfConfig, mesh, engine: str, n: int, m: int,
     def sum_v_sq(op):
         if masked:
             return torch.zeros((), dtype=torch.float32)
-        return psum(local_sq(op), mesh, _BOTH)
+        return psum(local_sq(op), mesh, axes)
 
     return LoopOps(
         make_aux=make_aux,
@@ -162,13 +176,18 @@ class ShardedPlan:
         self.coords = operand.coords
         self.device = mesh_device(mesh)
         self._init_scoo = None
+        # the axes W and H are sharded over: the grid's, or the ring's
+        # one axis for both
+        self.row_axis, self.col_axis = ((AXIS_RING, AXIS_RING)
+                                        if engine == "ring"
+                                        else (AXIS_USERS, AXIS_ITEMS))
 
     def _data_dep_scoo(self) -> ShardedCOO:
         """The COO tile that the mesh-native data-dependent inits run on
         (built once more, from the same seed, when the plan's engine is
         ELL)."""
         if self._init_scoo is None:
-            if isinstance(self.operand, ShardedCOO):
+            if self.engine in ("scatter", "ring"):
                 self._init_scoo = self.operand
             else:
                 self._init_scoo, rp, cp = partition_sparse(
@@ -221,6 +240,12 @@ class ShardedPlan:
 
         if method in _DATA_DEP:
             scoo = self._data_dep_scoo()
+            if self.engine == "ring":
+                from nmftpu_torch.parallel.ring import ring_data_init
+
+                def init_fn(run_idx):
+                    return ring_data_init(config, self.mesh, scoo, run_idx)
+                return init_fn
 
             def init_fn(run_idx):
                 return sharded_data_init(config, self.mesh, scoo, run_idx)
@@ -282,8 +307,8 @@ class ShardedPlan:
         result.row_perm, result.col_perm = self.row_perm, self.col_perm
         if not unpermute:
             return result
-        W = all_gather(result.W, self.mesh, AXIS_USERS)
-        H = all_gather(result.H, self.mesh, AXIS_ITEMS)
+        W = all_gather(result.W, self.mesh, self.row_axis)
+        H = all_gather(result.H, self.mesh, self.col_axis)
         W = W.reshape(-1, W.shape[-1])
         H = H.permute(1, 0, 2).reshape(H.shape[1], -1)
         result.W = W[torch.from_numpy(self.row_perm).long().to(W.device)]
@@ -298,9 +323,7 @@ def _resolve_engine(config: NmfConfig, engine: str) -> str:
         # MU (generalized beta included, which config pins to MU) takes
         # the gather-only ELL tiles
         return "ell" if config.algorithm is Algorithm.MU else "scatter"
-    if engine == "ring":
-        raise NotImplementedError(RING_6B)
-    if engine not in ("ell", "scatter"):
+    if engine not in ("ell", "scatter", "ring"):
         raise ValueError(
             f"engine must be 'auto', 'ell', 'scatter' or 'ring', "
             f"got {engine!r}")
@@ -335,13 +358,16 @@ def prepare_sharded(
     """Partition sparse V over the mesh once (every rank passes the whole
     host matrix and keeps its own tile), returning a reusable
     :class:`ShardedPlan`. Without a mesh, one is built over the world
-    (`mesh.make_grid_mesh`, CUDA)."""
+    (`mesh.make_grid_mesh`, CUDA). engine="ring" runs on the 1-D ring
+    over all of the mesh's ranks (`mesh.make_ring_mesh`), whatever its
+    2-D shape, as ``nmftpu`` does; each rank keeps its row panel."""
     if config.mu_style == "jacobi":
         raise ValueError(
             "mu_style='jacobi' is wired through the dense engine only; "
             "sharded engines run gauss-seidel half-steps")
     if mesh is None:
         mesh = make_grid_mesh(mesh_shape)
+    check_mesh(mesh)
     dtype = resolve_dtype(config.dtype)
     n, m = V.shape
     if config.rank > min(n, m):
@@ -349,8 +375,22 @@ def prepare_sharded(
             f"rank {config.rank} exceeds min(V.shape) = {min(n, m)}")
     engine = _resolve_engine(config, engine)
     _check_sharded(config, engine)
-    coords = (axis_index(mesh, AXIS_USERS), axis_index(mesh, AXIS_ITEMS))
     device = mesh_device(mesh)
+    if engine == "ring":
+        from nmftpu_torch.parallel.ring import partition_for_ring
+
+        mesh = make_ring_mesh(mesh)
+        operand, row_perm, col_perm = partition_for_ring(
+            V, mesh.size(0), axis_index(mesh, AXIS_RING), dtype=dtype,
+            chunk=chunk, balance=balance, seed=config.seed, device=device)
+        mean_v = float(psum(
+            sum(torch.sum(t.values) for t in operand.tiles), mesh,
+            AXIS_RING)) / (float(n) * float(m))
+        return ShardedPlan(V=V, config=config, mesh=mesh, engine=engine,
+                           operand=operand, row_perm=row_perm,
+                           col_perm=col_perm, mean_v=mean_v, dtype=dtype,
+                           chunk=chunk, balance=balance, nnz=operand.nnz)
+    coords = (axis_index(mesh, AXIS_USERS), axis_index(mesh, AXIS_ITEMS))
     if engine == "ell":
         from nmftpu_torch.parallel import sharded_ell as SEL
 
@@ -384,9 +424,10 @@ def compute_sharded(
     callback: Callable[[Any, Any, Any, Any], None] | None = None,
     interrupt: Callable[[], bool] | None = None,
 ) -> NmfResult:
-    """Factorize sparse V over the 2-D ('users', 'items') rank mesh; every
-    rank calls it with the same arguments and gets the full factors in
-    the ORIGINAL row and column order (see `ShardedPlan.run`). W0/H0
+    """Factorize sparse V over the 2-D ('users', 'items') rank mesh (or,
+    with engine="ring", over a 1-D ring of all its ranks); every rank
+    calls it with the same arguments and gets the full factors in the
+    ORIGINAL row and column order (see `ShardedPlan.run`). W0/H0
     (init="copy") are the full factors, numpy or tensors; each rank
     reads its blocks. Repeated factorizations of one matrix should call
     :func:`prepare_sharded` once and ``plan.run(...)`` per run."""

@@ -13,9 +13,13 @@ its dims named ('users', 'items'):
 
 Rank (i, j) holds W's row block i (replicated along 'items'), H's column
 block j (replicated along 'users') and V's tile (i, j). The reference's
-`lax.psum`, `lax.all_gather` and `lax.axis_index` inside `shard_map`
-become `psum`, `all_gather` and `axis_index` here, explicit collectives
-on the axis groups.
+`lax.psum`, `lax.all_gather`, `lax.ppermute` and `lax.axis_index` inside
+`shard_map` become `psum`, `all_gather`, `ppermute` and `axis_index`
+here, explicit collectives on the axis groups.
+
+The ring engine (``parallel/ring.py``) runs on a 1-D mesh, its one dim
+named 'shards' (`make_ring_mesh`), over every rank of a grid mesh in
+row-major order.
 
 NCCL takes CUDA tensors as they are. A gloo group (the CPU, or several
 ranks sharing one card, which NCCL refuses) takes a CUDA operand through
@@ -32,10 +36,11 @@ import torch.distributed as dist
 
 AXIS_USERS = "users"
 AXIS_ITEMS = "items"
+AXIS_RING = "shards"
 
 # bytes of CUDA operands copied to the host (and back) for a gloo
 # collective, by collective
-STAGED_BYTES = {"all_reduce": 0, "all_gather": 0}
+STAGED_BYTES = {"all_reduce": 0, "all_gather": 0, "ppermute": 0}
 
 
 def _squarest_grid(ndev: int) -> tuple[int, int]:
@@ -70,6 +75,45 @@ def make_grid_mesh(mesh_shape: tuple[int, int] | None = None,
             f"mesh shape {tuple(mesh_shape)} does not cover {world} ranks")
     return DeviceMesh(device_type, torch.arange(world).reshape(pu, pi),
                       mesh_dim_names=(AXIS_USERS, AXIS_ITEMS))
+
+
+def flat_mesh(mesh, name: str):
+    """A 1-D DeviceMesh, its dim named `name`, over every rank of `mesh`
+    in row-major order (made once per mesh and name)."""
+    from torch.distributed.device_mesh import DeviceMesh
+
+    check_mesh(mesh)
+    if mesh.mesh_dim_names == (name,):
+        return mesh
+    flats = mesh.__dict__.setdefault("_flat_meshes", {})
+    if name not in flats:
+        flats[name] = DeviceMesh(mesh.device_type, mesh.mesh.reshape(-1),
+                                 mesh_dim_names=(name,))
+    return flats[name]
+
+
+def make_ring_mesh(mesh=None, device_type: str = "cuda"):
+    """The 1-D ('shards',) DeviceMesh of the ring engine: over the ranks
+    of `mesh` (a grid mesh, flattened row-major) or, with none, over the
+    world (started as `make_grid_mesh` starts it)."""
+    if mesh is None:
+        mesh = make_grid_mesh(None, device_type)
+    return flat_mesh(mesh, AXIS_RING)
+
+
+def check_mesh(mesh) -> None:
+    """Raise TypeError unless `mesh` is a DeviceMesh (the port's meshes
+    are torch's, built by `make_grid_mesh`)."""
+    from torch.distributed.device_mesh import DeviceMesh
+
+    if not isinstance(mesh, DeviceMesh):
+        raise TypeError(
+            "mesh must be a torch DeviceMesh (nmftpu_torch.parallel."
+            f"make_grid_mesh), got {type(mesh).__name__}")
+
+
+def _axis_size(mesh, name: str) -> int:
+    return mesh.size(mesh.mesh_dim_names.index(name))
 
 
 def grid_shape(mesh) -> tuple[int, int]:
@@ -118,9 +162,9 @@ def psum(x: torch.Tensor, mesh, axis, op=dist.ReduceOp.SUM) -> torch.Tensor:
     shape = x.shape
     x = x.contiguous().reshape(-1)
     for name in _axes(axis):
-        group = mesh.get_group(name)
-        if dist.get_world_size(group) == 1:
+        if _axis_size(mesh, name) == 1:
             continue
+        group = mesh.get_group(name)
         if _staged(x, group):
             host = x.cpu()
             STAGED_BYTES["all_reduce"] += host.numel() * host.element_size()
@@ -134,10 +178,10 @@ def psum(x: torch.Tensor, mesh, axis, op=dist.ReduceOp.SUM) -> torch.Tensor:
 def all_gather(x: torch.Tensor, mesh, axis: str) -> torch.Tensor:
     """Every rank's x along `axis`, stacked in axis order -> (size,
     *x.shape), on each of them (``lax.all_gather``)."""
+    if _axis_size(mesh, axis) == 1:
+        return x[None]
     group = mesh.get_group(axis)
     size = dist.get_world_size(group)
-    if size == 1:
-        return x[None]
     src = x.contiguous()
     if _staged(src, group):
         src = src.cpu()
@@ -145,3 +189,29 @@ def all_gather(x: torch.Tensor, mesh, axis: str) -> torch.Tensor:
     out = [torch.empty_like(src) for _ in range(size)]
     dist.all_gather(out, src, group=group)
     return torch.stack(out).to(x.device)
+
+
+def ppermute(x: torch.Tensor, mesh, axis: str, shift: int) -> torch.Tensor:
+    """x rotated by `shift` along `axis` (``lax.ppermute`` with the pairs
+    (k, k + shift mod p)): the rank at coordinate k sends x to k + shift
+    and returns what k - shift sent. Every rank posts its send and its
+    receive together (`batch_isend_irecv`), so no ordering of the ring
+    can deadlock. With p = 1, or a shift of a whole turn, x itself."""
+    p = _axis_size(mesh, axis)
+    if shift % p == 0:
+        return x
+    group = mesh.get_group(axis)
+    me = dist.get_group_rank(group, dist.get_rank())
+    dst = dist.get_global_rank(group, (me + shift) % p)
+    src = dist.get_global_rank(group, (me - shift) % p)
+    send = x.contiguous()
+    staged = _staged(send, group)
+    if staged:
+        send = send.cpu()
+        STAGED_BYTES["ppermute"] += send.numel() * send.element_size()
+    recv = torch.empty_like(send)
+    for req in dist.batch_isend_irecv([
+            dist.P2POp(dist.isend, send, dst, group),
+            dist.P2POp(dist.irecv, recv, src, group)]):
+        req.wait()
+    return recv.to(x.device) if staged else recv

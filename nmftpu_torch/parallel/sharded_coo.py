@@ -96,6 +96,17 @@ def partition_sparse(
     ORIGINAL index -> PERMUTED index (identity when balance=False):
     W_orig = W_perm[row_perm]. Every rank passes the whole matrix; the
     capacity and chunk follow the largest tile, as in ``nmftpu``."""
+    tiles, row_perm, col_perm = partition_tiles(
+        mat, mesh_shape, [coords], dtype=dtype, chunk=chunk,
+        balance=balance, seed=seed, device=device)
+    return tiles[0], row_perm, col_perm
+
+
+def partition_tiles(mat, mesh_shape, coords_list, dtype=torch.float32,
+                    chunk: int = 8192, balance: bool = True, seed: int = 0,
+                    device="cpu"):
+    """`partition_sparse` keeping every tile of `coords_list` (one pass
+    over the nonzeros): ([ShardedCOO], row_perm, col_perm)."""
     pu, pi = mesh_shape
     coo = mat.to_coo()
     n, m = coo.shape
@@ -111,27 +122,26 @@ def partition_sparse(
     cap = max(int(counts.max()), 1)
     chunk = min(chunk, _round_up(cap, 256))
     cap = _round_up(cap, chunk)
-
-    ti, tj = coords
-    sel = np.flatnonzero(tile_id == ti * pi + tj)
-    k = len(sel)
-    values = np.zeros(cap, dtype=_NUMPY[dtype])
-    lrows = np.zeros(cap, dtype=np.int32)
-    lcols = np.zeros(cap, dtype=np.int32)
-    values[:k] = coo.data[sel]
-    lrows[:k] = rows[sel] - ti * block_rows
-    lcols[:k] = cols[sel] - tj * block_cols
     nz = np.bincount(tile_id, weights=coo.data != 0, minlength=pu * pi)
-
-    scoo = ShardedCOO(
-        values=torch.from_numpy(values).to(device),
-        rows=torch.from_numpy(lrows).to(device),
-        cols=torch.from_numpy(lcols).to(device),
-        shape=(n, m), nnz=coo.nnz, chunk=chunk, mesh_shape=(pu, pi),
-        block_rows=block_rows, block_cols=block_cols, coords=(ti, tj),
-        tile_nnz=nz.astype(np.int64).reshape(pu, pi),
-    )
-    return scoo, row_perm, col_perm
+    tiles = []
+    for ti, tj in coords_list:
+        sel = np.flatnonzero(tile_id == ti * pi + tj)
+        k = len(sel)
+        values = np.zeros(cap, dtype=_NUMPY[dtype])
+        lrows = np.zeros(cap, dtype=np.int32)
+        lcols = np.zeros(cap, dtype=np.int32)
+        values[:k] = coo.data[sel]
+        lrows[:k] = rows[sel] - ti * block_rows
+        lcols[:k] = cols[sel] - tj * block_cols
+        tiles.append(ShardedCOO(
+            values=torch.from_numpy(values).to(device),
+            rows=torch.from_numpy(lrows).to(device),
+            cols=torch.from_numpy(lcols).to(device),
+            shape=(n, m), nnz=coo.nnz, chunk=chunk, mesh_shape=(pu, pi),
+            block_rows=block_rows, block_cols=block_cols, coords=(ti, tj),
+            tile_nnz=nz.astype(np.int64).reshape(pu, pi),
+        ))
+    return tiles, row_perm, col_perm
 
 
 def balance_report(scoo: ShardedCOO) -> dict:

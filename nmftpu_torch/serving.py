@@ -25,9 +25,12 @@ same full W and H and keeps its slice of H on the 'items' axis (the
 item count must divide evenly); the scans, the certificate, the exact
 fallback and `score`/`save` go through ``parallel.retrieval_sharded``,
 each rank returning the same results. The reservoir escalation of
-``recommend_certified`` is skipped on a mesh, as in ``nmftpu``. Not
-ported yet on a mesh: fold-in (``fold_in*``, ``recommend_from_history*``;
-slice 6b), which raises NotImplementedError.
+``recommend_certified`` is skipped on a mesh, as in ``nmftpu``. Fold-in
+(``fold_in*``, ``recommend_from_history*``) on a mesh prepares the
+sharded table (``foldin.prepare_table_sharded``: each rank's Gram and
+row sums summed over 'items'), solves replicated on every rank, and
+scans each item shard with the per-shard top-k and merge of
+`recommend`.
 """
 
 from __future__ import annotations
@@ -74,9 +77,15 @@ def _resolve_device(device) -> torch.device:
     return dev
 
 
-def table_scale(H):
-    """The (r,) per-dimension int8 scale of a float32 table H (r, m)."""
-    return torch.clamp(H.abs().amax(dim=1) / 127.0, min=1e-30)
+def table_scale(H, device=None):
+    """The (r,) per-dimension int8 scale of a float32 table H (r, m),
+    computed on `device` (by default H's): max |H| is exact anywhere, but
+    the division rounds as the device divides, so a sharded table's scale
+    is made where the unsharded one would be."""
+    amax = H.abs().amax(dim=1)
+    if device is not None:
+        amax = amax.to(device)
+    return torch.clamp(amax / 127.0, min=1e-30)
 
 
 def quantize_table(H, scale=None):
@@ -122,7 +131,7 @@ class Recommender:
             if table_dtype == "int8":
                 full = H if isinstance(H, torch.Tensor) else \
                     torch.from_numpy(np.asarray(H, np.float32))
-                scale = table_scale(full.float()).to(dev)
+                scale = table_scale(full.float(), dev)
             m_loc = n_items // shards
             j = mesh.get_local_rank(AXIS_ITEMS)
             H = H[:, j * m_loc:(j + 1) * m_loc]
@@ -144,12 +153,28 @@ class Recommender:
     def from_table(cls, W, table, *, h_scale=None,
                    train: SparseMatrix | None = None,
                    block: int | None = None, method: str = "approx",
-                   reservoir_slots: int = 4096, device="cuda"):
+                   reservoir_slots: int = 4096, device="cuda", mesh=None):
         """A Recommender over an item table already in its serving dtype
         (float32, bfloat16, or int8 with its (r,) `h_scale`), taken as it
-        is: nothing is re-quantized."""
-        dev = _resolve_device(device)
-        table = _tensor(table, dev)
+        is: nothing is re-quantized. With `mesh`, `table` is the whole
+        table and each rank keeps its slice on the 'items' axis, as the
+        constructor does."""
+        n_items = None
+        if mesh is not None:
+            from nmftpu_torch.parallel.mesh import AXIS_ITEMS, mesh_device
+
+            dev = mesh_device(mesh)
+            n_items, shards = int(table.shape[1]), mesh.size(1)
+            if n_items % shards:
+                raise ValueError(
+                    f"n_items={n_items} must divide evenly over the "
+                    f"{shards} item shards of the mesh; pad H")
+            m_loc = n_items // shards
+            j = mesh.get_local_rank(AXIS_ITEMS)
+            table = table[:, j * m_loc:(j + 1) * m_loc]
+        else:
+            dev = _resolve_device(device)
+        table = _tensor(table, dev).contiguous()
         if table.dtype not in TABLE_DTYPES.values():
             raise TypeError(f"table dtype {table.dtype} is not one of "
                             "float32, bfloat16, int8")
@@ -160,7 +185,7 @@ class Recommender:
             h_scale = _tensor(h_scale, dev, torch.float32)
         rec = cls.__new__(cls)
         rec._setup(W, table, h_scale, train, block, method,
-                   reservoir_slots, dev)
+                   reservoir_slots, dev, mesh, n_items)
         return rec
 
     def _setup(self, W, table, h_scale, train, block, method,
@@ -195,14 +220,17 @@ class Recommender:
     def _prep(self):
         """Fold-in table invariants (``foldin.prepare_table``), built once
         per Recommender: the O(r²m) Gram is not rebuilt per request."""
-        if self.mesh is not None:
-            raise NotImplementedError(
-                "fold-in against a sharded table (Recommender(mesh=...)) "
-                "is not ported yet (ROADMAP queue 1, slice 6b)")
         if self._prepared is None:
-            from nmftpu_torch.foldin import prepare_table
+            from nmftpu_torch.foldin import (
+                prepare_table,
+                prepare_table_sharded,
+            )
 
-            self._prepared = prepare_table(self.H, scale=self._h_scale)
+            if self.mesh is not None:
+                self._prepared = prepare_table_sharded(
+                    self.H, self.mesh, self._m_items, scale=self._h_scale)
+            else:
+                self._prepared = prepare_table(self.H, scale=self._h_scale)
         return self._prepared
 
     def _queries(self, user_ids):
@@ -638,8 +666,9 @@ class Recommender:
             if self.method != "exact":
                 seen = self._seen_padded(csr, all_rows, k)
             if seen is None:
-                lists = build_block_exclusion(all_rows, csr, self.n_items,
-                                              self.block)
+                lists = build_block_exclusion(
+                    all_rows, csr, self.n_items, self.block,
+                    shards=1 if self.mesh is None else self.mesh.size(1))
         s, i = self._topk(Wq, k, lists, candidate_k, seen=seen)
         return s.cpu().numpy(), i.cpu().numpy()
 

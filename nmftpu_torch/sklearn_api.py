@@ -16,7 +16,10 @@ scikit-learn itself is not needed: the estimators derive from
 ``BaseEstimator`` does, so ``sklearn.base.clone`` and ``Pipeline`` work
 with them where sklearn is installed. Results come back as numpy arrays;
 ``device`` (default CUDA; ``"cpu"`` for the plain torch path) says where
-the work runs, and ``mesh`` raises until the multi-GPU slice 6b.
+the work runs, and ``mesh`` (a rank mesh, every rank calling alike)
+runs the fit sharded: `NMF` through ``api.dispatch`` (dense V on the
+mesh, or the sparse sharded engines), `MiniBatchNMF` through the online
+engine with its item axis sharded.
 
 Semantics notes vs sklearn (`sklearn/decomposition/_nmf.py`):
   * solver="mu" (multiplicative) AND solver="cd" (sklearn's DEFAULT:
@@ -75,7 +78,6 @@ from nmftpu_torch.config import (
 )
 from nmftpu_torch.convert import _numpy
 from nmftpu_torch.driver import _resolve_device
-from nmftpu_torch.minibatch import _no_mesh
 
 _BETA_LOSS_STRINGS = {
     "frobenius": 2.0,
@@ -227,9 +229,13 @@ class NMF(_Estimator):
       MU; weighted runs imply MU) or any nmftpu ``Algorithm``/string
       ("mu", "hals", "als", "acls", "ahcls", "gdcls", "nsnmf") —
       explicit algorithm= wins over solver.
-    mesh: multi-device runs; raises NotImplementedError until the
-      multi-GPU slice (ROADMAP.md queue 1, slice 6b).
-    strategy: sparse engine ("auto" | "densified" | "ell" | "scatter").
+    mesh: a 2-D ('users', 'items') rank mesh (``parallel.
+      make_grid_mesh``): fits run sharded (dense V on the mesh, or the
+      sparse sharded engines); every rank calls alike and gets the same
+      factors.
+    strategy: sparse engine ("auto" | "densified" | "ell" | "scatter";
+      with a mesh, "ell"/"scatter"/"ring" select the per-tile sharded
+      engine and "densified" is rejected, being single-device only).
     v_storage: "float32" | "bfloat16" | "int8" — V's on-device storage
       (the dense and densified paths).
     num_runs: best-of-N random restarts (reference ``numRuns``).
@@ -415,7 +421,6 @@ class NMF(_Estimator):
 
     def fit_transform(self, X, y=None, W=None, H=None):
         """Factorize X ≈ W @ H; returns W and stores H as components_."""
-        _no_mesh(self.mesh, "NMF")
         data, is_sparse = _as_port_input(X)
         shape = data.shape
         r = self._resolve_rank(shape, W, H)
@@ -461,8 +466,10 @@ class NMF(_Estimator):
 
         from nmftpu_torch.api import dispatch
 
-        res = dispatch(data, cfg, W0=W, H0=H, strategy=self.strategy,
-                       device=_resolve_device(data, self.device))
+        res = dispatch(data, cfg, W0=W, H0=H, mesh=self.mesh,
+                       strategy=self.strategy,
+                       device=(None if self.mesh is not None
+                               else _resolve_device(data, self.device)))
 
         self.components_ = _numpy(res.H)
         self.n_components_ = self.components_.shape[0]
@@ -693,7 +700,6 @@ class MiniBatchNMF(_Estimator):
     def fit_transform(self, X, y=None, W=None, H=None):
         from nmftpu_torch import minibatch as MB
 
-        _no_mesh(self.mesh, "MiniBatchNMF")
         beta = self._beta()
         src = _RowSource(X)
         if beta <= 0:
@@ -726,8 +732,9 @@ class MiniBatchNMF(_Estimator):
             fresh_restarts_max_iter=int(self.fresh_restarts_max_iter),
             transform_max_iter=self.transform_max_iter,
             W0=W0, H0=H0, dtype=self.dtype,
-            verbose=int(self.verbose),
-            device=_resolve_device(X, self.device),
+            verbose=int(self.verbose), mesh=self.mesh,
+            device=(None if self.mesh is not None
+                    else _resolve_device(X, self.device)),
         )
         self.components_ = _numpy(Hf)
         self.n_components_ = int(r)
@@ -748,7 +755,6 @@ class MiniBatchNMF(_Estimator):
         sklearn."""
         from nmftpu_torch import minibatch as MB
 
-        _no_mesh(self.mesh, "MiniBatchNMF")
         beta = self._beta()
         src = _RowSource(X)
         Xb = src[0:X.shape[0]]
@@ -769,8 +775,9 @@ class MiniBatchNMF(_Estimator):
                     else int(self.max_iter)
                 ),
                 transform_tol=float(self.tol),
-                dtype=self.dtype, seed=self._seed(),
-                device=_resolve_device(X, self.device),
+                dtype=self.dtype, seed=self._seed(), mesh=self.mesh,
+                device=(None if self.mesh is not None
+                        else _resolve_device(X, self.device)),
             )
             self._online.partial_fit(Xb, H0=H0)
             self.n_steps_ = 1
@@ -785,7 +792,7 @@ class MiniBatchNMF(_Estimator):
                 self._online.set_components(self.components_)
             self._online.partial_fit(Xb)
             self.n_steps_ += 1
-        self.components_ = _numpy(self._online.H)
+        self.components_ = _numpy(self._online.components())
         self._components_view = self.components_
         self.n_components_ = self.components_.shape[0]
         return self

@@ -389,8 +389,9 @@ def test_ials_still_raises(knobs):
     """Dense iALS is ported (slice 4c, `tests/test_torch_ials.py`): each
     configuration runs as nmftpu's (the errors of 3 iterations, 1e-4);
     vectorize_runs is ported too (slice 5): two restarts in lockstep give
-    the sequential restarts' errors (rtol 1e-5) and best run; what still
-    raises with it is mesh= (slice 6)."""
+    the sequential restarts' errors (rtol 1e-5) and best run; mesh= is
+    ported too (slice 6b, test_torch_dense_mesh.py), and what is not a
+    DeviceMesh is refused."""
     V = V_FIX[:50, :60]
     rng = np.random.default_rng(7)
     W0 = rng.uniform(0.05, 1.0, (V.shape[0], 4)).astype(np.float32)
@@ -407,6 +408,6 @@ def test_ials_still_raises(knobs):
                  vectorize_runs=True, device="cpu", **knobs)
     np.testing.assert_allclose(vec.run_errors, seq.run_errors, rtol=1e-5)
     assert vec.best_run == seq.best_run
-    with pytest.raises(NotImplementedError, match="slice 6"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         nt.nmf(V, 4, algorithm="als", num_iterations=1, num_runs=2,
                vectorize_runs=True, device="cpu", mesh=object(), **knobs)

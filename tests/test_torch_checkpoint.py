@@ -191,6 +191,8 @@ def test_resume_refusals(tmp_path):
                     nt.NmfConfig(rank=6, num_iterations=11), strict=False,
                     device="cpu")
     assert res.num_iterations == 8
-    with pytest.raises(NotImplementedError, match="slice 6"):
+    # mesh= is ported (test_torch_surfaces_mesh.py); what is not a
+    # DeviceMesh is refused
+    with pytest.raises(TypeError, match="DeviceMesh"):
         TC.resume(str(tmp_path / "ck"), V,
                   nt.NmfConfig(rank=6, num_iterations=10), mesh=object())

@@ -255,14 +255,16 @@ def test_numpy_input_without_a_device_needs_cuda(monkeypatch):
 @pytest.mark.parametrize("bad,error", [
     ({"rank": 100}, ValueError),
     ({"data": np.ones(5, np.float32)}, ValueError),
-    ({"mesh": object()}, NotImplementedError),
+    # dense V on a mesh is ported (slice 6b, test_torch_dense_mesh.py):
+    # these ids now hold the refusal of a mesh that is not a DeviceMesh;
     # the k-means and NNDSVD inits are ported in slice 4b-i
     # (test_torch_init.py), vectorize_runs in slice 5
-    # (test_torch_batched.py); this id now holds what still raises with
-    # them: mesh= (slice 6)
+    # (test_torch_batched.py)
+    pytest.param({"mesh": object()}, TypeError,
+                 id="bad2-NotImplementedError"),
     pytest.param({"init": "kmeans", "vectorize_runs": True, "num_runs": 2,
                   "mesh": object()},
-                 NotImplementedError, id="bad3-NotImplementedError"),
+                 TypeError, id="bad3-NotImplementedError"),
     pytest.param({"init": "copy"}, ValueError, id="bad5-ValueError"),
 ])
 def test_driver_rejects(bad, error):
@@ -325,20 +327,21 @@ def test_registry_routes(monkeypatch, knobs, route):
     # family, GDCLS, nsNMF and the k-means and NNDSVD inits (slice 4b-i,
     # test_torch_als_family.py, test_torch_init.py; iALS's refusal is
     # test_torch_als_family.py::test_ials_still_raises) and vectorize_runs
-    # (slice 5, test_torch_batched.py); these cases keep their ids and now
-    # hold what still raises: mesh= (slice 6)
+    # (slice 5, test_torch_batched.py) and mesh= (slice 6b,
+    # test_torch_dense_mesh.py); these cases keep their ids and now hold
+    # the refusal of a mesh that is not a DeviceMesh
     pytest.param({"objective": "beta", "beta": 0.5, "mesh": object()},
-                 "slice 6", id="knobs3-slice 4"),
+                 "DeviceMesh", id="knobs3-slice 4"),
     pytest.param({"algorithm": "gdcls", "v_storage": "int8",
                   "vectorize_runs": True, "num_runs": 2, "mesh": object()},
-                 "slice 6", id="knobs4-slice 4"),
-    pytest.param({"algorithm": "nsnmf", "mesh": object()}, "slice 6",
+                 "DeviceMesh", id="knobs4-slice 4"),
+    pytest.param({"algorithm": "nsnmf", "mesh": object()}, "DeviceMesh",
                  id="knobs5-slice 3"),
     pytest.param({"vectorize_runs": True, "num_runs": 2, "mesh": object()},
-                 "slice 6", id="knobs7-slice 5"),
+                 "DeviceMesh", id="knobs7-slice 5"),
 ])
 def test_unported_configurations_raise(knobs, where):
-    with pytest.raises(NotImplementedError, match=where):
+    with pytest.raises(TypeError, match=where):
         nt.nmf(V_FIX, RANK, num_iterations=1, device="cpu", **knobs)
 
 

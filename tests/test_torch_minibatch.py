@@ -248,9 +248,11 @@ def test_guards():
         TM.minibatch_fit(V, 6, device="cpu")
     with pytest.raises(ValueError, match="early stopping"):
         TM.minibatch_fit(V, 6, W0=W0, H0=H0, fused=True, device="cpu")
-    with pytest.raises(NotImplementedError, match="slice 6"):
+    # mesh= is ported (test_torch_minibatch_mesh.py); what is not a
+    # DeviceMesh is refused
+    with pytest.raises(TypeError, match="DeviceMesh"):
         TM.minibatch_fit(V, 6, W0=W0, H0=H0, mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="slice 6"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         TM.OnlineNMF(6, mesh=object(), device="cpu")
     with pytest.raises(ValueError, match="not seen any data"):
         TM.OnlineNMF(6, device="cpu").transform(V)

@@ -151,6 +151,8 @@ def test_rank_selection_sparse_and_refusals():
                               sample=30)
     assert len(got.cophenetic) == len(want.cophenetic) == 2
     assert np.isfinite(got.mean_error).all()
-    with pytest.raises(NotImplementedError, match="slice 6"):
+    # mesh= is ported (test_torch_surfaces_mesh.py); what is not a
+    # DeviceMesh is refused
+    with pytest.raises(TypeError, match="DeviceMesh"):
         TMS.rank_selection(V, [2], n_runs=2, num_iterations=2,
                            mesh=object(), device="cpu")

@@ -429,14 +429,17 @@ def test_launcher_times_out():
 
 
 def test_ring_engine_and_dense_mesh_raise_naming_6b():
+    """The ring engine and dense V on a mesh are ported (slice 6b,
+    test_torch_ring.py, test_torch_dense_mesh.py); what is not a
+    DeviceMesh is refused by both."""
     dense = _data()["main"]["dense"]
     sp = nt.sparse.from_dense(dense)
-    with pytest.raises(NotImplementedError, match="slice 6b"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         nt.nmf(sp, RANK, mesh=object(), strategy="ring", device="cpu")
-    with pytest.raises(NotImplementedError, match="slice 6b"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         nt.parallel.prepare_sharded(sp, nt.NmfConfig(rank=RANK),
                                     mesh=object(), engine="ring")
-    with pytest.raises(NotImplementedError, match="slice 6b"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         nt.nmf(dense, RANK, mesh=object(), device="cpu")
     with pytest.raises(ValueError, match="single-device only"):
         nt.nmf(sp, RANK, mesh=object(), strategy="densified", device="cpu")

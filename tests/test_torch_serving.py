@@ -398,9 +398,11 @@ def test_recall_at_k_matches_nmftpu():
 
 class _ItemShards:
     """The two questions a Recommender or recall_at_k asks a mesh before
-    any collective: the items axis's size and this rank's place on it."""
+    any collective: the items axis's size and this rank's place on it
+    (a collective over an axis of size 1 sends nothing)."""
 
     device_type = "cpu"
+    mesh_dim_names = ("users", "items")
 
     def __init__(self, shards):
         self.shards = shards
@@ -415,9 +417,10 @@ class _ItemShards:
 def test_unported_surfaces_raise(tmp_path):
     """Fold-in is ported (slice 9, held against nmftpu in
     test_torch_foldin.py): its four entry points now serve. mesh= is
-    ported too (slice 6a, test_torch_retrieval_sharded.py); fold-in on a
-    mesh still raises (slice 6b), on a Recommender built or loaded over
-    one."""
+    ported too (slice 6a, test_torch_retrieval_sharded.py), and fold-in
+    on a mesh (slice 6b, test_torch_foldin_sharded.py): on a Recommender
+    built or loaded over a one-shard mesh it equals the unsharded
+    fold-in."""
     W, H = _factors(17)
     rec = nt.Recommender(W, H, device="cpu")
     assert rec.fold_in([1, 2]).shape == (8,)
@@ -426,13 +429,16 @@ def test_unported_surfaces_raise(tmp_path):
     assert s.shape == i.shape == (5,) and not {1, 2} & set(i.tolist())
     s, i = rec.recommend_from_history_batch([[1, 2]], k=5)
     assert s.shape == i.shape == (1, 5)
-    with pytest.raises(NotImplementedError, match="slice 6b"):
-        nt.Recommender(W, H, mesh=_ItemShards(1),
-                       device="cpu").fold_in([1, 2])
+    sharded = nt.Recommender(W, H, mesh=_ItemShards(1), device="cpu")
+    np.testing.assert_allclose(sharded.fold_in([1, 2]), rec.fold_in([1, 2]),
+                               rtol=1e-6, atol=1e-7)
     rec.save(str(tmp_path / "r"))
-    with pytest.raises(NotImplementedError, match="slice 6b"):
-        nt.Recommender.load(str(tmp_path / "r"), mesh=_ItemShards(1),
-                            device="cpu").recommend_from_history([1, 2])
+    loaded = nt.Recommender.load(str(tmp_path / "r"), mesh=_ItemShards(1),
+                                 device="cpu")
+    s2, i2 = loaded.recommend_from_history([1, 2], k=5)
+    s1, i1 = rec.recommend_from_history([1, 2], k=5)
+    np.testing.assert_array_equal(i2, i1)
+    np.testing.assert_allclose(s2, s1, rtol=1e-6, atol=1e-6)
 
 
 def test_bad_settings_raise():

@@ -180,7 +180,9 @@ def test_estimator_errors_match_nmftpu():
         T.NMF(3, solver="mu", beta_loss=0.0, device="cpu").fit(Vz)
     with pytest.raises(AttributeError, match="not fitted"):
         T.NMF(n_components=3, device="cpu").transform(V)
-    with pytest.raises(NotImplementedError, match="slice 6"):
+    # mesh= is ported (test_torch_surfaces_mesh.py); what is not a
+    # DeviceMesh is refused
+    with pytest.raises(TypeError, match="DeviceMesh"):
         T.NMF(n_components=3, mesh=object(), device="cpu").fit(V)
     with pytest.warns(RuntimeWarning, match="ignored"):
         T.NMF(3, max_iter=1, device="cpu").fit(V, W=np.ones((64, 3)))

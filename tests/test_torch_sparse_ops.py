@@ -380,31 +380,32 @@ def test_densify_budget_reads_the_environment():
     # init on sparse V in slices 4b-ii and 4c (test_torch_sparse_
     # algorithms.py, test_torch_ials.py, test_torch_sparse_init.py),
     # vectorize_runs in slice 5 (test_torch_batched.py), sparse V on a
-    # mesh in slice 6a (test_torch_parallel.py); these ids now hold what
-    # still raises with each of them: the ring engine (slice 6b)
+    # mesh in slice 6a (test_torch_parallel.py), the ring engine in slice
+    # 6b (test_torch_ring.py); these ids now hold the refusal of a mesh
+    # that is not a DeviceMesh
     pytest.param(dict(algorithm="als", alpha_confidence=2.0,
                       vectorize_runs=True, num_runs=2, mesh=object(), strategy="ring"),
-                 "slice 6b", id="knobs0-confidence weighting"),
+                 "DeviceMesh", id="knobs0-confidence weighting"),
     pytest.param(dict(algorithm="als", mask="observed", mesh=object(), strategy="ring"),
-                 "slice 6b", id="knobs1-masked completion"),
+                 "DeviceMesh", id="knobs1-masked completion"),
     pytest.param(dict(objective="beta", beta=0.5, init="nndsvd",
                       vectorize_runs=True, num_runs=2, mesh=object(), strategy="ring"),
-                 "slice 6b", id="knobs2-beta-divergence"),
+                 "DeviceMesh", id="knobs2-beta-divergence"),
     pytest.param(dict(v_storage="int8", objective="beta", beta=0.5,
-                      init="kmeans_random", mesh=object(), strategy="ring"), "slice 6b",
+                      init="kmeans_random", mesh=object(), strategy="ring"), "DeviceMesh",
                  id="knobs3-int8"),
     pytest.param(dict(algorithm="hals", vectorize_runs=True, num_runs=2,
-                      mesh=object(), strategy="ring"), "slice 6b", id="knobs4-hals"),
-    pytest.param(dict(algorithm="als", mesh=object(), strategy="ring"), "slice 6b",
+                      mesh=object(), strategy="ring"), "DeviceMesh", id="knobs4-hals"),
+    pytest.param(dict(algorithm="als", mesh=object(), strategy="ring"), "DeviceMesh",
                  id="knobs5-als"),
     pytest.param(dict(algorithm="nsnmf", vectorize_runs=True, num_runs=2,
-                      mesh=object(), strategy="ring"), "slice 6b", id="knobs6-nsnmf"),
-    pytest.param(dict(algorithm="gdcls", mesh=object(), strategy="ring"), "slice 6b",
+                      mesh=object(), strategy="ring"), "DeviceMesh", id="knobs6-nsnmf"),
+    pytest.param(dict(algorithm="gdcls", mesh=object(), strategy="ring"), "DeviceMesh",
                  id="knobs7-gdcls"),
 ])
 def test_unported_sparse_configs_raise(knobs, match):
     _, _, tsp = _matrix()
-    with pytest.raises(NotImplementedError, match=match):
+    with pytest.raises(TypeError, match=match):
         nt.nmf(tsp, RANK, device="cpu", num_iterations=2, **knobs)
 
 
@@ -419,7 +420,9 @@ def test_sparse_driver_rejects_what_nmftpu_rejects():
     with pytest.raises(ValueError, match="only honored by the 'densified'"):
         nt.nmf(tsp, RANK, device="cpu", strategy="ell",
                v_storage="bfloat16")
-    with pytest.raises(NotImplementedError, match="slice 6b"):
+    # the ring engine is ported (slice 6b, test_torch_ring.py); what is
+    # not a DeviceMesh is refused
+    with pytest.raises(TypeError, match="DeviceMesh"):
         nt.nmf(tsp, RANK, device="cpu", mesh=object(), strategy="ring")
     coo = TS.device_put_sparse(tsp, device="cpu")
     with pytest.raises(ValueError, match="needs a host sparse container"):
