@@ -186,6 +186,18 @@ panels, one epoch) on four item shards against one card; (e) NMF(mesh=)
 at config 2 and checkpoint.resume(mesh=) of phase 23's checkpoint on 2 x
 2 against one card, rank_selection(mesh=) at config 1's shape, the three
 conversions onto the mesh and dryrun_multichip(4).
+Phase 26 drives slice 16: (a) nmftpu_torch.graft_entry.entry(), the twin
+of __graft_entry__.entry (one MU-Frobenius step and its error at 256^2,
+rank 32), on the card against the same step on the CPU (1e-5), and its
+ms; (b) ring iALS (alpha 40) with the exact and the cg row solver, one
+iteration from (W0, H0): config 3 (phase 16's matrix and start, rank
+128) on one NCCL rank, config 2 (phase 10's ratings, phase 22's start,
+rank 64, cg) on four gloo ranks sharing the card; each half against
+compute_sparse's scatter engine with the same solver on 64 users and 64
+items (the most popular included), per row within 10 sqrt(r) kappa_row
+2^-24, the H half plus kappa_row times W's measured difference; (c) on
+the NCCL rank at config 2, a ring and an ELL plan prepared unmasked
+refuse a mask="observed" run with ValueError before any launch.
 Every phase prints its results; any failure exits non-zero, as does a
 kernel timed below its bound. Without a CUDA device it exits 1 and runs
 nothing.
@@ -544,6 +556,23 @@ MESH_TIMEOUT = 900
 DENSE_KERNELS = ("w_update_fused", "h_update_fused", "w_update_fused_q",
                  "h_update_fused_q", "fused_multiply_divide", "vht_int8",
                  "wtv_int8", "dual_numerators_int8")
+
+# phase 26: slice 16. (a) graft_entry.entry()'s step on the card against
+# the same step on the CPU: float32 sums of 256 terms in another order
+# (TF32 off), GRAFT_RTOL on W, H and the error. (b) ring iALS against
+# compute_sparse's scatter engine with the same solver, one iteration
+# from (W0, H0) on rows and columns drawn as phase 22 (b) draws them:
+# each row within SOLVE_FACTOR sqrt(r) kappa_row 2^-24 (kappa_row its
+# float64 system's), the H half plus kappa_row times W's difference; if
+# cg's finite-precision steps amplify the engines' reordered Grams past
+# that, each engine's cg rows are held against the same steps in float64
+# on the row's own system: the ring's worst row within the limit or at
+# most twice the scatter engine's (test_cg_row_solver_matches's rule for
+# two float32 cg), and the script says which form held.
+# (c) a ring and an ELL plan refuse a masked run: ValueError, no launch
+GRAFT_RTOL = 1e-5
+GRAFT_ITERS = 200
+SLICE16_SOLVERS = ("exact", "cg")
 
 # the card's peaks (NVIDIA's H100 SXM data sheet, dense): float32 on the
 # CUDA cores, bf16 and int8 on the tensor cores, HBM bandwidth
@@ -6228,6 +6257,309 @@ def mesh_phase(nt, card, dev, ratings, c3, ck_dir, max_abs) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 26: slice 16. The rank programs below run in the processes of the
+# port's launcher, as phase 25's do.
+# ---------------------------------------------------------------------------
+
+
+def ials_config(solver: str, rank: int):
+    """Phase 26 (b)'s iALS config: one iteration, W half first, from the
+    caller's W0/H0."""
+    from nmftpu_torch.config import Algorithm, Initialization, NmfConfig
+
+    return NmfConfig(rank=rank, algorithm=Algorithm.ALS,
+                     alpha_confidence=C3_ALPHA, als_solver=solver,
+                     init_method=Initialization.COPY_EXISTING,
+                     num_iterations=1, check_interval=1)
+
+
+def ring_ials_runs(mesh, sp, W0, H0, rank, solvers, save):
+    """One ring iALS iteration from (W0, H0) for each solver on `mesh`,
+    timed by CUDA events; rank 0 saves the factors to `save`-<solver>.npz.
+    Returns {solver: ms}."""
+    import torch.distributed as dist
+
+    from nmftpu_torch.parallel import prepare_sharded
+
+    plan = prepare_sharded(sp, ials_config(solvers[0], rank), mesh=mesh,
+                           engine="ring", chunk=1 << 17)
+    out = {}
+    for solver in solvers:
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        res = plan.run(ials_config(solver, rank), W0=W0, H0=H0)
+        end.record()
+        end.synchronize()
+        out[solver] = start.elapsed_time(end)
+        if dist.get_rank() == 0:
+            np.savez(f"{save}-{solver}.npz", W=res.W.cpu().numpy(),
+                     H=res.H.cpu().numpy())
+        del res
+    del plan
+    torch.cuda.empty_cache()
+    return out
+
+
+def slice16_one_rank(paths, W3, H3, W2, H2):
+    """Phase 26 under NCCL, one rank: (b) ring iALS at config 3 with each
+    solver (p = 1); (c) a ring and an ELL plan at config 2 prepared
+    unmasked, each run with mask="observed"."""
+    import dataclasses
+
+    import torch.distributed as dist
+
+    from nmftpu_torch.config import Initialization, NmfConfig
+    from nmftpu_torch.parallel import make_grid_mesh, prepare_sharded
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mesh = make_grid_mesh((1, 1))
+    out = {"backend": dist.get_backend()}
+    c3 = load_coo(paths["c3"])
+    out["ms"] = ring_ials_runs(mesh, c3, W3, H3, C3_RANK, SLICE16_SOLVERS,
+                               paths["ring3"])
+    del c3
+    ratings = load_ratings(paths["ratings"])
+    cfg = NmfConfig(rank=SPARSE_RANK, num_iterations=1, check_interval=1,
+                    init_method=Initialization.COPY_EXISTING)
+    out["refusals"] = {}
+    for engine in ("ring", "ell"):
+        plan = prepare_sharded(ratings, cfg, mesh=mesh, engine=engine)
+        torch.cuda.synchronize()
+        before, mem = all_launches(), torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        try:
+            plan.run(dataclasses.replace(cfg, mask="observed"), W0=W2, H0=H2)
+            refused = None
+        except ValueError as e:
+            refused = str(e)
+        torch.cuda.synchronize()
+        out["refusals"][engine] = dict(
+            message=refused, ms=1e3 * (time.perf_counter() - t0),
+            launches=sum(launches_since(before).values()),
+            allocated=torch.cuda.memory_allocated() - mem,
+            engine=plan.engine)
+        del plan
+        torch.cuda.empty_cache()
+    return out
+
+
+def slice16_four_ranks(paths, W2, H2):
+    """Phase 26 (b) on four gloo ranks sharing the card: ring iALS with
+    cg at config 2, one iteration (a 4-ring)."""
+    from nmftpu_torch.parallel import make_grid_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    ratings = load_ratings(paths["ratings"])
+    return ring_ials_runs(make_grid_mesh((1, MESH_RANKS)), ratings, W2, H2,
+                          SPARSE_RANK, ("cg",), paths["ring2"])
+
+
+def popular_sample(csr, csc, seed):
+    """64 rows and 64 columns: the longest of each, and 63 more drawn
+    without replacement (phase 22 (b)'s draw)."""
+    n, m = csr.shape
+    rng = np.random.default_rng(seed)
+    u_top = int(np.argmax(np.diff(csr.indptr)))
+    i_top = int(np.argmax(np.diff(csc.indptr)))
+    rows = np.concatenate([[u_top], rng.choice(
+        np.setdiff1d(np.arange(n), [u_top]), 63, replace=False)])
+    cols = np.concatenate([[i_top], rng.choice(
+        np.setdiff1d(np.arange(m), [i_top]), 63, replace=False)])
+    return rows, cols
+
+
+def hold_ials_halves(label, solver, csr, csc, rows, cols, W0, H0, ring,
+                     scatter, r, steps):
+    """One iteration of the ring against the scatter engine, per row:
+    the W half at SOLVE_FACTOR sqrt(r) kappa_row 2^-24, the H half plus
+    kappa_row times W's difference (kappa_row from the float64 system of
+    the row). If cg misses that, each engine's cg rows are held against
+    `steps` cg steps in float64 on its own rows' systems, as
+    tests/test_torch_ials.py's test_cg_row_solver_matches holds a float32
+    cg: the ring's worst row within the limit or at most twice the
+    scatter engine's. Fails unless one form holds; returns the printed
+    fields."""
+    dev = W0.device
+    Wr, Hr = (torch.as_tensor(x, device=dev) for x in ring)
+    Ws, Hs = scatter
+    ri, ci = (torch.as_tensor(x, device=dev) for x in (rows, cols))
+    dW = float((Wr - Ws).abs().max() / Ws.abs().max())
+    _, kap_w = row_systems64(csr, rows, H0.T, C3_ALPHA, 0.0, False)
+    _, kap_h = row_systems64(csc, cols, Ws, C3_ALPHA, 0.0, False)
+    cw = per_row_check(Wr[ri], Ws[ri].double(), kap_w, r)
+    ch = per_row_check(Hr[:, ci].T, Hs[:, ci].T.double(), kap_h, r,
+                       extra=dW)
+    dH = float((Hr - Hs).abs().max() / Hs.abs().max())
+    fields = {"W_worst_ratio": f"{cw[0]:.3e}",
+              "W_rel_kappa": f"{cw[1]:.3e}/{cw[2]:.4g}",
+              "H_worst_ratio": f"{ch[0]:.3e}",
+              "H_rel_kappa": f"{ch[1]:.3e}/{ch[2]:.4g}",
+              "W_rel_whole": f"{dW:.3e}", "H_rel_whole": f"{dH:.3e}"}
+    if cw[0] <= 1.0 and ch[0] <= 1.0:
+        fields["form"] = "ring against scatter"
+        return fields
+    if solver != "cg":
+        fail(f"phase 26 (b) {label} {solver}: the ring differs from "
+             f"compute_sparse beyond the per-row limit (W {cw}, H {ch})")
+    want_w, kw = row_systems64(csr, rows, H0.T, C3_ALPHA, 0.0, False,
+                               x0=W0[ri], cg_steps=steps)
+    worst = {}
+    for name, (W1, H1) in (("ring", (Wr, Hr)), ("scatter", (Ws, Hs))):
+        want_h, kh = row_systems64(csc, cols, W1, C3_ALPHA, 0.0, False,
+                                   x0=H0[:, ci].T, cg_steps=steps)
+        worst[name] = max(per_row_check(W1[ri], want_w, kw, r)[0],
+                          per_row_check(H1[:, ci].T, want_h, kh, r)[0])
+    fields.update(form=f"each engine against {steps} float64 cg steps",
+                  float64_cg_worst_ratio_ring=f"{worst['ring']:.3e}",
+                  float64_cg_worst_ratio_scatter=f"{worst['scatter']:.3e}")
+    if not worst["ring"] <= max(1.0, 2.0 * worst["scatter"]):
+        fail(f"phase 26 (b) {label} cg: neither form holds (ring against "
+             f"scatter W {cw}, H {ch}; against float64 cg steps, ring "
+             f"{worst['ring']:.3e}, scatter {worst['scatter']:.3e})")
+    return fields
+
+
+def scatter_ials(nt, sp, W0, H0, rank, solvers, dev):
+    """compute_sparse's scatter engine, one iteration from (W0, H0) per
+    solver: {solver: ((W, H), ms)}."""
+    plan = nt.prepare_sparse(sp, ials_config(solvers[0], rank),
+                             strategy="scatter", device=dev)
+    out = {}
+    for solver in solvers:
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        res = plan.run(ials_config(solver, rank), W0=W0, H0=H0)
+        end.record()
+        end.synchronize()
+        out[solver] = ((res.W, res.H), start.elapsed_time(end))
+    del plan
+    torch.cuda.empty_cache()
+    return out
+
+
+def slice16_phase(nt, card, dev, ratings, c3) -> None:
+    """Phase 26 (slice 16): (a) graft_entry.entry() on the card; (b) ring
+    iALS with each solver at config 3 (one NCCL rank) and with cg at
+    config 2 (four gloo ranks), against compute_sparse's scatter engine;
+    (c) the ring and ELL plans' refusal of a masked run."""
+    import tempfile
+
+    from nmftpu_torch import graft_entry as GE
+    from nmftpu_torch.parallel import launch
+
+    t_phase = time.perf_counter()
+    # -- (a) the twin of __graft_entry__.entry ------------------------------
+    step, args = GE.entry()
+    cstep, cargs = GE.entry(device="cpu")
+    if any(a.device.type != "cuda" for a in args):
+        fail(f"phase 26 (a): entry() placed its arguments on "
+             f"{[a.device for a in args]}, not the card")
+    if not all(torch.equal(a.cpu(), b) for a, b in zip(args, cargs)):
+        fail("phase 26 (a): entry()'s arguments differ from entry('cpu')'s")
+    got, want = step(*args), cstep(*cargs)
+    rels = [rel_to_max(g.cpu(), w) for g, w in zip(got, want)]
+    ms = event_ms(lambda: step(*args), GRAFT_ITERS)
+    say("26a graft_entry", shape="256x256", rank=32,
+        W_rel=f"{rels[0]:.3e}", H_rel=f"{rels[1]:.3e}",
+        error=f"{float(got[2]):.6g}", error_rel=f"{rels[2]:.3e}",
+        rtol=GRAFT_RTOL, ms_per_step=f"{ms:.4f}",
+        matmul_allow_tf32=torch.backends.cuda.matmul.allow_tf32, card=card)
+    if not max(rels) <= GRAFT_RTOL:
+        fail(f"phase 26 (a): the step on the card differs from the CPU's "
+             f"by {rels} > {GRAFT_RTOL}")
+    del step, args, got
+
+    tmp = tempfile.mkdtemp(prefix="nmftpu_phase26_")
+    os.environ["NMFTPU_WEIGHTED_GRAM_BUDGET_BYTES"] = str(IALS_BUDGET)
+    try:
+        paths = {"ratings": os.path.join(tmp, "ratings.npz"),
+                 "c3": os.path.join(tmp, "c3.npz"),
+                 "ring3": os.path.join(tmp, "ring3"),
+                 "ring2": os.path.join(tmp, "ring2")}
+        np.savez(paths["ratings"], indptr=ratings.indptr,
+                 indices=ratings.indices, data=ratings.data,
+                 shape=np.array(ratings.shape))
+        csr3 = c3["csr"]
+        coo3 = csr3.to_coo()
+        np.savez(paths["c3"], row=coo3.row, col=coo3.col, data=coo3.data,
+                 shape=np.array(csr3.shape))
+        del coo3
+        W3, H3 = (torch.as_tensor(x, device=dev) for x in (c3["W0"],
+                                                         c3["H0"]))
+        n, m = ratings.shape
+        W2, H2 = config2_start(n, m, SPARSE_RANK,
+                               float(ratings.data.sum(dtype=np.float64)), dev)
+
+        # -- (b) config 3, one NCCL rank, p = 1 -------------------------------
+        t0 = time.perf_counter()
+        one = launch(slice16_one_rank, 1, args=(
+            paths, W3.cpu().numpy(), H3.cpu().numpy(), W2.cpu().numpy(),
+            H2.cpu().numpy()), backend="nccl", timeout=MESH_TIMEOUT)[0]
+        one_s = time.perf_counter() - t0
+        ref3 = scatter_ials(nt, csr3, W3, H3, C3_RANK, SLICE16_SOLVERS, dev)
+        csc3 = csr3.T.to_csr()
+        rows3, cols3 = popular_sample(csr3, csc3, SEED + 222)
+        steps = ials_config("cg", C3_RANK).cg_steps
+        for solver in SLICE16_SOLVERS:
+            z = np.load(f"{paths['ring3']}-{solver}.npz")
+            fields = hold_ials_halves(
+                "config 3", solver, csr3, csc3, rows3, cols3, W3, H3,
+                (z["W"], z["H"]), ref3[solver][0], C3_RANK, steps)
+            say("26b ring iALS config 3", ranks="1 NCCL", p=1,
+                solver=solver, rank=C3_RANK, alpha=C3_ALPHA,
+                ring_ms_per_iteration=f"{one['ms'][solver]:.1f}",
+                scatter_ms_per_iteration=f"{ref3[solver][1]:.1f}",
+                **fields, card=card)
+        del ref3, csc3
+
+        # -- (b) config 2, four gloo ranks, cg --------------------------------
+        t0 = time.perf_counter()
+        four = launch(slice16_four_ranks, MESH_RANKS, args=(
+            paths, W2.cpu().numpy(), H2.cpu().numpy()), backend="gloo",
+            timeout=MESH_TIMEOUT, threads=2)
+        four_s = time.perf_counter() - t0
+        ref2 = scatter_ials(nt, ratings, W2, H2, SPARSE_RANK, ("cg",), dev)
+        csc2 = ratings.T.to_csr()
+        rows2, cols2 = popular_sample(ratings, csc2, SEED + 226)
+        z = np.load(f"{paths['ring2']}-cg.npz")
+        fields = hold_ials_halves(
+            "config 2", "cg", ratings, csc2, rows2, cols2, W2, H2,
+            (z["W"], z["H"]), ref2["cg"][0], SPARSE_RANK, steps)
+        say("26b ring iALS config 2", ranks="4 gloo", p=MESH_RANKS,
+            solver="cg", rank=SPARSE_RANK, alpha=C3_ALPHA,
+            ring_ms_per_iteration_per_rank=[f"{f['cg']:.1f}" for f in four],
+            scatter_ms_per_iteration=f"{ref2['cg'][1]:.1f}", **fields,
+            card=card, note="four processes time-share one card")
+        del ref2, csc2
+
+        # -- (c) the refusal -------------------------------------------------
+        for engine, row in one["refusals"].items():
+            say("26c masked run refused", plan_engine=row["engine"],
+                refused=row["message"] is not None,
+                message=(row["message"] or "")[:90],
+                launches=row["launches"], allocated_bytes=row["allocated"],
+                ms=f"{row['ms']:.3f}")
+            if row["message"] is None or "mask='observed'" not in \
+                    row["message"]:
+                fail(f"phase 26 (c): the {engine} plan ran a masked config "
+                     f"({row['message']!r})")
+            if row["launches"] or row["allocated"] or row["engine"] != engine:
+                fail(f"phase 26 (c): the {engine} plan launched work before "
+                     f"refusing: {row}")
+        say("26 launches", one_nccl_rank_s=f"{one_s:.1f}",
+            four_gloo_ranks_s=f"{four_s:.1f}", backend=one["backend"])
+    finally:
+        os.environ.pop("NMFTPU_WEIGHTED_GRAM_BUDGET_BYTES", None)
+        shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.empty_cache()
+    say("26", seconds=f"{time.perf_counter() - t_phase:.1f}")
+
+
 def main() -> None:
     if not (HERE / "nmftpu_torch").is_dir():
         fail(f"no nmftpu_torch package beside {__file__}")
@@ -6718,6 +7050,11 @@ def main() -> None:
     # MiniBatchNMF and the surfaces on a mesh ----------------------------
     torch.cuda.empty_cache()
     s15 = mesh_phase(nt, card, dev, ratings, c3, ck_dir, max_abs)
+
+    # -- 26. slice 16: graft_entry on the card, ring iALS with each solver,
+    # the ring and ELL plans' refusal of a masked run ---------------------
+    torch.cuda.empty_cache()
+    slice16_phase(nt, card, dev, ratings, c3)
     del ratings, c3
 
     if "jax" in sys.modules:

@@ -88,6 +88,8 @@ _LAZY = {
     "BatchedNmfResult": ("nmftpu_torch.batched", "BatchedNmfResult"),
     "SparsePlan": ("nmftpu_torch.sparse_ops", "SparsePlan"),
     "compute_sharded": ("nmftpu_torch.parallel", "compute_sharded"),
+    "prepare_sharded": ("nmftpu_torch.parallel", "prepare_sharded"),
+    "ShardedPlan": ("nmftpu_torch.parallel", "ShardedPlan"),
     "make_grid_mesh": ("nmftpu_torch.parallel", "make_grid_mesh"),
 }
 
@@ -120,6 +122,7 @@ __all__ = [
     "OnlineNMF",
     "Recommender",
     "RunStats",
+    "ShardedPlan",
     "SparsePlan",
     "ThresholdType",
     "TransformResult",
@@ -131,6 +134,7 @@ __all__ = [
     "minibatch_fit",
     "nmf",
     "non_negative_factorization",
+    "prepare_sharded",
     "prepare_sparse",
     "prepare_table",
     "rank_selection",

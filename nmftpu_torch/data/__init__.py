@@ -6,11 +6,15 @@ from nmftpu_torch.data.movielens import (
     load_movielens,
     train_test_split_by_user,
 )
-from nmftpu_torch.data.synthetic import synthetic_powerlaw_sparse
+from nmftpu_torch.data.synthetic import (
+    synthetic_lowrank_dense,
+    synthetic_powerlaw_sparse,
+)
 
 __all__ = [
     "Interactions",
     "load_movielens",
     "train_test_split_by_user",
+    "synthetic_lowrank_dense",
     "synthetic_powerlaw_sparse",
 ]

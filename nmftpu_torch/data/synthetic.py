@@ -1,12 +1,28 @@
-"""Synthetic sparse interaction matrices, numpy only (the port's copy of
-``nmftpu/data/synthetic.py``'s power-law generator, which BASELINE
-config 3 is built with; the same seed gives the same arrays)."""
+"""Synthetic matrices, numpy only (the port's copy of
+``nmftpu/data/synthetic.py``: the dense low-rank generator and the
+power-law generator that BASELINE config 3 is built with; the same seed
+gives the same arrays)."""
 
 from __future__ import annotations
 
 import numpy as np
 
 from nmftpu_torch.sparse import SparseCOO
+
+
+def synthetic_lowrank_dense(
+    n, m, rank, noise=0.01, seed=0, dtype=np.float32
+):
+    """Nonnegative dense n x m V with an exact nonnegative rank-`rank`
+    structure W H (W, H uniform in [0.1, 1)), plus `noise` times uniform
+    [0, 1) entries."""
+    rng = np.random.default_rng(seed)
+    W = rng.uniform(0.1, 1.0, size=(n, rank)).astype(dtype)
+    H = rng.uniform(0.1, 1.0, size=(rank, m)).astype(dtype)
+    V = W @ H
+    if noise > 0:
+        V = V + noise * rng.uniform(0.0, 1.0, size=(n, m)).astype(dtype)
+    return V.astype(dtype)
 
 
 def synthetic_powerlaw_sparse(

@@ -40,9 +40,11 @@ def _random_uniform(gen, shape, scale, dtype, device):
 
 
 def initialize_factors(V, rank: int, method: Initialization, gen,
-                       W0=None, H0=None, kmeans_max_iter: int = 25):
+                       W0=None, H0=None, kmeans_max_iter: int = 25,
+                       mean_v=None):
     """Produce initial (W, H) on V's device in V's dtype; `gen` is the
-    run's torch.Generator (on V's device)."""
+    run's torch.Generator (on V's device). mean_v: V's mean, if the
+    caller has it (the random init's scale); by default taken from V."""
     n, m = V.shape
     dtype, device = V.dtype, V.device
 
@@ -56,7 +58,9 @@ def initialize_factors(V, rank: int, method: Initialization, gen,
             torch.as_tensor(H0, dtype=dtype, device=device).clone(),
         )
 
-    scale = torch.sqrt(torch.clamp(torch.mean(V), min=1e-12) / rank).to(dtype)
+    mean_v = (torch.mean(V) if mean_v is None
+              else torch.as_tensor(mean_v, dtype=dtype, device=device))
+    scale = torch.sqrt(torch.clamp(mean_v, min=1e-12) / rank).to(dtype)
 
     if method is Initialization.ALL_RANDOM_VALUES:
         W = _random_uniform(gen, (n, rank), scale, dtype, device)

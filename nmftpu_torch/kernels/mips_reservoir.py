@@ -38,6 +38,9 @@ from nmftpu_torch._operands import _scan_operands, _tensor
 from nmftpu_torch.kernels import _build
 from nmftpu_torch.kernels.dense_mu import _on_cpu
 
+# the score of an empty slot and of an item past m_items
+NEG = float("-inf")
+
 LAUNCHES = {"reservoir_scan": 0}
 VARIANT_LAUNCHES = {"tc": 0, "tc_unaligned": 0, "f32": 0, "merge": 0}
 
@@ -95,7 +98,7 @@ def reservoir_scan_plain(Wq, H, m_items, slots, tiles=None):
     j0, j1 = (0, -(-m_items // slots)) if tiles is None else tiles
     dev = H.device
     q = Wq.to(torch.bfloat16).float()
-    s1 = torch.full((b, slots), float("-inf"), device=dev)
+    s1 = torch.full((b, slots), NEG, device=dev)
     s2 = s1.clone()
     i1 = torch.zeros((b, slots), dtype=torch.int32, device=dev)
     i2 = i1.clone()
@@ -104,8 +107,8 @@ def reservoir_scan_plain(Wq, H, m_items, slots, tiles=None):
         hi = min(lo + slots, m_items)
         s = q @ H[:, lo:hi].float()
         if hi - lo < slots:        # items >= m_items score -inf
-            s = torch.cat([s, s.new_full((b, slots - (hi - lo)),
-                                         float("-inf"))], dim=1)
+            s = torch.cat([s, s.new_full((b, slots - (hi - lo)), NEG)],
+                          dim=1)
         gid = slot + lo
         beats1 = s > s1
         i2 = torch.where(beats1, i1, torch.where(s > s2, gid, i2))

@@ -86,6 +86,11 @@ class NmfResult:
     stats: RunStats
     # Host wall-clock over all runs (initialization included).
     elapsed_ms: float
+    # Sharded runs kept on the mesh (`ShardedPlan.run(unpermute=False)`):
+    # the factors are this rank's permuted, padded blocks, and these map
+    # each ORIGINAL index to its PERMUTED one; None everywhere else.
+    row_perm: object = None
+    col_perm: object = None
 
 
 def _verbose_callback(run_idx, iteration, error, delta):

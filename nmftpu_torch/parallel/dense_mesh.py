@@ -132,11 +132,6 @@ def _valid(tile: DenseTile, W, H):
     return tile.V[:vr, :vc], W[:vr], H[:, :vc]
 
 
-def _valid(tile: DenseTile, W, H):
-    vr, vc = tile.valid
-    return tile.V[:vr, :vc], W[:vr], H[:, :vc]
-
-
 def dense_mesh_ops(config: NmfConfig, mesh) -> LoopOps:
     """The loop's operations on a DenseTile: the registry's route with
     `MeshSums`, the errors summed over the tiles' real entries."""

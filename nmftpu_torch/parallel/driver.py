@@ -288,6 +288,9 @@ class ShardedPlan:
         PERMUTED index), for callers that keep the factors sharded."""
         if config is None:
             config = self.config
+        # the prepare-time checks again: a ring or ELL plan computes the
+        # unmasked formula, so a masked run would report a wrong error
+        _check_sharded(config, self.engine)
         n, m = self.shape
         if config.rank > min(n, m):
             raise ValueError(

@@ -16,6 +16,7 @@ raises with the failing rank's traceback.
 
 from __future__ import annotations
 
+import datetime
 import os
 import pickle
 import tempfile
@@ -42,6 +43,7 @@ def _set_device(local_rank: int) -> None:
 def initialize_distributed(coordinator_address: str | None = None,
                            num_processes: int | None = None,
                            process_id: int | None = None,
+                           initialization_timeout: int | None = None,
                            backend: str | None = None) -> None:
     """Join this process to the world (idempotent).
 
@@ -49,7 +51,9 @@ def initialize_distributed(coordinator_address: str | None = None,
     LOCAL_RANK, LOCAL_WORLD_SIZE, MASTER_ADDR, MASTER_PORT).
     coordinator_address "host:port" is rank 0's store address. The
     default backend is NCCL when CUDA is present with one card per local
-    rank (this rank on cuda:LOCAL_RANK), gloo otherwise."""
+    rank (this rank on cuda:LOCAL_RANK), gloo otherwise.
+    initialization_timeout: seconds that the group's bring-up and its
+    collectives may wait (torch's default if None)."""
     if dist.is_initialized():
         return
     env = os.environ
@@ -63,8 +67,10 @@ def initialize_distributed(coordinator_address: str | None = None,
     _set_device(local_rank)
     init = ("env://" if coordinator_address is None
             else f"tcp://{coordinator_address}")
+    timeout = (None if initialization_timeout is None
+               else datetime.timedelta(seconds=initialization_timeout))
     dist.init_process_group(backend, init_method=init, rank=rank,
-                            world_size=world)
+                            world_size=world, timeout=timeout)
 
 
 def is_multiprocess() -> bool:

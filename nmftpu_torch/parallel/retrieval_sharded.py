@@ -18,7 +18,13 @@ from __future__ import annotations
 import torch
 
 from nmftpu_torch._operands import _tensor
-from nmftpu_torch.parallel.mesh import AXIS_ITEMS, all_gather, psum
+# AXIS_USERS is re-exported, as nmftpu's module does
+from nmftpu_torch.parallel.mesh import (  # noqa: F401
+    AXIS_ITEMS,
+    AXIS_USERS,
+    all_gather,
+    psum,
+)
 from nmftpu_torch.retrieval.mips import (
     NEG_INF,
     _count_above,

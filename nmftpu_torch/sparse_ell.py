@@ -180,12 +180,14 @@ def _segment_blocks(nseg: int, chunk: int):
     return ((s, min(s + chunk, nseg)) for s in range(0, nseg, chunk))
 
 
-def _rowsums(vals, cols, Ht, chunk: int):
+def _rowsums(vals, cols, Ht, chunk: int, acc=None):
     """Σ_k vals[s, k] · Ht[cols[s, k], :] -> (nseg, r), over blocks of
-    `chunk` segments."""
+    `chunk` segments, accumulated in `acc` (by default `_acc_dtype` of
+    the table's)."""
     nseg, width = vals.shape
     r = Ht.shape[1]
-    acc = _acc_dtype(Ht.dtype)
+    if acc is None:
+        acc = _acc_dtype(Ht.dtype)
     out = torch.empty((nseg, r), dtype=acc, device=Ht.device)
     for s, e in _segment_blocks(nseg, chunk):
         g = Ht.index_select(0, cols[s:e].reshape(-1)).to(acc)
@@ -194,21 +196,32 @@ def _rowsums(vals, cols, Ht, chunk: int):
     return out
 
 
-def _bucket_rowsums(bucket: EllBucket, Ht, chunk: int):
+def _bucket_rowsums(bucket: EllBucket, Ht, chunk: int, acc=None):
     """Per-segment Σ_k v_k · Ht[col_k, :] -> (nseg, r), scatter-free.
     Ht: the (m, r) row-major table."""
-    return _rowsums(bucket.vals, bucket.cols, Ht, chunk)
+    return _rowsums(bucket.vals, bucket.cols, Ht, chunk, acc)
 
 
-def v_ht_ell(ell: EllRows, H, chunk: int = 2048) -> torch.Tensor:
-    """V Hᵀ -> (n, r). Gathers dominate; the only scatter is the
-    per-segment row accumulation (`index_add_`; atomic, so unordered, on
-    CUDA)."""
-    Ht = H.T.contiguous()
-    out = torch.zeros((ell.shape[0], H.shape[0]), dtype=_acc_dtype(H.dtype),
+def v_ht_ell(ell: EllRows, H, chunk: int = 2048,
+             gather_dtype=None) -> torch.Tensor:
+    """V Hᵀ -> (n, r), in H's dtype. Gathers dominate; the only scatter
+    is the per-segment row accumulation (`index_add_`; atomic, so
+    unordered, on CUDA).
+
+    gather_dtype optionally rounds the gathered table Hᵀ to that dtype
+    (bfloat16, say); the sums then run in promote(gather_dtype, float32),
+    and in float64 on a float64 run, which ``nmftpu`` would truncate to
+    float32. This is the plain gather on every device: the ELL kernel
+    (`kernels.sparse_ell_kernel`) is a separate entry and takes no
+    gather_dtype."""
+    gather_dtype = H.dtype if gather_dtype is None else gather_dtype
+    Ht = H.T.to(gather_dtype).contiguous()
+    acc = torch.promote_types(_acc_dtype(gather_dtype), H.dtype)
+    out = torch.zeros((ell.shape[0], H.shape[0]), dtype=acc,
                       device=H.device)
     for bucket in ell.buckets:
-        out.index_add_(0, bucket.out_row, _bucket_rowsums(bucket, Ht, chunk))
+        out.index_add_(0, bucket.out_row,
+                       _bucket_rowsums(bucket, Ht, chunk, acc))
     return out.to(H.dtype)
 
 
@@ -286,6 +299,27 @@ def sddmm_ell(ell: EllRows, W, H, chunk: int = 2048) -> EllRows:
         new_buckets.append(EllBucket(vals=s, cols=bucket.cols,
                                      out_row=bucket.out_row, width=width))
     return EllRows(buckets=tuple(new_buckets), shape=ell.shape, nnz=ell.nnz)
+
+
+def map_values(ell: EllRows, fn) -> EllRows:
+    """fn applied to the stored values of every bucket, the structure
+    shared. Pad lanes hold fn(0): harmless wherever they are used only
+    multiplied by a stored value, which is 0 there."""
+    return EllRows(
+        buckets=tuple(EllBucket(vals=fn(b.vals), cols=b.cols,
+                                out_row=b.out_row, width=b.width)
+                      for b in ell.buckets),
+        shape=ell.shape, nnz=ell.nnz)
+
+
+def combine_values(a: EllRows, b: EllRows, fn) -> EllRows:
+    """fn(a's values, b's values) bucket by bucket, for two EllRows of
+    the same structure (a's is kept)."""
+    return EllRows(
+        buckets=tuple(EllBucket(vals=fn(x.vals, y.vals), cols=x.cols,
+                                out_row=x.out_row, width=x.width)
+                      for x, y in zip(a.buckets, b.buckets)),
+        shape=a.shape, nnz=a.nnz)
 
 
 def mu_update_kl_ell(pair: EllPair, W, H, eps=1e-9, order="WH"):

@@ -13,7 +13,15 @@ order; nmftpu's ring accumulates its error terms in float32, so it takes
 no float64 run); several iterations, errors 1e-4 relative and factors
 1e-3 of max|x|; the data inits against the grid engine's on
 the same ranks (the same draws), float64 1e-10; partitions array for
-array; the threshold stop at the same check."""
+array; the threshold stop at the same check.
+
+iALS with als_solver="cg": nmftpu's ring solves exactly whatever the
+config says, so the port's ring cg is held against the port's own
+compute_sparse(strategy="scatter") cg from the same (W0, H0), per row at
+10 sqrt(r) kappa_row 2^-24 (kappa_row the condition number of the row's
+float64 normal equations), plus kappa_row times W's measured difference
+for the H half of a "WH" iteration (the engines build the same per-row
+Grams in another order)."""
 
 import jax
 import numpy as np
@@ -24,7 +32,10 @@ from nmftpu import sparse as hs
 from nmftpu.parallel import compute_sharded as j_compute_sharded
 from nmftpu.parallel import make_grid_mesh
 from nmftpu.parallel import ring as j_ring
+from nmftpu.sparse_ops import compute_sparse as j_compute_sparse
+from nmftpu_torch import sparse as ts
 from nmftpu_torch.parallel import launch
+from nmftpu_torch.sparse_ops import compute_sparse as t_compute_sparse
 
 import torch_mesh_ranks as M
 
@@ -54,6 +65,11 @@ CASES = {
                  lambda_h=0.1),
 }
 SUBSET = ("mu-frobenius", "mu-kl", "als", "weighted")
+# iALS with the cg row solver: 2 steps, fewer than r = 3, so cg is not
+# the exact solve; one iteration in each order on every ring size
+IALS_CG = dict(CASES["ials"], als_solver="cg", cg_steps=2)
+ORDERS = ("WH", "HW")
+U32 = 2.0 ** -24
 INITS = ("mean_columns", "kmeans_random", "kmeans_nonnegative_wtv",
          "kmeans_absolute_wtv")
 F32 = dict(rank=RANK, num_iterations=6, check_interval=2)
@@ -80,6 +96,8 @@ def _problem():
 def _cases(p):
     names = CASES if p >= 3 else SUBSET
     cases = [(f"f32-{n}", "compute", {**F32, **CASES[n]}) for n in names]
+    cases += [(f"cg-{o}", "compute", {**ONE, **IALS_CG, "update_order": o})
+              for o in ORDERS]
     if p == 3:
         cases += [(f"one-{n}", "compute", {**ONE, **CASES[n]})
                   for n in CASES]
@@ -198,6 +216,87 @@ def test_partition_equals_nmftpu(ranks):
             np.testing.assert_array_equal(v, np.asarray(scoo.values)[my, j])
             np.testing.assert_array_equal(rows, np.asarray(scoo.rows)[my, j])
             np.testing.assert_array_equal(cols, np.asarray(scoo.cols)[my, j])
+
+
+def _row_kappas(dense, P, alpha, lam, eps=1e-9):
+    """The condition number of each row's iALS normal equations in
+    float64 (V (n, m), the partner P (r, m)), with the float32 path's
+    ridge: (n,)."""
+    V, P = dense.astype(np.float64), P.astype(np.float64)
+    A = np.einsum("rm,um,sm->urs", P, 1.0 + alpha * V, P)
+    r = P.shape[0]
+    diag = np.trace(A, axis1=1, axis2=2)[:, None, None] / r
+    A = A + (lam + eps + max(eps, 100 * np.finfo(np.float32).eps) * diag
+             ) * np.eye(r)
+    return np.linalg.cond(A)
+
+
+def _per_row_ratio(got, want, kappas, extra=0.0):
+    """The worst row's max|got - want| / max|.| over its limit
+    10 sqrt(r) kappa_row 2^-24 + kappa_row extra (rows of a half as
+    rows: W, or H transposed)."""
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    top = np.maximum(np.abs(got).max(1), np.abs(want).max(1))
+    rel = np.abs(got - want).max(1) / np.maximum(top, np.finfo(float).tiny)
+    limit = 10 * np.sqrt(got.shape[1]) * kappas * U32 + kappas * extra
+    return float((rel / limit).max())
+
+
+def _t_scatter(knobs, d):
+    return t_compute_sparse(ts.from_dense(d["dense"]), M.config(
+        {"init_method": "copy_existing", **knobs}), W0=d["W0"], H0=d["H0"],
+        strategy="scatter", device="cpu")
+
+
+@pytest.mark.parametrize("p", [1, 2, 3, 4])
+def test_ring_cg_matches_the_ports_scatter_cg(ranks, p):
+    """The port's ring honours als_solver="cg" (nmftpu's grid, scatter
+    and ELL engines do; its ring does not): each half of one iteration
+    against compute_sparse's scatter engine with cg, per row."""
+    d = ranks["data"]["main"]
+    alpha, lam = IALS_CG["alpha_confidence"], IALS_CG["lambda_w"]
+    kap_w = _row_kappas(d["dense"], d["H0"], alpha, lam)
+    kap_h0 = _row_kappas(d["dense"].T, d["W0"].T, alpha, lam)
+    ratios = {}
+    for order in ORDERS:
+        knobs = {**ONE, **IALS_CG, "update_order": order}
+        want = _t_scatter(knobs, d)
+        got = ranks[p][0][f"cg-{order}"]
+        for r in ranks[p][1:]:   # every rank returns the same factors
+            np.testing.assert_array_equal(r[f"cg-{order}"]["W"], got["W"])
+            np.testing.assert_array_equal(r[f"cg-{order}"]["H"], got["H"])
+        if order == "WH":
+            Ws = want.W.numpy()
+            ratios["W of WH"] = _per_row_ratio(got["W"], Ws, kap_w)
+            dW = float(np.abs(got["W"] - Ws).max() / np.abs(Ws).max())
+            kap_h = _row_kappas(d["dense"].T, Ws.T, alpha, lam)
+            ratios["H of WH"] = _per_row_ratio(got["H"].T, want.H.numpy().T,
+                                               kap_h, extra=dW)
+        else:
+            ratios["H of HW"] = _per_row_ratio(got["H"].T, want.H.numpy().T,
+                                               kap_h0)
+        assert got["frobenius_error"] == pytest.approx(
+            want.frobenius_error, rel=1e-5)
+    print(f"p={p} ring cg against scatter cg, worst row / limit: {ratios}")
+    assert max(ratios.values()) <= 1.0, ratios
+    # cg is not the exact solve here: the knob reached the ring
+    exact = _t_scatter({**ONE, **CASES["ials"]}, d)
+    assert _rel(ranks[p][0]["cg-WH"]["W"], exact.W.numpy()) > 1e-3
+
+
+def test_nmftpus_ring_ignores_the_cg_knob(ranks):
+    """The reference's fault: its ring solves exactly under
+    als_solver="cg" (the same factors as "exact"), where its scatter
+    engine honours the knob."""
+    d = ranks["data"]["main"]
+    knobs = {**ONE, **IALS_CG}
+    cg = _j_ring(knobs, d, 2)
+    exact = _j_ring({**ONE, **CASES["ials"]}, d, 2)
+    np.testing.assert_array_equal(np.asarray(cg.W), np.asarray(exact.W))
+    np.testing.assert_array_equal(np.asarray(cg.H), np.asarray(exact.H))
+    scatter_cg = j_compute_sparse(hs.from_dense(d["dense"]), _j_config(knobs),
+                                  W0=d["W0"], H0=d["H0"], strategy="scatter")
+    assert _rel(cg.W, scatter_cg.W) > 1e-3
 
 
 def test_ppermute_rotates_and_stages_nothing_on_the_cpu():
