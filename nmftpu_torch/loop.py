@@ -29,6 +29,7 @@ import numpy as np
 import torch
 
 from nmftpu_torch.config import NmfConfig, Objective, ThresholdType
+from nmftpu_torch.utils.metrics import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -179,42 +180,46 @@ def build_runner(config: NmfConfig, ops: LoopOps, callback,
         _loop_settings(config, ops, callback)
 
     def run(V, W, H, run_idx):
-        aux = ops.make_aux(V)
-        sum_v_sq = ops.sum_v_sq(V)
-        numel = ops.numel(V)
-        err = error_metric(V, aux, W, H, sum_v_sq, numel)
-        stats = torch.zeros((max_checks, 3), dtype=torch.float32,
-                            device=W.device)
+        with span("nmftpu.loop.setup"):
+            aux = ops.make_aux(V)
+            sum_v_sq = ops.sum_v_sq(V)
+            numel = ops.numel(V)
+            err = error_metric(V, aux, W, H, sum_v_sq, numel)
+            stats = torch.zeros((max_checks, 3), dtype=torch.float32,
+                                device=W.device)
         it, nc = 0, 0
         delta = float("inf")
         stop = False
         while it < num_iterations and delta > threshold and not stop:
-            W, H = ops.update(V, aux, W, H)
+            with span("nmftpu.loop.update"):
+                W, H = ops.update(V, aux, W, H)
             it += 1
             if it % check_interval and it != num_iterations:
                 continue
-            cur = error_metric(V, aux, W, H, sum_v_sq, numel)
-            d = torch.abs(err - cur)
-            stats[nc, 0] = float(it)
-            stats[nc, 1] = cur
-            stats[nc, 2] = d
-            nc += 1
-            err = cur
-            # the one host sync of this check
-            cur_host, delta = torch.stack((cur, d)).tolist()
-            if callback is not None:
-                callback(run_idx, it, cur_host, delta)
-            if interrupt is not None:
-                stop = bool(interrupt())
+            with span("nmftpu.loop.check"):
+                cur = error_metric(V, aux, W, H, sum_v_sq, numel)
+                d = torch.abs(err - cur)
+                stats[nc, 0] = float(it)
+                stats[nc, 1] = cur
+                stats[nc, 2] = d
+                nc += 1
+                err = cur
+                # the one host sync of this check
+                cur_host, delta = torch.stack((cur, d)).tolist()
+                if callback is not None:
+                    callback(run_idx, it, cur_host, delta)
+                if interrupt is not None:
+                    stop = bool(interrupt())
         converged = delta <= threshold and not stop
 
-        He = ops.effective_h(aux, H)
-        fro = ops.frobenius(V, aux, W, He, sum_v_sq).to(torch.float32)
-        if kl_objective:
-            kl = ops.kl(V, aux, W, He).to(torch.float32)
-            compare = kl
-        else:
-            kl, compare = None, err
+        with span("nmftpu.loop.finish"):
+            He = ops.effective_h(aux, H)
+            fro = ops.frobenius(V, aux, W, He, sum_v_sq).to(torch.float32)
+            if kl_objective:
+                kl = ops.kl(V, aux, W, He).to(torch.float32)
+                compare = kl
+            else:
+                kl, compare = None, err
         return W, H, err, fro, kl, compare, it, converged, stats, nc
 
     return run
@@ -367,39 +372,49 @@ def execute(
     error under Frobenius, the final divergence otherwise. With
     ``vectorize_runs=True`` (and more than one run) `runner` is
     `build_batched_runner`'s and the restarts run in lockstep."""
-    if config.vectorize_runs and config.num_runs > 1:
-        return _execute_vectorized(V, config, runner, init_fn, numel)
+    with span("nmftpu.fit"):
+        if config.vectorize_runs and config.num_runs > 1:
+            return _execute_vectorized(V, config, runner, init_fn, numel)
+        return _execute_sequential(V, config, runner, init_fn, numel)
+
+
+def _execute_sequential(V, config, runner, init_fn, numel) -> NmfResult:
     best, best_idx = None, None
     run_errors: list[float] = []
     t0 = time.perf_counter()
     for run_idx in range(config.num_runs):
-        out = runner(V, *init_fn(run_idx), run_idx)
-        err = float(out[5])
-        run_errors.append(err)
-        if config.verbosity >= 1:
-            print(
-                f"[nmftpu_torch] run {run_idx}: {out[6]} iterations, "
-                f"final error {err:.6g}"
-                f"{' (converged)' if out[7] else ''}"
-            )
-        if best is None or err < run_errors[best_idx]:
-            best, best_idx = out, run_idx
-        del out  # a losing run's factors go before the next init
+        with span("nmftpu.fit.init"):
+            W0, H0 = init_fn(run_idx)
+        out = runner(V, W0, H0, run_idx)
+        del W0, H0
+        with span("nmftpu.fit.result"):
+            err = float(out[5])
+            run_errors.append(err)
+            if config.verbosity >= 1:
+                print(
+                    f"[nmftpu_torch] run {run_idx}: {out[6]} iterations, "
+                    f"final error {err:.6g}"
+                    f"{' (converged)' if out[7] else ''}"
+                )
+            if best is None or err < run_errors[best_idx]:
+                best, best_idx = out, run_idx
+            del out  # a losing run's factors go before the next init
     elapsed_ms = (time.perf_counter() - t0) * 1e3
 
-    W, H, err, fro, kl, _, it, converged, stats, nc = best
-    fro_f = float(fro)
-    return NmfResult(
-        W=W,
-        H=H,
-        error=float(err),
-        frobenius_error=fro_f,
-        rmsd=fro_f / np.sqrt(numel),
-        kl_error=None if kl is None else float(kl),
-        num_iterations=it,
-        converged=converged,
-        best_run=best_idx,
-        run_errors=run_errors,
-        stats=_run_stats(stats, nc),
-        elapsed_ms=elapsed_ms,
-    )
+    with span("nmftpu.fit.result"):
+        W, H, err, fro, kl, _, it, converged, stats, nc = best
+        fro_f = float(fro)
+        return NmfResult(
+            W=W,
+            H=H,
+            error=float(err),
+            frobenius_error=fro_f,
+            rmsd=fro_f / np.sqrt(numel),
+            kl_error=None if kl is None else float(kl),
+            num_iterations=it,
+            converged=converged,
+            best_run=best_idx,
+            run_errors=run_errors,
+            stats=_run_stats(stats, nc),
+            elapsed_ms=elapsed_ms,
+        )

@@ -40,6 +40,7 @@ import numpy as np
 import torch
 
 from nmftpu_torch._operands import _scan_operands, _tensor
+from nmftpu_torch.utils.metrics import span
 
 NEG_INF = float("-inf")
 
@@ -185,15 +186,19 @@ def topk_mips_certified(Wq, H, k, block=1048576, candidate_k=None,
     up to ties at the kth score. seen: optional (b, S) padded ids,
     excluded exactly (oversampled candidates; their scores are discounted
     from the count). Returns (scores, indices, certified (b,) bool)."""
-    if seen is not None:
-        seen = _tensor(seen, H.device)
-        s, i = topk_mips_excluded(Wq, H, k, seen, block=block,
-                                  method="approx", candidate_k=candidate_k,
-                                  h_scale=h_scale)
-    else:
-        s, i = topk_mips_blocked(Wq, H, k, block=block, method="approx",
-                                 candidate_k=candidate_k, h_scale=h_scale)
-    return s, i, _certify(Wq, H, s, block, h_scale, seen, k)
+    with span("nmftpu.serve.scan"):
+        if seen is not None:
+            seen = _tensor(seen, H.device)
+            s, i = topk_mips_excluded(Wq, H, k, seen, block=block,
+                                      method="approx",
+                                      candidate_k=candidate_k,
+                                      h_scale=h_scale)
+        else:
+            s, i = topk_mips_blocked(Wq, H, k, block=block, method="approx",
+                                     candidate_k=candidate_k,
+                                     h_scale=h_scale)
+    with span("nmftpu.serve.certify"):
+        return s, i, _certify(Wq, H, s, block, h_scale, seen, k)
 
 
 def certify_topk(Wq, H, top_s, k, block=1048576, h_scale=None, seen=None,

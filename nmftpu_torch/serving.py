@@ -54,6 +54,7 @@ from nmftpu_torch.retrieval.mips import (
     topk_mips_excluded,
 )
 from nmftpu_torch.sparse import SparseCSR, SparseMatrix
+from nmftpu_torch.utils.metrics import span
 
 # single-device scans take megablocks, clamped to the catalog
 _SERVE_BLOCK = 1 << 20
@@ -65,6 +66,13 @@ _QUANT_CHUNK = 1 << 20
 
 TABLE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
                 "int8": torch.int8}
+
+# counts of `Recommender.recommend_certified`, kept on the host from
+# numbers it already holds there: calls, rows asked for, rows the first
+# pass left uncertified, rows sent to the 4x-slot escalation pass, rows
+# answered by the exact re-scan
+COUNTS = {"certified_requests": 0, "rows": 0, "uncertified_rows": 0,
+          "escalated_rows": 0, "exact_rows": 0}
 
 
 def _resolve_device(device) -> torch.device:
@@ -374,25 +382,35 @@ class Recommender:
             raise ValueError(
                 f"fallback must be None or 'exact', got {fallback!r}"
             )
-        user_ids = np.atleast_1d(np.asarray(user_ids))
-        Wq = self._queries(user_ids)
-        seen_os, seen_full, lists = self._certified_exclusion(
-            user_ids, k, exclude_seen)
-        s, i, cert = self._certified_scan(Wq, k, candidate_k, seen_os,
-                                          seen_full, lists)
-        s, i, cert = (t.cpu().numpy() for t in (s, i, cert))
-        if fallback == "exact" and not cert.all():
+        with span("nmftpu.serve.request"):
+            user_ids = np.atleast_1d(np.asarray(user_ids))
+            Wq = self._queries(user_ids)
+            with span("nmftpu.serve.exclusion"):
+                seen_os, seen_full, lists = self._certified_exclusion(
+                    user_ids, k, exclude_seen)
+            s, i, cert = self._certified_scan(Wq, k, candidate_k, seen_os,
+                                              seen_full, lists)
+            with span("nmftpu.serve.fetch"):
+                s, i, cert = (t.cpu().numpy() for t in (s, i, cert))
             rows = np.flatnonzero(~cert)
-            s, i = s.copy(), i.copy()
-            # rows tied at the kth score never certify at any slot count,
-            # so a small subset goes straight to the exact scan
-            if len(rows) > 16:
-                rows = self._escalate_rows(s, i, rows, user_ids, k,
-                                           exclude_seen)
-            if len(rows):
-                s2, i2 = self._exact_rows(user_ids[rows], k, exclude_seen)
-                s[rows], i[rows] = s2, i2
-        return s, i, cert
+            COUNTS["certified_requests"] += 1
+            COUNTS["rows"] += len(cert)
+            COUNTS["uncertified_rows"] += len(rows)
+            if fallback == "exact" and len(rows):
+                with span("nmftpu.serve.fallback"):
+                    s, i = s.copy(), i.copy()
+                    # rows tied at the kth score never certify at any slot
+                    # count, so a small subset goes straight to the exact
+                    # scan
+                    if len(rows) > 16:
+                        rows = self._escalate_rows(s, i, rows, user_ids, k,
+                                                   exclude_seen)
+                    if len(rows):
+                        COUNTS["exact_rows"] += len(rows)
+                        s2, i2 = self._exact_rows(user_ids[rows], k,
+                                                  exclude_seen)
+                        s[rows], i[rows] = s2, i2
+            return s, i, cert
 
     def _escalate_rows(self, s, i, rows, user_ids, k, exclude_seen):
         """One certified pass at 4x reservoir_slots over a row subset:
@@ -416,6 +434,7 @@ class Recommender:
                                                 2 * esc):
                     return rows  # truly wide: the exact scan handles it
                 seen_os = _tensor(seen_full, self.device)
+        COUNTS["escalated_rows"] += len(rows)
         try:
             s0, i0 = reservoir_topk_mips(
                 Wq, self.H, k, slots=esc, seen=seen_os,
@@ -469,14 +488,16 @@ class Recommender:
         if lists is not None:
             # wide-seen degrade: candidates from the scatter-list scan;
             # the certify discount gathers the full (b, S) seen columns
-            s, i = topk_mips_blocked(
-                Wq, self.H, k, block=self.block, exclude_lists=lists,
-                method="approx", candidate_k=candidate_k,
-                h_scale=self._h_scale,
-            )
-            cert = certify_topk(Wq, self.H, s, k, block=self.block,
-                                h_scale=self._h_scale, seen=seen_full,
-                                h_max=self._h_max)
+            with span("nmftpu.serve.scan"):
+                s, i = topk_mips_blocked(
+                    Wq, self.H, k, block=self.block, exclude_lists=lists,
+                    method="approx", candidate_k=candidate_k,
+                    h_scale=self._h_scale,
+                )
+            with span("nmftpu.serve.certify"):
+                cert = certify_topk(Wq, self.H, s, k, block=self.block,
+                                    h_scale=self._h_scale, seen=seen_full,
+                                    h_max=self._h_max)
             return s, i, cert
         if self.method == "reservoir":
             # candidates from the reservoir scan, re-scored at the
@@ -488,17 +509,20 @@ class Recommender:
                     "scan — tune reservoir_slots instead",
                     UserWarning, stacklevel=3,
                 )
-            s0, i = reservoir_topk_mips(
-                Wq, self.H, k, slots=self.reservoir_slots, seen=seen_os,
-                h_scale=self._h_scale, m_items=self._m_items,
-            )
-            s, i = rescore_and_sort(
-                Wq, self.H, i, h_scale=self._h_scale,
-                invalid=s0 == float("-inf"), seen=seen_os,
-            )
-            cert = certify_topk(Wq, self.H, s, k, block=self.block,
-                                h_scale=self._h_scale, seen=seen_os,
-                                h_max=self._h_max)
+            with span("nmftpu.serve.scan"):
+                s0, i = reservoir_topk_mips(
+                    Wq, self.H, k, slots=self.reservoir_slots, seen=seen_os,
+                    h_scale=self._h_scale, m_items=self._m_items,
+                )
+            with span("nmftpu.serve.rescore"):
+                s, i = rescore_and_sort(
+                    Wq, self.H, i, h_scale=self._h_scale,
+                    invalid=s0 == float("-inf"), seen=seen_os,
+                )
+            with span("nmftpu.serve.certify"):
+                cert = certify_topk(Wq, self.H, s, k, block=self.block,
+                                    h_scale=self._h_scale, seen=seen_os,
+                                    h_max=self._h_max)
             return s, i, cert
         return topk_mips_certified(
             Wq, self.H, k, block=self.block, candidate_k=candidate_k,
@@ -517,16 +541,19 @@ class Recommender:
             rescore_and_sort_sharded,
         )
 
-        s, i = self._topk(Wq, k, lists, candidate_k, seen=seen_os)
+        with span("nmftpu.serve.scan"):
+            s, i = self._topk(Wq, k, lists, candidate_k, seen=seen_os)
         if self.method == "reservoir" and lists is None:
-            s, i = rescore_and_sort_sharded(
-                Wq, self.H, i, self.mesh, h_scale=self._h_scale,
-                invalid=s == float("-inf"), seen=seen_os)
-        cert = certify_topk_sharded(
-            Wq, self.H, s, k, self.mesh, block=self.block,
-            h_scale=self._h_scale,
-            seen=seen_os if seen_os is not None else seen_full,
-            h_max=self._h_max)
+            with span("nmftpu.serve.rescore"):
+                s, i = rescore_and_sort_sharded(
+                    Wq, self.H, i, self.mesh, h_scale=self._h_scale,
+                    invalid=s == float("-inf"), seen=seen_os)
+        with span("nmftpu.serve.certify"):
+            cert = certify_topk_sharded(
+                Wq, self.H, s, k, self.mesh, block=self.block,
+                h_scale=self._h_scale,
+                seen=seen_os if seen_os is not None else seen_full,
+                h_max=self._h_max)
         return s, i, cert
 
     def _exact_rows(self, user_ids, k: int, exclude_seen: bool):

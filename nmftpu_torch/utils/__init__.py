@@ -2,8 +2,11 @@
 
 from nmftpu_torch.utils.metrics import (
     JsonlLogger,
+    counters,
     flops_per_iteration,
+    span,
     trace_session,
 )
 
-__all__ = ["JsonlLogger", "flops_per_iteration", "trace_session"]
+__all__ = ["JsonlLogger", "counters", "flops_per_iteration", "span",
+           "trace_session"]

@@ -5,6 +5,32 @@ hands its callback can be persisted as JSONL (`JsonlLogger`);
 `trace_session` wraps `torch.profiler` and writes a Chrome trace of the
 region (CPU and, on the card, CUDA activity) into a directory;
 `flops_per_iteration` is the FLOP model of one update iteration.
+
+`span(name)` marks a stage of the program in that trace: a
+`record_function` range while a torch profiler runs, so the stage lands
+on the same clock as the kernels, copies and runtime calls it launches,
+and nothing but a flag check otherwise. The names are fixed,
+``nmftpu.<layer>.<stage>``; each stage span nests in its layer's outer
+span (``nmftpu.fit``, ``nmftpu.serve.request``) on the calling thread:
+
+  nmftpu.fit             loop.execute: every restart, init and result
+    nmftpu.fit.init      a run's starting factors
+    nmftpu.loop.setup    the loop's constants and its first error
+    nmftpu.loop.update   one iteration's update
+    nmftpu.loop.check    the error check: metric, stats, its host sync,
+                         callback, interrupt
+    nmftpu.loop.finish   the final Frobenius and KL errors
+    nmftpu.fit.result    the best run's choice, stats copy, NmfResult
+  nmftpu.serve.request   Recommender.recommend_certified
+    nmftpu.serve.exclusion  seen arrays built on the host, copied over
+    nmftpu.serve.scan       the candidate scan
+    nmftpu.serve.rescore    the candidates re-scored and sorted
+    nmftpu.serve.certify    the certificate's count and seen discount
+    nmftpu.serve.fetch      scores, ids and flags copied to the host
+    nmftpu.serve.fallback   escalation and exact re-scan of the rows
+                            that did not certify
+
+`counters()` snapshots the port's integer counters.
 """
 
 from __future__ import annotations
@@ -15,7 +41,48 @@ import os
 import time
 from typing import IO
 
+import torch
+from torch.autograd import profiler as _autograd_profiler
+
 from nmftpu_torch.config import Algorithm, NmfConfig
+
+# what `span` returns while no profiler runs: one shared context that
+# does nothing (no RecordFunction is made)
+_NO_SPAN = contextlib.nullcontext()
+
+
+def span(name: str):
+    """A context marking the stage `name` of the program: a
+    `torch.profiler.record_function` range while a torch profiler runs
+    (`torch.profiler.profile`, `trace_session`), else a shared no-op."""
+    if _autograd_profiler._is_profiler_enabled:
+        return torch.profiler.record_function(name)
+    return _NO_SPAN
+
+
+def counters() -> dict[str, int]:
+    """A flat snapshot of the port's integer counters, read on the host
+    (nothing waits for the device): each kernel entry's launches as
+    ``launches.<entry>`` and serving's certified-path counts as
+    ``serve.<count>`` (`serving.COUNTS`). Differences of two snapshots
+    count what ran between them."""
+    from nmftpu_torch import serving
+    from nmftpu_torch.kernels import (
+        count_above,
+        dense_mu,
+        dual_numer,
+        hals_sweep,
+        mips_reservoir,
+        quantized,
+        sparse_ell_kernel,
+    )
+
+    out = {}
+    for mod in (dense_mu, quantized, dual_numer, hals_sweep,
+                sparse_ell_kernel, mips_reservoir, count_above):
+        out.update((f"launches.{k}", int(v)) for k, v in mod.LAUNCHES.items())
+    out.update((f"serve.{k}", int(v)) for k, v in serving.COUNTS.items())
+    return out
 
 
 class JsonlLogger:
@@ -78,14 +145,15 @@ class JsonlLogger:
 def trace_session(logdir: str):
     """Profile a region with `torch.profiler` (CPU activity, and CUDA
     activity where a card is present) and write its Chrome trace
-    (chrome://tracing, Perfetto) to `logdir`/trace.json."""
+    (chrome://tracing, Perfetto) to `logdir`/trace.json. The card is
+    synchronized before the profiler starts, so work queued before the
+    region stays out of its trace, and again before it stops."""
     from torch.profiler import ProfilerActivity, profile
-
-    import torch
 
     activities = [ProfilerActivity.CPU]
     if torch.cuda.is_available():
         activities.append(ProfilerActivity.CUDA)
+        torch.cuda.synchronize()
     os.makedirs(logdir, exist_ok=True)
     prof = profile(activities=activities)
     prof.start()
