@@ -264,6 +264,10 @@ RECALL_FLOOR = 0.999        # expected miss C(k,3)/R^2 = 0.0096 items/row
 # most 512 nonnegative products in two orders, ~sqrt(512) * 2^-24 =
 # 1.3e-6 relative apart; 1e-5 leaves 7x.
 ELL_RTOL = 1e-5
+# #11 against its twin: the same sums, each coefficient's sample a float32
+# dot of r terms in another order (~sqrt(r) * 2^-24: 4.8e-7 at r = 64,
+# 9.5e-7 at 256) on top: 2.3e-6 at most, 1e-5 leaves 4x
+ELL_KL_RTOL = 1e-5
 # BASELINE config 2: ML-20M's shape and rating count, rank 64
 SPARSE_RANK = 64
 SPARSE_ITERS, SPARSE_CHECK = 10, 2
@@ -581,7 +585,8 @@ TF32_PEAK = 495e12
 HBM_BYTES_PER_S = 3.35e12
 
 # where each kernel's TPU original is (file:line of the wrapper that
-# reaches pl.pallas_call), and its source here
+# reaches pl.pallas_call; "none" and what it replaces where there is no
+# TPU kernel), and its source here
 REPLACES = {
     "w_update_fused": "nmftpu/kernels/dense_mu.py:277",
     "h_update_fused": "nmftpu/kernels/dense_mu.py:188",
@@ -590,6 +595,7 @@ REPLACES = {
     "reservoir_scan": "nmftpu/kernels/mips_reservoir.py:135",
     "count_above": "nmftpu/kernels/count_above.py:95",
     "ell_rowsums": "nmftpu/kernels/sparse_ell_kernel.py:98",
+    "ell_kl": "none (XLA gathers, nmftpu/sparse_ell.py:678)",
     "fused_multiply_divide": "nmftpu/kernels/dense_mu.py:341",
     "dual_numerators_int8": "nmftpu/kernels/dual_numer.py:128",
     "hals_sweep": "nmftpu/kernels/hals_sweep.py:121",
@@ -606,6 +612,7 @@ SOURCES = {
     "reservoir_scan": "nmftpu_torch/csrc/mips_reservoir.cu",
     "count_above": "nmftpu_torch/csrc/count_above.cu",
     "ell_rowsums": "nmftpu_torch/csrc/ell_rowsums.cu",
+    "ell_kl": "nmftpu_torch/csrc/ell_rowsums.cu",
     "fused_multiply_divide": "nmftpu_torch/csrc/muldiv.cu",
     "dual_numerators_int8": "nmftpu_torch/csrc/dual_numer.cu",
     "hals_sweep": "nmftpu_torch/csrc/hals_sweep.cu",
@@ -1149,11 +1156,32 @@ def check_ell_products(SEK, SE, label, pair, W, H) -> float:
     return worst
 
 
+def check_ell_kl(SEK, label, ell, own, table) -> float:
+    """Kernel #11 (one launch, every bucket) against its twin on one ELL
+    direction: relative error within ELL_KL_RTOL (1e-12 in float64).
+    Returns max |difference|."""
+    from nmftpu_torch import sparse_ell as SE
+
+    before = SEK.LAUNCHES["ell_kl"]
+    got = SEK.ell_kl(ell, own, table)
+    launched = SEK.LAUNCHES["ell_kl"] - before
+    want = SE.kl_numerator_ell(ell, own, table)
+    torch.cuda.synchronize()
+    a, rel = rel_err(got, want)
+    rtol = ELL_KL_RTOL if table.dtype == torch.float32 else 1e-12
+    say("10 ell_kl", case=label, dtype=str(table.dtype), launches=launched,
+        max_abs=f"{a:.3e}", max_rel=f"{rel:.3e}", rtol=rtol)
+    if not (rel <= rtol and launched == 1):
+        fail(f"ell_kl {label}: kernel disagrees with its twin or took "
+             f"{launched} launches")
+    return a
+
+
 def sparse_phases(nt, ratings, card, dev) -> dict:
     """Phases 10-12 on the host CSR `ratings` (config 2's shape): kernel
     #10 against its twin, the sparse engines end to end through
     prepare_sparse / nmf, and their timing. Returns the ELL kernel's
-    fields of the kernels line."""
+    and #11's fields of the kernels line."""
     from nmftpu_torch import densified as DF
     from nmftpu_torch import sparse_ell as SE
     from nmftpu_torch.config import Initialization, NmfConfig, Objective
@@ -1165,7 +1193,7 @@ def sparse_phases(nt, ratings, card, dev) -> dict:
     gen = torch.Generator(device=dev).manual_seed(SEED + 10)
 
     # -- 10. kernel #10 against its twin -----------------------------------
-    max_abs = 0.0
+    max_abs = kl_abs = 0.0
     small = ragged_csr(1000, 1500, SEED + 10)
     for dtype in (torch.float32, torch.float64):
         pair = SE.build_ell_pair(small, dtype=dtype, device=dev)
@@ -1177,6 +1205,10 @@ def sparse_phases(nt, ratings, card, dev) -> dict:
                 SEK, f"ragged 1000x1500 r=37 {label}", ell.buckets, table))
         max_abs = max(max_abs, check_ell_products(
             SEK, SE, "ragged 1000x1500 r=37", pair, Wt, Ht.T))
+        for label, ell, own, table in (("W half", pair.rows, Wt, Ht),
+                                       ("H half", pair.cols, Ht, Wt)):
+            kl_abs = max(kl_abs, check_ell_kl(
+                SEK, f"ragged 1000x1500 r=37 {label}", ell, own, table))
     cfg = NmfConfig(rank=r, init_method=Initialization.COPY_EXISTING,
                     num_iterations=SPARSE_ITERS, check_interval=SPARSE_CHECK)
     t0 = time.perf_counter()
@@ -1200,6 +1232,10 @@ def sparse_phases(nt, ratings, card, dev) -> dict:
         Wt))
     max_abs = max(max_abs, check_ell_products(
         SEK, SE, f"ML-20M shape r={r}", pair, Wt, Ht.T))
+    for label, ell, own, table in (("W half", pair.rows, Wt, Ht),
+                                   ("H half", pair.cols, Ht, Wt)):
+        kl_abs = max(kl_abs, check_ell_kl(SEK, f"ML-20M shape r={r} {label}",
+                                          ell, own, table))
     del Ht, Wt
 
     # -- 11. config 2 end to end (the third main path) ----------------------
@@ -1234,6 +1270,7 @@ def sparse_phases(nt, ratings, card, dev) -> dict:
         return res
 
     SEK.LAUNCHES["ell_rowsums"] = 0          # the main path starts here
+    SEK.LAUNCHES["ell_kl"] = 0
     res_k = run("nmf ell use_pallas=True frobenius", lambda: nt.nmf(
         ratings, r, strategy="ell", use_pallas=True, **common))
     res_p = run("plan.run ell frobenius", lambda: plan.run(W0=W0, H0=H0))
@@ -1255,6 +1292,7 @@ def sparse_phases(nt, ratings, card, dev) -> dict:
     res_ek = run("plan.run ell kl", lambda: plan.run(cfg_kl, W0=W0, H0=H0),
                  frobenius=False)
     launches = SEK.LAUNCHES["ell_rowsums"]   # the main path ends here
+    kl_launches = SEK.LAUNCHES["ell_kl"]
     dw = float((res_k.W - res_p.W).abs().max() / res_p.W.abs().max())
     dh = float((res_k.H - res_p.H).abs().max() / res_p.H.abs().max())
     dkl = abs(res_ek.kl_error - res_dk.kl_error) / res_dk.kl_error
@@ -1262,6 +1300,8 @@ def sparse_phases(nt, ratings, card, dev) -> dict:
     # rounds W and H to bf16 in each contraction)
     dw_kl = float((res_ek.W - res_dk.W).abs().max() / res_dk.W.abs().max())
     say("11 checks", ell_rowsums_launches_one_per_product=launches,
+        ell_kl_launches=kl_launches,
+        ell_kl_iterations=res_ek.num_iterations,
         kernel_vs_plain_W=
         f"{dw:.3e}", kernel_vs_plain_H=f"{dh:.3e}", rtol=SPARSE_E2E_RTOL,
         kl_start=f"{kl0:.6g}", kl_ell=f"{res_ek.kl_error:.6g}",
@@ -1269,6 +1309,9 @@ def sparse_phases(nt, ratings, card, dev) -> dict:
         kl_rtol=KL_ENGINES_RTOL, kl_engines_W_rel=f"{dw_kl:.3e}")
     if launches < 1:
         fail("the ELL kernel was not launched on the main path")
+    if kl_launches != 2 * res_ek.num_iterations:
+        fail(f"the ELL KL run took {kl_launches} launches of #11 for "
+             f"{res_ek.num_iterations} iterations, not two an iteration")
     if not (dw <= SPARSE_E2E_RTOL and dh <= SPARSE_E2E_RTOL):
         fail(f"ELL kernel run differs from the plain ELL run (W {dw:.3e}, "
              f"H {dh:.3e} > {SPARSE_E2E_RTOL})")
@@ -1311,6 +1354,8 @@ def sparse_phases(nt, ratings, card, dev) -> dict:
         "densified_frobenius": lambda: D.mu_update_frobenius_bf16v(
             Vd, Wp, H0),
         "ell_kl": lambda: SE.mu_update_kl_ell(pair, W0, H0),
+        "ell_kernel_kl": lambda: SE.mu_update_kl_ell(
+            pair, W0, H0, numerator=SEK.ell_kl),
         "densified_kl": lambda: DF.mu_update_kl_densified(Vd, Wp, H0),
     }, iters=3)
     for path, ms in it_ms.items():
@@ -1363,10 +1408,30 @@ def sparse_phases(nt, ratings, card, dev) -> dict:
         fail(f"torch.sparse.mm and the kernel path disagree ({lib_rel:.3e}, "
              f"{lib_rel_wtv:.3e})")
     del Vcsr, VTcsr, out_vht, out_wtv
+    # #11, each half alone (its operands row-major, as the step passes
+    # them) and through its twin
+    Hrows = H0.T.contiguous()
+    kl_ms = abba_ms({
+        "kernel_W": lambda: SEK.ell_kl(pair.rows, W0, Ht0),
+        "plain_W": lambda: SE.kl_numerator_ell(pair.rows, W0, Ht0),
+        "kernel_H": lambda: SEK.ell_kl(pair.cols, Hrows, W0),
+        "plain_H": lambda: SE.kl_numerator_ell(pair.cols, Hrows, W0),
+    }, iters=5)
+    # a half-step samples and sums at every nonzero (4·nnz·r) and reads
+    # each value and column once, both factors and the output once
+    kl_bound_ms, kl_bound_by = bound(4 * nnz * r,
+                                     nnz * (4 + 4) + (2 * n + m) * r * 4,
+                                     F32_PEAK)
+    for path, ms in kl_ms.items():
+        say("12 ell_kl timing", path=path, ms=f"{ms:.4f}",
+            bound_ms=f"{kl_bound_ms:.4f}", bound_by=kl_bound_by, card=card)
     return {"launches": launches, "max_abs_err": max_abs,
             "ms": sp_ms["kernel_path"], "plain_ms": sp_ms["plain_path"],
             "library_ms": sp_ms["torch_sparse_mm"], "bound_ms": bound_ms,
-            "bound_by": bound_by}
+            "bound_by": bound_by,
+            "kl": {"launches": kl_launches, "max_abs_err": kl_abs,
+                   "ms": kl_ms["kernel_W"], "plain_ms": kl_ms["plain_W"],
+                   "bound_ms": kl_bound_ms, "bound_by": kl_bound_by}}
 
 
 def check_hals(HS, label, n, r, gen, dev, zero_col=None) -> float:
@@ -7001,6 +7066,10 @@ def main() -> None:
     k_ms["ell_rowsums"], p_ms["ell_rowsums"] = ell["ms"], ell["plain_ms"]
     bounds["ell_rowsums"] = (ell["bound_ms"], ell["bound_by"])
     library_ms = {"ell_rowsums": ell["library_ms"]}
+    kl = ell["kl"]
+    max_abs["ell_kl"] = kl["max_abs_err"]
+    k_ms["ell_kl"], p_ms["ell_kl"] = kl["ms"], kl["plain_ms"]
+    bounds["ell_kl"] = (kl["bound_ms"], kl["bound_by"])
 
     # -- 13-15. slice 4a: HALS, Jacobi and int8 x int8 MU ---------------------
     new = slice4a_phases(nt, card, dev, V, W0, H0, Vq, scale, plain_ms)
@@ -7066,7 +7135,7 @@ def main() -> None:
         fail(f"kernels timed below their bound (ms, bound_ms): {below}")
 
     launches = {**main_path_launches, **serve_launches,
-                "ell_rowsums": ell["launches"],
+                "ell_rowsums": ell["launches"], "ell_kl": kl["launches"],
                 **{name: f["launches"] for name, f in new.items()}}
     # #6's one-sided entry, #7 and #8 on the cold-user path (phase 18); the
     # one-sided entries on the int8 ALS family, GDCLS and nsNMF (phase 21)

@@ -52,6 +52,7 @@
 // product, which at the L2's rate (several TB/s) is the realistic floor.
 
 #include <cstdint>
+#include <initializer_list>
 #include <cuda_runtime.h>
 
 namespace {
@@ -208,20 +209,231 @@ ell_spmm_kernel(const __grid_constant__ Plan<T> plan,
   }
 }
 
+// #11: the MU-KL half-step's numerator over a whole ELL container, one
+// launch:
+//
+//     out[rows[s], :] += Σ_{k < w} c_k · table[cols[s, k], :],
+//     c_k = vals[s, k] / (<own[rows[s], :], table[cols[s, k], :]> + eps)
+//
+// into a zeroed (n, r) out: W's numerator from the row container (own W,
+// table Hᵀ), (Hᵀ's numerator) from the transposed one (own Hᵀ, table W).
+// It replaces no TPU kernel: nmftpu leaves this step (sparse_ell.py,
+// mu_update_kl_ell) to XLA's gathers and einsums. Fused here, each table
+// row is gathered once and serves both the sample and the sum, and
+// neither the (block, w, r) gathered rows nor the segment sums reach
+// device memory.
+//
+// Work split as in ell_spmm_kernel: half a warp a segment, (col, val)
+// read 16 at a time, a ballot that keeps the lanes with val != 0, up to
+// 4 row gathers in flight a half-warp. The half loads own[rows[s]] into
+// registers once; lane l holds VEC contiguous columns in each of NP
+// 16·VEC-column groups, so a row of up to 16·VEC·NP columns (64 bytes a
+// lane: r <= 256 in float32, 128 in float64) is covered in one pass and
+// the caller takes wider rows elsewhere. Each lane forms its slice's
+// partial dots with the U gathered rows; a 4-step xor reduction inside
+// the half finishes them, transposed (a lane keeps half its partials at
+// each of the first log2(U) steps and trades the rest), so that each lane
+// ends with one whole dot, computes one c = v / (s + eps), the plain
+// twin's formula, and a shuffle hands the U coefficients back. Then acc
+// = fma(c, x, acc) in k order. The half adds acc into out[rows[s]] with
+// vector atomics.
+//
+// Precision contract: as ell_spmm_kernel, in the element type (float or
+// double): the dot in a fixed order (each lane's columns in order, then
+// the reduction tree over the 16 lanes), the sum fma in k order over the
+// lanes with a nonzero value, several segments of a row added by atomics
+// in no fixed order. Skipping a zero lane changes nothing wherever
+// s + eps != 0 (its c is 0). With eps = 0 a pad lane (col 0, val 0) whose
+// sample s is 0 gives 0/0 = NaN in the plain twin, which then spreads
+// over the row; the kernel skips the lane and keeps the row finite.
+//
+// What bounds it on the H100: the same gathers as one ell_spmm product,
+// nnz · r · 4 B = 5.1 GB of L2 traffic a half-step at ML-20M and r = 64
+// (both tables fit the 50 MB L2), for twice the arithmetic (4·nnz·r:
+// the dot and the sum), about two shuffles a nonzero more than #10 at
+// r <= 64 (U = 4: 9 shuffles for 4 rows) and one division a lane for
+// every U nonzeros.
+//
+// #11 keeps fewer rows in flight than #10 and asks for more resident
+// blocks: the sample's reduction and division lengthen each lane's chain,
+// so more warps, not more loads a warp, hide the gathers. On the H100 at
+// ML-20M and r = 64, 4 rows and 4 blocks of 64 registers a thread take
+// 0.77 ms a half-step, 8 rows and 2 blocks of 107 registers 1.30 ms.
+// Rows wider than 16 bytes a lane keep 2 blocks, to spill little.
+constexpr int KL_GATHERS = 4;
+
 template <typename T, int VEC, int NP>
-int launch_t(const Plan<T>& plan, const T* table, T* out, int r,
-             cudaStream_t stream) {
+constexpr int kl_min_blocks() {
+  return VEC * NP * sizeof(T) <= 16 ? 4 : 2;
+}
+
+template <typename T, int VEC, int NP>
+__global__ void __launch_bounds__(THREADS, kl_min_blocks<T, VEC, NP>())
+ell_kl_kernel(const __grid_constant__ Plan<T> plan, const T* __restrict__ own,
+              const T* __restrict__ table, T* __restrict__ out, int r,
+              T eps) {
+  constexpr int U = KL_GATHERS / NP > 0 ? KL_GATHERS / NP : 1;  // rows
+  constexpr int LOG_U = U >= 8 ? 3 : U >= 4 ? 2 : U >= 2 ? 1 : 0;
+  const int lane = threadIdx.x & 31;
+  const int half = lane >> 4;
+  const int hl = lane & (HALF - 1);
+  const long long tasks = (plan.nseg + 1) / 2;
+  const long long nwarps = static_cast<long long>(gridDim.x) * WARPS;
+  for (long long t = static_cast<long long>(blockIdx.x) * WARPS +
+                     threadIdx.x / 32;
+       t < tasks; t += nwarps) {
+    const long long s = 2 * t + half;   // this half's segment
+    Bucket<T> bk = plan.b[0];
+#pragma unroll
+    for (int i = 1; i < MAX_BUCKETS; ++i)
+      if (i < plan.nb && s >= plan.b[i].first) bk = plan.b[i];
+    const bool live = s < plan.nseg;
+    const long long ls = s - bk.first;  // the segment within its bucket
+    const int w = live ? bk.w : 0;
+    const T* sv = bk.vals + ls * bk.w;
+    const int* sc = bk.cols + ls * bk.w;
+    const long long row = live ? bk.rows[ls] : 0;
+    // both halves run every loop below the same number of times, so each
+    // shuffle and ballot has all 32 lanes
+    const int wmax = max(w, __shfl_xor_sync(FULL, w, HALF));
+    T o[NP][VEC], acc[NP][VEC];
+#pragma unroll
+    for (int p = 0; p < NP; ++p) {
+      const int c = (HALF * p + hl) * VEC;
+      if (live && c < r) {
+        load_vec<T, VEC>(own + row * r + c, o[p]);
+      } else {
+#pragma unroll
+        for (int i = 0; i < VEC; ++i) o[p][i] = T(0);
+      }
+#pragma unroll
+      for (int i = 0; i < VEC; ++i) acc[p][i] = T(0);
+    }
+    bool any = false;
+    for (int kb = 0; kb < wmax; kb += HALF) {
+      const int k = kb + hl;
+      const int my_col = k < w ? sc[k] : 0;
+      const T my_val = k < w ? sv[k] : T(0);
+      unsigned bits = (__ballot_sync(FULL, my_val != T(0)) >>
+                       (HALF * half)) & 0xffffu;
+      const int nk = __popc(bits);
+      const int nmax = max(nk, __shfl_xor_sync(FULL, nk, HALF));
+      any |= nk > 0;
+      for (int j = 0; j < nmax; j += U) {
+        // the next U nonzero lanes of this half, in k order
+        int col[U];
+        T val[U];
+#pragma unroll
+        for (int u = 0; u < U; ++u) {
+          const int src = bits ? __ffs(bits) - 1 : 0;
+          bits &= bits - 1;
+          col[u] = __shfl_sync(FULL, my_col, HALF * half + src);
+          val[u] = __shfl_sync(FULL, my_val, HALF * half + src);
+        }
+        T x[U][NP][VEC];
+#pragma unroll
+        for (int u = 0; u < U; ++u) {
+          const T* trow = table + static_cast<long long>(col[u]) * r;
+#pragma unroll
+          for (int p = 0; p < NP; ++p) {
+            const int c = (HALF * p + hl) * VEC;
+            if (j + u < nk && c < r) {
+              load_vec<T, VEC>(trow + c, x[u][p]);
+            } else {
+#pragma unroll
+              for (int i = 0; i < VEC; ++i) x[u][p][i] = T(0);
+            }
+          }
+        }
+        // the samples: each lane's slice of the U dots, then a transposed
+        // reduction over the half. At each of the first log2(U) xor steps
+        // a lane keeps half of its partials and trades the other half with
+        // its partner; plain butterfly steps follow. Lane hl then holds
+        // the whole dot of row `mine` (its bits 3, 2, 1 read high to low
+        // as log2(U) bits), divides once, and the half trades the U
+        // coefficients back.
+        T dot[U];
+#pragma unroll
+        for (int u = 0; u < U; ++u) {
+          dot[u] = T(0);
+#pragma unroll
+          for (int p = 0; p < NP; ++p)
+#pragma unroll
+            for (int i = 0; i < VEC; ++i)
+              dot[u] = fma_t(o[p][i], x[u][p][i], dot[u]);
+        }
+#pragma unroll
+        for (int step = 0; step < 4; ++step) {
+          const int off = HALF >> (step + 1);   // 8, 4, 2, 1
+          const int k = U >> step;              // partials before the step
+          const bool up = (hl & off) != 0;
+          if (k > 1) {
+#pragma unroll
+            for (int i = 0; i < k / 2; ++i) {
+              const T send = up ? dot[i] : dot[i + k / 2];
+              const T keep = up ? dot[i + k / 2] : dot[i];
+              dot[i] = keep + __shfl_xor_sync(FULL, send, off);
+            }
+          } else {
+            dot[0] += __shfl_xor_sync(FULL, dot[0], off);
+          }
+        }
+        int mine = 0;
+#pragma unroll
+        for (int b = 0; b < LOG_U; ++b)
+          mine = (mine << 1) | ((hl >> (3 - b)) & 1);
+        T v_mine = val[0];
+#pragma unroll
+        for (int u = 1; u < U; ++u)
+          if (u == mine) v_mine = val[u];
+        const T c_mine = v_mine / (dot[0] + eps);
+#pragma unroll
+        for (int u = 0; u < U; ++u) {
+          int from = 0;                 // a lane that holds row u's dot
+#pragma unroll
+          for (int b = 0; b < LOG_U; ++b)
+            from |= ((u >> (LOG_U - 1 - b)) & 1) << (3 - b);
+          const T c = __shfl_sync(FULL, c_mine, HALF * half + from);
+          if (j + u < nk) {
+#pragma unroll
+            for (int p = 0; p < NP; ++p)
+#pragma unroll
+              for (int i = 0; i < VEC; ++i)
+                acc[p][i] = fma_t(c, x[u][p][i], acc[p][i]);
+          }
+        }
+      }
+    }
+    if (!any) continue;                 // nothing to add: a pad segment
+    T* so = out + row * r;
+#pragma unroll
+    for (int p = 0; p < NP; ++p) {
+      const int c = (HALF * p + hl) * VEC;
+      if (c < r) add_vec<T, VEC>(so + c, acc[p]);
+    }
+  }
+}
+
+// enough blocks for every SM several times over; the grid-stride walk
+// takes the rest
+int grid_size(long long nseg, unsigned* grid) {
   int device = 0, sms = 0;
   cudaError_t err = cudaGetDevice(&device);
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
                                  device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  // enough blocks for every SM several times over; the grid-stride walk
-  // takes the rest
-  const long long want = ((plan.nseg + 1) / 2 + WARPS - 1) / WARPS;
+  const long long want = ((nseg + 1) / 2 + WARPS - 1) / WARPS;
   const long long cap = 32LL * sms;
-  const unsigned grid = static_cast<unsigned>(want < cap ? want : cap);
+  *grid = static_cast<unsigned>(want < cap ? want : cap);
+  return 0;
+}
+
+template <typename T, int VEC, int NP>
+int launch_t(const Plan<T>& plan, const T* table, T* out, int r,
+             cudaStream_t stream) {
+  unsigned grid = 0;
+  if (const int err = grid_size(plan.nseg, &grid)) return err;
   ell_spmm_kernel<T, VEC, NP><<<grid, THREADS, 0, stream>>>(plan, table,
                                                             out, r);
   return static_cast<int>(cudaGetLastError());
@@ -231,35 +443,50 @@ bool aligned(const void* p, size_t bytes) {
   return reinterpret_cast<uintptr_t>(p) % bytes == 0;
 }
 
-// desc: nb rows of (vals, cols, rows, nseg, w), in launch order. The
-// widest vector a row can take (r a multiple of VEC, both pointers
-// aligned to it), then the fewest column groups that cover r in one pass
-// (at most 4; wider rows take more passes).
+// desc: nb rows of (vals, cols, rows, nseg, w), in launch order
 template <typename T>
-int launch(const long long* desc, int nb, const T* table, T* out, int r,
-           cudaStream_t stream) {
+int read_plan(const long long* desc, int nb, int r, Plan<T>* plan) {
   if (nb < 1 || nb > MAX_BUCKETS || r < 1)
     return static_cast<int>(cudaErrorInvalidValue);
-  Plan<T> plan{};
+  *plan = Plan<T>{};
   long long first = 0;
   for (int i = 0; i < nb; ++i) {
     const long long* d = desc + 5 * i;
-    plan.b[i] = Bucket<T>{reinterpret_cast<const T*>(d[0]),
-                          reinterpret_cast<const int*>(d[1]),
-                          reinterpret_cast<const int*>(d[2]), first,
-                          static_cast<int>(d[4])};
+    plan->b[i] = Bucket<T>{reinterpret_cast<const T*>(d[0]),
+                           reinterpret_cast<const int*>(d[1]),
+                           reinterpret_cast<const int*>(d[2]), first,
+                           static_cast<int>(d[4])};
     if (d[3] < 0 || d[4] < 1) return static_cast<int>(cudaErrorInvalidValue);
     first += d[3];
   }
-  plan.nseg = first;
-  plan.nb = nb;
-  if (first == 0) return 0;
+  plan->nseg = first;
+  plan->nb = nb;
+  return 0;
+}
+
+// The widest vector a row can take: r a multiple of VEC and every row
+// operand aligned to it.
+template <typename T>
+int widest_vec(int r, std::initializer_list<const void*> ptrs) {
   auto fits = [&](int vec) {
     const size_t bytes = vec * sizeof(T);
-    return bytes <= 16 && r % vec == 0 && aligned(table, bytes) &&
-           aligned(out, bytes);
+    if (bytes > 16 || r % vec != 0) return false;
+    for (const void* p : ptrs)
+      if (!aligned(p, bytes)) return false;
+    return true;
   };
-  const int vec = fits(4) ? 4 : fits(2) ? 2 : 1;
+  return fits(4) ? 4 : fits(2) ? 2 : 1;
+}
+
+// The widest vector a row can take, then the fewest column groups that
+// cover r in one pass (at most 4; wider rows take more passes).
+template <typename T>
+int launch(const long long* desc, int nb, const T* table, T* out, int r,
+           cudaStream_t stream) {
+  Plan<T> plan;
+  if (const int err = read_plan(desc, nb, r, &plan)) return err;
+  if (plan.nseg == 0) return 0;
+  const int vec = widest_vec<T>(r, {table, out});
   const int np = r <= HALF * vec ? 1 : r <= 2 * HALF * vec ? 2 : 4;
 #define NMFTPU_ELL_CASE(V, P)                                        \
   if (vec == V && np == P)                                           \
@@ -270,6 +497,42 @@ int launch(const long long* desc, int nb, const T* table, T* out, int r,
     NMFTPU_ELL_CASE(4, 1) NMFTPU_ELL_CASE(4, 2) NMFTPU_ELL_CASE(4, 4)
   }
 #undef NMFTPU_ELL_CASE
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// #11's widest row: 64 bytes a lane in one pass
+template <typename T>
+constexpr int kl_max_rank() { return HALF * 64 / static_cast<int>(sizeof(T)); }
+
+// The widest vector a row can take, then the fewest column groups (a
+// power of two) that cover r in one pass; r beyond kl_max_rank is
+// refused.
+template <typename T>
+int launch_kl(const long long* desc, int nb, const T* own, const T* table,
+              T* out, int r, double eps, cudaStream_t stream) {
+  Plan<T> plan;
+  if (const int err = read_plan(desc, nb, r, &plan)) return err;
+  if (r > kl_max_rank<T>()) return static_cast<int>(cudaErrorInvalidValue);
+  if (plan.nseg == 0) return 0;
+  const int vec = widest_vec<T>(r, {own, table, out});
+  int np = 1;
+  while (HALF * vec * np < r) np *= 2;
+  unsigned grid = 0;
+  if (const int err = grid_size(plan.nseg, &grid)) return err;
+#define NMFTPU_KL_CASE(V, P)                                              \
+  if (vec == V && np == P) {                                              \
+    ell_kl_kernel<T, V, P><<<grid, THREADS, 0, stream>>>(                 \
+        plan, own, table, out, r, static_cast<T>(eps));                   \
+    return static_cast<int>(cudaGetLastError());                          \
+  }
+  NMFTPU_KL_CASE(1, 1) NMFTPU_KL_CASE(1, 2) NMFTPU_KL_CASE(1, 4)
+  NMFTPU_KL_CASE(1, 8) NMFTPU_KL_CASE(2, 1) NMFTPU_KL_CASE(2, 2)
+  NMFTPU_KL_CASE(2, 4)
+  if constexpr (sizeof(T) == 4) {
+    NMFTPU_KL_CASE(1, 16) NMFTPU_KL_CASE(2, 8) NMFTPU_KL_CASE(4, 1)
+    NMFTPU_KL_CASE(4, 2) NMFTPU_KL_CASE(4, 4)
+  }
+#undef NMFTPU_KL_CASE
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -292,6 +555,22 @@ int nmftpu_ell_spmm_f32(const long long* desc, int nb, const float* table,
 int nmftpu_ell_spmm_f64(const long long* desc, int nb, const double* table,
                         double* out, int r, cudaStream_t stream) {
   return launch<double>(desc, nb, table, out, r, stream);
+}
+
+// #11: desc as above; own (n, r) sampled by each segment's row, table (m,
+// r) gathered by column, out (n, r) zeroed by the caller, all of the
+// entry's type, row-major and contiguous; r <= 256 (float32) or 128
+// (float64).
+int nmftpu_ell_kl_f32(const long long* desc, int nb, const float* own,
+                      const float* table, float* out, int r, double eps,
+                      cudaStream_t stream) {
+  return launch_kl<float>(desc, nb, own, table, out, r, eps, stream);
+}
+
+int nmftpu_ell_kl_f64(const long long* desc, int nb, const double* own,
+                      const double* table, double* out, int r, double eps,
+                      cudaStream_t stream) {
+  return launch_kl<double>(desc, nb, own, table, out, r, eps, stream);
 }
 
 }  // extern "C"

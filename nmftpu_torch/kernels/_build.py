@@ -49,6 +49,8 @@ _RESERVOIR_TC = [_P] * 4 + [_I] * 3 + [_LL] + [_I] * 4 + [_P]
 _COUNT = [_P] * 6 + [_I] * 4 + [_LL, _I, _I, _P]
 # (desc, nb, table, out, r, stream); desc a host int64 array
 _ELL = [_P, _I, _P, _P, _I, _P]
+# (desc, nb, own, table, out, r, eps, stream)
+_ELL_KL = [_P, _I, _P, _P, _P, _I, ctypes.c_double, _P]
 # (V, X, out, n, m, r, gv, gw, stream)
 _INT8 = [_P] * 3 + [_I] * 5 + [_P]
 # (x, numer, denom, out, count, eps, stream)
@@ -64,6 +66,8 @@ ENTRIES = {
     "nmftpu_muldiv_f64": _MULDIV,
     "nmftpu_ell_spmm_f32": _ELL,
     "nmftpu_ell_spmm_f64": _ELL,
+    "nmftpu_ell_kl_f32": _ELL_KL,
+    "nmftpu_ell_kl_f64": _ELL_KL,
     "nmftpu_w_update_f32": _MU,
     "nmftpu_h_update_f32": _MU,
     "nmftpu_w_update_i8": _MU,

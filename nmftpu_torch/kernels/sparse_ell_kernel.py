@@ -23,8 +23,21 @@ descriptor order, each segment's sum added into its row);
 `ell_spmm` runs it only for CPU tensors, and for CUDA tensors launches
 the kernel or raises. `bucket_rowsums` (segment sums alone, the same
 launch with each segment as its own row) keeps its twin
-`bucket_rowsums_plain`. ``LAUNCHES`` counts kernel launches: one per
-product for up to `MAX_BUCKETS` buckets.
+`bucket_rowsums_plain`. ``LAUNCHES["ell_rowsums"]`` counts its launches:
+one per product for up to `MAX_BUCKETS` buckets.
+
+`ell_kl` is a second kernel of the same file (#11, ``ell_kl_kernel``),
+the MU-KL half-step's numerator Σ_k v_k / (<own[row], table[col_k]> +
+eps) · table[col_k] over a whole container. It replaces no TPU kernel:
+``nmftpu/sparse_ell.py``'s ``mu_update_kl_ell`` leaves the step to XLA's
+gathers and einsums. Each table row is gathered once, sampled against
+the segment's own row held in registers (a half-warp butterfly finishes
+the dot), and summed with its ratio into the output row; like #10 it is
+bound by its L2 gathers, nnz · r · 4 B a half-step. Its twin is
+``sparse_ell.kl_numerator_ell``, which the wrapper runs for CPU tensors
+and, by shape, for rows wider than one pass (`KL_MAX_RANK`).
+``LAUNCHES["ell_kl"]`` counts its launches, one per half-step; the ELL
+engine passes `ell_kl` as ``sparse_ell.mu_update_kl_ell``'s numerator.
 """
 
 from __future__ import annotations
@@ -35,14 +48,22 @@ import torch
 from nmftpu_torch.kernels import _build
 from nmftpu_torch.kernels.dense_mu import _on_cpu
 from nmftpu_torch.linalg.dense import _apply_order
-from nmftpu_torch.sparse_ell import EllBucket, _rowsums
+from nmftpu_torch.sparse_ell import EllBucket, _rowsums, kl_numerator_ell
 
-LAUNCHES = {"ell_rowsums": 0}
+LAUNCHES = {"ell_rowsums": 0, "ell_kl": 0}
 
 _ENTRIES = {
     torch.float32: "nmftpu_ell_spmm_f32",
     torch.float64: "nmftpu_ell_spmm_f64",
 }
+_KL_ENTRIES = {
+    torch.float32: "nmftpu_ell_kl_f32",
+    torch.float64: "nmftpu_ell_kl_f64",
+}
+
+# #11 holds 64 bytes of a row a lane, 16 lanes a segment: the widest rows
+# it covers in one pass
+KL_MAX_RANK = {torch.float32: 256, torch.float64: 128}
 
 # the bucket descriptors one launch takes (nmftpu's default widths are 7)
 MAX_BUCKETS = 8
@@ -96,18 +117,32 @@ def ell_spmm_plain(buckets, Ht, out):
     return out
 
 
-def _check_launch(buckets, Ht, out):
+def _check_launch(buckets, Ht, out, what="ell_spmm", name="out"):
+    """The buckets against the table Ht (m, r); `out` (`name` in errors)
+    a contiguous (n, r) tensor of Ht's type."""
     for b in buckets:
         _check_cuda_operands(b.vals, b.cols, Ht)
         if b.out_row.dtype != torch.int32 or b.out_row.shape != (
                 b.vals.shape[0],) or not b.out_row.is_contiguous():
-            raise ValueError("ell_spmm: out_row must be a contiguous int32 "
+            raise ValueError(f"{what}: out_row must be a contiguous int32 "
                              "(nseg,) tensor")
     if (out.dtype != Ht.dtype or out.ndim != 2
             or out.shape[1] != Ht.shape[1] or not out.is_contiguous()):
         raise ValueError(
-            f"ell_spmm: out must be a contiguous (n, {Ht.shape[1]}) "
+            f"{what}: {name} must be a contiguous (n, {Ht.shape[1]}) "
             f"{Ht.dtype} tensor, got {tuple(out.shape)} {out.dtype}")
+
+
+def _descriptors(buckets):
+    """The launches' bucket descriptors: groups of at most `MAX_BUCKETS`
+    non-empty buckets in `descriptor_order`, each a host int64 array of
+    (vals, cols, out_row, nseg, w) rows."""
+    order = [b for b in descriptor_order(buckets) if b.vals.shape[0]]
+    return [np.array([[b.vals.data_ptr(), b.cols.data_ptr(),
+                       b.out_row.data_ptr(), b.vals.shape[0],
+                       b.vals.shape[1]] for b in order[i:i + MAX_BUCKETS]],
+                     dtype=np.int64)
+            for i in range(0, len(order), MAX_BUCKETS)]
 
 
 def ell_spmm(buckets, Ht, out):
@@ -119,14 +154,9 @@ def ell_spmm(buckets, Ht, out):
     if _on_cpu(Ht, out, *tensors):
         return ell_spmm_plain(buckets, Ht, out)
     _check_launch(buckets, Ht, out)
-    order = [b for b in descriptor_order(buckets) if b.vals.shape[0]]
-    for i in range(0, len(order), MAX_BUCKETS):
-        group = order[i:i + MAX_BUCKETS]
-        desc = np.array([[b.vals.data_ptr(), b.cols.data_ptr(),
-                          b.out_row.data_ptr(), b.vals.shape[0],
-                          b.vals.shape[1]] for b in group], dtype=np.int64)
+    for desc in _descriptors(buckets):
         _build.launch(_ENTRIES[Ht.dtype], "ell_rowsums", Ht.device,
-                      desc.ctypes.data, len(group), Ht.data_ptr(),
+                      desc.ctypes.data, len(desc), Ht.data_ptr(),
                       out.data_ptr(), Ht.shape[1])
         LAUNCHES["ell_rowsums"] += 1
     return out
@@ -185,3 +215,46 @@ def mu_update_frobenius_ell_pallas(pair, W, H, eps=1e-9, order="WH"):
         return H * (wt_v_ell_pallas(pair, W) / ((W.T @ W) @ H + eps))
 
     return _apply_order(upd_w, upd_h, W, H, order)
+
+
+def _check_kl(ell, own, table):
+    """What #11 takes: the buckets as `ell_spmm` takes them, own (n, r)
+    and table (m, r) contiguous, of the buckets' type, float32 or
+    float64, r within one pass."""
+    if table.dtype not in KL_MAX_RANK or table.ndim != 2:
+        raise TypeError(f"ell_kl: table must be a 2-D float32 or float64 "
+                        f"tensor, got {table.ndim}-D {table.dtype}")
+    if not table.is_contiguous():
+        raise ValueError("ell_kl: table must be contiguous")
+    _check_launch(ell.buckets, table, own, what="ell_kl", name="own")
+    if own.shape[0] != ell.shape[0]:
+        raise ValueError(f"ell_kl: own must have the container's "
+                         f"{ell.shape[0]} rows, got {own.shape[0]}")
+    if table.shape[1] > KL_MAX_RANK[table.dtype]:
+        raise ValueError(f"ell_kl: r = {table.shape[1]} exceeds one pass "
+                         f"({KL_MAX_RANK[table.dtype]})")
+
+
+def ell_kl(ell, own, table, eps=1e-9):
+    """The MU-KL numerator Σ_k v_k / (<own[row], table[col_k]> + eps) ·
+    table[col_k] accumulated into rows -> (n, r) for one container, own
+    (n, r) and table (m, r) contiguous and of its type, float32 or
+    float64: one launch of #11 for up to `MAX_BUCKETS` buckets on CUDA
+    tensors, the plain twin ``sparse_ell.kl_numerator_ell`` on CPU tensors
+    and for r beyond `KL_MAX_RANK`. The kernel skips lanes whose value is
+    0, which changes no sum wherever s + eps != 0; with eps = 0 a pad lane
+    that samples s = 0 gives NaN in the twin and nothing in the kernel."""
+    tensors = [t for b in ell.buckets for t in (b.vals, b.cols, b.out_row)]
+    r = table.shape[-1]
+    if _on_cpu(own, table, *tensors) or r > KL_MAX_RANK.get(table.dtype, r):
+        return kl_numerator_ell(ell, own, table, eps)
+    _check_kl(ell, own, table)
+    out = torch.zeros((ell.shape[0], r), dtype=table.dtype,
+                      device=table.device)
+    for desc in _descriptors(ell.buckets):
+        _build.launch(_KL_ENTRIES[table.dtype], "ell_kl", table.device,
+                      desc.ctypes.data, len(desc), own.data_ptr(),
+                      table.data_ptr(), out.data_ptr(), r, float(eps))
+        LAUNCHES["ell_kl"] += 1
+    return out
+

@@ -19,8 +19,10 @@ and the library is built, else the vectorised numpy path; both give
 ``nmftpu``'s buckets array for array. The containers hold tensors on one
 device.
 `_bucket_rowsums` here is plain torch; ``kernels/sparse_ell_kernel.py``
-holds the hand-written CUDA kernel for the same per-segment sums, which
-``nmftpu`` reaches only from MU-Frobenius with use_pallas.
+holds the hand-written CUDA kernels for the same per-segment sums, which
+``nmftpu`` reaches only from MU-Frobenius with use_pallas, and for the
+MU-KL numerator (`kl_numerator_ell`), which the port's single-device
+engine runs on CUDA tensors with or without use_pallas.
 """
 
 from __future__ import annotations
@@ -322,19 +324,35 @@ def combine_values(a: EllRows, b: EllRows, fn) -> EllRows:
         shape=a.shape, nnz=a.nnz)
 
 
-def mu_update_kl_ell(pair: EllPair, W, H, eps=1e-9, order="WH"):
+def kl_numerator_ell(ell: EllRows, own, table, eps=1e-9) -> torch.Tensor:
+    """The MU-KL numerator of one half-step, Σ_k v_k / (<own[row],
+    table[col_k]> + eps) · table[col_k] accumulated into rows -> (n, r):
+    `sampled_rowsums_ell` with the ratio coefficient. own (n, r) holds
+    the rows the segments sample against, table (m, r) the gathered
+    rows."""
+    numer, = sampled_rowsums_ell(ell, own, table.T,
+                                 (lambda v, s: v / (s + eps),))
+    return numer
+
+
+def mu_update_kl_ell(pair: EllPair, W, H, eps=1e-9, order="WH",
+                     numerator=kl_numerator_ell):
     """Sparse MU (KL): one fused gather-once ratio + SpMM per half-step
-    (the table rows serve the (WH) sample AND the numerator)."""
-    ratio = (lambda v, s: v / (s + eps),)
+    (the table rows serve the (WH) sample AND the numerator).
+    `numerator` computes it (`kl_numerator_ell`'s signature, own and
+    table row-major; ``kernels.sparse_ell_kernel.ell_kl`` runs it on the
+    CUDA kernel)."""
 
     def upd_w(W, H):
-        numer, = sampled_rowsums_ell(pair.rows, W, H, ratio)
+        numer = numerator(pair.rows, W.contiguous(), H.T.contiguous(),
+                          eps)
         denom = torch.clamp(torch.sum(H, dim=1), min=eps)[None, :]
         return W * (numer / denom)
 
     def upd_h(W, H):
         # the container holds Vᵀ; sample (Hᵀ Wᵀ) = (WH)ᵀ at its nonzeros
-        numer, = sampled_rowsums_ell(pair.cols, H.T, W.T, ratio)
+        numer = numerator(pair.cols, H.T.contiguous(), W.contiguous(),
+                          eps)
         denom = torch.clamp(torch.sum(W, dim=0), min=eps)[:, None]
         return H * (numer.T / denom)
 

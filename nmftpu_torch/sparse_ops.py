@@ -1130,10 +1130,10 @@ def _ell_ops_bundle(config: NmfConfig) -> LoopOps:
             lambda pair, aux, W, H: upd(pair, W, H, eps=eps, order=order),
             SE.frobenius_error_masked_ell, SE.kl_error_masked_ell,
             lambda pair: pair.rows.nnz)
+    from nmftpu_torch.kernels import sparse_ell_kernel as SEK
+
     wt_v = SE.wt_v_ell
     if config.use_pallas:
-        from nmftpu_torch.kernels import sparse_ell_kernel as SEK
-
         # the error check's Wᵀ V on the kernel too (nmftpu leaves it to
         # XLA's gather): at ML-20M scale the plain one costs ten kernel
         # iterations
@@ -1171,8 +1171,12 @@ def _ell_ops_bundle(config: NmfConfig) -> LoopOps:
         raise ValueError(f"algorithm {alg.value!r} does not run on the ELL "
                          "engine")
     elif config.objective is Objective.KL:
+        # both numerators on the CUDA kernel #11 with or without use_pallas
+        # (nmftpu has no KL kernel for the flag to choose); on CPU tensors
+        # its twin, SE.mu_update_kl_ell's own arithmetic
         def update(pair, aux, W, H):
-            return SE.mu_update_kl_ell(pair, W, H, eps=eps, order=order)
+            return SE.mu_update_kl_ell(pair, W, H, eps=eps, order=order,
+                                       numerator=SEK.ell_kl)
     elif beta is not None:
         # the fused gather-once numerator, the dense denominator in
         # panels (config validation keeps use_pallas off under beta)
@@ -1497,7 +1501,8 @@ def compute_sparse(
                     for KL and weighting) whenever n·m·2 (n·m) bytes fit;
       "ell"       — gather-only bucketed padded-segment layout; with
                     use_pallas=True the MU-Frobenius SpMMs run the CUDA
-                    ELL kernel (kernels/sparse_ell_kernel.py);
+                    ELL kernel, and MU-KL's numerators always run the
+                    CUDA KL kernel (kernels/sparse_ell_kernel.py);
       "auto"      — as ``nmftpu``: densified within DENSIFY_BUDGET_BYTES,
                     else ell; ell for iALS and masked ALS, scatter for
                     HALS and for float64.

@@ -576,6 +576,131 @@ def test_ell_wrapper_rejects_what_the_kernel_does_not_take(dev):
         SEK.bucket_rowsums(vals, cols[:, :4].contiguous(), Ht)
 
 
+# ---------------------------------------------------------------------------
+# ELL MU-KL numerator (#11)
+# ---------------------------------------------------------------------------
+
+# #11 against its twin, per element: the same positive sums in another
+# order (~sqrt(512) * 2^-24 = 1.3e-6 in float32), each coefficient's sample
+# a dot of r terms in another order (16 lanes' slices, then the butterfly;
+# ~sqrt(r) * 2^-24: 9.5e-7 at r = 256) on top: 2.3e-6, and 1e-5 leaves 4x.
+# float64 by the same count, ~4e-15
+ELL_KL_RTOL = {torch.float32: 1e-5, torch.float64: 1e-12}
+
+
+def _kl_halves(pair, W, H):
+    """(container, own, table) of the W and the H half, row-major."""
+    return ((pair.rows, W, H.T.contiguous()),
+            (pair.cols, H.T.contiguous(), W))
+
+
+@pytest.mark.parametrize("dtype,r", [
+    *((torch.float32, r) for r in (1, 3, 37, 64, 100, 128, 256)),
+    # float64 takes one pass up to 128
+    *((torch.float64, r) for r in (1, 3, 37, 64, 100, 128))])
+def test_ell_kl_matches_twin(dev, dtype, r):
+    """Both halves of one container pair, one launch each, against the
+    plain twin: every bucket width, rows over several segments, explicit
+    zeros and all-zero pad segments."""
+    from nmftpu_torch import sparse_ell as SE
+
+    csr = _ell_csr(r + 11)
+    pair = SE.build_ell_pair(csr, dtype=dtype, device=dev)
+    g = torch.Generator(device=dev).manual_seed(r)
+    W = torch.rand(csr.shape[0], r, generator=g, device=dev,
+                   dtype=dtype) + 0.05
+    H = torch.rand(r, csr.shape[1], generator=g, device=dev,
+                   dtype=dtype) + 0.05
+    for ell, own, table in _kl_halves(pair, W, H):
+        before = SEK.LAUNCHES["ell_kl"]
+        got = SEK.ell_kl(ell, own, table)
+        assert SEK.LAUNCHES["ell_kl"] - before == 1
+        want = SE.kl_numerator_ell(ell, own, table)
+        torch.cuda.synchronize()
+        assert got.dtype == dtype and got.shape == (ell.shape[0], r)
+        torch.testing.assert_close(got, want, rtol=ELL_KL_RTOL[dtype],
+                                   atol=0)
+
+
+def test_ell_kl_wide_rows_take_the_twin(dev):
+    """r = 320 is beyond one pass in float32: the wrapper runs the plain
+    twin on the card and launches nothing (the twin's index_add_ adds
+    segments in another order on every run, hence ELL_KL_RTOL)."""
+    from nmftpu_torch import sparse_ell as SE
+
+    csr = _ell_csr(5, n=800)
+    pair = SE.build_ell_pair(csr, device=dev)
+    W = torch.rand(csr.shape[0], 320, device=dev) + 0.05
+    H = torch.rand(320, csr.shape[1], device=dev) + 0.05
+    before = SEK.LAUNCHES["ell_kl"]
+    for ell, own, table in _kl_halves(pair, W, H):
+        torch.testing.assert_close(SEK.ell_kl(ell, own, table),
+                                   SE.kl_numerator_ell(ell, own, table),
+                                   rtol=ELL_KL_RTOL[torch.float32], atol=0)
+    assert SEK.LAUNCHES["ell_kl"] == before
+
+
+def test_ell_kl_wrapper_rejects_what_the_kernel_does_not_take(dev):
+    from nmftpu_torch import sparse_ell as SE
+
+    pair = SE.build_ell_pair(_ell_csr(2, n=600), device=dev)
+    n, m = pair.shape
+    W, Ht = torch.rand(n, 16, device=dev), torch.rand(m, 16, device=dev)
+    with pytest.raises(ValueError, match="own must be a contiguous"):
+        SEK.ell_kl(pair.rows, W.T.contiguous().T, Ht)
+    with pytest.raises(ValueError, match="table must be contiguous"):
+        SEK.ell_kl(pair.rows, W, Ht.T.contiguous().T)
+    with pytest.raises(TypeError, match="float32 or float64"):
+        SEK.ell_kl(pair.rows, W.half(), Ht.half())
+    with pytest.raises(ValueError, match="own must be a contiguous"):
+        SEK.ell_kl(pair.rows, W.double(), Ht)
+    with pytest.raises(ValueError, match="different devices"):
+        SEK.ell_kl(pair.rows, W, Ht.cpu())
+
+
+# KL_FIT_ITERS iterations on the kernel against the plain step on the
+# card, as max|a - b| / max|b|: each step differs by the reordered sums
+# (~1e-6) and the atomics' order, and MU carries that from step to step
+KL_FIT_ITERS = 50
+KL_FIT_RTOL = 1e-4
+
+
+def test_ell_kl_fit_matches_the_plain_path(dev):
+    """A 50-iteration KL fit on the ELL engine, use_pallas off: the
+    numerators on #11, two launches an iteration and none of #10 (the
+    checks' Wᵀ·V stays plain without use_pallas), against the same fit
+    with the plain step (`sparse_ell.mu_update_kl_ell`) on the card."""
+    from nmftpu_torch import sparse_ell as SE
+    from nmftpu_torch.config import Initialization, NmfConfig, Objective
+    from nmftpu_torch.sparse_ops import prepare_sparse
+    from nmftpu_torch.utils.metrics import counters
+
+    csr = _ell_csr(9)
+    n, m = csr.shape
+    g = torch.Generator(device=dev).manual_seed(9)
+    W0 = torch.rand(n, 16, generator=g, device=dev) + 0.05
+    H0 = torch.rand(16, m, generator=g, device=dev) + 0.05
+    cfg = NmfConfig(rank=16, objective=Objective.KL,
+                    init_method=Initialization.COPY_EXISTING,
+                    num_iterations=KL_FIT_ITERS, check_interval=10,
+                    threshold_value=0.0, use_pallas=False)
+    plan = prepare_sparse(csr, cfg, strategy="ell", device=dev)
+    before = counters()
+    res = plan.run(W0=W0, H0=H0)
+    torch.cuda.synchronize()
+    after = counters()
+    assert res.num_iterations == KL_FIT_ITERS
+    assert after["launches.ell_kl"] - before["launches.ell_kl"] == \
+        2 * KL_FIT_ITERS
+    assert after["launches.ell_rowsums"] == before["launches.ell_rowsums"]
+    W, H = W0, H0
+    for _ in range(KL_FIT_ITERS):
+        W, H = SE.mu_update_kl_ell(plan.operand, W, H, eps=cfg.eps)
+    for got, want in ((res.W, W), (res.H, H)):
+        assert float((got - want).abs().max() / want.abs().max()) < \
+            KL_FIT_RTOL
+
+
 def test_sparse_nmf_on_the_card_matches_the_cpu(dev):
     """nmf on sparse V through each engine on the card and on the CPU,
     from the same W0/H0: the same errors and factors."""
