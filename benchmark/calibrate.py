@@ -1,8 +1,8 @@
 """Readings that set a cell's limits, taken on the card: the program's
 compared numbers on many seeds; the control's, the reference computed
 in the precision below the configuration's and put in the program's
-place; and, for a training cell, each planted fault's. Each seed's
-set-up is paid once, in one process.
+place; and each fault's that the cell's kind declares (`FAULTS`). Each
+seed's set-up is paid once, in one process.
 
     python3 benchmark/calibrate.py --workload <name> --seeds 1,2,3 \\
         --seconds <s> [--control 1,2] [--faults 1,2] [--out <file>]
@@ -45,8 +45,6 @@ def main(argv=None) -> int:
     torch.backends.cudnn.allow_tf32 = False
     torch.set_grad_enabled(False)
     kind, ref = cell.kind, cell.reference
-    kname = cell.traffic["kind"]
-    planted = faults.TRAINING if kname == "train_fits" else ()
 
     def emit(seed, side, numbers, **extra):
         line = json.dumps({"workload": args.workload, "seed": seed,
@@ -73,8 +71,8 @@ def main(argv=None) -> int:
             ans = kind.control(state, rec, ref)
             emit(seed, "control", kind.compare(state, ans, ref),
                  precision=ctx.control, control_s=time.perf_counter() - t)
-        for fault in planted if seed in args.faults else ():
-            with faults.planted(kname, fault):
+        for fault in kind.FAULTS if seed in args.faults else ():
+            with faults.planted(kind, fault):
                 st = kind.setup(ctx)
                 got = kind.window(st, 0.0, None)
                 kind.release(st)

@@ -9,7 +9,10 @@ name:
   configs/<config>.json     the configuration as run (its `file` entry)
   traffic/<traffic>.json    a traffic mix: parameters, and the `kind`
                             that reads them
-  kinds/<kind>.py           the general driver of a kind of traffic
+  kinds/<kind>.py           the general code of a kind of traffic:
+                            its functions, or an object `KIND` that has
+                            them (a kind built on another's class), and
+                            `FAULTS`, the faults its cells can have
   reference/<kind>.py       that kind's plain reference
   datagen/<generator>.py    a configuration's data, made from the seed
   metrics/<metric>.py       a per-layer metric's reader
@@ -87,7 +90,8 @@ class Cell:
 
     @property
     def kind(self):
-        return load_module(self.file("kinds", self.traffic["kind"] + ".py"))
+        mod = load_module(self.file("kinds", self.traffic["kind"] + ".py"))
+        return getattr(mod, "KIND", mod)
 
     @property
     def reference(self):

@@ -25,7 +25,10 @@ import time
 import numpy as np
 import torch
 
-from benchmark import yardstick
+from benchmark import faults, yardstick
+
+# the faults this kind's cells can have (`faults.py`)
+FAULTS = {"half": faults.half_batch, "altered": faults.altered_id}
 
 # offsets from the seed of the warm-up's and the check sample's draws (the
 # requests draw from the seed itself)

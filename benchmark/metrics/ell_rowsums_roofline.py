@@ -12,9 +12,10 @@ def read(rec):
     if not sl:
         return None
     cls = sl["trace"]["classes"].get("ell_rowsums")
-    if not cls or cls["seconds"] <= 0 or sl["launches"] <= 0:
+    launches = sl["launches"].get("ell_rowsums", 0)
+    if not cls or cls["seconds"] <= 0 or launches <= 0:
         return None
     flops, nbytes = yardstick.ell_spmm_work(rec["n"], rec["m"], rec["r"],
                                             rec["nnz"])
     least = yardstick.bound_s(flops, nbytes, yardstick.F32_PEAK)[0]
-    return 100.0 * sl["launches"] * least / cls["seconds"]
+    return 100.0 * launches * least / cls["seconds"]

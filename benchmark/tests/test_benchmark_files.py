@@ -2,7 +2,8 @@
 configuration, traffic, kind, reference, limits and metric readers by
 name; names and units keep to their characters; nothing under the
 benchmark imports JAX or the JAX package, and the references import
-nothing of the program; a new cell is files and entries alone."""
+nothing of the program; a new cell is files and entries alone; the tiny
+copy is cut by each file's own `tiny` sizes."""
 
 import ast
 import json
@@ -11,7 +12,7 @@ import shutil
 import time
 
 import pytest
-from conftest import ROOT, make_tiny
+from conftest import ROOT, check_resolves, copy_bench, make_tiny, shrink
 
 from benchmark import harness
 
@@ -33,19 +34,7 @@ def test_top_level_keys():
 
 @pytest.mark.parametrize("cell", CELLS)
 def test_cell_resolves_by_name(cell):
-    c = harness.find_cell(ROOT, cell)
-    assert c.kind.setup and c.kind.window and c.kind.compare
-    assert c.reference is not None
-    assert c.limits and all(isinstance(v, (int, float))
-                            for v in c.limits.values())
-    assert (ROOT / "benchmark" / "datagen"
-            / (c.config["data"]["generator"] + ".py")).is_file()
-    assert c.config["control"] in ("tf32", "fp8")
-    for m in c.per_layer():
-        assert callable(c.reader(m["name"]).read)
-    reported = {m["name"] for m in c.end_to_end()}
-    assert "setup_s" in reported and len(reported) >= 2
-    assert c.per_layer(), "every cell reports a per-layer metric"
+    check_resolves(ROOT, cell)
 
 
 def test_names_and_units():
@@ -162,6 +151,33 @@ def test_a_new_cell_is_files_and_entries(tmp_path):
     out = harness.run_cell(root, "catalog_small.serve-b16", 7, 0.3, False,
                            time.perf_counter(), device="cpu")
     assert set(out["metrics"]) == {"serve_qps", "serve_p95_ms", "setup_s"}
+
+
+def test_the_tiny_copy_takes_each_files_own_sizes(tiny_root):
+    """`make_tiny` merges each configuration's and traffic mix's `tiny`
+    object over it."""
+    for sub in ("configs", "traffic"):
+        for path in sorted((ROOT / "benchmark" / sub).glob("*.json")):
+            full = json.loads(path.read_text())
+            got = json.loads((tiny_root / "benchmark" / sub
+                              / path.name).read_text())
+            for key, value in full["tiny"].items():
+                if isinstance(value, dict):
+                    assert got[key] == {**full[key], **value}, key
+                else:
+                    assert got[key] == value, key
+    assert json.loads((tiny_root / "benchmark" / "configs"
+                       / "ml20m.json").read_text())["data"]["n_users"] < 1000
+
+
+def test_a_file_without_tiny_sizes_is_refused(tmp_path):
+    root = copy_bench(tmp_path)
+    path = root / "benchmark" / "traffic" / "train-kl.json"
+    d = json.loads(path.read_text())
+    del d["tiny"]
+    path.write_text(json.dumps(d))
+    with pytest.raises(KeyError, match="tiny"):
+        shrink(root)
 
 
 def test_run_refuses_without_a_card():

@@ -1,15 +1,17 @@
-"""The reduction of a trace by the program's spans (`stages.py`) on
-hand-made traces, its span metrics, the `exact_rows.serve` reader, the
-existing readers on records with and without the new keys, and a traced
-run of each kind of cell at the tiny size on the CPU."""
+"""The reduction of a trace by the program's spans
+(`tracing.program_spans`) on hand-made traces, the span metrics' readers,
+the `exact_rows.serve` and `ell_kl_roofline` readers, the device and host
+readers on records with and without the program's spans, and a traced
+run of each cell at the tiny size on the CPU, by stage (`stages.py`) and
+as the result line carries it."""
 
 import json
 import time
 
 import pytest
-from conftest import ROOT
+from conftest import ROOT, check_span_metrics, check_stages
 
-from benchmark import harness, stages, tracing
+from benchmark import harness, tracing, yardstick
 
 BENCH = json.loads((ROOT / "BENCHMARK.json").read_text())
 
@@ -45,7 +47,22 @@ def _trace():
 
 def _reduce(events):
     summ = tracing.device_summary(events)
-    return stages.program_spans(events, summ["busy"]), summ["busy"]
+    return tracing.program_spans(events, summ["busy"]), summ["busy"]
+
+
+SPAN_METRICS = [m["name"] for m in BENCH["per_layer"]
+                if m["source"] == "program_span"]
+
+
+def _reader(metric):
+    return harness.load_module(ROOT / "benchmark" / "metrics"
+                               / f"{metric}.py")
+
+
+def _span_metrics(spans):
+    """Every span metric's reader on a record whose slice holds `spans`."""
+    rec = {"slice": {"trace": {"spans": spans}}}
+    return {n: _reader(n).read(rec) for n in SPAN_METRICS}
 
 
 def test_program_spans_nest_self_time_and_correlation():
@@ -80,8 +97,9 @@ def test_idle_goes_to_the_innermost_span_and_closes():
 
 
 def test_span_metrics_per_request_and_none_without_spans():
+    assert len(SPAN_METRICS) == 7
     spans, _ = _reduce(_trace())
-    got = {n: fn(spans) for n, fn in stages.METRICS.items()}
+    got = _span_metrics(spans)
     assert got["exclusion_ms.serve"] == 0.0
     assert got["rescore_ms.serve"] == 0.0
     assert got["fallback_ms.serve"] == 0.0
@@ -91,7 +109,10 @@ def test_span_metrics_per_request_and_none_without_spans():
                  "fit_idle_ms.train"):
         assert got[name] is None
     none, _ = _reduce([_x("k", "kernel", 0, 5, correlation=1)])
-    assert all(fn(none) is None for fn in stages.METRICS.values())
+    assert all(v is None for v in _span_metrics(none).values())
+    # a record with no traced slice, or a slice without spans
+    for rec in ({"slice": None}, {"slice": {"trace": {}}}):
+        assert all(_reader(n).read(rec) is None for n in SPAN_METRICS)
 
 
 def test_training_span_metrics():
@@ -108,7 +129,7 @@ def test_training_span_metrics():
            _x("k", "kernel", 55, 5, correlation=9),
            _x("nmftpu.fit.result", "user_annotation", 80, 10)]
     spans, _ = _reduce(ev)
-    got = {n: fn(spans) for n, fn in stages.METRICS.items()}
+    got = _span_metrics(spans)
     assert got["check_ms.train"] == pytest.approx(5e-3)
     # gaps starting in an update: [16, 22], [26, 32], [36, 42], [46, 55];
     # in the fit before the first kernel, [0, 12]; in the check after
@@ -132,7 +153,8 @@ def test_exact_rows_reader_reads_the_program_counters(monkeypatch):
 def _layer(new_keys: bool):
     trace = {"classes": {"reservoir_scan": {"seconds": 1.0, "events": 4},
                          "count_above": {"seconds": 0.5, "events": 4},
-                         "ell_rowsums": {"seconds": 0.2, "events": 8}},
+                         "ell_rowsums": {"seconds": 0.2, "events": 8},
+                         "ell_kl": {"seconds": 0.3, "events": 8}},
              "busy_s": 1.6, "span_s": 1.9, "window_s": 2.0,
              "breakdown": {"device_ops": [], "idle_gaps": []}}
     if new_keys:
@@ -147,37 +169,59 @@ def _layer(new_keys: bool):
 
 
 @pytest.mark.parametrize("metric", [m["name"] for m in BENCH["per_layer"]
-                                    if m["name"] != "exact_rows.serve"])
+                                    if m["name"] != "exact_rows.serve"
+                                    and m["source"] != "program_span"])
 def test_existing_readers_ignore_the_new_keys(metric):
-    reader = harness.load_module(ROOT / "benchmark" / "metrics"
-                                 / f"{metric}.py")
-    rec = _layer(False)
-    if metric == "ell_rowsums_roofline":
-        rec["slice"]["launches"] = 8
-    with_keys = _layer(True)
-    with_keys["slice"]["launches"] = rec["slice"]["launches"]
+    """The readers of the device trace and the host clock read the same
+    with and without the program's spans and counters in the slice."""
+    reader = _reader(metric)
+    rec, with_keys = _layer(False), _layer(True)
+    if metric.startswith("ell_"):
+        for r in (rec, with_keys):
+            r["slice"]["launches"] = {"ell_rowsums": 8, "ell_kl": 8}
     assert reader.read(rec) == reader.read(with_keys)
+
+
+def test_ell_kl_roofline_on_a_synthetic_record():
+    """#11's share: the launches, half W half-steps and half H
+    half-steps, each at 4·nnz·r operations over the float32 peak (the
+    bound at ML-20M's shape, r = 64), over the kernel's device time;
+    #10's launches and time do not enter it."""
+    n, m, r, nnz = 138493, 26744, 64, 20000263
+    least = 4.0 * nnz * r / 67e12
+    assert least * 1e3 == pytest.approx(0.0764, abs=1e-4)
+    for own, table in ((n, m), (m, n)):
+        assert yardstick.bound_s(*yardstick.ell_kl_work(own, table, r, nnz),
+                                 yardstick.F32_PEAK) \
+            == (pytest.approx(least), "operations")
+    rec = {"n": n, "m": m, "r": r, "nnz": nnz,
+           "slice": {"launches": {"ell_kl": 800, "ell_rowsums": 5},
+                     "trace": {"classes": {
+                         "ell_kl": {"seconds": 800 * 0.795e-3,
+                                    "events": 800},
+                         "ell_rowsums": {"seconds": 1.0, "events": 5}}}}}
+    got = _reader("ell_kl_roofline").read(rec)
+    assert got == pytest.approx(100 * least / 0.795e-3)
+    assert 9.5 < got < 9.7
+    rec["slice"]["launches"]["ell_kl"] = 0
+    assert _reader("ell_kl_roofline").read(rec) is None
+    rec["slice"]["launches"]["ell_kl"] = 800
+    del rec["slice"]["trace"]["classes"]["ell_kl"]
+    assert _reader("ell_kl_roofline").read(rec) is None
+    # the #10 reader reads its own launches alone
+    assert _reader("ell_rowsums_roofline").read(rec) == pytest.approx(
+        100 * 5 * yardstick.bound_s(*yardstick.ell_spmm_work(n, m, r, nnz),
+                                    yardstick.F32_PEAK)[0])
 
 
 @pytest.mark.parametrize("cell", [w["name"] for w in BENCH["workloads"]])
 def test_a_traced_tiny_run_reduces_by_stage(tiny_root, cell):
-    out = stages.run(tiny_root, cell, 2**31 + 11, 0.3, device="cpu")
-    assert out["device"] == "cpu"
-    m = out["metrics"]
-    if cell.startswith("text2image10m"):
-        assert m["exclusion_ms.serve"] > 0
-        assert m["exact_rows.serve"] is not None
-        assert out["counters"]["serve.uncertified_rows"] \
-            == out["slice_uncertified_rows"]
-        assert out["spans"]["nmftpu.serve.request"]["count"] \
-            == out["slice_requests"]
-    else:
-        # a check every 10 iterations, and none between
-        assert 10 * out["spans"]["nmftpu.loop.check"]["count"] \
-            == out["spans"]["nmftpu.loop.update"]["count"]
-        assert m["check_ms.train"] == 0.0          # no device here
-    assert out["attributed_idle_s"] == pytest.approx(out["idle_gaps_s"],
-                                                     abs=1e-6)
+    check_stages(tiny_root, cell)
+
+
+@pytest.mark.parametrize("cell", [w["name"] for w in BENCH["workloads"]])
+def test_the_result_line_carries_the_span_metrics(tiny_root, cell):
+    check_span_metrics(tiny_root, cell)
 
 
 def test_the_result_line_reports_exact_rows(tiny_root):

@@ -24,6 +24,11 @@ def test_spmm_and_scan_work_by_hand():
     flops, nbytes = yardstick.ell_spmm_work(4, 6, 2, 10)
     assert flops == 2 * 10 * 2
     assert nbytes == 10 * (4 + 4) + 4 * 2 * 4 + 6 * 2 * 4
+    # #11's W half: own W (4 rows) read and its numerator written, H (6
+    # rows) read; a sampled product and a ratio times a row a nonzero
+    flops, nbytes = yardstick.ell_kl_work(4, 6, 2, 10)
+    assert flops == 2 * 10 * 2 + 2 * 10 * 2
+    assert nbytes == 10 * (4 + 4) + (4 + 4 + 6) * 2 * 4
     flops, nbytes = yardstick.scan_work(3, 100, 8, "int8", 16)
     assert flops == 2 * 3 * 100 * 8
     assert nbytes == 100 * 8 * 1 + 3 * 8 * 4 + 3 * 16
@@ -68,6 +73,8 @@ HAND_TRACE = [
 def test_kernel_classes():
     assert tracing.kernel_class("void ell_spmm_kernel<float>") == \
         "ell_rowsums"
+    assert tracing.kernel_class("void ell_kl_kernel<float, 4, 2>") == \
+        "ell_kl"
     assert tracing.kernel_class("reservoir_merge_kernel") == \
         "reservoir_scan"
     assert tracing.kernel_class("count_band_kernel<b>") == "count_above"

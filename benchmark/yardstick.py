@@ -62,6 +62,17 @@ def ell_spmm_work(n: int, m: int, r: int, nnz: int) -> tuple[float, float]:
     return 2.0 * nnz * r, nnz * 8.0 + (n + m) * r * 4.0
 
 
+def ell_kl_work(own: int, table: int, r: int, nnz: int
+                ) -> tuple[float, float]:
+    """(operations, bytes) of one ELL KL numerator launch (#11), the W
+    half-step (own n rows, table m) or the H half-step (own m, table n):
+    at every nonzero the sampled product <own, table> and the ratio's
+    product with the table row, 4·nnz·r; each nonzero's value and column
+    read once (8 bytes), the own and table factors read once and the
+    float32 numerator (own's shape) written once."""
+    return 4.0 * nnz * r, nnz * 8.0 + (2 * own + table) * r * 4.0
+
+
 def scan_work(b: int, m: int, r: int, table_dtype: str,
               out_bytes_per_row: float) -> tuple[float, float]:
     """(operations, bytes) of one scan of a (r, m) table for b float32
