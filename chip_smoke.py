@@ -94,8 +94,8 @@ matches float64
 own Gram and right-hand side, those within 1e-4, bf16 MU-type halves 5 *
 2^-9, int8 right-hand sides exact), ELL and scatter agree after one
 iteration, densified bf16 ends within 1e-3 of ELL. It runs iALS at config
-3's full size (phase 16's matrix and start, rank 128, alpha 40; the Gram
-budget raised to 16 GiB for these runs, its default refusal checked) on
+3's full size (phase 16's matrix and start, rank 128, alpha 40; within
+the card's default Gram budget, its refusal checked under 8 GiB) on
 ELL (auto's choice; exact and cg) and scatter: the float64 weighted
 objective after 0, 1 and 4 iterations beside weighted MU's of phase 16,
 cg's final error beside exact's, one step per row against float64 normal
@@ -465,10 +465,11 @@ S12_ENGINES_RTOL = 1e-3
 # witness). The cg run's final Frobenius error at most IALS_CG_FACTOR x
 # the exact run's (nmftpu's test_ials_cg_solver_tracks_exact)
 IALS_CG_FACTOR = 1.02
-# (n + m) r^2 4 bytes = 10.07 GiB of per-row Grams at config 3: over the
-# default 8 GiB of NMFTPU_WEIGHTED_GRAM_BUDGET_BYTES, which phase 22 raises
-# to this for its own config 3 runs only
+# (n + m) r^2 4 bytes = 10.07 GiB of per-row Grams at config 3: within the
+# card's default budget (half its memory); phase 22 checks the refusal under
+# SMALL_BUDGET, and phase 26 sets IALS_BUDGET for its ranks
 IALS_BUDGET = 16 * 2**30
+SMALL_BUDGET = 8 * 2**30
 DENSE_IALS_ITERS = 2
 
 # phase 23: the remaining surfaces. (a) the sklearn facade at config 2's
@@ -3759,14 +3760,26 @@ def sparse_algorithms_phase(nt, card, dev, ratings, c3, V, W0d, H0d) -> dict:
     csc3 = csr3.T.to_csr()
     trip = device_triplets(csr3, dev)
     need = (n3 + m3) * r3 * r3 * 4
-    refused = refusal(TS._check_weighted_gram_budget, n3, m3, r3)
+    default = TS._default_weighted_gram_budget(dev)
+    os.environ["NMFTPU_WEIGHTED_GRAM_BUDGET_BYTES"] = str(SMALL_BUDGET)
+    try:
+        refused = refusal(TS._check_weighted_gram_budget, n3, m3, r3, dev)
+    finally:
+        os.environ.pop("NMFTPU_WEIGHTED_GRAM_BUDGET_BYTES")
+    admitted = refusal(TS._check_weighted_gram_budget, n3, m3, r3, dev)
     want_msg = (f"weighted ALS per-row Grams need ~{need / 2**30:.1f} GiB "
-                "((n+m)·r² f32) — over the 8.0 GiB budget")
+                f"((n+m)·r² f32) — over the {SMALL_BUDGET / 2**30:.1f} GiB "
+                "budget")
     say("22 config 3 budget", need_GiB=f"{need / 2**30:.4f}",
-        default_budget_GiB=8, refusal=refused[:80])
+        default_budget_GiB=f"{default / 2**30:.2f}",
+        small_budget_GiB=SMALL_BUDGET / 2**30, refusal=refused[:80])
     if not refused.startswith(want_msg):
-        fail(f"config 3 iALS: the default budget does not refuse it with "
-             f"the reference's message: {refused!r}")
+        fail(f"config 3 iALS: a {SMALL_BUDGET / 2**30:.0f} GiB budget does "
+             f"not refuse it with the reference's message: {refused!r}")
+    if admitted or default != torch.cuda.get_device_properties(
+            dev).total_memory // 2:
+        fail(f"config 3 iALS: the card's default budget ({default} bytes) "
+             f"is not half its memory, or refuses: {admitted!r}")
     rng3 = np.random.default_rng(SEED + 222)
     u_top = int(np.argmax(np.diff(csr3.indptr)))
     i_top = int(np.argmax(np.diff(csc3.indptr)))
@@ -3775,7 +3788,6 @@ def sparse_algorithms_phase(nt, card, dev, ratings, c3, V, W0d, H0d) -> dict:
     cols3 = np.concatenate([[i_top], rng3.choice(
         np.setdiff1d(np.arange(m3), [i_top]), 63, replace=False)])
     obj0, mu1, mu4 = c3["mu_objective"]
-    os.environ["NMFTPU_WEIGHTED_GRAM_BUDGET_BYTES"] = str(IALS_BUDGET)
 
     def cfg3(iters, **knobs):
         return NmfConfig(rank=r3, algorithm="als", alpha_confidence=alpha,
@@ -3867,7 +3879,6 @@ def sparse_algorithms_phase(nt, card, dev, ratings, c3, V, W0d, H0d) -> dict:
                  f"{checks}")
         del one
     del plan
-    os.environ.pop("NMFTPU_WEIGHTED_GRAM_BUDGET_BYTES")
     cg, ex = ials["ell", "cg"], ials["ell", "exact"]
     (We, He, kap_w, kap_h), (Ws, Hs, _, _) = (ials["ell", "one"],
                                               ials["scatter", "one"])

@@ -36,8 +36,14 @@ from nmftpu_torch import native_loader
 from nmftpu_torch import sparse as host_sparse
 from nmftpu_torch.driver import _resolve_device
 from nmftpu_torch.linalg.dense import _apply_order, solve_clamped
+from nmftpu_torch.utils.metrics import span
 
 DEFAULT_BUCKETS = (8, 16, 32, 64, 128, 256, 512)
+
+# iALS's host counts (`utils.counters()` reports them as ``ials.<name>``):
+# rows whose normal equations were solved, n + m an iteration, and the
+# segment results scatter-added into the per-row Grams
+IALS_COUNTS = {"rows_solved": 0, "gram_segments": 0}
 
 _NUMPY_DTYPES = {torch.float32: np.float32, torch.float64: np.float64}
 
@@ -706,7 +712,10 @@ def als_update_weighted_ell_exact(pair: EllPair, W, H, alpha, lambda_w=0.0,
 
     with the Gram deltas AND the right-hand sides built bucket-wise from
     one gather (`grams_and_rhs_ell`), solved in float32 by
-    ``sparse_ops._row_solver``."""
+    ``sparse_ops._row_solver``. Each half-step is two spans,
+    ``nmftpu.ials.grams`` (the base Gram, the gathers, batched products
+    and `index_add_`) and ``nmftpu.ials.solve`` (every panel's solve),
+    and counts its rows and segments in `IALS_COUNTS`."""
     from nmftpu_torch.sparse_ops import _row_solver
 
     solve = _row_solver(solver, cg_steps)
@@ -717,16 +726,24 @@ def als_update_weighted_ell_exact(pair: EllPair, W, H, alpha, lambda_w=0.0,
     def cv_fn(v):
         return v * (1.0 + alpha * v)
 
+    def half(ell, table, x0, shift):
+        """The rows of one side, solved from the other side's `table`
+        ((m, r) row-major for the W half), warm-started at x0."""
+        with span("nmftpu.ials.grams"):
+            G = (table.T @ table).to(torch.float32)
+            dG, rhs = grams_and_rhs_ell(ell, table, w_fn, cv_fn)
+        with span("nmftpu.ials.solve"):
+            out = solve(G, dG, rhs, shift, eps, x0)
+        IALS_COUNTS["rows_solved"] += ell.shape[0]
+        IALS_COUNTS["gram_segments"] += sum(b.vals.shape[0]
+                                            for b in ell.buckets)
+        return out
+
     def upd_w(W, H):
-        G = (H @ H.T).to(torch.float32)
-        dG, rhs = grams_and_rhs_ell(pair.rows, H.T, w_fn, cv_fn)
-        return solve(G, dG, rhs, lambda_w, eps, W).to(W.dtype)
+        return half(pair.rows, H.T, W, lambda_w).to(W.dtype)
 
     def upd_h(W, H):
-        G = (W.T @ W).to(torch.float32)
-        dG, rhs = grams_and_rhs_ell(pair.cols, W, w_fn, cv_fn)
-        return solve(G, dG, rhs, lambda_h, eps, H.T).T.contiguous().to(
-            H.dtype)
+        return half(pair.cols, W, H.T, lambda_h).T.contiguous().to(H.dtype)
 
     return _apply_order(upd_w, upd_h, W, H, order)
 

@@ -1218,12 +1218,25 @@ def _ell_ops_bundle(config: NmfConfig) -> LoopOps:
     )
 
 
-def _check_weighted_gram_budget(n: int, m: int, rank: int) -> None:
+def _default_weighted_gram_budget(device=None) -> int:
+    """The per-row Grams' budget where NMFTPU_WEIGHTED_GRAM_BUDGET_BYTES
+    is unset: half of a CUDA device's total memory (the share 8 GiB was
+    of the 16 GB TPU ``nmftpu`` set it for), else 8 GiB, as ``nmftpu``."""
+    if device is not None and torch.device(device).type == "cuda":
+        props = torch.cuda.get_device_properties(torch.device(device))
+        return props.total_memory // 2
+    return 8 * 1024**3
+
+
+def _check_weighted_gram_budget(n: int, m: int, rank: int,
+                                device=None) -> None:
     """iALS and masked ALS hold (n, r, r) + (m, r, r) float32 Grams:
     refuse clearly beyond NMFTPU_WEIGHTED_GRAM_BUDGET_BYTES (read at
-    call time; default 8 GiB) instead of failing for device memory."""
-    budget = int(os.environ.get("NMFTPU_WEIGHTED_GRAM_BUDGET_BYTES",
-                                8 * 1024**3))
+    call time; by default `_default_weighted_gram_budget(device)`)
+    instead of failing for device memory."""
+    env = os.environ.get("NMFTPU_WEIGHTED_GRAM_BUDGET_BYTES")
+    budget = (int(env) if env is not None
+              else _default_weighted_gram_budget(device))
     need = (n + m) * rank * rank * 4
     if need > budget:
         raise ValueError(
@@ -1235,12 +1248,13 @@ def _check_weighted_gram_budget(n: int, m: int, rank: int) -> None:
         )
 
 
-def _check_engine(config: NmfConfig, strategy: str, n: int, m: int) -> None:
+def _check_engine(config: NmfConfig, strategy: str, n: int, m: int,
+                  device=None) -> None:
     """The engines an algorithm runs on, as ``prepare_sparse`` in
     ``nmftpu`` checks them: iALS and masked ALS on `ell` or `scatter`
-    (within the Gram budget), HALS on `scatter`. A plan checks each
-    config it runs too, where ``nmftpu`` would run a HALS config on
-    another engine's MU or nsNMF update."""
+    (within the Gram budget of `device`), HALS on `scatter`. A plan
+    checks each config it runs too, where ``nmftpu`` would run a HALS
+    config on another engine's MU or nsNMF update."""
     if (config.algorithm is Algorithm.ALS
             and (config.alpha_confidence > 0.0
                  or config.mask == "observed")):
@@ -1251,7 +1265,7 @@ def _check_engine(config: NmfConfig, strategy: str, n: int, m: int) -> None:
                 f"(f64-exact oracle) engines; strategy resolved to "
                 f"{strategy!r}"
             )
-        _check_weighted_gram_budget(n, m, config.rank)
+        _check_weighted_gram_budget(n, m, config.rank, device)
     if config.algorithm is Algorithm.HALS and strategy != "scatter":
         raise ValueError(
             "HALS runs on the 'scatter' sparse engine (exact "
@@ -1375,7 +1389,8 @@ class SparsePlan:
                 f"({self.config.v_storage!r} at prepare time vs "
                 f"{config.v_storage!r}); re-run prepare_sparse"
             )
-        _check_engine(config, self.strategy, n, m)
+        _check_engine(config, self.strategy, n, m,
+                      self.coo.values.device)
         if self.strategy in ("ell", "scatter") \
                 and config.v_storage != "float32":
             raise ValueError(
@@ -1446,7 +1461,7 @@ def prepare_sparse(
             f"strategy must be 'auto', 'ell', 'densified' or 'scatter', "
             f"got {strategy!r}"
         )
-    _check_engine(config, strategy, n, m)
+    _check_engine(config, strategy, n, m, coo.values.device)
     if strategy in ("ell", "scatter") and config.v_storage != "float32":
         raise ValueError(
             f"v_storage={config.v_storage!r} is only honored by the "

@@ -17,6 +17,10 @@ span (``nmftpu.fit``, ``nmftpu.serve.request``) on the calling thread:
     nmftpu.fit.init      a run's starting factors
     nmftpu.loop.setup    the loop's constants and its first error
     nmftpu.loop.update   one iteration's update
+      nmftpu.ials.grams  an iALS half-step on ELL: the base Gram and the
+                         per-row Gram deltas and right-hand sides
+                         (gathers, batched products, `index_add_`)
+      nmftpu.ials.solve  that half-step's per-row solves, every panel
     nmftpu.loop.check    the error check: metric, stats, its host sync,
                          callback, interrupt
     nmftpu.loop.finish   the final Frobenius and KL errors
@@ -63,10 +67,12 @@ def span(name: str):
 def counters() -> dict[str, int]:
     """A flat snapshot of the port's integer counters, read on the host
     (nothing waits for the device): each kernel entry's launches as
-    ``launches.<entry>`` and serving's certified-path counts as
-    ``serve.<count>`` (`serving.COUNTS`). Differences of two snapshots
-    count what ran between them."""
-    from nmftpu_torch import serving
+    ``launches.<entry>``, serving's certified-path counts as
+    ``serve.<count>`` (`serving.COUNTS`) and iALS's on the ELL engine as
+    ``ials.<count>`` (`sparse_ell.IALS_COUNTS`: ``rows_solved``,
+    ``gram_segments``). Differences of two snapshots count what ran
+    between them."""
+    from nmftpu_torch import serving, sparse_ell
     from nmftpu_torch.kernels import (
         count_above,
         dense_mu,
@@ -82,6 +88,8 @@ def counters() -> dict[str, int]:
                 sparse_ell_kernel, mips_reservoir, count_above):
         out.update((f"launches.{k}", int(v)) for k, v in mod.LAUNCHES.items())
     out.update((f"serve.{k}", int(v)) for k, v in serving.COUNTS.items())
+    out.update((f"ials.{k}", int(v))
+               for k, v in sparse_ell.IALS_COUNTS.items())
     return out
 
 
