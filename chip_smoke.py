@@ -198,6 +198,12 @@ items (the most popular included), per row within 10 sqrt(r) kappa_row
 2^-24, the H half plus kappa_row times W's measured difference; (c) on
 the NCCL rank at config 2, a ring and an ELL plan prepared unmasked
 refuse a mask="observed" run with ValueError before any launch.
+Phase 27 runs kernel #12 (nmftpu_torch/kernels/row_solve.py, the per-row
+ridged solves) alone at config 3's two half-steps, 136,677 and 20,108
+seeded iALS-like systems at r = 128, against the plain path (the panel
+loop over the batched Cholesky and its explicit inverse) and, on a row
+sample, float64 Cholesky: its error at most 4x the plain path's, and the
+ms of both beside the bound.
 Every phase prints its results; any failure exits non-zero, as does a
 kernel timed below its bound. Without a CUDA device it exits 1 and runs
 nothing.
@@ -327,6 +333,18 @@ C3_ENGINES_RTOL = 1e-3
 C3_OBJECTIVE_RTOL = 1e-3
 # phase 17 at config 2's shape, rank 64
 S8_ITERS = 4
+
+# phase 27: #12 alone at config 3's two half-steps (ML-20M clicks: 136,677
+# user rows, 20,108 item rows, r = 128), on seeded iALS-like systems: the
+# other side's Gram of uniform factors plus 40 times the outer products of
+# ROW_SOLVE_CLICKS of its rows a row (kappa about 10^3), lambda 0.1. A
+# seeded sample of ROW_SOLVE_SAMPLE rows a half is solved again in
+# float64; the kernel's error is held to F64_FACTOR times the plain
+# path's on the same rows
+ROW_SOLVE_HALVES = (("W", 136_677, 20_108), ("H", 20_108, 136_677))
+ROW_SOLVE_CLICKS = 16
+ROW_SOLVE_SAMPLE = 2048
+ROW_SOLVE_LAMBDA = 0.1
 
 # phase 18: cold users at config 5 (users outside training, SERVE_SEEN
 # distinct items each, drawn as serving_data draws them), folded in against
@@ -604,6 +622,9 @@ REPLACES = {
     # kernel: the _rhs_vht_int8 / _rhs_wtv_int8 dots
     "vht_int8": "nmftpu/linalg/dense.py:334",
     "wtv_int8": "nmftpu/linalg/dense.py:344",
+    # the per-row ridged solves replace XLA's batched Cholesky
+    "row_solve": "none (XLA's batched Cholesky, nmftpu/linalg/dense.py "
+                 "_batched_solve_clamped)",
 }
 SOURCES = {
     "w_update_fused": "nmftpu_torch/csrc/dense_mu.cu",
@@ -619,6 +640,7 @@ SOURCES = {
     "hals_sweep": "nmftpu_torch/csrc/hals_sweep.cu",
     "vht_int8": "nmftpu_torch/csrc/dual_numer.cu",
     "wtv_int8": "nmftpu_torch/csrc/dual_numer.cu",
+    "row_solve": "nmftpu_torch/csrc/row_solve.cu",
 }
 DENSE = ("w_update_fused", "h_update_fused", "w_update_fused_q",
          "h_update_fused_q")
@@ -3401,8 +3423,8 @@ def sparse_algorithms_phase(nt, card, dev, ratings, c3, V, W0d, H0d) -> dict:
     config 2 on ELL and scatter (c); dense iALS at 4096^2 / r = 256
     (phase 4's V, W0d, H0d) (d); the sparse k-means and NNDSVD inits
     (e). Returns the launches of #6's one-sided entries and #7 on these
-    paths, #7's largest difference from its twin, its ms and bound at
-    138,493 x 64."""
+    paths, #12's on the ELL iALS run, #7's largest difference from its
+    twin, its ms and bound at 138,493 x 64."""
     import os
 
     from nmftpu_torch import sparse_ell as SE
@@ -3413,6 +3435,7 @@ def sparse_algorithms_phase(nt, card, dev, ratings, c3, V, W0d, H0d) -> dict:
     from nmftpu_torch.init import nndsvd as ND
     from nmftpu_torch.kernels import dual_numer as DN
     from nmftpu_torch.kernels import hals_sweep as HS
+    from nmftpu_torch.kernels import row_solve as RS
     from nmftpu_torch.linalg import dense as D
 
     t_phase = time.perf_counter()
@@ -3795,7 +3818,7 @@ def sparse_algorithms_phase(nt, card, dev, ratings, c3, V, W0d, H0d) -> dict:
                          num_iterations=iters, check_interval=iters,
                          **knobs)
 
-    ials = {}
+    ials, rs_launches = {}, {}
     plan = None
     for engine, strategy, solver in (("ell", "auto", "exact"),
                                      ("ell", "auto", "cg"),
@@ -3817,6 +3840,7 @@ def sparse_algorithms_phase(nt, card, dev, ratings, c3, V, W0d, H0d) -> dict:
         base = torch.cuda.memory_allocated()
         t_start = torch.cuda.Event(enable_timing=True)
         t_end = torch.cuda.Event(enable_timing=True)
+        RS.LAUNCHES["row_solve"] = 0     # the main path's iALS starts here
         t_start.record()
         one = plan.run(cfg3(1, **knobs), W0=W3, H0=H3)
         t_end.record()
@@ -3829,6 +3853,14 @@ def sparse_algorithms_phase(nt, card, dev, ratings, c3, V, W0d, H0d) -> dict:
             objs.append(weighted_objective(trip, res.W, res.H, alpha))
             ials[engine, solver] = res.frobenius_error
             del res
+        # #12 takes every exact half-step at r = 128, one launch each; cg
+        # never reaches it
+        iters = S12_ITERS if engine == "ell" else 1
+        rs_launches[engine, solver] = RS.LAUNCHES["row_solve"]
+        if rs_launches[engine, solver] != (2 * iters if solver == "exact"
+                                           else 0):
+            fail(f"config 3 iALS {engine} {solver}: {iters} iterations "
+                 f"launched #12 {rs_launches[engine, solver]} times")
         peak = (torch.cuda.max_memory_allocated() - base) / 2**30
         # one step per row against float64 normal equations solved by LU;
         # cg's 3 float32 steps leave their exact-arithmetic iterates by up
@@ -3862,6 +3894,7 @@ def sparse_algorithms_phase(nt, card, dev, ratings, c3, V, W0d, H0d) -> dict:
             over_weighted_mu=[f"{o / mu:.4f}" for o, mu in zip(
                 objs[1:], (mu1, mu4))],
             ms_first_iter_with_check=f"{ms1:.3f}", peak_GiB=f"{peak:.2f}",
+            row_solve_launches=rs_launches[engine, solver],
             gram_need_GiB=f"{need / 2**30:.4f}", prepare_s=f"{prep_s:.2f}",
             **{f"step_{k}_worst_ratio_to_limit": f"{v[0]:.3e}"
                for k, v in checks.items()},
@@ -4019,6 +4052,7 @@ def sparse_algorithms_phase(nt, card, dev, ratings, c3, V, W0d, H0d) -> dict:
     torch.cuda.empty_cache()
     say("22 seconds", seconds=f"{time.perf_counter() - t_phase:.1f}")
     return {"launches": {"hals_sweep": hals["launches"], **int8_launches},
+            "row_solve": rs_launches["ell", "exact"],
             "hals_max_abs": hals_diff, "hals_ms": t_ms["kernel"],
             "hals_plain_ms": t_ms["plain"], "hals_bound": hals_bound}
 
@@ -6636,6 +6670,106 @@ def slice16_phase(nt, card, dev, ratings, c3) -> None:
     say("26", seconds=f"{time.perf_counter() - t_phase:.1f}")
 
 
+def row_solve_systems(rows, other, r, gen, dev, chunk=8192):
+    """Seeded iALS-like per-row systems: G = Tᵀ T of the other side's
+    (other, r) uniform factors T, dG_i = C3_ALPHA · Σ t tᵀ and rhs_i =
+    (1 + C3_ALPHA) · Σ t over ROW_SOLVE_CLICKS rows t of T."""
+    T = torch.rand(other, r, generator=gen, device=dev) + 0.1
+    G = T.T @ T
+    dG = torch.empty(rows, r, r, device=dev)
+    rhs = torch.empty(rows, r, device=dev)
+    for s in range(0, rows, chunk):
+        e = min(s + chunk, rows)
+        idx = torch.randint(0, other, (e - s, ROW_SOLVE_CLICKS),
+                            generator=gen, device=dev)
+        B = T[idx]
+        torch.bmm(C3_ALPHA * B.transpose(1, 2), B, out=dG[s:e])
+        rhs[s:e] = (1.0 + C3_ALPHA) * B.sum(1)
+    return G, dG, rhs
+
+
+def row_solve_f64(G, dG, rhs, idx, lam, eps):
+    """The rows `idx`' ridged systems (linalg.dense._ridged with float32's
+    floor) solved by float64 Cholesky and clamped; the largest condition
+    number among them."""
+    Gb = G.double()[None] + dG[idx].double()
+    r = Gb.shape[-1]
+    mean = torch.diagonal(Gb, dim1=-2, dim2=-1).sum(-1)[:, None, None] / r
+    A = Gb + (lam + eps + max(eps, 100 * 2.0**-23) * mean) * torch.eye(
+        r, dtype=torch.float64, device=Gb.device)
+    x = torch.cholesky_solve(rhs[idx].double()[..., None],
+                             torch.linalg.cholesky(A))[..., 0]
+    ev = torch.linalg.eigvalsh(A)
+    return torch.clamp(x, min=0.0), float((ev[:, -1] / ev[:, 0]).max())
+
+
+def row_err(x, want) -> float:
+    """The worst row's max |x - want| over its max |want|."""
+    scale = want.abs().amax(1).clamp_min(1e-30)
+    return float(((x.double() - want).abs().amax(1) / scale).max())
+
+
+def row_solve_phase(card, dev) -> dict:
+    """Phase 27: #12 (one launch for all rows of a half-step) against the
+    plain path on config 3's two halves, and both against float64 on a
+    row sample; ms by CUDA events beside the bound. Returns the W half's
+    numbers for the kernel table."""
+    from nmftpu_torch.kernels import row_solve as RS
+    from nmftpu_torch.linalg import dense as D
+    from nmftpu_torch.sparse_ops import _panel_solve
+
+    def solve_plain(G, dG, rhs, lam, eps):
+        # the exact row solver's path off #12: panels of
+        # _batched_solve_clamped
+        return _panel_solve(G, dG, rhs, lambda Gb, s, e:
+                            D._batched_solve_clamped(Gb, rhs[s:e], lam, eps))
+
+    r, eps, lam = C3_RANK, 1e-9, ROW_SOLVE_LAMBDA
+    gen = torch.Generator(device=dev).manual_seed(SEED + 27)
+    res = {}
+    for half, rows, other in ROW_SOLVE_HALVES:
+        G, dG, rhs = row_solve_systems(rows, other, r, gen, dev)
+        got = RS.solve_rows(G, dG, rhs, lam, eps)
+        plain = solve_plain(G, dG, rhs, lam, eps)
+        torch.cuda.synchronize()
+        if not (torch.isfinite(got).all() and (got >= 0).all()):
+            fail(f"#12 {half} half: a non-finite or negative solution")
+        a = float((got - plain).abs().max())
+        rel = a / float(plain.abs().max())
+        idx = torch.randperm(rows, generator=gen, device=dev)[
+            :ROW_SOLVE_SAMPLE]
+        want, kappa = row_solve_f64(G, dG, rhs, idx, lam, eps)
+        k_err, p_err = row_err(got[idx], want), row_err(plain[idx], want)
+        del got, plain, want
+        ms = abba_ms({
+            "kernel": lambda: RS.solve_rows(G, dG, rhs, lam, eps),
+            "plain": lambda: solve_plain(G, dG, rhs, lam, eps),
+        }, iters=5)
+        # each row's Cholesky and two triangular solves; its lower
+        # triangle and right-hand side read once and x written once, G
+        # once
+        b_ms, b_by = bound(rows * (r**3 / 3 + 2 * r * r),
+                           rows * (r * (r + 1) / 2 + 2 * r) * 4
+                           + r * r * 4, F32_PEAK)
+        say("27 row_solve", half=half, rows=rows, r=r,
+            ms=f"{ms['kernel']:.4f}", plain_ms=f"{ms['plain']:.4f}",
+            bound_ms=f"{b_ms:.4f}", bound_by=b_by, library_ms="none",
+            kernel_err_f64=f"{k_err:.3e}", plain_err_f64=f"{p_err:.3e}",
+            kappa=f"{kappa:.4g}", vs_plain_max_abs=f"{a:.3e}",
+            vs_plain_max_rel=f"{rel:.3e}", card=card)
+        if not (k_err <= F64_FACTOR * p_err
+                and k_err <= SOLVE_FACTOR * kappa * 2.0**-24):
+            fail(f"#12 {half} half: error against float64 {k_err:.3e} "
+                 f"over {F64_FACTOR} x the plain path's {p_err:.3e} or "
+                 f"{SOLVE_FACTOR} kappa 2^-24 (kappa {kappa:.4g})")
+        res[half] = dict(ms=ms["kernel"], plain_ms=ms["plain"],
+                         bound_ms=b_ms, bound_by=b_by, max_abs_err=a)
+        del G, dG, rhs
+        torch.cuda.empty_cache()
+    return {**res["W"],
+            "max_abs_err": max(h["max_abs_err"] for h in res.values())}
+
+
 def main() -> None:
     if not (HERE / "nmftpu_torch").is_dir():
         fail(f"no nmftpu_torch package beside {__file__}")
@@ -7137,6 +7271,13 @@ def main() -> None:
     slice16_phase(nt, card, dev, ratings, c3)
     del ratings, c3
 
+    # -- 27. #12 alone at config 3's two half-steps ---------------------------
+    torch.cuda.empty_cache()
+    rs = row_solve_phase(card, dev)
+    max_abs["row_solve"] = rs["max_abs_err"]
+    k_ms["row_solve"], p_ms["row_solve"] = rs["ms"], rs["plain_ms"]
+    bounds["row_solve"] = (rs["bound_ms"], rs["bound_by"])
+
     if "jax" in sys.modules:
         fail("jax was imported")
     # a time below the least the card could take means a wrong bound
@@ -7147,6 +7288,8 @@ def main() -> None:
 
     launches = {**main_path_launches, **serve_launches,
                 "ell_rowsums": ell["launches"], "ell_kl": kl["launches"],
+                # phase 22's ELL iALS run at config 3, the main path
+                "row_solve": s12["row_solve"],
                 **{name: f["launches"] for name, f in new.items()}}
     # #6's one-sided entry, #7 and #8 on the cold-user path (phase 18); the
     # one-sided entries on the int8 ALS family, GDCLS and nsNMF (phase 21)

@@ -55,6 +55,9 @@ _ELL_KL = [_P, _I, _P, _P, _P, _I, ctypes.c_double, _P]
 _INT8 = [_P] * 3 + [_I] * 5 + [_P]
 # (x, numer, denom, out, count, eps, stream)
 _MULDIV = [_P] * 4 + [_LL, ctypes.c_double, _P]
+# (Gt, dG, rhs, out, rows, r, ld_g, ld_rhs, c0, c1, stream)
+_ROW_SOLVE = [_P] * 4 + [_LL, _I, _LL, _LL, ctypes.c_float, ctypes.c_float,
+                         _P]
 ENTRIES = {
     "nmftpu_int8_vht": _INT8,
     "nmftpu_int8_wtv": _INT8,
@@ -68,6 +71,7 @@ ENTRIES = {
     "nmftpu_ell_spmm_f64": _ELL,
     "nmftpu_ell_kl_f32": _ELL_KL,
     "nmftpu_ell_kl_f64": _ELL_KL,
+    "nmftpu_row_solve_f32": _ROW_SOLVE,
     "nmftpu_w_update_f32": _MU,
     "nmftpu_h_update_f32": _MU,
     "nmftpu_w_update_i8": _MU,

@@ -714,7 +714,7 @@ def als_update_weighted_ell_exact(pair: EllPair, W, H, alpha, lambda_w=0.0,
     one gather (`grams_and_rhs_ell`), solved in float32 by
     ``sparse_ops._row_solver``. Each half-step is two spans,
     ``nmftpu.ials.grams`` (the base Gram, the gathers, batched products
-    and `index_add_`) and ``nmftpu.ials.solve`` (every panel's solve),
+    and `index_add_`) and ``nmftpu.ials.solve`` (the rows' solves),
     and counts its rows and segments in `IALS_COUNTS`."""
     from nmftpu_torch.sparse_ops import _row_solver
 

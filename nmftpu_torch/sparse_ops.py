@@ -575,9 +575,10 @@ def nsnmf_update_sparse(coo, W, H, S, eps=1e-9, objective="frobenius",
 # iALS and masked completion ALS: per-row normal equations
 # ---------------------------------------------------------------------------
 
-# The per-row solves run over panels of rows whose (rows, r, r) systems
-# take about this many bytes each: the Cholesky factor, its inverse and
-# their product are each one such array, never one of all n rows
+# The plain per-row solves (and the CG steps) run over panels of rows
+# whose (rows, r, r) systems take about this many bytes each: the Cholesky
+# factor, its inverse and their product are each one such array, never
+# one of all n rows; kernel #12 takes all rows at once
 ROW_SOLVE_PANEL_BYTES = 1 << 30
 
 
@@ -609,28 +610,46 @@ def _weighted_row_grams(coo, T, alpha, n_rows, by_cols=False, sub=4096,
     return acc
 
 
+def _panel_solve(G, dG, rhs, solve_panel):
+    """(rows, r): solve_panel(Gb, s, e) for the rows s:e of each panel of
+    `ROW_SOLVE_PANEL_BYTES`, Gb = G + dG[s:e] (dG[s:e] where G is None)."""
+    rows, r = rhs.shape
+    panel = max(1, ROW_SOLVE_PANEL_BYTES // (r * r * dG.element_size()))
+    out = torch.empty_like(rhs)
+    for s, e in _panels(rows, panel):
+        Gb = dG[s:e] if G is None else G[None] + dG[s:e]
+        out[s:e] = solve_panel(Gb, s, e)
+    return out
+
+
 def _row_solver(solver, cg_steps):
     """solve(G, dG, rhs, shift, eps, x0) -> (rows, r), clamped at 0: the
     per-row systems G + dG[i] (G the shared (r, r) base Gram, or None)
-    solved exactly (one batched Cholesky) or by `cg_steps` warm-started
-    Jacobi-preconditioned CG steps from x0
-    (``linalg.dense._batched_solve_clamped`` / ``_cg``), over panels of
-    rows (`ROW_SOLVE_PANEL_BYTES`); each row's solve is independent of
-    the panel it falls in."""
+    solved exactly or by `cg_steps` warm-started Jacobi-preconditioned CG
+    steps from x0 (``linalg.dense._batched_solve_clamped_cg``), over
+    panels of rows (`ROW_SOLVE_PANEL_BYTES`). The exact solve is one
+    launch of kernel #12 for all rows (``kernels.row_solve.solve_rows``)
+    on CUDA float32 rows of r <= ``ROW_SOLVE_MAX_RANK``, else the panel
+    loop over ``linalg.dense._batched_solve_clamped``. Each row's solve is
+    independent of the panel it falls in."""
+    from nmftpu_torch.kernels import row_solve as RS
     from nmftpu_torch.linalg import dense as D
 
     def solve(G, dG, rhs, shift, eps, x0):
-        rows, r = rhs.shape
-        panel = max(1, ROW_SOLVE_PANEL_BYTES // (r * r * dG.element_size()))
-        out = torch.empty_like(rhs)
-        for s, e in _panels(rows, panel):
-            Gb = dG[s:e] if G is None else G[None] + dG[s:e]
-            if solver == "cg":
-                out[s:e] = D._batched_solve_clamped_cg(
-                    Gb, rhs[s:e], shift, eps, x0[s:e], steps=cg_steps)
-            else:
-                out[s:e] = D._batched_solve_clamped(Gb, rhs[s:e], shift, eps)
-        return out
+        if solver == "cg":
+            return _panel_solve(G, dG, rhs, lambda Gb, s, e:
+                                D._batched_solve_clamped_cg(
+                                    Gb, rhs[s:e], shift, eps, x0[s:e],
+                                    steps=cg_steps))
+        if RS.takes(dG.device, dG.dtype, rhs.shape[1]):
+            # #12 reads a row's right-hand side as r contiguous floats; the
+            # mesh's H halves pass the transpose of an (r, m) sum
+            if rhs.stride(1) != 1:
+                rhs = rhs.contiguous()
+            return RS.solve_rows(G, dG, rhs, shift, eps)
+        return _panel_solve(G, dG, rhs, lambda Gb, s, e:
+                            D._batched_solve_clamped(Gb, rhs[s:e], shift,
+                                                     eps))
 
     return solve
 

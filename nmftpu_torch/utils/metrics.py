@@ -80,12 +80,13 @@ def counters() -> dict[str, int]:
         hals_sweep,
         mips_reservoir,
         quantized,
+        row_solve,
         sparse_ell_kernel,
     )
 
     out = {}
     for mod in (dense_mu, quantized, dual_numer, hals_sweep,
-                sparse_ell_kernel, mips_reservoir, count_above):
+                sparse_ell_kernel, mips_reservoir, count_above, row_solve):
         out.update((f"launches.{k}", int(v)) for k, v in mod.LAUNCHES.items())
     out.update((f"serve.{k}", int(v)) for k, v in serving.COUNTS.items())
     out.update((f"ials.{k}", int(v))
