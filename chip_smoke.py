@@ -2863,18 +2863,17 @@ def family_solve_check(label, side, got, gram, rhs, shift, off,
 def family_shifts(alg, kn, storage, r):
     """(shift_w, shift_h, off_w, off_h) the route of `alg` on `storage`
     solves with: the float64 Hoyer shifts of the int8 and bf16 routes
-    (sparse_ops._als_family_shifts), the dense float32 AHCLS shift in
+    (linalg.dense._als_family_shifts), the dense float32 AHCLS shift in
     float32 (linalg.dense._ahcls_shift), the penalties, or the GDCLS
     Tikhonov term (H side)."""
     import nmftpu_torch as nt
-    from nmftpu_torch import sparse_ops as TS
     from nmftpu_torch.linalg import dense as D
 
     if alg == "gdcls":
         return 0.0, kn["lambda_tik"], 0.0, 0.0
     if storage != "float32" or alg != "ahcls":
-        return TS._als_family_shifts(nt.NmfConfig(rank=r, algorithm=alg,
-                                                  **kn))
+        return D._als_family_shifts(nt.NmfConfig(rank=r, algorithm=alg,
+                                                 **kn))
     (dw, ow), (dh, oh) = (
         D._ahcls_shift(kn[f"lambda_{s}"], kn[f"alpha_{s}"], r, torch.float32)
         for s in "wh")
@@ -3240,14 +3239,14 @@ def refusal(fn, *args) -> str:
 
 def sparse_shifts(alg, kn, r):
     """(shift_w, shift_h, off_w, off_h) of a solve on a sparse engine: the
-    float64 shifts of sparse_ops._als_family_shifts, or GDCLS's Tikhonov
+    float64 shifts of linalg.dense._als_family_shifts, or GDCLS's Tikhonov
     term on the H side."""
     import nmftpu_torch as nt
-    from nmftpu_torch import sparse_ops as TS
+    from nmftpu_torch.linalg import dense as D
 
     if alg == "gdcls":
         return 0.0, kn["lambda_tik"], 0.0, 0.0
-    return TS._als_family_shifts(nt.NmfConfig(rank=r, algorithm=alg, **kn))
+    return D._als_family_shifts(nt.NmfConfig(rank=r, algorithm=alg, **kn))
 
 
 def engine_ls_terms(strategy, op, side, W, H):
@@ -6716,13 +6715,13 @@ def row_solve_phase(card, dev) -> dict:
     numbers for the kernel table."""
     from nmftpu_torch.kernels import row_solve as RS
     from nmftpu_torch.linalg import dense as D
-    from nmftpu_torch.sparse_ops import _panel_solve
 
     def solve_plain(G, dG, rhs, lam, eps):
         # the exact row solver's path off #12: panels of
         # _batched_solve_clamped
-        return _panel_solve(G, dG, rhs, lambda Gb, s, e:
-                            D._batched_solve_clamped(Gb, rhs[s:e], lam, eps))
+        return D._panel_solve(G, dG, rhs, lambda Gb, s, e:
+                              D._batched_solve_clamped(Gb, rhs[s:e], lam,
+                                                       eps))
 
     r, eps, lam = C3_RANK, 1e-9, ROW_SOLVE_LAMBDA
     gen = torch.Generator(device=dev).manual_seed(SEED + 27)

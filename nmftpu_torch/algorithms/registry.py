@@ -56,7 +56,7 @@ mu_style="jacobi", else update_order):
   nsNMF, float32 V (Frobenius or KL)   -> linalg.dense.nsnmf_update
 
 The ALS family on int8 and bf16 V takes its shifts from
-``sparse_ops._als_family_shifts`` (float64); dense float32 AHCLS takes
+``linalg.dense._als_family_shifts`` (float64); dense float32 AHCLS takes
 ``linalg.dense._ahcls_shift`` (in V's dtype), as ``nmftpu`` does.
 On the CPU, ``nmftpu`` runs int8 MU as a bf16-dequantized contraction;
 the port takes the int8 x int8 route on every device. Dense iALS solves
@@ -143,10 +143,8 @@ def _low_precision_family(config: NmfConfig, sums=LOCAL):
     from nmftpu_torch import densified as DF
 
     if alg in (Algorithm.ALS, Algorithm.ACLS, Algorithm.AHCLS):
-        from nmftpu_torch.sparse_ops import _als_family_shifts
-
         shifts = dict(zip(("shift_w", "shift_h", "off_w", "off_h"),
-                          _als_family_shifts(config)))
+                          D._als_family_shifts(config)))
         if int8:
             def update(V, aux, W, H):
                 return D.als_family_update_int8x8(

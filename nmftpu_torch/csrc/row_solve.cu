@@ -12,7 +12,7 @@
 //
 // Replaces no TPU kernel: nmftpu leaves the per-row solves to XLA's
 // batched Cholesky (nmftpu/linalg/dense.py:_batched_solve_clamped), and
-// the port's plain path (sparse_ops._row_solver over panels of rows) runs
+// the port's plain path (linalg.dense.row_solver over panels of rows) runs
 // linalg.dense.spd_solve: G + dG and the ridge materialized, cuSOLVER's
 // batched Cholesky, a triangular solve against the identity and
 // Linv^T Linv, about ten passes over every (rows, r, r) panel. Here each

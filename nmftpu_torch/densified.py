@@ -36,12 +36,14 @@ from nmftpu_torch.linalg.dense import (
     LOCAL,
     _apply_order,
     _bf16_dot,
+    _beta_apply,
     _beta_powers,
     _jacobi_kl_scale,
+    _panels,
     beta_gamma,
     solve_clamped,
 )
-from nmftpu_torch.sparse_ops import DeviceCOO, _beta_apply, _chunks, _panels
+from nmftpu_torch.sparse_ops import DeviceCOO, _chunks
 
 
 def densify(coo: DeviceCOO, dtype=torch.bfloat16,
@@ -188,7 +190,7 @@ def _big_wtv(W, Vd):
 def als_family_update_densified(Vd, W, H, shift_w=0.0, shift_h=0.0,
                                 off_w=0.0, off_h=0.0, eps=1e-9, order="WH",
                                 sums=LOCAL):
-    """ALS / ACLS / AHCLS (the shifts of ``sparse_ops._als_family_shifts``)
+    """ALS / ACLS / AHCLS (the shifts of ``linalg.dense._als_family_shifts``)
     against a dense bf16 V: the O(nmr) right-hand sides contract bf16
     operands into float32 (`_big_vht`, `_big_wtv`); the r x r solves run
     in the factors' dtype (``linalg.dense.solve_clamped``)."""

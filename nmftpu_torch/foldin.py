@@ -457,9 +457,9 @@ def transform(
                     G, prep, cols_np, vals_np, indptr_np, b,
                     alpha_confidence,
                 )
-            # scale-aware ridge (linalg.dense._ridged): weighted Grams can
-            # be large and near-singular
-            W = D._batched_solve_clamped(Gb, rhs, lambda_w, eps)
+            # the per-row route: a scale-aware ridge (linalg.dense._ridged)
+            # for large, near-singular weighted Grams; #12 on the card
+            W = D.row_solver()(None, Gb, rhs, lambda_w, eps, None)
         else:
             A = G + (lambda_w + eps) * eye
             W = torch.clamp(D.spd_solve(A, N.T).T, min=0.0)

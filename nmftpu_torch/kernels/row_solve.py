@@ -14,7 +14,9 @@ solved in shared memory and registers, and only x is written; no
 inverse and no (rows, r, r) intermediate exists. It replaces no TPU
 kernel: ``nmftpu`` leaves these solves to XLA's batched Cholesky.
 
-``sparse_ops._row_solver``'s exact solver is the one place that routes:
+``linalg.dense.row_solver``'s exact solver is the one place that
+routes, for every per-row weighted solve of the package (iALS and masked
+ALS on each engine and the mesh, the dense iALS, the weighted fold-in):
 it calls `solve_rows` where `takes` holds (CUDA, float32, r <=
 `ROW_SOLVE_MAX_RANK`) and otherwise runs the plain path, its panel loop
 over ``linalg.dense._batched_solve_clamped``. `solve_rows` raises on

@@ -3,7 +3,8 @@
 (Frobenius, KL and the generalized beta divergence; Gauss–Seidel and
 Jacobi; float32 / bf16 / int8 V; confidence-weighted Frobenius), HALS,
 the ALS family (ALS, ACLS, AHCLS), GDCLS and nsNMF on float32 and int8 V,
-and the least-squares solvers.
+the least-squares solvers with the one route of the per-row solves
+(`row_solver`), and the dense-factor pieces every sparse engine shares.
 
 Conventions
 -----------
@@ -28,7 +29,11 @@ holds one tile of V (``parallel.dense_mesh``) sums them over the ranks.
 
 from __future__ import annotations
 
+import math
+
 import torch
+
+from nmftpu_torch.config import Algorithm, NmfConfig
 
 
 class Sums:
@@ -56,6 +61,19 @@ class Sums:
 
 
 LOCAL = Sums()
+
+
+def _panels(n: int, block: int):
+    """(start, stop) of the panels of `block` rows (or columns) over n,
+    the last one possibly narrower: no panel has a pad row."""
+    return ((s, min(s + block, n)) for s in range(0, n, block))
+
+
+def _acc_dtype(dtype):
+    """Sums run at >= float32: thousands of contributions per row or
+    column would vanish below a bf16 running sum's ulp. float64 stays
+    float64."""
+    return torch.promote_types(dtype, torch.float32)
 
 
 def mu_update_w_frobenius(V, W, H, eps, sums=LOCAL):
@@ -291,6 +309,61 @@ def mu_update_beta(V, W, H, beta, eps=1e-9, order="WH", sums=LOCAL):
                                            sums=sums)),
         W, H, order,
     )
+
+
+def _beta_pwr_d(WH, beta):
+    """The denominator's power (WH)^(β-1) of one beta-MU half-step, with
+    sklearn's guard: WH clamped up to EPSILON only when β < 1 (the
+    numerator's separate guard is ``sparse_ops._beta_numer_values``)."""
+    WH_d = torch.clamp(WH, min=EPSILON) if beta < 1.0 else WH
+    return WH_d ** (beta - 1.0)
+
+
+def beta_denom_w_blocked(W, H, beta, block=2048):
+    """(WH)^(β-1) Hᵀ -> (n, r) over column panels of H. The beta-MU
+    denominator is dense whatever V's sparsity (the power does not
+    factor as β = 2's W (H Hᵀ) or β = 1's row sums do), but it needs
+    only one (n, block) panel of WH at a time."""
+    out = torch.zeros((W.shape[0], H.shape[0]), dtype=W.dtype,
+                      device=W.device)
+    for s, e in _panels(H.shape[1], block):
+        Hb = H[:, s:e]
+        out += _beta_pwr_d(W @ Hb, beta) @ Hb.T
+    return out
+
+
+def beta_denom_h_blocked(W, H, beta, block=2048):
+    """Wᵀ (WH)^(β-1) -> (r, m) over row panels of W (the twin of
+    `beta_denom_w_blocked`)."""
+    out = torch.zeros((W.shape[1], H.shape[1]), dtype=H.dtype,
+                      device=H.device)
+    for s, e in _panels(W.shape[0], block):
+        Wb = W[s:e]
+        out += Wb.T @ _beta_pwr_d(Wb @ H, beta)
+    return out
+
+
+def beta_sum_wh_blocked(W, H, beta, block=2048):
+    """Σ over ALL n·m entries of (WH)^β, over column panels: the one term
+    of the sparse beta divergence that touches the zero positions. The
+    last panel is narrower, so no pad column's 0^β (+inf for β < 0)
+    enters; ``nmftpu`` pads and masks the same columns out."""
+    acc_dt = _acc_dtype(W.dtype)
+    total = torch.zeros((), dtype=acc_dt, device=W.device)
+    for s, e in _panels(H.shape[1], block):
+        total += torch.sum((W @ H[:, s:e]).to(acc_dt) ** beta)
+    return total
+
+
+def _beta_apply(F, numer, denom, beta, gamma):
+    """F ⊙ (numer / denom)^γ with sklearn's zero-denominator replacement,
+    then β < 1's stabilization (entries below float64's machine eps
+    zeroed)."""
+    d = numer / torch.where(denom == 0.0, EPSILON, denom)
+    if gamma != 1.0:
+        d = d ** gamma
+    F = F * d
+    return torch.where(F < _STAB_EPS, 0.0, F) if beta < 1.0 else F
 
 
 def _bf16_dot(a, b, block_rows=4096):
@@ -583,6 +656,56 @@ def _batched_solve_clamped_cg(Gb, rhs, shift, eps, x0, steps=3):
     return torch.clamp(x, min=0.0)
 
 
+# The plain per-row solves (and the CG steps) run over panels of rows
+# whose (rows, r, r) systems take about this many bytes each: the Cholesky
+# factor, its inverse and their product are each one such array, never
+# one of all n rows; kernel #12 takes all rows at once
+ROW_SOLVE_PANEL_BYTES = 1 << 30
+
+
+def _panel_solve(G, dG, rhs, solve_panel):
+    """(rows, r): solve_panel(Gb, s, e) for the rows s:e of each panel of
+    `ROW_SOLVE_PANEL_BYTES`, Gb = G + dG[s:e] (dG[s:e] where G is None)."""
+    rows, r = rhs.shape
+    panel = max(1, ROW_SOLVE_PANEL_BYTES // (r * r * dG.element_size()))
+    out = torch.empty_like(rhs)
+    for s, e in _panels(rows, panel):
+        Gb = dG[s:e] if G is None else G[None] + dG[s:e]
+        out[s:e] = solve_panel(Gb, s, e)
+    return out
+
+
+def row_solver(solver="exact", cg_steps=3):
+    """solve(G, dG, rhs, shift, eps, x0) -> (rows, r), clamped at 0: the
+    per-row systems G + dG[i] (G the shared (r, r) base Gram, or None)
+    solved exactly or by `cg_steps` warm-started Jacobi-preconditioned CG
+    steps from x0 (`_batched_solve_clamped_cg`), over panels of rows
+    (`ROW_SOLVE_PANEL_BYTES`). The exact solve (x0 unused) is one launch
+    of kernel #12 for all rows (``kernels.row_solve.solve_rows``) on CUDA
+    float32 rows of r <= ``ROW_SOLVE_MAX_RANK``, else the panel loop over
+    `_batched_solve_clamped`. Each row's solve is independent of the
+    panel it falls in. Every per-row weighted solve of the package runs
+    here (iALS, masked ALS, the dense iALS, the weighted fold-in)."""
+    from nmftpu_torch.kernels import row_solve as RS
+
+    def solve(G, dG, rhs, shift, eps, x0):
+        if solver == "cg":
+            return _panel_solve(G, dG, rhs, lambda Gb, s, e:
+                                _batched_solve_clamped_cg(
+                                    Gb, rhs[s:e], shift, eps, x0[s:e],
+                                    steps=cg_steps))
+        if RS.takes(dG.device, dG.dtype, rhs.shape[1]):
+            # #12 reads a row's right-hand side as r contiguous floats; the
+            # mesh's H halves pass the transpose of an (r, m) sum
+            if rhs.stride(1) != 1:
+                rhs = rhs.contiguous()
+            return RS.solve_rows(G, dG, rhs, shift, eps)
+        return _panel_solve(G, dG, rhs, lambda Gb, s, e:
+                            _batched_solve_clamped(Gb, rhs[s:e], shift, eps))
+
+    return solve
+
+
 # The dense iALS builds each panel's (rows, r, r) Grams from sub-panels
 # whose (rows, r, m) intermediate (the partner scaled by each row's
 # confidences) takes at most about this many bytes
@@ -599,14 +722,13 @@ def als_update_weighted(V, W, H, alpha, lambda_w=0.0, lambda_h=0.0,
 
     (the column dual for H) and clamps at 0; the objective of
     `mu_update_frobenius_weighted`, minimized exactly per row. Panels of
-    `block` rows (columns) each take one batched solve
-    (`_batched_solve_clamped`); a panel's Grams are built in sub-panels of
-    rows whose (rows, r, m) scaled partner stays within
-    WEIGHTED_GRAM_SUBPANEL_BYTES (a single (1024, r, m) product is 28 GB
-    at the ML-20M width, r = 64). O(n m r²) a half-step: sparse V takes
-    ``sparse_ops.als_update_weighted_sparse``, which pays O(nnz r²)."""
-    from nmftpu_torch.sparse_ops import _panels
-
+    `block` rows (columns) each take one exact `row_solver` call; a
+    panel's Grams are built in sub-panels of rows whose (rows, r, m)
+    scaled partner stays within WEIGHTED_GRAM_SUBPANEL_BYTES (a single
+    (1024, r, m) product is 28 GB at the ML-20M width, r = 64). O(n m r²)
+    a half-step: sparse V takes ``sparse_ops.als_update_weighted_sparse``,
+    which pays O(nnz r²)."""
+    solve = row_solver()
     n, m = V.shape
     r = W.shape[1]
 
@@ -622,9 +744,8 @@ def als_update_weighted(V, W, H, alpha, lambda_w=0.0, lambda_h=0.0,
         for s, e in _panels(n, block):
             Vp = V[s:e]
             Cp = 1.0 + alpha * Vp
-            out[s:e] = _batched_solve_clamped(
-                sums.cols(grams(H, Cp)), sums.cols((Cp * Vp) @ H.T),
-                lambda_w, eps)
+            out[s:e] = solve(None, sums.cols(grams(H, Cp)),
+                             sums.cols((Cp * Vp) @ H.T), lambda_w, eps, None)
         return out
 
     def upd_h(W, H):
@@ -634,8 +755,8 @@ def als_update_weighted(V, W, H, alpha, lambda_w=0.0, lambda_h=0.0,
             Vp = V[:, s:e]
             Cp = (1.0 + alpha * Vp).T                     # (cols, n)
             rhs = sums.rows((Cp * Vp.T) @ W)              # (cols, r)
-            out[:, s:e] = _batched_solve_clamped(sums.rows(grams(Wt, Cp)),
-                                                 rhs, lambda_h, eps).T
+            out[:, s:e] = solve(None, sums.rows(grams(Wt, Cp)), rhs,
+                                lambda_h, eps, None).T
         return out
 
     return _apply_order(upd_w, upd_h, W, H, order)
@@ -679,12 +800,35 @@ def _ahcls_shift(lam, alpha, r, dtype):
     becomes G + lam·beta·I + lam·(1 - beta)·11ᵀ with
     beta = ((1 - alpha)·√r + alpha)² / r. The square root is taken in
     `dtype` (V's), as ``nmftpu``'s dense AHCLS does; the int8 and bf16
-    routes take their shifts from ``sparse_ops._als_family_shifts``
-    (float64) instead. Returns 0-dim CPU tensors of `dtype`, which enter
-    device arithmetic as scalars."""
+    routes take their shifts from `_als_family_shifts` (float64) instead.
+    Returns 0-dim CPU tensors of `dtype`, which enter device arithmetic
+    as scalars."""
     sr = torch.sqrt(torch.tensor(float(r), dtype=dtype))
     beta = ((1.0 - alpha) * sr + alpha) ** 2 / r
     return lam * beta, lam * (1.0 - beta)
+
+
+def _als_family_shifts(config: NmfConfig):
+    """(shift_w, shift_h, off_w, off_h) for the generic ALS-family solve
+    (`solve_clamped`): ALS = the plain normal equations, ACLS = the
+    diagonal sparsity penalties, AHCLS = the Hoyer-target diagonal and
+    off-diagonal shifts (Langville et al.), computed in float64 on the
+    host. The dense float32 AHCLS takes its shift from `_ahcls_shift`
+    (in V's dtype) instead, as in ``nmftpu``."""
+    if config.algorithm is Algorithm.ALS:
+        return 0.0, 0.0, 0.0, 0.0
+    if config.algorithm is Algorithm.ACLS:
+        return config.lambda_w, config.lambda_h, 0.0, 0.0
+    r = config.rank
+
+    def hoyer(lam, a):
+        sr = math.sqrt(r)
+        beta = ((1.0 - a) * sr + a) ** 2 / r
+        return lam * beta, lam * (1.0 - beta)
+
+    sw, ow = hoyer(config.lambda_w, config.alpha_w)
+    sh, oh = hoyer(config.lambda_h, config.alpha_h)
+    return sw, sh, ow, oh
 
 
 def ahcls_update(V, W, H, lambda_w=0.0, lambda_h=0.0, alpha_w=0.5,
@@ -779,7 +923,7 @@ def _ls_terms_h_int8(Vq, scale_v, W, sums=LOCAL):
 def als_family_update_int8x8(Vq, scale_v, W, H, shift_w=0.0, shift_h=0.0,
                              off_w=0.0, off_h=0.0, eps=1e-9, order="WH",
                              sums=LOCAL):
-    """ALS / ACLS / AHCLS (the shifts of ``sparse_ops._als_family_shifts``)
+    """ALS / ACLS / AHCLS (the shifts of `_als_family_shifts`)
     with V stored int8 (V ≈ scale_v·Vq): each half-step quantizes its
     factor operand once and builds both the Gram and the rhs from it
     (`_ls_terms_*_int8`), so the float32 r x r solve is the exact solution

@@ -43,17 +43,19 @@ from nmftpu_torch import sparse as host_sparse
 from nmftpu_torch.config import Algorithm, Initialization, NmfConfig, Objective
 from nmftpu_torch.init.strategies import run_seed
 from nmftpu_torch.linalg import dense as D
+from nmftpu_torch.linalg.dense import (
+    _als_family_shifts,
+    _beta_apply,
+    beta_denom_h_blocked,
+    beta_denom_w_blocked,
+    row_solver,
+)
 from nmftpu_torch.parallel.init_sharded import block_generator
 from nmftpu_torch.parallel.mesh import AXIS_RING, ppermute, psum
 from nmftpu_torch.parallel.sharded_coo import ShardedCOO, partition_tiles
 from nmftpu_torch.sparse_ops import (
-    _als_family_shifts,
-    _beta_apply,
     _beta_numer_values,
-    _row_solver,
     _weighted_row_grams,
-    beta_denom_h_blocked,
-    beta_denom_w_blocked,
     col_sums,
     project_columns,
     sddmm,
@@ -323,7 +325,7 @@ def build_ring_update(config: NmfConfig, mesh):
         upd_h = lambda g, W, H: h_hals(g, W, H, lh, l1h)  # noqa: E731
     elif alg is Algorithm.ALS and config.alpha_confidence > 0.0:
         a, lw, lh = config.alpha_confidence, config.lambda_w, config.lambda_h
-        solve = _row_solver(config.als_solver, config.cg_steps)
+        solve = row_solver(config.als_solver, config.cg_steps)
         upd_w = lambda g, W, H: w_als_weighted(g, W, H, a, lw,  # noqa: E731
                                                solve)
         upd_h = lambda g, W, H: h_als_weighted(g, W, H, a, lh,  # noqa: E731

@@ -27,7 +27,12 @@ import torch
 from nmftpu_torch import sparse as host_sparse
 from nmftpu_torch import sparse_ell as SE
 from nmftpu_torch.config import Algorithm, Objective
-from nmftpu_torch.linalg.dense import beta_gamma
+from nmftpu_torch.linalg.dense import (
+    _beta_apply,
+    beta_denom_h_blocked,
+    beta_denom_w_blocked,
+    beta_gamma,
+)
 from nmftpu_torch.parallel.mesh import AXIS_ITEMS, AXIS_USERS, psum
 from nmftpu_torch.parallel.sharded_coo import block_sizes, permutations
 from nmftpu_torch.parallel.updates import (
@@ -38,11 +43,6 @@ from nmftpu_torch.parallel.updates import (
     ordered,
 )
 from nmftpu_torch.sparse_ell import EllBucket, EllPair, EllRows
-from nmftpu_torch.sparse_ops import (
-    _beta_apply,
-    beta_denom_h_blocked,
-    beta_denom_w_blocked,
-)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -27,16 +27,18 @@ import torch
 
 from nmftpu_torch.config import Algorithm, NmfConfig, Objective
 from nmftpu_torch.linalg import dense as D
-from nmftpu_torch.parallel.mesh import AXIS_ITEMS, AXIS_USERS, psum
-from nmftpu_torch.sparse_ops import (
+from nmftpu_torch.linalg.dense import (
     _als_family_shifts,
     _beta_apply,
-    _beta_numer_values,
     _panels,
-    _row_solver,
-    _weighted_row_grams,
     beta_denom_h_blocked,
     beta_denom_w_blocked,
+    row_solver,
+)
+from nmftpu_torch.parallel.mesh import AXIS_ITEMS, AXIS_USERS, psum
+from nmftpu_torch.sparse_ops import (
+    _beta_numer_values,
+    _weighted_row_grams,
     sddmm,
     v_ht,
     wt_v,
@@ -292,7 +294,7 @@ def half_steps(config: NmfConfig):
             if obj is Objective.FROBENIUS:
                 return pair(_upd_w_fro_masked, _upd_h_fro_masked, eps)
             return pair(_upd_w_kl_masked, _upd_h_kl_masked, eps)
-        solve = _row_solver(config.als_solver, config.cg_steps)
+        solve = row_solver(config.als_solver, config.cg_steps)
         return (
             (lambda g, l, W, H, aux: _upd_w_als_masked(g, l, W, H, lw, eps,
                                                        solve),
@@ -315,7 +317,7 @@ def half_steps(config: NmfConfig):
                                                  config.l1_h, eps)), False)
     if alg is Algorithm.ALS and config.alpha_confidence > 0.0:
         a = config.alpha_confidence
-        solve = _row_solver(config.als_solver, config.cg_steps)
+        solve = row_solver(config.als_solver, config.cg_steps)
         return (
             (lambda g, l, W, H, aux: _upd_w_als_weighted(g, l, W, H, a, lw,
                                                          eps, solve),

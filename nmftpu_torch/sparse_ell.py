@@ -35,7 +35,18 @@ import torch
 from nmftpu_torch import native_loader
 from nmftpu_torch import sparse as host_sparse
 from nmftpu_torch.driver import _resolve_device
-from nmftpu_torch.linalg.dense import _apply_order, solve_clamped
+from nmftpu_torch.linalg.dense import (
+    EPSILON,
+    _acc_dtype,
+    _apply_order,
+    _beta_apply,
+    beta_denom_h_blocked,
+    beta_denom_w_blocked,
+    beta_gamma,
+    beta_sum_wh_blocked,
+    row_solver,
+    solve_clamped,
+)
 from nmftpu_torch.utils.metrics import span
 
 DEFAULT_BUCKETS = (8, 16, 32, 64, 128, 256, 512)
@@ -174,12 +185,6 @@ def build_ell_pair(mat: host_sparse.SparseMatrix, dtype=torch.float32,
         rows=build_ell_rows(mat, dtype=dtype, **kw),
         cols=build_ell_rows(mat.T, dtype=dtype, **kw),
     )
-
-
-def _acc_dtype(dtype):
-    """Accumulate below-float32 tables in float32, and never truncate a
-    float64 run."""
-    return torch.promote_types(dtype, torch.float32)
 
 
 def _segment_blocks(nseg: int, chunk: int):
@@ -371,8 +376,6 @@ def beta_coef(beta):
     s·s with s clamped up to EPSILON; β < 2 clamps s up to EPSILON,
     which keeps the pad lanes' sampled products finite (their v = 0, so
     they add exact zeros)."""
-    from nmftpu_torch.linalg.dense import EPSILON
-
     if beta == 0.0:
         def cf(v, s):
             sc = torch.clamp(s, min=EPSILON)
@@ -392,17 +395,10 @@ def mu_update_beta_ell(pair: EllPair, W, H, beta, eps=1e-9, order="WH",
     numerator is one fused gather-once pass per half-step
     (`sampled_rowsums_ell` with the coefficient v·(WH)^(β-2)), the
     dense-in-FLOPs denominator streams panels
-    (``sparse_ops.beta_denom_w_blocked`` / ``_h_blocked``). Guards, γ and
-    the β < 1 stabilization are sklearn's; the coefficient is
+    (``linalg.dense.beta_denom_w_blocked`` / ``_h_blocked``). Guards, γ
+    and the β < 1 stabilization are sklearn's; the coefficient is
     `beta_coef`'s. `eps` is accepted for the update signature and
     unused."""
-    from nmftpu_torch.linalg.dense import beta_gamma
-    from nmftpu_torch.sparse_ops import (
-        _beta_apply,
-        beta_denom_h_blocked,
-        beta_denom_w_blocked,
-    )
-
     gamma = beta_gamma(beta)
     cf = beta_coef(beta)
 
@@ -424,9 +420,6 @@ def beta_divergence_ell(pair: EllPair, W, H, beta, block=2048):
     """D_β(V || WH) with sklearn's sparse-X semantics on ELL (the twin of
     ``sparse_ops.beta_divergence_sparse``; pad lanes carry v = 0 and the
     v > EPSILON filter drops them)."""
-    from nmftpu_torch.linalg.dense import EPSILON
-    from nmftpu_torch.sparse_ops import beta_sum_wh_blocked
-
     s = sddmm_ell(pair.rows, W, H)
     acc_dt = _acc_dtype(W.dtype)
     n, m = pair.shape
@@ -712,13 +705,11 @@ def als_update_weighted_ell_exact(pair: EllPair, W, H, alpha, lambda_w=0.0,
 
     with the Gram deltas AND the right-hand sides built bucket-wise from
     one gather (`grams_and_rhs_ell`), solved in float32 by
-    ``sparse_ops._row_solver``. Each half-step is two spans,
+    ``linalg.dense.row_solver``. Each half-step is two spans,
     ``nmftpu.ials.grams`` (the base Gram, the gathers, batched products
     and `index_add_`) and ``nmftpu.ials.solve`` (the rows' solves),
     and counts its rows and segments in `IALS_COUNTS`."""
-    from nmftpu_torch.sparse_ops import _row_solver
-
-    solve = _row_solver(solver, cg_steps)
+    solve = row_solver(solver, cg_steps)
 
     def w_fn(v):
         return alpha * v
@@ -753,9 +744,7 @@ def als_update_masked_ell(pair: EllPair, W, H, lambda_w=0.0, lambda_h=0.0,
     """Completion ALS on ELL: the observed-only normal equations per row
     (0/1 weight, no base Gram), the semantics of
     ``sparse_ops.als_update_masked_sparse``."""
-    from nmftpu_torch.sparse_ops import _row_solver
-
-    solve = _row_solver(solver, cg_steps)
+    solve = row_solver(solver, cg_steps)
 
     def ind(v):
         return v != 0

@@ -49,9 +49,18 @@ from nmftpu_torch.driver import _resolve_device
 from nmftpu_torch.init import run_generator
 from nmftpu_torch.linalg.dense import (
     EPSILON,
-    _STAB_EPS,
+    _acc_dtype,
+    _als_family_shifts,
     _apply_order,
+    _beta_apply,
+    beta_denom_h_blocked,
+    beta_denom_w_blocked,
     beta_gamma,
+    beta_sum_wh_blocked,
+    hals_half_sweep,
+    nsnmf_smoothing_matrix,
+    row_solver,
+    solve_clamped,
 )
 from nmftpu_torch.loop import LoopOps, NmfResult, build_runner, execute
 
@@ -122,22 +131,9 @@ def _chunks(coo: DeviceCOO):
         yield coo.values[s:e], coo.rows[s:e], coo.cols[s:e]
 
 
-def _panels(n: int, block: int):
-    """(start, stop) of the panels of `block` rows (or columns) over n,
-    the last one possibly narrower: no panel has a pad row."""
-    return ((s, min(s + block, n)) for s in range(0, n, block))
-
-
-def _scatter_acc_dtype(dtype):
-    """Scatter-add accumulators run at >= float32: thousands of
-    contributions per row or column would vanish below a bf16 running
-    sum's ulp. float64 stays float64."""
-    return torch.promote_types(dtype, torch.float32)
-
-
 def wt_v(coo: DeviceCOO, W) -> torch.Tensor:
     """Wᵀ V -> (r, m): scatter v_k · W[row_k, :] into column col_k."""
-    acc_dt = _scatter_acc_dtype(W.dtype)
+    acc_dt = _acc_dtype(W.dtype)
     acc = torch.zeros((coo.shape[1], W.shape[1]), dtype=acc_dt,
                       device=W.device)
     for v, rr, cc in _chunks(coo):
@@ -149,7 +145,7 @@ def wt_v(coo: DeviceCOO, W) -> torch.Tensor:
 def v_ht(coo: DeviceCOO, H) -> torch.Tensor:
     """V Hᵀ -> (n, r): scatter v_k · H[:, col_k] into row row_k."""
     Ht = H.T.contiguous()
-    acc_dt = _scatter_acc_dtype(H.dtype)
+    acc_dt = _acc_dtype(H.dtype)
     acc = torch.zeros((coo.shape[0], H.shape[0]), dtype=acc_dt,
                       device=H.device)
     for v, rr, cc in _chunks(coo):
@@ -176,7 +172,7 @@ def project_columns(coo: DeviceCOO, weights) -> torch.Tensor:
 
 def col_sums(coo: DeviceCOO) -> torch.Tensor:
     """Per-column sums of V -> (m,)."""
-    acc_dt = _scatter_acc_dtype(coo.values.dtype)
+    acc_dt = _acc_dtype(coo.values.dtype)
     acc = torch.zeros(coo.shape[1], dtype=acc_dt, device=coo.values.device)
     for v, _, cc in _chunks(coo):
         acc.index_add_(0, cc, v.to(acc_dt))
@@ -189,7 +185,7 @@ def col_sums(coo: DeviceCOO) -> torch.Tensor:
 
 
 def _sum_v_sq(coo: DeviceCOO) -> torch.Tensor:
-    vv = coo.values.to(_scatter_acc_dtype(coo.values.dtype))
+    vv = coo.values.to(_acc_dtype(coo.values.dtype))
     return torch.sum(vv * vv)
 
 
@@ -255,50 +251,6 @@ def mu_update_kl_sparse(coo, W, H, eps=1e-9, order="WH"):
     return _apply_order(upd_w, upd_h, W, H, order)
 
 
-def _beta_pwr_d(WH, beta):
-    """The denominator's power (WH)^(β-1) of one beta-MU half-step, with
-    sklearn's guard: WH clamped up to EPSILON only when β < 1 (the
-    numerator's separate guard is in `_beta_numer_values`)."""
-    WH_d = torch.clamp(WH, min=EPSILON) if beta < 1.0 else WH
-    return WH_d ** (beta - 1.0)
-
-
-def beta_denom_w_blocked(W, H, beta, block=2048):
-    """(WH)^(β-1) Hᵀ -> (n, r) over column panels of H. The beta-MU
-    denominator is dense whatever V's sparsity (the power does not
-    factor as β = 2's W (H Hᵀ) or β = 1's row sums do), but it needs
-    only one (n, block) panel of WH at a time."""
-    out = torch.zeros((W.shape[0], H.shape[0]), dtype=W.dtype,
-                      device=W.device)
-    for s, e in _panels(H.shape[1], block):
-        Hb = H[:, s:e]
-        out += _beta_pwr_d(W @ Hb, beta) @ Hb.T
-    return out
-
-
-def beta_denom_h_blocked(W, H, beta, block=2048):
-    """Wᵀ (WH)^(β-1) -> (r, m) over row panels of W (the twin of
-    `beta_denom_w_blocked`)."""
-    out = torch.zeros((W.shape[1], H.shape[1]), dtype=H.dtype,
-                      device=H.device)
-    for s, e in _panels(W.shape[0], block):
-        Wb = W[s:e]
-        out += Wb.T @ _beta_pwr_d(Wb @ H, beta)
-    return out
-
-
-def beta_sum_wh_blocked(W, H, beta, block=2048):
-    """Σ over ALL n·m entries of (WH)^β, over column panels: the one term
-    of the sparse beta divergence that touches the zero positions. The
-    last panel is narrower, so no pad column's 0^β (+inf for β < 0)
-    enters; ``nmftpu`` pads and masks the same columns out."""
-    acc_dt = _scatter_acc_dtype(W.dtype)
-    total = torch.zeros((), dtype=acc_dt, device=W.device)
-    for s, e in _panels(H.shape[1], block):
-        total += torch.sum((W @ H[:, s:e]).to(acc_dt) ** beta)
-    return total
-
-
 def _beta_numer_values(coo, W, H, beta):
     """V ⊙ (WH)^(β-2) at the nonzeros, the whole beta-MU numerator
     weight, as a COO of the same structure (sklearn's numerator guard:
@@ -310,17 +262,6 @@ def _beta_numer_values(coo, W, H, beta):
     else:
         pwr = wh_n ** (beta - 2.0)
     return coo.with_values(coo.values * pwr)
-
-
-def _beta_apply(F, numer, denom, beta, gamma):
-    """F ⊙ (numer / denom)^γ with sklearn's zero-denominator replacement,
-    then β < 1's stabilization (entries below float64's machine eps
-    zeroed)."""
-    d = numer / torch.where(denom == 0.0, EPSILON, denom)
-    if gamma != 1.0:
-        d = d ** gamma
-    F = F * d
-    return torch.where(F < _STAB_EPS, 0.0, F) if beta < 1.0 else F
 
 
 def mu_update_beta_sparse(coo, W, H, beta, eps=1e-9, order="WH",
@@ -356,7 +297,7 @@ def beta_divergence_sparse(coo, W, H, beta, block=2048):
     wh_c = torch.clamp(sddmm(coo, W, H), min=EPSILON)
     v = coo.values
     keep = v > EPSILON
-    acc_dt = _scatter_acc_dtype(W.dtype)
+    acc_dt = _acc_dtype(W.dtype)
     n, m = coo.shape
     if beta == 0.0:
         div = (v / wh_c).to(acc_dt)
@@ -461,30 +402,6 @@ def kl_error_masked(coo, W, H, eps=1e-12) -> torch.Tensor:
     return torch.sum(torch.where(coo.values != 0, term, 0.0))
 
 
-def _als_family_shifts(config: NmfConfig):
-    """(shift_w, shift_h, off_w, off_h) for the generic ALS-family solve
-    (``linalg.dense.solve_clamped``): ALS = the plain normal equations,
-    ACLS = the diagonal sparsity penalties, AHCLS = the Hoyer-target
-    diagonal and off-diagonal shifts (Langville et al.), computed in
-    float64 on the host. The dense float32 AHCLS takes its shift from
-    ``linalg.dense._ahcls_shift`` (in V's dtype) instead, as in
-    ``nmftpu``."""
-    if config.algorithm is Algorithm.ALS:
-        return 0.0, 0.0, 0.0, 0.0
-    if config.algorithm is Algorithm.ACLS:
-        return config.lambda_w, config.lambda_h, 0.0, 0.0
-    r = config.rank
-
-    def hoyer(lam, a):
-        sr = float(np.sqrt(r))
-        beta = ((1.0 - a) * sr + a) ** 2 / r
-        return lam * beta, lam * (1.0 - beta)
-
-    sw, ow = hoyer(config.lambda_w, config.alpha_w)
-    sh, oh = hoyer(config.lambda_h, config.alpha_h)
-    return sw, sh, ow, oh
-
-
 # ---------------------------------------------------------------------------
 # The ALS family, HALS, GDCLS and nsNMF on the scatter engine: the O(nnz·r)
 # right-hand sides are the SpMMs, the r x r work is dense
@@ -496,8 +413,6 @@ def als_family_update_sparse(coo, W, H, shift_w=0.0, shift_h=0.0, off_w=0.0,
     """ALS / ACLS / AHCLS on sparse V: the normal equations with the
     sparse right-hand sides V Hᵀ and Wᵀ V, the diagonal (and AHCLS
     off-diagonal) shifts, then clamp (``linalg.dense.solve_clamped``)."""
-    from nmftpu_torch.linalg.dense import solve_clamped
-
     def upd_w(W, H):
         return solve_clamped(H @ H.T, v_ht(coo, H).T, shift_w, off_w, eps).T
 
@@ -514,8 +429,6 @@ def hals_update_sparse(coo, W, H, eps=1e-9, order="WH", l2_w=0.0, l2_h=0.0,
     (``linalg.dense.hals_half_sweep``: the CUDA sweep kernel for float32
     on the card at r >= 16), which never touch V. `eps` is unused (the
     sweep guards its division)."""
-    from nmftpu_torch.linalg.dense import hals_half_sweep
-
     eye = torch.eye(W.shape[1], dtype=W.dtype, device=W.device)
 
     def sweep_w(W, H):
@@ -531,8 +444,6 @@ def hals_update_sparse(coo, W, H, eps=1e-9, order="WH", l2_w=0.0, l2_h=0.0,
 def gdcls_update_sparse(coo, W, H, lambda_tik=0.0, eps=1e-9, order="WH"):
     """GDCLS on sparse V: the Frobenius MU step for W, the Tikhonov least
     squares (WᵀW + lambda_tik I) H = Wᵀ V for H, clamped."""
-    from nmftpu_torch.linalg.dense import solve_clamped
-
     def upd_w(W, H):
         return W * (v_ht(coo, H) / (W @ (H @ H.T) + eps))
 
@@ -575,12 +486,6 @@ def nsnmf_update_sparse(coo, W, H, S, eps=1e-9, objective="frobenius",
 # iALS and masked completion ALS: per-row normal equations
 # ---------------------------------------------------------------------------
 
-# The plain per-row solves (and the CG steps) run over panels of rows
-# whose (rows, r, r) systems take about this many bytes each: the Cholesky
-# factor, its inverse and their product are each one such array, never
-# one of all n rows; kernel #12 takes all rows at once
-ROW_SOLVE_PANEL_BYTES = 1 << 30
-
 
 def _weighted_row_grams(coo, T, alpha, n_rows, by_cols=False, sub=4096,
                         weight_fn=None):
@@ -610,50 +515,6 @@ def _weighted_row_grams(coo, T, alpha, n_rows, by_cols=False, sub=4096,
     return acc
 
 
-def _panel_solve(G, dG, rhs, solve_panel):
-    """(rows, r): solve_panel(Gb, s, e) for the rows s:e of each panel of
-    `ROW_SOLVE_PANEL_BYTES`, Gb = G + dG[s:e] (dG[s:e] where G is None)."""
-    rows, r = rhs.shape
-    panel = max(1, ROW_SOLVE_PANEL_BYTES // (r * r * dG.element_size()))
-    out = torch.empty_like(rhs)
-    for s, e in _panels(rows, panel):
-        Gb = dG[s:e] if G is None else G[None] + dG[s:e]
-        out[s:e] = solve_panel(Gb, s, e)
-    return out
-
-
-def _row_solver(solver, cg_steps):
-    """solve(G, dG, rhs, shift, eps, x0) -> (rows, r), clamped at 0: the
-    per-row systems G + dG[i] (G the shared (r, r) base Gram, or None)
-    solved exactly or by `cg_steps` warm-started Jacobi-preconditioned CG
-    steps from x0 (``linalg.dense._batched_solve_clamped_cg``), over
-    panels of rows (`ROW_SOLVE_PANEL_BYTES`). The exact solve is one
-    launch of kernel #12 for all rows (``kernels.row_solve.solve_rows``)
-    on CUDA float32 rows of r <= ``ROW_SOLVE_MAX_RANK``, else the panel
-    loop over ``linalg.dense._batched_solve_clamped``. Each row's solve is
-    independent of the panel it falls in."""
-    from nmftpu_torch.kernels import row_solve as RS
-    from nmftpu_torch.linalg import dense as D
-
-    def solve(G, dG, rhs, shift, eps, x0):
-        if solver == "cg":
-            return _panel_solve(G, dG, rhs, lambda Gb, s, e:
-                                D._batched_solve_clamped_cg(
-                                    Gb, rhs[s:e], shift, eps, x0[s:e],
-                                    steps=cg_steps))
-        if RS.takes(dG.device, dG.dtype, rhs.shape[1]):
-            # #12 reads a row's right-hand side as r contiguous floats; the
-            # mesh's H halves pass the transpose of an (r, m) sum
-            if rhs.stride(1) != 1:
-                rhs = rhs.contiguous()
-            return RS.solve_rows(G, dG, rhs, shift, eps)
-        return _panel_solve(G, dG, rhs, lambda Gb, s, e:
-                            D._batched_solve_clamped(Gb, rhs[s:e], shift,
-                                                     eps))
-
-    return solve
-
-
 def als_update_weighted_sparse(coo, W, H, alpha, lambda_w=0.0, lambda_h=0.0,
                                eps=1e-9, order="WH", solver="exact",
                                cg_steps=3):
@@ -668,7 +529,7 @@ def als_update_weighted_sparse(coo, W, H, alpha, lambda_w=0.0, lambda_h=0.0,
     O(nnz · r²) for the Gram deltas, O((n + m) · r³) for the solves,
     and (n + m) · r² · 4 bytes of Grams (`_check_weighted_gram_budget`).
     """
-    solve = _row_solver(solver, cg_steps)
+    solve = row_solver(solver, cg_steps)
     cv = coo.with_values(coo.values * (1.0 + alpha * coo.values))
     n, m = coo.shape
 
@@ -699,7 +560,7 @@ def als_update_masked_sparse(coo, W, H, lambda_w=0.0, lambda_h=0.0,
     (the iALS machinery with a 0/1 weight and no shared base Gram:
     unobserved entries weigh nothing). A row with no observations solves
     to 0 under the ridge; clamped at 0 as the ALS family is."""
-    solve = _row_solver(solver, cg_steps)
+    solve = row_solver(solver, cg_steps)
     n, m = coo.shape
 
     def indicator(v):
@@ -725,8 +586,6 @@ def _smoothing_aux(config: NmfConfig, dtype=None):
     S is built in `dtype` (scatter: V's) or, by default, in float32 and
     then cast to the factors' dtype, as ``nmftpu``'s densified and ELL
     engines build it and XLA promotes it."""
-    from nmftpu_torch.linalg.dense import nsnmf_smoothing_matrix
-
     factors = resolve_dtype(config.dtype)
 
     def make_aux(op):

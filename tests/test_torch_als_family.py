@@ -56,7 +56,6 @@ from nmftpu.algorithms.registry import build_dense_update as j_build  # noqa
 from nmftpu.config import NmfConfig as JConfig  # noqa: E402
 from nmftpu.kernels import quantized as JQ  # noqa: E402
 from nmftpu.linalg import dense as JD  # noqa: E402
-from nmftpu_torch import sparse_ops as TS  # noqa: E402
 from nmftpu_torch.algorithms import build_dense_update as t_build  # noqa
 from nmftpu_torch.config import NmfConfig  # noqa: E402
 from nmftpu_torch.kernels import quantized as TQ  # noqa: E402
@@ -197,7 +196,7 @@ def test_als_family_shifts_match(algorithm, rank):
              "alpha_h": 0.9}
     want = JS._als_family_shifts(JConfig(rank=rank, algorithm=algorithm,
                                          **knobs))
-    got = TS._als_family_shifts(NmfConfig(rank=rank, algorithm=algorithm,
+    got = TD._als_family_shifts(NmfConfig(rank=rank, algorithm=algorithm,
                                           **knobs))
     assert got == want
 

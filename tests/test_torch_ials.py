@@ -201,7 +201,7 @@ def test_exact_row_solver_matches(base):
     Gj = G[None] + dG if base else dG
     want = JS._row_solver("exact", 3)(jnp.asarray(Gj), jnp.asarray(rhs), LAM,
                                       1e-9, jnp.asarray(x0))
-    got = TS._row_solver("exact", 3)(torch.tensor(G) if base else None,
+    got = TD.row_solver("exact", 3)(torch.tensor(G) if base else None,
                                      torch.tensor(dG), torch.tensor(rhs),
                                      LAM, 1e-9, torch.tensor(x0))
     A = TD._ridged(torch.tensor(Gj).double(), LAM, 1e-9)
@@ -249,7 +249,7 @@ def test_cg_row_solver_matches(steps):
     want = JS._row_solver("cg", steps)(jnp.asarray(G[None] + dG),
                                        jnp.asarray(rhs), LAM, 1e-9,
                                        jnp.asarray(x0))
-    got = TS._row_solver("cg", steps)(torch.tensor(G), torch.tensor(dG),
+    got = TD.row_solver("cg", steps)(torch.tensor(G), torch.tensor(dG),
                                       torch.tensor(rhs), LAM, 1e-9,
                                       torch.tensor(x0))
     kappa = float(np.linalg.cond(G[None].astype(np.float64) + dG).max())
@@ -260,9 +260,9 @@ def test_cg_row_solver_matches(steps):
 def test_row_solver_panels_change_nothing(monkeypatch, solver):
     """Each row's solve is independent of the panel it falls in."""
     G, dG, rhs, x0 = (torch.tensor(x) for x in _systems(seed=8, b=37))
-    whole = TS._row_solver(solver, 3)(G, dG, rhs, LAM, 1e-9, x0)
-    monkeypatch.setattr(TS, "ROW_SOLVE_PANEL_BYTES", 5 * RANK * RANK * 4)
-    panels = TS._row_solver(solver, 3)(G, dG, rhs, LAM, 1e-9, x0)
+    whole = TD.row_solver(solver, 3)(G, dG, rhs, LAM, 1e-9, x0)
+    monkeypatch.setattr(TD, "ROW_SOLVE_PANEL_BYTES", 5 * RANK * RANK * 4)
+    panels = TD.row_solver(solver, 3)(G, dG, rhs, LAM, 1e-9, x0)
     np.testing.assert_allclose(panels.numpy(), whole.numpy(), rtol=1e-6,
                                atol=1e-7)
 

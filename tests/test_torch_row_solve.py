@@ -1,5 +1,5 @@
 """The per-row ridged solves of the iALS family (`kernels/row_solve.py`,
-kernel #12) and their route in ``sparse_ops._row_solver``.
+kernel #12) and their route, ``linalg.dense.row_solver``.
 
 On the CPU: the exact row solver is, bit for bit, the panel loop over
 ``linalg.dense._batched_solve_clamped`` it always was (with and without
@@ -32,7 +32,6 @@ import pytest
 torch = pytest.importorskip("torch")
 torch.set_num_threads(2)
 
-from nmftpu_torch import sparse_ops as TS  # noqa: E402
 from nmftpu_torch.kernels import row_solve as RS  # noqa: E402
 from nmftpu_torch.linalg import dense as TD  # noqa: E402
 from nmftpu_torch.utils.metrics import counters  # noqa: E402
@@ -113,11 +112,11 @@ def test_exact_row_solver_on_cpu_is_the_panel_loop(monkeypatch, base,
                                                    panel_rows):
     G, dG, rhs = _systems(37, 12, seed=1, base=base)
     if panel_rows:
-        monkeypatch.setattr(TS, "ROW_SOLVE_PANEL_BYTES",
+        monkeypatch.setattr(TD, "ROW_SOLVE_PANEL_BYTES",
                             panel_rows * 12 * 12 * 4)
     before = RS.LAUNCHES["row_solve"]
-    got = TS._row_solver("exact", 3)(G, dG, rhs, LAM, EPS, rhs)
-    want = _panel_loop(G, dG, rhs, LAM, EPS, TS.ROW_SOLVE_PANEL_BYTES)
+    got = TD.row_solver("exact", 3)(G, dG, rhs, LAM, EPS, rhs)
+    want = _panel_loop(G, dG, rhs, LAM, EPS, TD.ROW_SOLVE_PANEL_BYTES)
     assert torch.equal(got, want)
     assert RS.LAUNCHES["row_solve"] == before
 
@@ -126,7 +125,7 @@ def test_exact_row_solver_on_cpu_is_the_panel_loop(monkeypatch, base,
 def test_plain_twin_matches_float64(r):
     G, dG, rhs = _systems(24, r, seed=r)
     want = _exact64(G, dG, rhs)
-    got = TS._row_solver("exact", 3)(G, dG, rhs, LAM, EPS, rhs)
+    got = TD.row_solver("exact", 3)(G, dG, rhs, LAM, EPS, rhs)
     assert got.dtype == torch.float32 and got.shape == rhs.shape
     assert (got >= 0).all()
     assert _row_err(got, want) <= 10 * 1e3 * U32
@@ -136,7 +135,7 @@ def test_plain_twin_matches_float64(r):
 def test_indefinite_system_gives_a_nan_row(base):
     G, dG, rhs = _systems(6, 16, kappa=1e2, seed=3, base=base)
     dG[2] -= 50.0 * torch.eye(16) * dG[2].abs().max()
-    got = TS._row_solver("exact", 3)(G, dG, rhs, 0.0, EPS, rhs)
+    got = TD.row_solver("exact", 3)(G, dG, rhs, 0.0, EPS, rhs)
     assert torch.isnan(got[2]).all()
     keep = [0, 1, 3, 4, 5]
     assert torch.isfinite(got[keep]).all()
@@ -158,9 +157,9 @@ def test_route(device, dtype, r, kernel):
 def test_rank_129_takes_the_plain_path():
     G, dG, rhs = _systems(3, 129, kappa=1e2, seed=4)
     before = RS.LAUNCHES["row_solve"]
-    got = TS._row_solver("exact", 3)(G, dG, rhs, LAM, EPS, rhs)
+    got = TD.row_solver("exact", 3)(G, dG, rhs, LAM, EPS, rhs)
     assert torch.equal(got, _panel_loop(G, dG, rhs, LAM, EPS,
-                                        TS.ROW_SOLVE_PANEL_BYTES))
+                                        TD.ROW_SOLVE_PANEL_BYTES))
     assert RS.LAUNCHES["row_solve"] == before
 
 
@@ -235,7 +234,7 @@ def test_kernel_against_float64(dev, r, rows):
     want = _exact64(G, dG, rhs)
     before = RS.LAUNCHES["row_solve"]
     got = RS.solve_rows(G, dG, rhs, LAM, EPS)
-    plain = _panel_loop(G, dG, rhs, LAM, EPS, TS.ROW_SOLVE_PANEL_BYTES)
+    plain = _panel_loop(G, dG, rhs, LAM, EPS, TD.ROW_SOLVE_PANEL_BYTES)
     assert RS.LAUNCHES["row_solve"] == before + 1
     assert (got >= 0).all()
     k_err, p_err = _row_err(got, want), _row_err(plain, want)
@@ -264,9 +263,9 @@ def test_kernel_nan_rows(dev, base):
 @pytest.mark.parametrize("base", [True, False], ids=["ials", "masked"])
 def test_one_launch_per_call_without_panels(dev, monkeypatch, base):
     G, dG, rhs = _systems(300, 128, seed=8, base=base, device=dev)
-    solve = TS._row_solver("exact", 3)
+    solve = TD.row_solver("exact", 3)
     whole = solve(G, dG, rhs, LAM, EPS, rhs)
-    monkeypatch.setattr(TS, "ROW_SOLVE_PANEL_BYTES", 7 * 128 * 128 * 4)
+    monkeypatch.setattr(TD, "ROW_SOLVE_PANEL_BYTES", 7 * 128 * 128 * 4)
     before = counters()["launches.row_solve"]
     again = solve(G, dG, rhs, LAM, EPS, rhs)
     assert counters()["launches.row_solve"] == before + 1
@@ -287,7 +286,7 @@ def test_row_solver_takes_a_transposed_rhs(dev):
     """The mesh's H halves hand the row solver the transpose of an (r, m)
     sum as the right-hand sides."""
     G, dG, rhs = _systems(40, 32, seed=13, device=dev)
-    solve = TS._row_solver("exact", 3)
+    solve = TD.row_solver("exact", 3)
     want = solve(G, dG, rhs, LAM, EPS, rhs)
     before = RS.LAUNCHES["row_solve"]
     got = solve(G, dG, rhs.T.contiguous().T, LAM, EPS, rhs)
@@ -299,7 +298,7 @@ def test_row_solver_takes_a_transposed_rhs(dev):
 def test_rank_129_on_the_card_takes_the_plain_path(dev):
     G, dG, rhs = _systems(3, 129, kappa=1e2, seed=10, device=dev)
     before = RS.LAUNCHES["row_solve"]
-    got = TS._row_solver("exact", 3)(G, dG, rhs, LAM, EPS, rhs)
+    got = TD.row_solver("exact", 3)(G, dG, rhs, LAM, EPS, rhs)
     assert RS.LAUNCHES["row_solve"] == before
     assert _row_err(got, _exact64(G, dG, rhs)) <= 10 * 1e2 * U32
 
@@ -341,4 +340,41 @@ def test_ell_ials_on_the_kernel(dev, monkeypatch):
     assert RS.LAUNCHES["row_solve"] == before + 2
     for got, want in ((W1, W2), (H1, H2)):
         rel = float((got - want).abs().max() / want.abs().max())
+        assert rel <= 1e-3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("caller", ["dense_ials", "fold_in"])
+def test_dense_ials_and_weighted_fold_in_on_the_kernel(dev, caller):
+    """The dense iALS (one step, two half-steps of one panel each) and a
+    weighted fold_in_batch take the same route at r = 64: #12 on the
+    card, and the CPU's plain path's results within 1e-3 of their
+    largest entry (the rule of test_ell_ials_on_the_kernel)."""
+    import nmftpu_torch as nt
+
+    rng = np.random.default_rng(14)
+    n, m, r = 300, 200, 64
+    a = np.where(rng.random((n, m)) < 0.05, 1.0, 0.0).astype(np.float32)
+    W = rng.uniform(0.1, 1.0, (n, r)).astype(np.float32)
+    H = rng.uniform(0.1, 1.0, (r, m)).astype(np.float32)
+    if caller == "dense_ials":
+        launches = 2
+
+        def run(d):
+            return TD.als_update_weighted(
+                *(torch.tensor(x, device=d) for x in (a, W, H)), 40.0,
+                lambda_w=LAM, lambda_h=LAM)
+    else:
+        launches = 1
+        hists = [rng.choice(m, 12, replace=False) for _ in range(40)]
+
+        def run(d):
+            return (torch.tensor(nt.Recommender(W, H, device=d).fold_in_batch(
+                hists, alpha_confidence=40.0, lambda_w=LAM)),)
+    want = run("cpu")
+    before = counters()["launches.row_solve"]
+    got = run(dev)
+    assert counters()["launches.row_solve"] == before + launches
+    for g, w in zip(got, want):
+        rel = float((g.cpu() - w).abs().max() / w.abs().max())
         assert rel <= 1e-3

@@ -41,6 +41,7 @@ from nmftpu_torch import sparse_ell as TE  # noqa: E402
 from nmftpu_torch import sparse_ops as TS  # noqa: E402
 from nmftpu_torch.config import Initialization, NmfConfig  # noqa: E402
 from nmftpu_torch.convert import sparse_from_nmftpu  # noqa: E402
+from nmftpu_torch.linalg import dense as TD  # noqa: E402
 
 RTOL_MU = 1e-5
 RTOL_F64 = 1e-10
@@ -104,7 +105,7 @@ def _kappa(gram, shift=0.0, off=0.0, eps=1e-9):
 def _shifts(alg, kn, r=RANK):
     if alg == "gdcls":
         return 0.0, kn["lambda_tik"], 0.0, 0.0
-    return TS._als_family_shifts(NmfConfig(rank=r, algorithm=alg, **kn))
+    return TD._als_family_shifts(NmfConfig(rank=r, algorithm=alg, **kn))
 
 
 def _limits(alg, kn, W, H, dtype):

@@ -30,6 +30,7 @@ from nmftpu_torch.convert import (  # noqa: E402
     result_to_numpy,
     sparse_from_nmftpu,
 )
+from nmftpu_torch.linalg import dense as TD  # noqa: E402
 
 # float64: the same sums in another order, to roundoff
 RTOL_F64 = 1e-10
@@ -189,8 +190,8 @@ def test_kl_error_matches_nmftpu(dtype):
 def test_scatter_accumulates_float32_for_bfloat16():
     """Below float32 the accumulators promote to float32; the result
     comes back in the factors' type."""
-    assert TS._scatter_acc_dtype(torch.bfloat16) == torch.float32
-    assert TS._scatter_acc_dtype(torch.float64) == torch.float64
+    assert TD._acc_dtype(torch.bfloat16) == torch.float32
+    assert TD._acc_dtype(torch.float64) == torch.float64
     dense, _, tc = _coos()
     W, _ = _factors(*dense.shape)
     got = TS.wt_v(tc, torch.tensor(W).to(torch.bfloat16))
