@@ -204,6 +204,16 @@ seeded iALS-like systems at r = 128, against the plain path (the panel
 loop over the batched Cholesky and its explicit inverse) and, on a row
 sample, float64 Cholesky: its error at most 4x the plain path's, and the
 ms of both beside the bound.
+Phase 28 runs kernel #13 (nmftpu_torch/kernels/ell_gram.py, every row's
+weighted Gram and right-hand side of an iALS half-step) alone at config
+3's two half-steps: synthetic clicks at ML-20M clicks' shape (136,677 x
+20,108, 9,990,682 requested, Zipf 0.9 both ways), r = 128, alpha 40,
+against the plain path (gathers, batched products, index_add_): each
+half's work-unit index, its launches (one, two with split rows), the
+kernel against the plain path and, on a row sample with the heaviest
+row, both against float64 (the kernel's error at most twice the plain
+path's), and the ms of both beside the bound. Phase 22 counts its
+launches on the main path (the ELL iALS runs at config 3).
 Every phase prints its results; any failure exits non-zero, as does a
 kernel timed below its bound. Without a CUDA device it exits 1 and runs
 nothing.
@@ -345,6 +355,16 @@ ROW_SOLVE_HALVES = (("W", 136_677, 20_108), ("H", 20_108, 136_677))
 ROW_SOLVE_CLICKS = 16
 ROW_SOLVE_SAMPLE = 2048
 ROW_SOLVE_LAMBDA = 0.1
+
+# phase 28: #13 alone at config 3's two half-steps: synthetic clicks at
+# ML-20M clicks' shape (the benchmark's implicit-ml20m cell), Zipf 0.9 for
+# users and items. ELL_GRAM_SAMPLE rows a half (the heaviest included) are
+# summed again in float64; the kernel's error (the largest over the rows
+# of max|G - G64| / max|G64|) is held to ELL_GRAM_F64_FACTOR times the
+# plain path's on the same rows (test_torch_ell_gram.py's rule)
+ELL_GRAM_SHAPE = (136_677, 20_108, 9_990_682)
+ELL_GRAM_SAMPLE = 128
+ELL_GRAM_F64_FACTOR = 2
 
 # phase 18: cold users at config 5 (users outside training, SERVE_SEEN
 # distinct items each, drawn as serving_data draws them), folded in against
@@ -625,6 +645,10 @@ REPLACES = {
     # the per-row ridged solves replace XLA's batched Cholesky
     "row_solve": "none (XLA's batched Cholesky, nmftpu/linalg/dense.py "
                  "_batched_solve_clamped)",
+    # every row's weighted Gram and right-hand side replace XLA's gathers
+    # and einsums
+    "ell_gram": "none (XLA gathers and einsums, nmftpu/sparse_ell.py:852 "
+                "grams_and_rhs_ell)",
 }
 SOURCES = {
     "w_update_fused": "nmftpu_torch/csrc/dense_mu.cu",
@@ -641,6 +665,7 @@ SOURCES = {
     "vht_int8": "nmftpu_torch/csrc/dual_numer.cu",
     "wtv_int8": "nmftpu_torch/csrc/dual_numer.cu",
     "row_solve": "nmftpu_torch/csrc/row_solve.cu",
+    "ell_gram": "nmftpu_torch/csrc/ell_gram.cu",
 }
 DENSE = ("w_update_fused", "h_update_fused", "w_update_fused_q",
          "h_update_fused_q")
@@ -3434,6 +3459,7 @@ def sparse_algorithms_phase(nt, card, dev, ratings, c3, V, W0d, H0d) -> dict:
     from nmftpu_torch.init import nndsvd as ND
     from nmftpu_torch.kernels import dual_numer as DN
     from nmftpu_torch.kernels import hals_sweep as HS
+    from nmftpu_torch.kernels import ell_gram as EG
     from nmftpu_torch.kernels import row_solve as RS
     from nmftpu_torch.linalg import dense as D
 
@@ -3817,7 +3843,7 @@ def sparse_algorithms_phase(nt, card, dev, ratings, c3, V, W0d, H0d) -> dict:
                          num_iterations=iters, check_interval=iters,
                          **knobs)
 
-    ials, rs_launches = {}, {}
+    ials, rs_launches, eg_launches = {}, {}, {}
     plan = None
     for engine, strategy, solver in (("ell", "auto", "exact"),
                                      ("ell", "auto", "cg"),
@@ -3840,6 +3866,7 @@ def sparse_algorithms_phase(nt, card, dev, ratings, c3, V, W0d, H0d) -> dict:
         t_start = torch.cuda.Event(enable_timing=True)
         t_end = torch.cuda.Event(enable_timing=True)
         RS.LAUNCHES["row_solve"] = 0     # the main path's iALS starts here
+        EG.LAUNCHES["ell_gram"] = 0
         t_start.record()
         one = plan.run(cfg3(1, **knobs), W0=W3, H0=H3)
         t_end.record()
@@ -3860,6 +3887,16 @@ def sparse_algorithms_phase(nt, card, dev, ratings, c3, V, W0d, H0d) -> dict:
                                            else 0):
             fail(f"config 3 iALS {engine} {solver}: {iters} iterations "
                  f"launched #12 {rs_launches[engine, solver]} times")
+        # #13 builds every ELL half-step's Grams whatever the solver: one
+        # launch a half, and one more where the half has split rows
+        eg_launches[engine, solver] = EG.LAUNCHES["ell_gram"]
+        per_iter = 0 if engine != "ell" else sum(
+            1 + (EG.units_of(ell).splits.shape[0] > 0)
+            for ell in (plan.operand.rows, plan.operand.cols))
+        if eg_launches[engine, solver] != per_iter * iters:
+            fail(f"config 3 iALS {engine} {solver}: {iters} iterations "
+                 f"launched #13 {eg_launches[engine, solver]} times, not "
+                 f"{per_iter * iters}")
         peak = (torch.cuda.max_memory_allocated() - base) / 2**30
         # one step per row against float64 normal equations solved by LU;
         # cg's 3 float32 steps leave their exact-arithmetic iterates by up
@@ -3894,6 +3931,7 @@ def sparse_algorithms_phase(nt, card, dev, ratings, c3, V, W0d, H0d) -> dict:
                 objs[1:], (mu1, mu4))],
             ms_first_iter_with_check=f"{ms1:.3f}", peak_GiB=f"{peak:.2f}",
             row_solve_launches=rs_launches[engine, solver],
+            ell_gram_launches=eg_launches[engine, solver],
             gram_need_GiB=f"{need / 2**30:.4f}", prepare_s=f"{prep_s:.2f}",
             **{f"step_{k}_worst_ratio_to_limit": f"{v[0]:.3e}"
                for k, v in checks.items()},
@@ -4052,6 +4090,7 @@ def sparse_algorithms_phase(nt, card, dev, ratings, c3, V, W0d, H0d) -> dict:
     say("22 seconds", seconds=f"{time.perf_counter() - t_phase:.1f}")
     return {"launches": {"hals_sweep": hals["launches"], **int8_launches},
             "row_solve": rs_launches["ell", "exact"],
+            "ell_gram": eg_launches["ell", "exact"],
             "hals_max_abs": hals_diff, "hals_ms": t_ms["kernel"],
             "hals_plain_ms": t_ms["plain"], "hals_bound": hals_bound}
 
@@ -6769,6 +6808,131 @@ def row_solve_phase(card, dev) -> dict:
             "max_abs_err": max(h["max_abs_err"] for h in res.values())}
 
 
+def gram_rows64(csr, rows, table, alpha):
+    """float64 Grams and right-hand sides of `rows` of a host CSR:
+    sum_k 40 v t tᵀ and sum_k v (1 + 40 v) t over each row's nonzeros, t
+    the `table` row of each column, the weights of float64 values."""
+    T = table.double()
+    G, h = [], []
+    for i in rows:
+        lo, hi = int(csr.indptr[i]), int(csr.indptr[i + 1])
+        cols = torch.as_tensor(csr.indices[lo:hi].astype(np.int64),
+                               device=T.device)
+        v = torch.as_tensor(csr.data[lo:hi], device=T.device).double()
+        t = T[cols]
+        G.append((t * (alpha * v)[:, None]).T @ t)
+        h.append((v * (1.0 + alpha * v)) @ t)
+    return torch.stack(G), torch.stack(h)
+
+
+def rows_err(x, want) -> float:
+    """The largest over rows of max|x_i - want_i| / max|want_i|."""
+    x, want = x.double().flatten(1), want.flatten(1)
+    scale = want.abs().amax(1)
+    keep = scale > 0
+    return float(((x - want).abs().amax(1)[keep] / scale[keep]).max())
+
+
+def ell_gram_phase(card, dev) -> dict:
+    """Phase 28: #13 (one launch for all rows of a half-step, one more for
+    the split rows) against the plain path on config 3's two halves, and
+    both against float64 on a row sample; ms by CUDA events beside the
+    bound. Returns the W half's numbers for the kernel table."""
+    from nmftpu_torch import sparse_ell as SE
+    from nmftpu_torch.data.synthetic import synthetic_powerlaw_sparse
+    from nmftpu_torch.kernels import ell_gram as EG
+
+    n, m, want_nnz = ELL_GRAM_SHAPE
+    r, alpha = C3_RANK, C3_ALPHA
+    t0 = time.perf_counter()
+    sp = synthetic_powerlaw_sparse(n, m, want_nnz, alpha_user=0.9,
+                                   alpha_item=0.9, seed=SEED + 28)
+    sp.data[:] = 1.0
+    csr, csc = sp.to_csr(), sp.T.to_csr()
+    pair = SE.build_ell_pair(sp, device=dev)
+    del sp
+    make_s = time.perf_counter() - t0
+    nnz = csr.nnz
+    gen = torch.Generator(device=dev).manual_seed(SEED + 28)
+    scale = (nnz / (n * m) / r) ** 0.5
+    W = (torch.rand(n, r, generator=gen, device=dev) + 0.1) * scale
+    H = (torch.rand(r, m, generator=gen, device=dev) + 0.1) * scale
+    rule = EG.ials_rule(alpha)
+    rng = np.random.default_rng(SEED + 28)
+    res = {}
+    for half, ell, table, host, other in (
+            ("W", pair.rows, H.T.contiguous(), csr, m),
+            ("H", pair.cols, W, csc, n)):
+        rows = ell.shape[0]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        units = EG.units_of(ell)
+        torch.cuda.synchronize()
+        index_s = time.perf_counter() - t0
+
+        def kernel():
+            return SE.grams_and_rhs_ell(ell, table, rule.weight, rule.value,
+                                        rule=rule)
+
+        def plain():
+            return SE.grams_and_rhs_ell(ell, table, rule.weight, rule.value)
+
+        before = EG.LAUNCHES["ell_gram"]
+        g, h = kernel()
+        launches = EG.LAUNCHES["ell_gram"] - before
+        g2, h2 = kernel()
+        torch.cuda.synchronize()
+        bit_equal = bool(torch.equal(g, g2) and torch.equal(h, h2))
+        del g2, h2
+        symmetric = bool((g == g.transpose(1, 2)).all())
+        lens = np.diff(host.indptr)
+        idx = np.unique(np.concatenate([
+            [int(np.argmax(lens))],
+            rng.choice(rows, ELL_GRAM_SAMPLE - 1, replace=False)]))
+        want_g, want_h = gram_rows64(host, idx, table, alpha)
+        sel = torch.as_tensor(idx, device=dev)
+        k_err = max(rows_err(g[sel], want_g), rows_err(h[sel], want_h))
+        pg, ph = plain()
+        p_err = max(rows_err(pg[sel], want_g), rows_err(ph[sel], want_h))
+        a = max(float((g - pg).abs().max()), float((h - ph).abs().max()))
+        rel = max(float((g - pg).abs().max() / pg.abs().max()),
+                  float((h - ph).abs().max() / ph.abs().max()))
+        del g, h, pg, ph, want_g, want_h
+        torch.cuda.empty_cache()
+        ms = abba_ms({"kernel": kernel, "plain": plain}, iters=3)
+        # the lower triangles' FMAs and the right-hand sides'; every row's
+        # full Gram and right-hand side written once, the stored values and
+        # columns and the table read once
+        b_ms, b_by = bound(nnz * (r * (r + 1) + 2 * r),
+                           rows * (r * r + r) * 4 + nnz * 8 + other * r * 4,
+                           F32_PEAK)
+        say("28 ell_gram", half=half, rows=rows, nnz=nnz, r=r,
+            units=units.units.shape[0], split_rows=units.splits.shape[0],
+            partial_slots=units.slots,
+            heaviest_row=int(lens.max()), index_s=f"{index_s:.3f}",
+            launches=launches, ms=f"{ms['kernel']:.4f}",
+            plain_ms=f"{ms['plain']:.4f}", bound_ms=f"{b_ms:.4f}",
+            bound_by=b_by, library_ms="none",
+            kernel_err_f64=f"{k_err:.3e}", plain_err_f64=f"{p_err:.3e}",
+            vs_plain_max_abs=f"{a:.3e}", vs_plain_max_rel=f"{rel:.3e}",
+            bit_equal=bit_equal, symmetric=symmetric, make_s=f"{make_s:.1f}",
+            card=card)
+        if launches != 1 + (units.splits.shape[0] > 0):
+            fail(f"#13 {half} half: {launches} launches")
+        if not (bit_equal and symmetric):
+            fail(f"#13 {half} half: two calls differ ({not bit_equal}) or a "
+                 f"Gram is not symmetric ({not symmetric})")
+        if not k_err <= ELL_GRAM_F64_FACTOR * p_err:
+            fail(f"#13 {half} half: error against float64 {k_err:.3e} over "
+                 f"{ELL_GRAM_F64_FACTOR} x the plain path's {p_err:.3e}")
+        res[half] = dict(ms=ms["kernel"], plain_ms=ms["plain"],
+                         bound_ms=b_ms, bound_by=b_by, max_abs_err=a)
+    del pair, W, H
+    torch.cuda.empty_cache()
+    return {**res["W"],
+            "max_abs_err": max(h["max_abs_err"] for h in res.values())}
+
+
 def main() -> None:
     if not (HERE / "nmftpu_torch").is_dir():
         fail(f"no nmftpu_torch package beside {__file__}")
@@ -7277,6 +7441,13 @@ def main() -> None:
     k_ms["row_solve"], p_ms["row_solve"] = rs["ms"], rs["plain_ms"]
     bounds["row_solve"] = (rs["bound_ms"], rs["bound_by"])
 
+    # -- 28. #13 alone at config 3's two half-steps ---------------------------
+    torch.cuda.empty_cache()
+    eg = ell_gram_phase(card, dev)
+    max_abs["ell_gram"] = eg["max_abs_err"]
+    k_ms["ell_gram"], p_ms["ell_gram"] = eg["ms"], eg["plain_ms"]
+    bounds["ell_gram"] = (eg["bound_ms"], eg["bound_by"])
+
     if "jax" in sys.modules:
         fail("jax was imported")
     # a time below the least the card could take means a wrong bound
@@ -7288,7 +7459,7 @@ def main() -> None:
     launches = {**main_path_launches, **serve_launches,
                 "ell_rowsums": ell["launches"], "ell_kl": kl["launches"],
                 # phase 22's ELL iALS run at config 3, the main path
-                "row_solve": s12["row_solve"],
+                "row_solve": s12["row_solve"], "ell_gram": s12["ell_gram"],
                 **{name: f["launches"] for name, f in new.items()}}
     # #6's one-sided entry, #7 and #8 on the cold-user path (phase 18); the
     # one-sided entries on the int8 ALS family, GDCLS and nsNMF (phase 21)

@@ -58,6 +58,10 @@ _MULDIV = [_P] * 4 + [_LL, ctypes.c_double, _P]
 # (Gt, dG, rhs, out, rows, r, ld_g, ld_rhs, c0, c1, stream)
 _ROW_SOLVE = [_P] * 4 + [_LL, _I, _LL, _LL, ctypes.c_float, ctypes.c_float,
                          _P]
+# (buckets, units, n_units, splits, n_splits, table, r, grams, rhs, ws,
+# rule, alpha, stream)
+_ELL_GRAM = [_P, _P, _LL, _P, _LL, _P, _I, _P, _P, _P, _I, ctypes.c_float,
+             _P]
 ENTRIES = {
     "nmftpu_int8_vht": _INT8,
     "nmftpu_int8_wtv": _INT8,
@@ -72,6 +76,7 @@ ENTRIES = {
     "nmftpu_ell_kl_f32": _ELL_KL,
     "nmftpu_ell_kl_f64": _ELL_KL,
     "nmftpu_row_solve_f32": _ROW_SOLVE,
+    "nmftpu_ell_gram_f32": _ELL_GRAM,
     "nmftpu_w_update_f32": _MU,
     "nmftpu_h_update_f32": _MU,
     "nmftpu_w_update_i8": _MU,

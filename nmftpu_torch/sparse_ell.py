@@ -1,7 +1,8 @@
 """Gather-based ELL sparse engine (port of ``nmftpu/sparse_ell.py``:
 MU under Frobenius, KL and the beta divergence, confidence-weighted and
 masked; the ALS family, GDCLS and nsNMF; iALS and masked completion ALS
-on per-row Grams built bucket by bucket).
+on per-row Grams, built on the card by kernel #13 and bucket by bucket
+off it).
 
 * Each row of V is split into SEGMENTS of at most `seg_max` nonzeros, and
   segments are grouped into power-of-two-width BUCKETS, zero-padded to
@@ -35,6 +36,7 @@ import torch
 from nmftpu_torch import native_loader
 from nmftpu_torch import sparse as host_sparse
 from nmftpu_torch.driver import _resolve_device
+from nmftpu_torch.kernels import ell_gram as EG
 from nmftpu_torch.linalg.dense import (
     EPSILON,
     _acc_dtype,
@@ -53,7 +55,7 @@ DEFAULT_BUCKETS = (8, 16, 32, 64, 128, 256, 512)
 
 # iALS's host counts (`utils.counters()` reports them as ``ials.<name>``):
 # rows whose normal equations were solved, n + m an iteration, and the
-# segment results scatter-added into the per-row Grams
+# segments folded into the per-row Grams
 IALS_COUNTS = {"rows_solved": 0, "gram_segments": 0}
 
 _NUMPY_DTYPES = {torch.float32: np.float32, torch.float64: np.float64}
@@ -72,11 +74,15 @@ class EllBucket:
 
 @dataclasses.dataclass(frozen=True)
 class EllRows:
-    """Row-segmented ELL of a sparse matrix (for V Hᵀ style products)."""
+    """Row-segmented ELL of a sparse matrix (for V Hᵀ style products).
+    `cache` keeps what is derived once from the buckets (the per-row
+    Grams' work units, ``kernels.ell_gram.units_of``)."""
 
     buckets: tuple
     shape: tuple[int, int]
     nnz: int
+    cache: dict = dataclasses.field(default_factory=dict, init=False,
+                                    repr=False, compare=False)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -648,11 +654,13 @@ def kl_error_ell(pair: EllPair, W, H, eps=1e-12) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# Per-row weighted Grams on ELL: the iALS / masked-ALS hot path. Each
-# bucket's Gram contributions are one batched product over the gathered
-# rows, (block, r, w) x (block, w, r), and only the (block, r, r) segment
-# results are scatter-added into rows (about n + nnz/seg_max of them)
-# instead of one (r, r) outer product per nonzero.
+# Per-row weighted Grams on ELL: the iALS / masked-ALS hot path. On the card
+# one launch of #13 (``kernels/ell_gram.py``) builds every row's Gram and
+# right-hand side; the plain path makes each bucket's Gram contributions
+# one batched product over the gathered rows, (block, r, w) x (block, w,
+# r), and scatter-adds only the (block, r, r) segment results into rows
+# (about n + nnz/seg_max of them) instead of one (r, r) outer product per
+# nonzero.
 # ---------------------------------------------------------------------------
 
 
@@ -674,15 +682,27 @@ def _bucket_grams_rhs(bucket: EllBucket, Ht, weight_fn, value_fn, chunk):
 
 
 def grams_and_rhs_ell(ell: EllRows, Ht, weight_fn, value_fn,
-                      chunk: int = 1024):
-    """((n, r, r), (n, r)) float32: per row Σ weight(v) · t tᵀ and
-    Σ value(v) · t over the stored set. Ht is the (m, r) row-major table
-    (Hᵀ for the W half, W for the H half on the transposed container).
-    Pad lanes hold v = 0, so a weight and a value with f(0) = 0 drop
-    them. Each block's segment results go to their rows by `index_add_`
-    as they are made, so no bucket-sized (nseg, r, r) array exists."""
+                      chunk: int = 1024, rule=None):
+    """((n, r, r), (n, r)) float32: per row Σ weight(v) · t tᵀ (full and
+    symmetric) and Σ value(v) · t over the stored set. Ht is the (m, r)
+    row-major table (Hᵀ for the W half, W for the H half on the
+    transposed container). Pad lanes hold v = 0, so a weight and a value
+    with f(0) = 0 drop them.
+
+    `rule` (a ``kernels.ell_gram.GramRule``, whose `weight` and `value`
+    the caller passes as `weight_fn` and `value_fn`) lets the card take
+    the kernel: for a CUDA float32 table and float32 values at r <= 128
+    (``ell_gram.takes``) one launch of #13 builds every row's result in
+    registers and writes it once (a second launch adds the partial sums
+    of rows longer than one unit). Anything else takes the plain path:
+    each block of `chunk` segments is gathered, weighted, multiplied by
+    one `bmm` and added to its rows by `index_add_` as it is made, so no
+    bucket-sized (nseg, r, r) array exists."""
     Ht = Ht.contiguous()
     n, r = ell.shape[0], Ht.shape[1]
+    if rule is not None and EG.takes(Ht.device, Ht.dtype, r) and all(
+            b.vals.dtype == torch.float32 for b in ell.buckets):
+        return EG.grams_rhs(ell, Ht, rule)
     acc = _acc_dtype(Ht.dtype)
     grams = torch.zeros((n, r, r), dtype=acc, device=Ht.device)
     rhs = torch.zeros((n, r), dtype=acc, device=Ht.device)
@@ -703,26 +723,22 @@ def als_update_weighted_ell_exact(pair: EllPair, W, H, alpha, lambda_w=0.0,
 
         (H Hᵀ + Σ_{i∈u} αv_ui h_i h_iᵀ + (λ + eps) I) w_u = H (c_u ⊙ v_u)
 
-    with the Gram deltas AND the right-hand sides built bucket-wise from
-    one gather (`grams_and_rhs_ell`), solved in float32 by
-    ``linalg.dense.row_solver``. Each half-step is two spans,
-    ``nmftpu.ials.grams`` (the base Gram, the gathers, batched products
-    and `index_add_`) and ``nmftpu.ials.solve`` (the rows' solves),
-    and counts its rows and segments in `IALS_COUNTS`."""
+    with the Gram deltas AND the right-hand sides built in one pass over
+    the stored set (`grams_and_rhs_ell`: #13 on the card),
+    solved in float32 by ``linalg.dense.row_solver``. Each half-step is
+    two spans, ``nmftpu.ials.grams`` (the base Gram and every row's Gram
+    delta and right-hand side) and ``nmftpu.ials.solve`` (the rows'
+    solves), and counts its rows and segments in `IALS_COUNTS`."""
     solve = row_solver(solver, cg_steps)
-
-    def w_fn(v):
-        return alpha * v
-
-    def cv_fn(v):
-        return v * (1.0 + alpha * v)
+    rule = EG.ials_rule(alpha)
 
     def half(ell, table, x0, shift):
         """The rows of one side, solved from the other side's `table`
         ((m, r) row-major for the W half), warm-started at x0."""
         with span("nmftpu.ials.grams"):
             G = (table.T @ table).to(torch.float32)
-            dG, rhs = grams_and_rhs_ell(ell, table, w_fn, cv_fn)
+            dG, rhs = grams_and_rhs_ell(ell, table, rule.weight, rule.value,
+                                        rule=rule)
         with span("nmftpu.ials.solve"):
             out = solve(G, dG, rhs, shift, eps, x0)
         IALS_COUNTS["rows_solved"] += ell.shape[0]
@@ -745,19 +761,16 @@ def als_update_masked_ell(pair: EllPair, W, H, lambda_w=0.0, lambda_h=0.0,
     (0/1 weight, no base Gram), the semantics of
     ``sparse_ops.als_update_masked_sparse``."""
     solve = row_solver(solver, cg_steps)
-
-    def ind(v):
-        return v != 0
-
-    def val(v):
-        return v
+    rule = EG.MASKED
 
     def upd_w(W, H):
-        dG, rhs = grams_and_rhs_ell(pair.rows, H.T, ind, val)
+        dG, rhs = grams_and_rhs_ell(pair.rows, H.T, rule.weight, rule.value,
+                                    rule=rule)
         return solve(None, dG, rhs, lambda_w, eps, W).to(W.dtype)
 
     def upd_h(W, H):
-        dG, rhs = grams_and_rhs_ell(pair.cols, W, ind, val)
+        dG, rhs = grams_and_rhs_ell(pair.cols, W, rule.weight, rule.value,
+                                    rule=rule)
         return solve(None, dG, rhs, lambda_h, eps, H.T).T.contiguous().to(
             H.dtype)
 

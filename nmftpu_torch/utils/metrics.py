@@ -18,8 +18,9 @@ span (``nmftpu.fit``, ``nmftpu.serve.request``) on the calling thread:
     nmftpu.loop.setup    the loop's constants and its first error
     nmftpu.loop.update   one iteration's update
       nmftpu.ials.grams  an iALS half-step on ELL: the base Gram and the
-                         per-row Gram deltas and right-hand sides
-                         (gathers, batched products, `index_add_`)
+                         per-row Gram deltas and right-hand sides (on
+                         the card kernel #13, one pass over the stored
+                         values, each row written once)
       nmftpu.ials.solve  that half-step's per-row solves, every panel
     nmftpu.loop.check    the error check: metric, stats, its host sync,
                          callback, interrupt
@@ -77,6 +78,7 @@ def counters() -> dict[str, int]:
         count_above,
         dense_mu,
         dual_numer,
+        ell_gram,
         hals_sweep,
         mips_reservoir,
         quantized,
@@ -86,7 +88,8 @@ def counters() -> dict[str, int]:
 
     out = {}
     for mod in (dense_mu, quantized, dual_numer, hals_sweep,
-                sparse_ell_kernel, mips_reservoir, count_above, row_solve):
+                sparse_ell_kernel, mips_reservoir, count_above, row_solve,
+                ell_gram):
         out.update((f"launches.{k}", int(v)) for k, v in mod.LAUNCHES.items())
     out.update((f"serve.{k}", int(v)) for k, v in serving.COUNTS.items())
     out.update((f"ials.{k}", int(v))
