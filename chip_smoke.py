@@ -214,6 +214,19 @@ kernel against the plain path and, on a row sample with the heaviest
 row, both against float64 (the kernel's error at most twice the plain
 path's), and the ms of both beside the bound. Phase 22 counts its
 launches on the main path (the ELL iALS runs at config 3).
+Phase 29 runs kernel #11 under its CG rule (nmftpu_torch/kernels/
+sparse_ell_kernel.py `ell_cg`, the sparse term of the iALS systems'
+product with a CG direction) on the msd-clicks cell's clicks (571,355 x
+41,140, 33,633,450 ones, from benchmark/datagen/clicks.py and
+benchmark/configs/msd-clicks.json), r = 256, each half: one launch
+against its twin sparse_ell.cg_product_ell within ELL_KL_RTOL of the
+largest entry, the ms of both beside the bound, and a whole matrix-free
+half-step on the kernel routes (3 steps) against float64 CG from the
+same start on 64 rows (the heaviest included), its error over those rows
+together at most CG_F32_PER_KAPPA kappa, the plain twin's beside it.
+Phase 22 counts its launches (8 an iteration) on config 3's ELL cg run
+and holds that run's first W half-step to the same rule, beside the
+twin and the formed systems' float32 route that nmftpu runs.
 Every phase prints its results; any failure exits non-zero, as does a
 kernel timed below its bound. Without a CUDA device it exits 1 and runs
 nothing.
@@ -365,6 +378,24 @@ ROW_SOLVE_LAMBDA = 0.1
 ELL_GRAM_SHAPE = (136_677, 20_108, 9_990_682)
 ELL_GRAM_SAMPLE = 128
 ELL_GRAM_F64_FACTOR = 2
+
+# phase 29: #11's CG rule on the msd-clicks cell's clicks and settings
+# (rank, alpha, lambda) at ELL_CG_STEPS steps a half-step, a matrix-free
+# half-step checked on ELL_CG_SAMPLE rows (the heaviest included)
+ELL_CG_CONFIG = "benchmark/configs/msd-clicks.json"
+ELL_CG_STEPS = 3
+ELL_CG_SAMPLE = 64
+# a float32 CG half-step (3 steps) against float64 CG from the same start,
+# the rows together: at most CG_F32_PER_KAPPA times the largest kappa of
+# the rows. Float32 arithmetic inside the steps sets this distance, not
+# the route: 3 float32 steps leave float64 CG by up to ~10% on single rows
+# of kappa ~10^3 (phase 22), and float32 routes of the same iteration
+# spread over 4x on config 3's rows at kappa 614 (the plain twin 7.7e-3,
+# nmftpu's formed systems 1.5e-2, the kernel routes 2.9e-2 to 3.1e-2 on
+# an H100), while a sound route's products stay within ELL_KL_RTOL of the
+# twin's (phase 29) and its float64 iteration within 1e-10 of the formed
+# one (tests/test_torch_ell_cg.py)
+CG_F32_PER_KAPPA = 1e-4
 
 # phase 18: cold users at config 5 (users outside training, SERVE_SEEN
 # distinct items each, drawn as serving_data draws them), folded in against
@@ -649,6 +680,11 @@ REPLACES = {
     # and einsums
     "ell_gram": "none (XLA gathers and einsums, nmftpu/sparse_ell.py:852 "
                 "grams_and_rhs_ell)",
+    # #11 under its CG rule replaces the per-row Grams that nmftpu's cg
+    # solver forms before its steps
+    "ell_cg": "none (XLA gathers and einsums, nmftpu/sparse_ell.py:852 "
+              "grams_and_rhs_ell, then nmftpu/linalg/dense.py "
+              "_batched_solve_clamped_cg)",
 }
 SOURCES = {
     "w_update_fused": "nmftpu_torch/csrc/dense_mu.cu",
@@ -666,6 +702,7 @@ SOURCES = {
     "wtv_int8": "nmftpu_torch/csrc/dual_numer.cu",
     "row_solve": "nmftpu_torch/csrc/row_solve.cu",
     "ell_gram": "nmftpu_torch/csrc/ell_gram.cu",
+    "ell_cg": "nmftpu_torch/csrc/ell_rowsums.cu",
 }
 DENSE = ("w_update_fused", "h_update_fused", "w_update_fused_q",
          "h_update_fused_q")
@@ -3440,6 +3477,25 @@ def per_row_check(got, want, kappas, r, extra=None, scale=1.0) -> tuple:
     return float((rel / limit)[k]), float(rel[k]), float(kappas[k])
 
 
+def cg_step_check(got, refs, csr, idx, table, x0, alpha, lam, steps):
+    """A matrix-free CG half-step's rows `idx` of a host CSR (got, on the
+    kernel routes) against `steps` steps of float64 CG from x0 on the
+    rows' formed systems (`row_systems64`): the error, max|x - x64| /
+    max|x64| over the rows together (as the card test and the benchmark's
+    `w_gap` normalize), at most CG_F32_PER_KAPPA times the largest kappa
+    of the rows. The float32 routes in `refs` are measured the same way,
+    for the reader. Returns (ratio to the limit, error, kappa, the
+    largest of the refs' errors)."""
+    sel = torch.as_tensor(idx, device=got.device)
+    want, kappas = row_systems64(csr, idx, table, alpha, lam, False,
+                                 x0=x0[sel], cg_steps=steps)
+    top = float(want.abs().max())
+    err, ref_err = (max(float((x[sel].double() - want).abs().max()) / top
+                        for x in xs) for xs in ([got], refs))
+    kappa = float(kappas.max())
+    return err / (CG_F32_PER_KAPPA * kappa), err, kappa, ref_err
+
+
 def sparse_algorithms_phase(nt, card, dev, ratings, c3, V, W0d, H0d) -> dict:
     """Phase 22 (slices 4b-ii and 4c): the ALS family, GDCLS, nsNMF and
     HALS on sparse V at config 2's full width on every engine (a);
@@ -3461,6 +3517,7 @@ def sparse_algorithms_phase(nt, card, dev, ratings, c3, V, W0d, H0d) -> dict:
     from nmftpu_torch.kernels import hals_sweep as HS
     from nmftpu_torch.kernels import ell_gram as EG
     from nmftpu_torch.kernels import row_solve as RS
+    from nmftpu_torch.kernels import sparse_ell_kernel as SEK
     from nmftpu_torch.linalg import dense as D
 
     t_phase = time.perf_counter()
@@ -3844,6 +3901,7 @@ def sparse_algorithms_phase(nt, card, dev, ratings, c3, V, W0d, H0d) -> dict:
                          **knobs)
 
     ials, rs_launches, eg_launches = {}, {}, {}
+    cg_launches = 0
     plan = None
     for engine, strategy, solver in (("ell", "auto", "exact"),
                                      ("ell", "auto", "cg"),
@@ -3867,6 +3925,7 @@ def sparse_algorithms_phase(nt, card, dev, ratings, c3, V, W0d, H0d) -> dict:
         t_end = torch.cuda.Event(enable_timing=True)
         RS.LAUNCHES["row_solve"] = 0     # the main path's iALS starts here
         EG.LAUNCHES["ell_gram"] = 0
+        SEK.LAUNCHES["ell_cg"] = 0
         t_start.record()
         one = plan.run(cfg3(1, **knobs), W0=W3, H0=H3)
         t_end.record()
@@ -3887,25 +3946,36 @@ def sparse_algorithms_phase(nt, card, dev, ratings, c3, V, W0d, H0d) -> dict:
                                            else 0):
             fail(f"config 3 iALS {engine} {solver}: {iters} iterations "
                  f"launched #12 {rs_launches[engine, solver]} times")
-        # #13 builds every ELL half-step's Grams whatever the solver: one
-        # launch a half, and one more where the half has split rows
+        # #13 builds every exact ELL half-step's Grams: one launch a half,
+        # and one more where the half has split rows; the cg half-steps
+        # build none (matrix-free: #11's CG rule, 3 + 1 launches a half)
         eg_launches[engine, solver] = EG.LAUNCHES["ell_gram"]
-        per_iter = 0 if engine != "ell" else sum(
+        per_iter = 0 if engine != "ell" or solver == "cg" else sum(
             1 + (EG.units_of(ell).splits.shape[0] > 0)
             for ell in (plan.operand.rows, plan.operand.cols))
         if eg_launches[engine, solver] != per_iter * iters:
             fail(f"config 3 iALS {engine} {solver}: {iters} iterations "
                  f"launched #13 {eg_launches[engine, solver]} times, not "
                  f"{per_iter * iters}")
+        cg_want = 2 * (3 + 1) * iters if (engine, solver) == ("ell",
+                                                             "cg") else 0
+        if SEK.LAUNCHES["ell_cg"] != cg_want:
+            fail(f"config 3 iALS {engine} {solver}: {iters} iterations "
+                 f"launched #11's CG rule {SEK.LAUNCHES['ell_cg']} times, "
+                 f"not {cg_want}")
+        cg_launches += SEK.LAUNCHES["ell_cg"]
         peak = (torch.cuda.max_memory_allocated() - base) / 2**30
         # one step per row against float64 normal equations solved by LU;
         # cg's 3 float32 steps leave their exact-arithmetic iterates by up
         # to ~10% on rows of kappa ~10^3 (the residual loses its digits
         # once the large eigen-direction is gone: nmftpu's float32 CG as
-        # the port's), so cg is held run to r steps on the same rows' own
-        # systems (the card's Gram, Gram delta and right-hand side)
-        want_w, kap_w = row_systems64(csr3, rows3, H3.T, alpha, 0.0, False)
+        # the port's), so the cg run's own first W half-step (#11's CG
+        # rule, 3 steps from W3) is held to float64 CG from W3 on the same
+        # rows, beside the plain matrix-free twin's half-step
+        twin_err = None
         if solver == "exact":
+            want_w, kap_w = row_systems64(csr3, rows3, H3.T, alpha, 0.0,
+                                          False)
             want_h, kap_h = row_systems64(csc3, cols3, one.W, alpha, 0.0,
                                           False)
             checks = {"W": per_row_check(one.W[rows3], want_w, kap_w, r3),
@@ -3913,16 +3983,21 @@ def sparse_algorithms_phase(nt, card, dev, ratings, c3, V, W0d, H0d) -> dict:
                                          r3)}
             ials[engine, "one"] = (one.W, one.H, kap_w, kap_h)
         else:
+            # the float32 routes printed beside it: the plain matrix-free
+            # twin and nmftpu's own, formed systems (plain Grams, then
+            # row_solver's cg)
+            twin = SE.cg_half_ell(plan.operand.rows, H3.T, W3, 0.0, 1e-9,
+                                  alpha, 3)
             dG, rhs = SE.grams_and_rhs_ell(
                 plan.operand.rows, H3.T, lambda v: alpha * v,
                 lambda v: v * (1.0 + alpha * v))
-            idx = torch.as_tensor(rows3, device=dev)
-            Gb = (H3 @ H3.T)[None] + dG[idx]
-            x = D._batched_solve_clamped_cg(Gb, rhs[idx], 0.0, 1e-9,
-                                            W3[idx], steps=r3)
-            checks = {f"W_cg_{r3}_steps": per_row_check(x, want_w, kap_w,
-                                                         r3)}
-            del dG, rhs, Gb, x
+            formed = D.row_solver("cg", 3)(H3 @ H3.T, dG, rhs, 0.0, 1e-9,
+                                           W3)
+            del dG, rhs
+            *check, twin_err = cg_step_check(one.W, [twin, formed], csr3,
+                                             rows3, H3.T, W3, alpha, 0.0, 3)
+            checks = {"W_cg_3_steps": tuple(check)}
+            del twin, formed
         say("22 config 3 ials", engine=engine, solver=solver,
             strategy=plan.strategy, weighted_objective=[f"{x:.9g}"
                                                         for x in objs],
@@ -3932,6 +4007,9 @@ def sparse_algorithms_phase(nt, card, dev, ratings, c3, V, W0d, H0d) -> dict:
             ms_first_iter_with_check=f"{ms1:.3f}", peak_GiB=f"{peak:.2f}",
             row_solve_launches=rs_launches[engine, solver],
             ell_gram_launches=eg_launches[engine, solver],
+            ell_cg_launches=SEK.LAUNCHES["ell_cg"],
+            cg_float32_routes_err_f64=("none" if twin_err is None
+                                       else f"{twin_err:.3e}"),
             gram_need_GiB=f"{need / 2**30:.4f}", prepare_s=f"{prep_s:.2f}",
             **{f"step_{k}_worst_ratio_to_limit": f"{v[0]:.3e}"
                for k, v in checks.items()},
@@ -3945,8 +4023,8 @@ def sparse_algorithms_phase(nt, card, dev, ratings, c3, V, W0d, H0d) -> dict:
                  f"objective {objs}")
         if any(v[0] > 1.0 for v in checks.values()):
             fail(f"config 3 iALS {engine} {solver}: one step is off from "
-                 f"float64 beyond {SOLVE_FACTOR} sqrt(r) kappa 2^-24: "
-                 f"{checks}")
+                 f"float64 beyond its limit (exact: {SOLVE_FACTOR} sqrt(r) "
+                 f"kappa 2^-24; cg: {CG_F32_PER_KAPPA} kappa): {checks}")
         del one
     del plan
     cg, ex = ials["ell", "cg"], ials["ell", "exact"]
@@ -4091,6 +4169,7 @@ def sparse_algorithms_phase(nt, card, dev, ratings, c3, V, W0d, H0d) -> dict:
     return {"launches": {"hals_sweep": hals["launches"], **int8_launches},
             "row_solve": rs_launches["ell", "exact"],
             "ell_gram": eg_launches["ell", "exact"],
+            "ell_cg": cg_launches,
             "hals_max_abs": hals_diff, "hals_ms": t_ms["kernel"],
             "hals_plain_ms": t_ms["plain"], "hals_bound": hals_bound}
 
@@ -6933,6 +7012,92 @@ def ell_gram_phase(card, dev) -> dict:
             "max_abs_err": max(h["max_abs_err"] for h in res.values())}
 
 
+def ell_cg_phase(card, dev) -> dict:
+    """Phase 29: #11's CG rule (one launch for every bucket) on the
+    msd-clicks cell's clicks at r = 256, each half: the product with the
+    half's own rows as directions against its twin, a matrix-free
+    half-step on the kernel routes against float64 CG on a row sample
+    (`cg_step_check`), and the ms of kernel and twin by CUDA events beside
+    the bound. Returns the W half's numbers for the kernel table."""
+    from benchmark.datagen import clicks
+    from nmftpu_torch import sparse_ell as SE
+    from nmftpu_torch.kernels import sparse_ell_kernel as SEK
+
+    spec = json.loads((HERE / ELL_CG_CONFIG).read_text())
+    r, alpha, lam = spec["rank"], spec["alpha"], spec["lambda_w"]
+    t0 = time.perf_counter()
+    coo = clicks.make(spec["data"], SEED + 29, dev)
+    n, m, nnz = coo["n"], coo["m"], coo["nnz"]
+    csr = clicks.host_csr(coo)
+    del coo
+    csc = csr.T.to_csr()
+    pair = SE.build_ell_pair(csr, device=dev)
+    make_s = time.perf_counter() - t0
+    gen = torch.Generator(device=dev).manual_seed(SEED + 29)
+    scale = (nnz / (n * m) / r) ** 0.5
+    W = (torch.rand(n, r, generator=gen, device=dev) + 0.1) * scale
+    Hr = (torch.rand(m, r, generator=gen, device=dev) + 0.1) * scale
+    kernels = dict(product=SEK.ell_cg, spmm=SEK.v_ht_ell_pallas)
+    rng = np.random.default_rng(SEED + 29)
+    res = {}
+    for half, ell, table, own, host, other in (
+            ("W", pair.rows, Hr, W, csr, m), ("H", pair.cols, W, Hr, csc, n)):
+        rows = ell.shape[0]
+        before = SEK.LAUNCHES["ell_cg"]
+        got = SEK.ell_cg(ell, own, table, alpha)
+        launches = SEK.LAUNCHES["ell_cg"] - before
+        want = SE.cg_product_ell(ell, own, table, alpha)
+        torch.cuda.synchronize()
+        a = float((got - want).abs().max())
+        rel = a / float(want.abs().max())
+        del got, want
+        step = SE.cg_half_ell(ell, table, own, lam, 1e-9, alpha,
+                              ELL_CG_STEPS, **kernels)
+        twin = SE.cg_half_ell(ell, table, own, lam, 1e-9, alpha,
+                              ELL_CG_STEPS)
+        lens = np.diff(host.indptr)
+        idx = np.unique(np.concatenate([
+            [int(np.argmax(lens))],
+            rng.choice(rows, ELL_CG_SAMPLE - 1, replace=False)]))
+        ratio, s_err, kappa, t_err = cg_step_check(
+            step, [twin], host, idx, table, own, alpha, lam, ELL_CG_STEPS)
+        del step, twin
+        torch.cuda.empty_cache()
+        ms = abba_ms({
+            "kernel": lambda: SEK.ell_cg(ell, own, table, alpha),
+            "plain": lambda: SE.cg_product_ell(ell, own, table, alpha),
+        }, iters=3)
+        # a product samples and sums at every nonzero (4·nnz·r) and reads
+        # each value and column once, the table, the directions and the
+        # output once
+        b_ms, b_by = bound(4 * nnz * r, nnz * (4 + 4)
+                           + (2 * rows + other) * r * 4, F32_PEAK)
+        say("29 ell_cg", half=half, rows=rows, nnz=nnz, r=r,
+            heaviest_row=int(lens.max()), launches=launches,
+            ms=f"{ms['kernel']:.4f}", plain_ms=f"{ms['plain']:.4f}",
+            bound_ms=f"{b_ms:.4f}", bound_by=b_by, library_ms="none",
+            vs_plain_max_abs=f"{a:.3e}", vs_plain_rel=f"{rel:.3e}",
+            rtol=ELL_KL_RTOL, step_err_f64=f"{s_err:.3e}",
+            twin_step_err_f64=f"{t_err:.3e}", kappa=f"{kappa:.4g}",
+            step_ratio_to_limit=f"{ratio:.3e}", make_s=f"{make_s:.1f}",
+            card=card)
+        if launches != 1:
+            fail(f"#11 CG rule {half} half: {launches} launches")
+        if not rel <= ELL_KL_RTOL:
+            fail(f"#11 CG rule {half} half: {rel:.3e} from its twin, over "
+                 f"{ELL_KL_RTOL}")
+        if not ratio <= 1.0:
+            fail(f"#11 CG rule {half} half: the half-step's error against "
+                 f"float64 CG {s_err:.3e} over {CG_F32_PER_KAPPA} kappa "
+                 f"(kappa {kappa:.4g}; the twin's {t_err:.3e})")
+        res[half] = dict(ms=ms["kernel"], plain_ms=ms["plain"],
+                         bound_ms=b_ms, bound_by=b_by, max_abs_err=a)
+    del pair, W, Hr
+    torch.cuda.empty_cache()
+    return {**res["W"],
+            "max_abs_err": max(h["max_abs_err"] for h in res.values())}
+
+
 def main() -> None:
     if not (HERE / "nmftpu_torch").is_dir():
         fail(f"no nmftpu_torch package beside {__file__}")
@@ -7448,6 +7613,13 @@ def main() -> None:
     k_ms["ell_gram"], p_ms["ell_gram"] = eg["ms"], eg["plain_ms"]
     bounds["ell_gram"] = (eg["bound_ms"], eg["bound_by"])
 
+    # -- 29. #11's CG rule on the msd-clicks cell's clicks at r = 256 -------
+    torch.cuda.empty_cache()
+    ec = ell_cg_phase(card, dev)
+    max_abs["ell_cg"] = ec["max_abs_err"]
+    k_ms["ell_cg"], p_ms["ell_cg"] = ec["ms"], ec["plain_ms"]
+    bounds["ell_cg"] = (ec["bound_ms"], ec["bound_by"])
+
     if "jax" in sys.modules:
         fail("jax was imported")
     # a time below the least the card could take means a wrong bound
@@ -7460,6 +7632,7 @@ def main() -> None:
                 "ell_rowsums": ell["launches"], "ell_kl": kl["launches"],
                 # phase 22's ELL iALS run at config 3, the main path
                 "row_solve": s12["row_solve"], "ell_gram": s12["ell_gram"],
+                "ell_cg": s12["ell_cg"],
                 **{name: f["launches"] for name, f in new.items()}}
     # #6's one-sided entry, #7 and #8 on the cold-user path (phase 18); the
     # one-sided entries on the int8 ALS family, GDCLS and nsNMF (phase 21)

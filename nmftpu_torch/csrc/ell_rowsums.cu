@@ -233,10 +233,10 @@ ell_spmm_kernel(const __grid_constant__ Plan<T> plan,
 // partial dots with the U gathered rows; a 4-step xor reduction inside
 // the half finishes them, transposed (a lane keeps half its partials at
 // each of the first log2(U) steps and trades the rest), so that each lane
-// ends with one whole dot, computes one c = v / (s + eps), the plain
-// twin's formula, and a shuffle hands the U coefficients back. Then acc
-// = fma(c, x, acc) in k order. The half adds acc into out[rows[s]] with
-// vector atomics.
+// ends with one whole dot, computes one c by the launch's rule (below),
+// the plain twin's formula, and a shuffle hands the U coefficients back.
+// Then acc = fma(c, x, acc) in k order. The half adds acc into
+// out[rows[s]] with vector atomics.
 //
 // Precision contract: as ell_spmm_kernel, in the element type (float or
 // double): the dot in a fixed order (each lane's columns in order, then
@@ -246,6 +246,7 @@ ell_spmm_kernel(const __grid_constant__ Plan<T> plan,
 // s + eps != 0 (its c is 0). With eps = 0 a pad lane (col 0, val 0) whose
 // sample s is 0 gives 0/0 = NaN in the plain twin, which then spreads
 // over the row; the kernel skips the lane and keeps the row finite.
+// Under CgRule a skipped lane's c is 0 in the twin too, on a finite own.
 //
 // What bounds it on the H100: the same gathers as one ell_spmm product,
 // nnz · r · 4 B = 5.1 GB of L2 traffic a half-step at ML-20M and r = 64
@@ -253,6 +254,21 @@ ell_spmm_kernel(const __grid_constant__ Plan<T> plan,
 // the dot and the sum), about two shuffles a nonzero more than #10 at
 // r <= 64 (U = 4: 9 shuffles for 4 rows) and one division a lane for
 // every U nonzeros.
+//
+// The coefficient is a rule of the kernel (a template parameter), given
+// the stored value v, the sample s and one scalar of the launch:
+//
+//     KlRule   c = v / (s + eps)        the MU-KL numerator
+//     CgRule   c = alpha · v · s        the iALS CG product's sparse term
+//
+// so one kernel serves both: CgRule's launch with own = P, a CG search
+// direction per row, and table = the other factor gives every row's
+// Σ_k α v_k (t_k · p) t_k, the part of its iALS system's product A·p that
+// the stored values carry (sparse_ell.py, cg_half_ell), without the
+// system (r × r a row) ever being formed. At r = 256 (VEC 4, NP 4) a
+// segment's half gathers one row at a time (U = 1); the W half's table
+// (Hᵀ) sits in L2 at MSD's 41,140 items (42 MB), the H half's (W, 585 MB
+// at 571,355 users) does not, and its gathers go to HBM.
 //
 // #11 keeps fewer rows in flight than #10 and asks for more resident
 // blocks: the sample's reduction and division lengthen each lane's chain,
@@ -262,16 +278,30 @@ ell_spmm_kernel(const __grid_constant__ Plan<T> plan,
 // Rows wider than 16 bytes a lane keep 2 blocks, to spill little.
 constexpr int KL_GATHERS = 4;
 
+struct KlRule {
+  template <typename T>
+  static __device__ __forceinline__ T coef(T v, T s, T eps) {
+    return v / (s + eps);
+  }
+};
+
+struct CgRule {
+  template <typename T>
+  static __device__ __forceinline__ T coef(T v, T s, T alpha) {
+    return alpha * v * s;
+  }
+};
+
 template <typename T, int VEC, int NP>
 constexpr int kl_min_blocks() {
   return VEC * NP * sizeof(T) <= 16 ? 4 : 2;
 }
 
-template <typename T, int VEC, int NP>
+template <typename T, int VEC, int NP, typename Rule>
 __global__ void __launch_bounds__(THREADS, kl_min_blocks<T, VEC, NP>())
 ell_kl_kernel(const __grid_constant__ Plan<T> plan, const T* __restrict__ own,
               const T* __restrict__ table, T* __restrict__ out, int r,
-              T eps) {
+              T param) {
   constexpr int U = KL_GATHERS / NP > 0 ? KL_GATHERS / NP : 1;  // rows
   constexpr int LOG_U = U >= 8 ? 3 : U >= 4 ? 2 : U >= 2 ? 1 : 0;
   const int lane = threadIdx.x & 31;
@@ -386,7 +416,7 @@ ell_kl_kernel(const __grid_constant__ Plan<T> plan, const T* __restrict__ own,
 #pragma unroll
         for (int u = 1; u < U; ++u)
           if (u == mine) v_mine = val[u];
-        const T c_mine = v_mine / (dot[0] + eps);
+        const T c_mine = Rule::coef(v_mine, dot[0], param);
 #pragma unroll
         for (int u = 0; u < U; ++u) {
           int from = 0;                 // a lane that holds row u's dot
@@ -507,9 +537,9 @@ constexpr int kl_max_rank() { return HALF * 64 / static_cast<int>(sizeof(T)); }
 // The widest vector a row can take, then the fewest column groups (a
 // power of two) that cover r in one pass; r beyond kl_max_rank is
 // refused.
-template <typename T>
+template <typename T, typename Rule>
 int launch_kl(const long long* desc, int nb, const T* own, const T* table,
-              T* out, int r, double eps, cudaStream_t stream) {
+              T* out, int r, double param, cudaStream_t stream) {
   Plan<T> plan;
   if (const int err = read_plan(desc, nb, r, &plan)) return err;
   if (r > kl_max_rank<T>()) return static_cast<int>(cudaErrorInvalidValue);
@@ -521,8 +551,8 @@ int launch_kl(const long long* desc, int nb, const T* own, const T* table,
   if (const int err = grid_size(plan.nseg, &grid)) return err;
 #define NMFTPU_KL_CASE(V, P)                                              \
   if (vec == V && np == P) {                                              \
-    ell_kl_kernel<T, V, P><<<grid, THREADS, 0, stream>>>(                 \
-        plan, own, table, out, r, static_cast<T>(eps));                   \
+    ell_kl_kernel<T, V, P, Rule><<<grid, THREADS, 0, stream>>>(           \
+        plan, own, table, out, r, static_cast<T>(param));                 \
     return static_cast<int>(cudaGetLastError());                          \
   }
   NMFTPU_KL_CASE(1, 1) NMFTPU_KL_CASE(1, 2) NMFTPU_KL_CASE(1, 4)
@@ -564,13 +594,31 @@ int nmftpu_ell_spmm_f64(const long long* desc, int nb, const double* table,
 int nmftpu_ell_kl_f32(const long long* desc, int nb, const float* own,
                       const float* table, float* out, int r, double eps,
                       cudaStream_t stream) {
-  return launch_kl<float>(desc, nb, own, table, out, r, eps, stream);
+  return launch_kl<float, KlRule>(desc, nb, own, table, out, r, eps,
+                                  stream);
 }
 
 int nmftpu_ell_kl_f64(const long long* desc, int nb, const double* own,
                       const double* table, double* out, int r, double eps,
                       cudaStream_t stream) {
-  return launch_kl<double>(desc, nb, own, table, out, r, eps, stream);
+  return launch_kl<double, KlRule>(desc, nb, own, table, out, r, eps,
+                                   stream);
+}
+
+// #11 under CgRule: desc, own, table and out as the KL entries; each
+// gathered row weighted by alpha · v · <own[row], table[col]>.
+int nmftpu_ell_cg_f32(const long long* desc, int nb, const float* own,
+                      const float* table, float* out, int r, double alpha,
+                      cudaStream_t stream) {
+  return launch_kl<float, CgRule>(desc, nb, own, table, out, r, alpha,
+                                  stream);
+}
+
+int nmftpu_ell_cg_f64(const long long* desc, int nb, const double* own,
+                      const double* table, double* out, int r, double alpha,
+                      cudaStream_t stream) {
+  return launch_kl<double, CgRule>(desc, nb, own, table, out, r, alpha,
+                                   stream);
 }
 
 }  // extern "C"

@@ -75,6 +75,8 @@ ENTRIES = {
     "nmftpu_ell_spmm_f64": _ELL,
     "nmftpu_ell_kl_f32": _ELL_KL,
     "nmftpu_ell_kl_f64": _ELL_KL,
+    "nmftpu_ell_cg_f32": _ELL_KL,
+    "nmftpu_ell_cg_f64": _ELL_KL,
     "nmftpu_row_solve_f32": _ROW_SOLVE,
     "nmftpu_ell_gram_f32": _ELL_GRAM,
     "nmftpu_w_update_f32": _MU,

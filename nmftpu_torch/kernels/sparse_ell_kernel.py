@@ -38,6 +38,15 @@ bound by its L2 gathers, nnz · r · 4 B a half-step. Its twin is
 and, by shape, for rows wider than one pass (`KL_MAX_RANK`).
 ``LAUNCHES["ell_kl"]`` counts its launches, one per half-step; the ELL
 engine passes `ell_kl` as ``sparse_ell.mu_update_kl_ell``'s numerator.
+
+`ell_cg` is #11 under its other rule (``CgRule``): the coefficient α · v
+· <own[row], table[col]> in place of the ratio, so one launch gives every
+row's sparse term Σ_k α v_k (t_k · p) t_k of the iALS system's product
+with a CG search direction p (own), the system never formed. Its twin is
+``sparse_ell.cg_product_ell``; ``LAUNCHES["ell_cg"]`` counts its launches,
+`cg_steps` + 1 per matrix-free CG half-step
+(``sparse_ell.cg_half_ell``, to which the engine passes `ell_cg` and
+`v_ht_ell_pallas`).
 """
 
 from __future__ import annotations
@@ -48,9 +57,14 @@ import torch
 from nmftpu_torch.kernels import _build
 from nmftpu_torch.kernels.dense_mu import _on_cpu
 from nmftpu_torch.linalg.dense import _apply_order
-from nmftpu_torch.sparse_ell import EllBucket, _rowsums, kl_numerator_ell
+from nmftpu_torch.sparse_ell import (
+    EllBucket,
+    _rowsums,
+    cg_product_ell,
+    kl_numerator_ell,
+)
 
-LAUNCHES = {"ell_rowsums": 0, "ell_kl": 0}
+LAUNCHES = {"ell_rowsums": 0, "ell_kl": 0, "ell_cg": 0}
 
 _ENTRIES = {
     torch.float32: "nmftpu_ell_spmm_f32",
@@ -59,6 +73,10 @@ _ENTRIES = {
 _KL_ENTRIES = {
     torch.float32: "nmftpu_ell_kl_f32",
     torch.float64: "nmftpu_ell_kl_f64",
+}
+_CG_ENTRIES = {
+    torch.float32: "nmftpu_ell_cg_f32",
+    torch.float64: "nmftpu_ell_cg_f64",
 }
 
 # #11 holds 64 bytes of a row a lane, 16 lanes a segment: the widest rows
@@ -217,22 +235,41 @@ def mu_update_frobenius_ell_pallas(pair, W, H, eps=1e-9, order="WH"):
     return _apply_order(upd_w, upd_h, W, H, order)
 
 
-def _check_kl(ell, own, table):
+def _check_kl(ell, own, table, what="ell_kl"):
     """What #11 takes: the buckets as `ell_spmm` takes them, own (n, r)
     and table (m, r) contiguous, of the buckets' type, float32 or
     float64, r within one pass."""
     if table.dtype not in KL_MAX_RANK or table.ndim != 2:
-        raise TypeError(f"ell_kl: table must be a 2-D float32 or float64 "
+        raise TypeError(f"{what}: table must be a 2-D float32 or float64 "
                         f"tensor, got {table.ndim}-D {table.dtype}")
     if not table.is_contiguous():
-        raise ValueError("ell_kl: table must be contiguous")
-    _check_launch(ell.buckets, table, own, what="ell_kl", name="own")
+        raise ValueError(f"{what}: table must be contiguous")
+    _check_launch(ell.buckets, table, own, what=what, name="own")
     if own.shape[0] != ell.shape[0]:
-        raise ValueError(f"ell_kl: own must have the container's "
+        raise ValueError(f"{what}: own must have the container's "
                          f"{ell.shape[0]} rows, got {own.shape[0]}")
     if table.shape[1] > KL_MAX_RANK[table.dtype]:
-        raise ValueError(f"ell_kl: r = {table.shape[1]} exceeds one pass "
+        raise ValueError(f"{what}: r = {table.shape[1]} exceeds one pass "
                          f"({KL_MAX_RANK[table.dtype]})")
+
+
+def _sampled(ell, own, table, param, entries, what, twin):
+    """#11 under the rule of `entries` with its scalar `param`: one launch
+    for up to `MAX_BUCKETS` buckets on CUDA tensors, counted under
+    `what`; `twin()` on CPU tensors and for r beyond `KL_MAX_RANK`."""
+    tensors = [t for b in ell.buckets for t in (b.vals, b.cols, b.out_row)]
+    r = table.shape[-1]
+    if _on_cpu(own, table, *tensors) or r > KL_MAX_RANK.get(table.dtype, r):
+        return twin()
+    _check_kl(ell, own, table, what)
+    out = torch.zeros((ell.shape[0], r), dtype=table.dtype,
+                      device=table.device)
+    for desc in _descriptors(ell.buckets):
+        _build.launch(entries[table.dtype], what, table.device,
+                      desc.ctypes.data, len(desc), own.data_ptr(),
+                      table.data_ptr(), out.data_ptr(), r, float(param))
+        LAUNCHES[what] += 1
+    return out
 
 
 def ell_kl(ell, own, table, eps=1e-9):
@@ -244,17 +281,16 @@ def ell_kl(ell, own, table, eps=1e-9):
     and for r beyond `KL_MAX_RANK`. The kernel skips lanes whose value is
     0, which changes no sum wherever s + eps != 0; with eps = 0 a pad lane
     that samples s = 0 gives NaN in the twin and nothing in the kernel."""
-    tensors = [t for b in ell.buckets for t in (b.vals, b.cols, b.out_row)]
-    r = table.shape[-1]
-    if _on_cpu(own, table, *tensors) or r > KL_MAX_RANK.get(table.dtype, r):
-        return kl_numerator_ell(ell, own, table, eps)
-    _check_kl(ell, own, table)
-    out = torch.zeros((ell.shape[0], r), dtype=table.dtype,
-                      device=table.device)
-    for desc in _descriptors(ell.buckets):
-        _build.launch(_KL_ENTRIES[table.dtype], "ell_kl", table.device,
-                      desc.ctypes.data, len(desc), own.data_ptr(),
-                      table.data_ptr(), out.data_ptr(), r, float(eps))
-        LAUNCHES["ell_kl"] += 1
-    return out
+    return _sampled(ell, own, table, eps, _KL_ENTRIES, "ell_kl",
+                    lambda: kl_numerator_ell(ell, own, table, eps))
 
+
+def ell_cg(ell, own, table, alpha):
+    """The sparse term of the iALS systems' product with one vector a row,
+    Σ_k α · v_k · <own[row], table[col_k]> · table[col_k] accumulated into
+    rows -> (n, r), own (n, r) and table (m, r) as `ell_kl` takes them:
+    #11 under its CG rule, one launch for up to `MAX_BUCKETS` buckets
+    (``LAUNCHES["ell_cg"]``), or the plain twin
+    ``sparse_ell.cg_product_ell`` where `ell_kl` runs its own."""
+    return _sampled(ell, own, table, alpha, _CG_ENTRIES, "ell_cg",
+                    lambda: cg_product_ell(ell, own, table, alpha))

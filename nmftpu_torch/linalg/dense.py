@@ -622,21 +622,15 @@ def _batched_solve_clamped(Gb, rhs, shift, eps):
     return torch.clamp(sol, min=0.0)
 
 
-def _batched_solve_clamped_cg(Gb, rhs, shift, eps, x0, steps=3):
-    """Warm-started Jacobi-preconditioned conjugate gradients for the
-    per-row normal equations of weighted/masked ALS, then clamp(>= 0):
-    `steps` batched matvecs instead of a batched Cholesky (Takács &
-    Pilászy 2011); the outer ALS loop is itself iterative, so a warm start
-    from the previous factors makes a few inner steps enough. A row whose
-    search direction has no curvature (converged) freezes."""
-    A = _ridged(Gb, shift, eps)
-    dinv = 1.0 / torch.clamp(torch.diagonal(A, dim1=-2, dim2=-1),
-                             min=torch.finfo(A.dtype).tiny)
-
-    def matvec(p):
-        return torch.einsum("nij,nj->ni", A, p)
-
-    x = x0.to(A.dtype)
+def _pcg_clamped(matvec, dinv, rhs, x0, steps):
+    """`steps` Jacobi-preconditioned conjugate-gradient steps on every
+    row's system A x = rhs from x0, then clamp(>= 0): `matvec` (rows, r)
+    -> (rows, r) gives A p row by row, `dinv` (rows, r) the inverse of
+    A's diagonal. A row whose search direction has no curvature
+    (converged) freezes. The one PCG iteration of the package: on formed
+    systems (`_batched_solve_clamped_cg`) and matrix-free
+    (``sparse_ell.cg_half_ell``)."""
+    x = x0
     res = rhs - matvec(x)
     z = dinv * res
     p = z
@@ -648,12 +642,27 @@ def _batched_solve_clamped_cg(Gb, rhs, shift, eps, x0, steps=3):
         alpha = torch.where(ok, rz / torch.where(ok, denom, 1.0), 0.0)
         x = x + alpha * p
         res = res - alpha * Ap
+        del Ap
         z = dinv * res
         rz2 = torch.sum(res * z, dim=1, keepdim=True)
         pos = rz > 0
         p = z + torch.where(pos, rz2 / torch.where(pos, rz, 1.0), 0.0) * p
         rz = rz2
     return torch.clamp(x, min=0.0)
+
+
+def _batched_solve_clamped_cg(Gb, rhs, shift, eps, x0, steps=3):
+    """Warm-started Jacobi-preconditioned conjugate gradients for the
+    per-row normal equations of weighted/masked ALS, then clamp(>= 0):
+    `steps` batched matvecs instead of a batched Cholesky (Takács &
+    Pilászy 2011); the outer ALS loop is itself iterative, so a warm start
+    from the previous factors makes a few inner steps enough. A row whose
+    search direction has no curvature (converged) freezes."""
+    A = _ridged(Gb, shift, eps)
+    dinv = 1.0 / torch.clamp(torch.diagonal(A, dim1=-2, dim2=-1),
+                             min=torch.finfo(A.dtype).tiny)
+    return _pcg_clamped(lambda p: torch.einsum("nij,nj->ni", A, p), dinv,
+                        rhs, x0.to(A.dtype), steps)
 
 
 # The plain per-row solves (and the CG steps) run over panels of rows

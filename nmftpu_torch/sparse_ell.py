@@ -42,6 +42,7 @@ from nmftpu_torch.linalg.dense import (
     _acc_dtype,
     _apply_order,
     _beta_apply,
+    _pcg_clamped,
     beta_denom_h_blocked,
     beta_denom_w_blocked,
     beta_gamma,
@@ -54,9 +55,10 @@ from nmftpu_torch.utils.metrics import span
 DEFAULT_BUCKETS = (8, 16, 32, 64, 128, 256, 512)
 
 # iALS's host counts (`utils.counters()` reports them as ``ials.<name>``):
-# rows whose normal equations were solved, n + m an iteration, and the
-# segments folded into the per-row Grams
-IALS_COUNTS = {"rows_solved": 0, "gram_segments": 0}
+# rows whose normal equations were solved, n + m an iteration, the
+# segments folded into the per-row Grams, and the sparse products of the
+# matrix-free CG half-steps (`cg_half_ell`, cg_steps + 1 a half-step)
+IALS_COUNTS = {"rows_solved": 0, "gram_segments": 0, "cg_matvecs": 0}
 
 _NUMPY_DTYPES = {torch.float32: np.float32, torch.float64: np.float64}
 
@@ -350,6 +352,17 @@ def kl_numerator_ell(ell: EllRows, own, table, eps=1e-9) -> torch.Tensor:
     numer, = sampled_rowsums_ell(ell, own, table.T,
                                  (lambda v, s: v / (s + eps),))
     return numer
+
+
+def cg_product_ell(ell: EllRows, own, table, alpha) -> torch.Tensor:
+    """The sparse term of every row's iALS system times one vector a row,
+    Σ_k α · v_k · <own[row], table[col_k]> · table[col_k] accumulated into
+    rows -> (n, r): `sampled_rowsums_ell` with that coefficient, the twin
+    of #11's CG rule (``kernels.sparse_ell_kernel.ell_cg``). own (n, r)
+    holds each row's vector, table (m, r) the gathered rows."""
+    prod, = sampled_rowsums_ell(ell, own, table.T,
+                                (lambda v, s: alpha * v * s,))
+    return prod
 
 
 def mu_update_kl_ell(pair: EllPair, W, H, eps=1e-9, order="WH",
@@ -714,36 +727,101 @@ def grams_and_rhs_ell(ell: EllRows, Ht, weight_fn, value_fn,
     return grams.to(torch.float32), rhs.to(torch.float32)
 
 
+def _cg_values(ell: EllRows, alpha, dtype):
+    """The container with its stored values v mapped to the right-hand
+    side's c·v = v(1 + αv) and to the weight αv, in `dtype`, kept in
+    `ell.cache` for the CG half-steps of one alpha."""
+    key = ("cg_values", float(alpha), dtype)
+    if key not in ell.cache:
+        rule = EG.ials_rule(alpha)
+        ell.cache[key] = tuple(map_values(ell, lambda v: fn(v).to(dtype))
+                               for fn in (rule.value, rule.weight))
+    return ell.cache[key]
+
+
+def cg_half_ell(ell: EllRows, table, x0, shift, eps, alpha, steps=3,
+                product=cg_product_ell, spmm=v_ht_ell):
+    """One iALS half-step's rows (n, r), clamped at 0, by `steps`
+    warm-started Jacobi-preconditioned CG steps from x0 without forming a
+    row's (r, r) system: `linalg.dense._pcg_clamped` (the iteration of
+    `_batched_solve_clamped_cg`, with its ridge) on
+
+        A_u p = G p + Σ_{i∈u} α v_ui (t_i · p) t_i + ridge_u p,
+
+    G = tableᵀ table the base Gram. The right-hand sides Σ v(1 + αv) t_i
+    and the diagonals diag(G) + Σ αv t_i² are `spmm` (V Hᵀ) products over
+    the container with mapped values (`_cg_values`), the ridge shift +
+    eps + max(eps, 100 machine eps) times each row's mean diagonal; each
+    of the steps + 1 products A·p takes its sparse term from `product`
+    (`cg_product_ell`'s arguments). The engine passes the kernel routes,
+    ``kernels.sparse_ell_kernel.ell_cg`` (#11's CG rule) and
+    ``v_ht_ell_pallas`` (#10), as it passes `mu_update_kl_ell` its
+    numerator. Everything runs in the table's dtype. Two spans:
+    ``nmftpu.ials.rhs`` (G, the right-hand sides and the diagonal) and
+    ``nmftpu.ials.cg`` (the steps)."""
+    table = table.contiguous()
+    r, dtype = table.shape[1], table.dtype
+    with span("nmftpu.ials.rhs"):
+        G = table.T @ table
+        by_value, by_weight = _cg_values(ell, alpha, dtype)
+        rhs = spmm(by_value, table.T)
+        diag = spmm(by_weight, (table * table).T)
+        diag += torch.diagonal(G)[None, :]
+        rel_floor = 100.0 * torch.finfo(dtype).eps
+        ridge = shift + eps + max(eps, rel_floor) * (
+            diag.sum(1, keepdim=True) / r)
+        dinv = 1.0 / torch.clamp(diag + ridge, min=torch.finfo(dtype).tiny)
+        del diag
+
+    def matvec(p):
+        Ap = product(ell, p, table, alpha)
+        Ap.addmm_(p, G)
+        return Ap.addcmul_(ridge, p)
+
+    with span("nmftpu.ials.cg"):
+        x = _pcg_clamped(matvec, dinv, rhs, x0.to(dtype).contiguous(), steps)
+        IALS_COUNTS["cg_matvecs"] += steps + 1
+        return x
+
+
 def als_update_weighted_ell_exact(pair: EllPair, W, H, alpha, lambda_w=0.0,
                                   lambda_h=0.0, eps=1e-9, order="WH",
-                                  solver="exact", cg_steps=3):
+                                  solver="exact", cg_steps=3,
+                                  product=cg_product_ell, spmm=v_ht_ell):
     """iALS on the gather-only layout, the math of
     ``sparse_ops.als_update_weighted_sparse`` (the scatter engine): per
     row the weighted normal equations
 
         (H Hᵀ + Σ_{i∈u} αv_ui h_i h_iᵀ + (λ + eps) I) w_u = H (c_u ⊙ v_u)
 
-    with the Gram deltas AND the right-hand sides built in one pass over
-    the stored set (`grams_and_rhs_ell`: #13 on the card),
-    solved in float32 by ``linalg.dense.row_solver``. Each half-step is
-    two spans, ``nmftpu.ials.grams`` (the base Gram and every row's Gram
-    delta and right-hand side) and ``nmftpu.ials.solve`` (the rows'
-    solves), and counts its rows and segments in `IALS_COUNTS`."""
-    solve = row_solver(solver, cg_steps)
+    in float32, whatever the factors' dtype. The exact solver builds the
+    Gram deltas AND the right-hand sides in one pass over the stored set
+    (`grams_and_rhs_ell`: #13 on the card) and solves them with
+    ``linalg.dense.row_solver``: two spans a half-step,
+    ``nmftpu.ials.grams`` (the base Gram and every row's Gram delta and
+    right-hand side) and ``nmftpu.ials.solve`` (the rows' solves). The cg
+    solver forms no row's system: `cg_half_ell`, matrix-free, on
+    `product` and `spmm`, with its spans ``nmftpu.ials.rhs`` and
+    ``nmftpu.ials.cg``. Each half-step counts its rows in `IALS_COUNTS`,
+    and the segments of the Grams it built."""
     rule = EG.ials_rule(alpha)
 
     def half(ell, table, x0, shift):
         """The rows of one side, solved from the other side's `table`
         ((m, r) row-major for the W half), warm-started at x0."""
-        with span("nmftpu.ials.grams"):
-            G = (table.T @ table).to(torch.float32)
-            dG, rhs = grams_and_rhs_ell(ell, table, rule.weight, rule.value,
-                                        rule=rule)
-        with span("nmftpu.ials.solve"):
-            out = solve(G, dG, rhs, shift, eps, x0)
+        if solver == "cg":
+            out = cg_half_ell(ell, table.to(torch.float32), x0, shift, eps,
+                              alpha, cg_steps, product, spmm)
+        else:
+            with span("nmftpu.ials.grams"):
+                G = (table.T @ table).to(torch.float32)
+                dG, rhs = grams_and_rhs_ell(ell, table, rule.weight,
+                                            rule.value, rule=rule)
+            with span("nmftpu.ials.solve"):
+                out = row_solver(solver)(G, dG, rhs, shift, eps, x0)
+            IALS_COUNTS["gram_segments"] += sum(b.vals.shape[0]
+                                                for b in ell.buckets)
         IALS_COUNTS["rows_solved"] += ell.shape[0]
-        IALS_COUNTS["gram_segments"] += sum(b.vals.shape[0]
-                                            for b in ell.buckets)
         return out
 
     def upd_w(W, H):

@@ -1021,10 +1021,12 @@ def _ell_ops_bundle(config: NmfConfig) -> LoopOps:
     if alg is Algorithm.ALS and config.alpha_confidence > 0.0:
         alpha = config.alpha_confidence
 
+        # the cg solver's products on #11's CG rule and #10 (their plain
+        # twins on CPU tensors)
         def update(pair, aux, W, H):
-            return SE.als_update_weighted_ell_exact(pair, W, H, alpha,
-                                                    eps=eps, order=order,
-                                                    **solves)
+            return SE.als_update_weighted_ell_exact(
+                pair, W, H, alpha, eps=eps, order=order,
+                product=SEK.ell_cg, spmm=SEK.v_ht_ell_pallas, **solves)
     elif alg in (Algorithm.ALS, Algorithm.ACLS, Algorithm.AHCLS):
         shifts = dict(zip(("shift_w", "shift_h", "off_w", "off_h"),
                           _als_family_shifts(config)))
@@ -1130,9 +1132,10 @@ def _check_engine(config: NmfConfig, strategy: str, n: int, m: int,
                   device=None) -> None:
     """The engines an algorithm runs on, as ``prepare_sparse`` in
     ``nmftpu`` checks them: iALS and masked ALS on `ell` or `scatter`
-    (within the Gram budget of `device`), HALS on `scatter`. A plan
-    checks each config it runs too, where ``nmftpu`` would run a HALS
-    config on another engine's MU or nsNMF update."""
+    (within the Gram budget of `device` wherever per-row Grams are built:
+    iALS with the cg solver on `ell` builds none), HALS on `scatter`. A
+    plan checks each config it runs too, where ``nmftpu`` would run a
+    HALS config on another engine's MU or nsNMF update."""
     if (config.algorithm is Algorithm.ALS
             and (config.alpha_confidence > 0.0
                  or config.mask == "observed")):
@@ -1143,7 +1146,10 @@ def _check_engine(config: NmfConfig, strategy: str, n: int, m: int,
                 f"(f64-exact oracle) engines; strategy resolved to "
                 f"{strategy!r}"
             )
-        _check_weighted_gram_budget(n, m, config.rank, device)
+        matrix_free = (strategy == "ell" and config.mask != "observed"
+                       and config.als_solver == "cg")
+        if not matrix_free:
+            _check_weighted_gram_budget(n, m, config.rank, device)
     if config.algorithm is Algorithm.HALS and strategy != "scatter":
         raise ValueError(
             "HALS runs on the 'scatter' sparse engine (exact "

@@ -189,9 +189,21 @@ def test_a_fit_marks_grams_and_solves_and_counts_rows(tmp_path, solver):
     names = _span_names(prof, tmp_path)
     assert res.num_iterations == iters
     assert names.count("nmftpu.loop.update") == iters
+    assert moved["ials.rows_solved"] == iters * (N + M)
+    if solver == "cg":
+        # the matrix-free half-steps: no Gram built, 3 + 1 sparse
+        # products a half
+        assert names.count("nmftpu.ials.rhs") == 2 * iters
+        assert names.count("nmftpu.ials.cg") == 2 * iters
+        assert "nmftpu.ials.grams" not in names
+        assert "nmftpu.ials.solve" not in names
+        assert moved["ials.gram_segments"] == 0
+        assert moved["ials.cg_matvecs"] == iters * 2 * (3 + 1)
+        return
     assert names.count("nmftpu.ials.grams") == 2 * iters
     assert names.count("nmftpu.ials.solve") == 2 * iters
-    assert moved["ials.rows_solved"] == iters * (N + M)
+    assert "nmftpu.ials.cg" not in names
+    assert moved["ials.cg_matvecs"] == 0
     plan = nt.prepare_sparse(csr, _config(), strategy="ell", device="cpu")
     segments = sum(b.vals.shape[0] for ell in (plan.operand.rows,
                                                plan.operand.cols)
